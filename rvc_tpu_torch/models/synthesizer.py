@@ -1,0 +1,96 @@
+"""The RVC synthesizer at inference: text encoder + flow + NSF decoder.
+
+Counterpart of ``rvc_tpu/models/synthesizer.py`` (TextEncoder,
+Synthesizer.infer) for the f0 variants with a ResBlock1 or ResBlock2
+decoder. Module names (enc_p, flow, dec, emb_g) are the reference
+state_dict prefixes. The posterior encoder is used only in training and is
+not part of this module.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from .attention import Encoder
+from .flows import ResidualCouplingBlock
+from .layers import Conv1d, leaky_relu, sequence_mask
+from .nsf import GeneratorNSF
+
+
+class TextEncoder(nn.Module):
+    """HuBERT-feature encoder (reference TextEncoder256/768)."""
+
+    def __init__(self, in_dim: int, out_channels: int, hidden_channels: int,
+                 filter_channels: int, n_heads: int, n_layers: int, kernel_size: int,
+                 f0: bool = True):
+        super().__init__()
+        self.out_channels = out_channels
+        self.hidden_channels = hidden_channels
+        self.emb_phone = nn.Linear(in_dim, hidden_channels)
+        if f0:
+            self.emb_pitch = nn.Embedding(256, hidden_channels)
+        self.encoder = Encoder(hidden_channels, filter_channels, n_heads, n_layers,
+                               kernel_size)
+        self.proj = Conv1d(hidden_channels, out_channels * 2, 1)
+
+    def forward(self, phone: torch.Tensor, pitch: torch.Tensor | None,
+                lengths: torch.Tensor):
+        """phone (B, T, in_dim); pitch (B, T) coarse bins or None; lengths (B,).
+        Returns m, logs (B, out, T) and x_mask (B, 1, T)."""
+        x = self.emb_phone(phone)
+        if pitch is not None:
+            x = x + self.emb_pitch(pitch)
+        x = leaky_relu(x * math.sqrt(self.hidden_channels), 0.1).transpose(1, 2)
+        x_mask = sequence_mask(lengths, x.shape[2])[:, None].to(x.dtype)
+        x = self.encoder(x * x_mask, x_mask)
+        stats = self.proj(x) * x_mask
+        return stats[:, :self.out_channels], stats[:, self.out_channels:], x_mask
+
+
+class Synthesizer(nn.Module):
+    """RVC v1/v2 synthesizer with f0 (SynthesizerTrnMs{256,768}NSFsid), inference."""
+
+    def __init__(self, spec_channels: int, segment_size: int, inter_channels: int,
+                 hidden_channels: int, filter_channels: int, n_heads: int, n_layers: int,
+                 kernel_size: int, p_dropout: float, resblock: str,
+                 resblock_kernel_sizes: Sequence[int],
+                 resblock_dilation_sizes: Sequence[Sequence[int]],
+                 upsample_rates: Sequence[int], upsample_initial_channel: int,
+                 upsample_kernel_sizes: Sequence[int], spk_embed_dim: int,
+                 gin_channels: int, sr: int, feature_dim: int = 768, use_f0: bool = True):
+        super().__init__()
+        if not use_f0:
+            raise NotImplementedError("the no-f0 synthesizer variants are not ported yet")
+        self.enc_p = TextEncoder(feature_dim, inter_channels, hidden_channels,
+                                 filter_channels, n_heads, n_layers, kernel_size)
+        self.dec = GeneratorNSF(inter_channels, resblock, resblock_kernel_sizes,
+                                resblock_dilation_sizes, upsample_rates,
+                                upsample_initial_channel, upsample_kernel_sizes,
+                                gin_channels=gin_channels, sr=sr)
+        self.flow = ResidualCouplingBlock(inter_channels, hidden_channels, 5, 1, 3,
+                                          gin_channels=gin_channels)
+        self.emb_g = nn.Embedding(spk_embed_dim, gin_channels)
+
+    def infer(self, phone: torch.Tensor, phone_lengths: torch.Tensor,
+              pitch: torch.Tensor, nsff0: torch.Tensor, sid: torch.Tensor,
+              noise_scale: float = 0.66666, *, eps: torch.Tensor | None = None,
+              generator: torch.Generator | None = None, **draws):
+        """Sample the prior, invert the flow, decode.
+
+        phone (B, T, feat); pitch (B, T) coarse bins; nsff0 (B, T) Hz; sid (B,).
+        ``eps`` (B, inter, T) is the prior's standard normal draw and
+        ``draws`` the sine source's (``rand_ini``, ``noise``); each is drawn
+        from ``generator`` when absent. Returns (o (B, 1, T*upp), x_mask,
+        (z, z_p, m_p, logs_p))."""
+        g = self.emb_g(sid)[:, :, None]
+        m_p, logs_p, x_mask = self.enc_p(phone, pitch, phone_lengths)
+        if eps is None:
+            eps = torch.randn(m_p.shape, generator=generator, device=m_p.device,
+                              dtype=m_p.dtype)
+        z_p = (m_p + torch.exp(logs_p) * eps * noise_scale) * x_mask
+        z = self.flow.reverse(z_p, x_mask, g=g)
+        o = self.dec(z * x_mask, nsff0, g=g, generator=generator, **draws)
+        return o, x_mask, (z, z_p, m_p, logs_p)

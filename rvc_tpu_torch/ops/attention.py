@@ -1,0 +1,94 @@
+"""Kernel 2: self-attention with a banded relative-position bias.
+
+Counterpart of ``rvc_tpu/ops/pallas_attention.py::banded_rel_attention``,
+same signature. On a CUDA tensor it runs ``csrc/banded_attention.cu``; on a
+CPU tensor the plain version below, which is the JAX module's XLA path
+(``rvc_tpu/models/attention.py``) written in torch.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import _cuda
+
+
+def band_to_dense(band: torch.Tensor, T_s: int, w: int) -> torch.Tensor:
+    """(B, H, T, 2w+1) -> (B, H, T, T_s): band[..., t, m] lands at key
+    column t + m - w (zeros elsewhere)."""
+    B, H, T, W = band.shape
+    padded = F.pad(band, (0, T_s))
+    flat = padded.reshape(B, H, T * (W + T_s))[:, :, : T * (W + T_s - 1)]
+    shifted = flat.reshape(B, H, T, W + T_s - 1)
+    return shifted[..., w: w + T_s]
+
+
+def dense_to_band(p: torch.Tensor, w: int) -> torch.Tensor:
+    """(B, H, T, S) -> (B, H, T, 2w+1): out[t, m] = p[t, t + m - w]."""
+    B, H, T, S = p.shape
+    W = 2 * w + 1
+    padded = F.pad(p, (w, w))
+    flat = F.pad(padded.reshape(B, H, T * (S + 2 * w)), (0, T))
+    shifted = flat.reshape(B, H, T, S + 2 * w + 1)
+    return shifted[..., :W]
+
+
+def banded_rel_attention_plain(q, k, v, emb_rel_k, emb_rel_v, lengths, *,
+                               window: int, scale: float) -> torch.Tensor:
+    B, H, T, D = q.shape
+    qs = q * scale
+    scores = torch.matmul(qs, k.transpose(-1, -2))
+    band = torch.matmul(qs, emb_rel_k.transpose(0, 1))  # (B, H, T, 2w+1)
+    scores = scores + band_to_dense(band, T, window)
+    t = torch.arange(T, device=q.device)
+    valid = t[None, :] < lengths[:, None].to(t.dtype)  # (B, T)
+    mask = valid[:, None, :, None] & valid[:, None, None, :]
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e4))
+    p = torch.softmax(scores.float(), dim=-1)
+    out = torch.matmul(p, v)
+    return out + torch.matmul(dense_to_band(p, window), emb_rel_v)
+
+
+def _check(q, k, v, emb_rel_k, emb_rel_v, lengths, window: int) -> None:
+    B, H, T, D = q.shape
+    W = 2 * window + 1
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.shape != (B, H, T, D) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 (B, H, T, D) tensor")
+    for name, t in (("emb_rel_k", emb_rel_k), ("emb_rel_v", emb_rel_v)):
+        if t.shape != (W, D) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 (2w+1, D) tensor")
+    if D not in (32, 64, 96, 128) or not 0 <= window <= 16:
+        raise ValueError(f"attention kernel takes D in 32/64/96/128 and window <= 16, "
+                         f"got D={D}, window={window}")
+    if lengths.shape != (B,) or any(t.device != q.device
+                                    for t in (k, v, emb_rel_k, emb_rel_v, lengths)):
+        raise ValueError("lengths must be (B,), and every input on q's device")
+
+
+def banded_rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         emb_rel_k: torch.Tensor, emb_rel_v: torch.Tensor,
+                         lengths: torch.Tensor, *, window: int,
+                         scale: float) -> torch.Tensor:
+    """q, k, v: (B, H, T, D) float32 self-attention; emb_rel_*: (2w+1, D)
+    tables shared by the heads; lengths: (B,) valid frames. -> (B, H, T, D)."""
+    if q.device.type == "cpu":
+        return banded_rel_attention_plain(q, k, v, emb_rel_k, emb_rel_v, lengths,
+                                          window=window, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check(q, k, v, emb_rel_k, emb_rel_v, lengths, window)
+    B, H, T, D = q.shape
+    lens = lengths.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    lib = _cuda.library()
+    err = lib.rvc_banded_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), emb_rel_k.data_ptr(),
+        emb_rel_v.data_ptr(), lens.data_ptr(), out.data_ptr(), B, H, T, D,
+        window, float(scale), _cuda.stream_ptr(q))
+    _cuda.check(err, "banded_attention launch")
+    banded_rel_attention.launches += 1
+    return out
+
+
+banded_rel_attention.launches = 0

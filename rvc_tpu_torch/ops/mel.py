@@ -1,0 +1,77 @@
+"""STFT and log-mel frontend, as far as RMVPE needs them.
+
+Counterpart of ``rvc_tpu/ops/stft.py::stft`` (centered, reflect-padded,
+periodic Hann, as a window-folded DFT matmul) and ``rvc_tpu/ops/mel.py``
+(HTK-scale Slaney-normalized mel filterbank, log with a 1e-5 floor).
+Frame-major layout: (..., frames, bins).
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+@functools.lru_cache(maxsize=None)
+def dft_basis_np(n_fft: int, win_length: int) -> tuple[np.ndarray, np.ndarray]:
+    """(cos, sin) bases (n_fft, n_fft//2 + 1) with the centered periodic Hann
+    window folded in: frame @ cos = Re rfft(frame * window)."""
+    n_bins = n_fft // 2 + 1
+    ang = 2.0 * np.pi * np.arange(n_fft)[:, None] * np.arange(n_bins)[None, :] / n_fft
+    w = 0.5 * (1.0 - np.cos(2.0 * np.pi * np.arange(win_length) / win_length))
+    wfull = np.zeros(n_fft)
+    off = (n_fft - win_length) // 2
+    wfull[off:off + win_length] = w
+    return ((np.cos(ang) * wfull[:, None]).astype(np.float32),
+            (-np.sin(ang) * wfull[:, None]).astype(np.float32))
+
+
+def stft(x: torch.Tensor, n_fft: int, hop_length: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Centered (reflect-padded) STFT with an n_fft-long window:
+    x (B, T) -> (real, imag), each (B, frames, n_fft//2 + 1)."""
+    x = F.pad(x[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
+    frames = x.unfold(-1, n_fft, hop_length)
+    cos_b, sin_b = dft_basis_np(n_fft, n_fft)
+    real = torch.matmul(frames, torch.as_tensor(cos_b, device=x.device))
+    imag = torch.matmul(frames, torch.as_tensor(sin_b, device=x.device))
+    return real, imag
+
+
+def hz_to_mel_htk(hz):
+    return 2595.0 * np.log10(1.0 + np.asarray(hz) / 700.0)
+
+
+@functools.lru_cache(maxsize=None)
+def mel_filterbank_np(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float
+                      ) -> np.ndarray:
+    """Slaney-normalized triangular filterbank (n_bins, n_mels) on the HTK mel
+    scale (RMVPE's; the Slaney-scale variant is not ported)."""
+    n_bins = 1 + n_fft // 2
+    fftfreqs = np.linspace(0.0, sr / 2.0, n_bins)
+    mels = np.linspace(hz_to_mel_htk(fmin), hz_to_mel_htk(fmax), n_mels + 2)
+    mel_f = 700.0 * (10.0 ** (mels / 2595.0) - 1.0)
+    fdiff = np.diff(mel_f)
+    ramps = mel_f[:, None] - fftfreqs[None, :]
+    weights = np.zeros((n_mels, n_bins))
+    for i in range(n_mels):
+        lower = -ramps[i] / fdiff[i]
+        upper = ramps[i + 2] / fdiff[i + 1]
+        weights[i] = np.maximum(0.0, np.minimum(lower, upper))
+    weights *= (2.0 / (mel_f[2:n_mels + 2] - mel_f[:n_mels]))[:, None]
+    return weights.T.astype(np.float32)
+
+
+def dynamic_range_compression(x: torch.Tensor, clip_val: float = 1e-5) -> torch.Tensor:
+    return torch.log(torch.clamp(x, min=clip_val))
+
+
+def log_mel(audio: torch.Tensor, sr: int, n_fft: int, hop: int, n_mels: int,
+            fmin: float, fmax: float) -> torch.Tensor:
+    """(B, T) -> (B, frames, n_mels): |STFT| (with a 1e-12 floor under the
+    square root), HTK mel, log."""
+    real, imag = stft(audio, n_fft, hop)
+    mag = torch.sqrt(real * real + imag * imag + 1e-12)
+    fb = torch.as_tensor(mel_filterbank_np(sr, n_fft, n_mels, fmin, fmax), device=audio.device)
+    return dynamic_range_compression(torch.matmul(mag, fb))
