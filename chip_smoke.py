@@ -1,4 +1,4 @@
-"""Smoke run of rvc_tpu_torch on one NVIDIA card: build, check, convert.
+"""Smoke run of rvc_tpu_torch on one NVIDIA card: build, check, convert, train.
 
     python3 chip_smoke.py
 
@@ -19,7 +19,20 @@ Phases, each announced on its own line:
      and the output must be 48 kHz int16 of the length the chunk spans
      give, with a peak above 0;
   5. a reference check: 3 s converted on the card and on the CPU (plain
-     versions, same weights and draws) agree within a stated tolerance.
+     versions, same weights and draws) agree within a stated tolerance;
+  6. the training kernels (4-7) against their plain versions at the shapes
+     of the training run of phase 7, values and every gradient, with their
+     times and bounds;
+  7. the training path: an RVCDataset of 8 clips cut from the speech fixture
+     (48 kHz, seeded random features and f0), Trainer(preset("48k_v2")) at
+     full width with random weights, one warm-up step and 5 timed steps from
+     BucketBatcher(batch_size=4); losses finite, every parameter of G and D
+     with a nonzero gradient after the first step, and in the timed steps
+     every training kernel launched as often as the model's structure says
+     (a launch per ResBlock1 chain and per WN stack, each direction);
+  8. a reference check: one training step on the card and on the CPU
+     (plain versions, same weights, batch and draws) at batch 1, 48 frames:
+     losses, gradient norms and updated parameters within stated tolerances.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that.
 Without a CUDA card it exits 1 and prints no result.
@@ -27,9 +40,11 @@ Without a CUDA card it exits 1 and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import wave
 
@@ -41,6 +56,10 @@ HBM = 3.35e12         # H100 SXM device memory, bytes/s
 SETTINGS = dict(f0_method="rmvpe", index_rate=0.75, protect=0.33)
 CHUNKING = (1, 5, 16, 20)
 BANK_ROWS = 131072
+TRAIN_BATCH = 4
+TRAIN_STEPS = 5
+CLIP_SECONDS = np.linspace(2.4, 3.0, 8)  # float32 wavs of these lengths fall in the
+# dataset's 400-frame bucket (its length estimate is file bytes / (3 hop))
 
 
 def say(*parts) -> None:
@@ -208,18 +227,347 @@ def check_nearest(vc, shapes, gen) -> dict:
         err = (got - ref).abs().max().item()
         ms = timed(run)
         plain_ms = timed(lambda: retrieval.topk_blend(feats, bank_f, 1))
+        # the one-library route: the dequantized bank's distances by one
+        # float32 GEMM (cuBLAS), argmin, gather; timed here only
+        sq = torch.sum(bank_f * bank_f, 1)[None]
+        lib_ms = timed(lambda: bank_f[torch.argmin(
+            torch.addmm(sq, feats, bank_f.T, beta=1.0, alpha=-2.0), dim=1)])
         bank_bytes = N * D * (1 if mode == "int8" else 4) + (N * 4 if mode == "int8" else 0)
         flops = 2 * NQ * N * D + 3 * NQ * N + 2 * N * D
         b_ms, b_by = bound(flops, bank_bytes + 2 * NQ * D * 4)
         say(f"  nearest rows ({mode} bank): queries ({NQ}, {D}), bank ({N}, {D}) -> "
             f"rows identical {same.float().mean().item():.4%} (others within rounding: {ok}), "
             f"max_abs_err {err:.3g}, kernel_ms {ms:.3f}, plain_ms {plain_ms:.3f}, "
-            f"bound_ms {b_ms:.3f} ({b_by}), library_ms none")
+            f"bound_ms {b_ms:.3f} ({b_by}), library_ms {lib_ms:.3f} (addmm + argmin)")
         if not ok:
             fail(f"nearest rows ({mode}) disagree with the plain version")
         results[mode] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by)
+                             bound_by=b_by, library_ms=lib_ms)
     return results
+
+
+def rel_frobenius(got, ref) -> float:
+    return ((got - ref).norm() / ref.norm().clamp(min=1e-12)).item()
+
+
+def scaled(got, ref) -> tuple[float, float]:
+    """(max |got - ref|, max |ref|)."""
+    return (got - ref).abs().max().item(), max(ref.abs().max().item(), 1e-6)
+
+
+VALUE_TOL = 2e-5  # of the largest magnitude: float32 sums in another order
+GRAD_TOL = 1e-4   # of the largest magnitude: also reductions over every row
+# Through a leaky ReLU a gradient jumps (slope 1 or 0.1) where the
+# pre-activation crosses 0; at these sizes a few of the chain's ~10^7
+# pre-activations lie within float32 rounding of 0 and may take the other
+# slope in the kernel than in the plain version, moving single elements by up
+# to 0.9 of the cotangent. The chain's gradients are therefore held by their
+# relative Frobenius error, which such isolated flips keep near 1e-3 and a
+# wrong row, tile or channel group takes past 1e-2. (The WN is smooth: its
+# gradients are held elementwise.)
+KINK_TOL = 1e-2
+
+
+def check_resblock_train(trainer, gen) -> tuple[dict, dict]:
+    """Kernels 4 (chain forward) and 5 (its VJP) on every ResBlock1 chain of
+    the decoder at the training run's shapes: x (TRAIN_BATCH, T, C) per
+    stage of the sliced segment. Values, then dx, dW, db against autograd of
+    the plain chain; times summed over the step's chains."""
+    import torch
+
+    from rvc_tpu_torch.ops import resblock as rb
+
+    dev = trainer.device
+    dec = trainer.synth.dec
+    nk = dec.num_kernels
+    B, T = TRAIN_BATCH, trainer.seg_frames
+    tot = {key: dict(ms=0.0, plain_ms=0.0, flops=0.0, bytes=0.0, err=0.0, bound_ms=0.0)
+           for key in ("fwd", "bwd")}
+    f64 = dict(kernel_abs=0.0, kernel_rel=0.0, plain_abs=0.0, plain_rel=0.0)
+    for i, rate in enumerate(dec.upsample_rates):
+        T *= rate
+        for blk in dec.resblocks[i * nk:(i + 1) * nk]:
+            with torch.no_grad():
+                convs = [(w.detach().clone(), b.detach().clone(), k, d)
+                         for w, b, k, d in blk.chain()]
+            C, k, n = convs[0][0].shape[0], convs[0][2], len(convs) // 2
+            params = [t for w, b, _, _ in convs for t in (w, b)]
+            x = torch.randn(B, T, C, generator=gen).to(dev)
+            gy = torch.randn(B, T, C, generator=gen).to(dev)
+            y, hs = rb._resblock1_forward(x, convs)
+            dx, dw, db = rb.fused_resblock1_backward(x, hs, gy, convs)
+            torch.cuda.synchronize()
+            y_ref = rb.fused_resblock1_plain(x, convs)
+            dx_ref, dw_ref, db_ref = rb.fused_resblock1_backward_plain(x, hs, gy, convs)
+            g_ref = [dx_ref] + [t for c in range(2 * n) for t in (dw_ref[c], db_ref[c])]
+            err, sc = scaled(y, y_ref)
+            if not err <= VALUE_TOL * sc:
+                fail(f"kernel 4 disagrees with its plain version at C={C}, k={k}: "
+                     f"{err:.3g} > {VALUE_TOL} x {sc:.3g}")
+            got = [dx] + [t for c in range(2 * n) for t in (dw[c], db[c])]
+            rels = [rel_frobenius(a, r) for a, r in zip(got, g_ref)]
+            if not max(rels) <= KINK_TOL:
+                fail(f"kernel 5 disagrees with autograd of the plain chain at C={C}, k={k}: "
+                     f"relative Frobenius error {max(rels):.3g} > {KINK_TOL}")
+            tot["fwd"]["err"] = max(tot["fwd"]["err"], err)
+            tot["bwd"]["err"] = max([tot["bwd"]["err"]] + [scaled(a, r)[0]
+                                                           for a, r in zip(got, g_ref)])
+            # the exact gradients, in float64: the plain float32 version is as
+            # far from them as the kernel is, by the same kind of slope flips
+            x64 = x.detach().double().requires_grad_()
+            convs64 = [(w.detach().double().requires_grad_(),
+                        b.detach().double().requires_grad_(), k_, d) for w, b, k_, d in convs]
+            g64 = torch.autograd.grad(rb.fused_resblock1_plain(x64, convs64),
+                                      [x64] + [t for w, b, _, _ in convs64 for t in (w, b)],
+                                      gy.double())
+            for name, grads in (("kernel", got), ("plain", g_ref)):
+                f64[f"{name}_abs"] = max([f64[f"{name}_abs"]] + [
+                    (a.double() - r).abs().max().item() for a, r in zip(grads, g64)])
+                f64[f"{name}_rel"] = max([f64[f"{name}_rel"]] + [
+                    rel_frobenius(a.double(), r) for a, r in zip(grads, g64)])
+            del x64, convs64, g64
+            ms4 = timed(lambda: rb.fused_resblock1(x, convs), reps=5)
+            plain4 = timed(lambda: rb.fused_resblock1_plain(x, convs), reps=5)
+            ms5 = timed(lambda: rb.fused_resblock1_backward(x, hs, gy, convs), reps=5)
+            plain5 = timed(lambda: rb.fused_resblock1_backward_plain(x, hs, gy, convs), reps=5)
+            act, wts = B * T * C * 4, sum(p.numel() for p in params) * 4
+            conv = 2 * k * C * C * B * T  # flops of one conv
+            cost = {"fwd": (2 * n * conv, (n + 1) * act + wts),
+                    "bwd": (5 * n * conv, (n + 3) * act + 2 * wts)}
+            for key, ms, plain in (("fwd", ms4, plain4), ("bwd", ms5, plain5)):
+                flops, nbytes = cost[key]
+                t = tot[key]
+                t["ms"] += ms
+                t["plain_ms"] += plain
+                t["flops"] += flops
+                t["bytes"] += nbytes
+                t["bound_ms"] += bound(flops, nbytes)[0]
+            say(f"  chain x ({B}, {T}, {C}), k {k}: kernel 4 ms {ms4:.3f} (plain {plain4:.3f}, "
+                f"err {err:.3g}), kernel 5 ms {ms5:.3f} (plain {plain5:.3f}, worst relative "
+                f"Frobenius {max(rels):.3g}), bounds {bound(*cost['fwd'])[0]:.3f} / "
+                f"{bound(*cost['bwd'])[0]:.3f} ms")
+    say(f"  kernel 5 against float64 autograd: max abs {f64['kernel_abs']:.3g}, worst relative "
+        f"Frobenius {f64['kernel_rel']:.3g}; the plain float32 version against it: max abs "
+        f"{f64['plain_abs']:.3g}, worst relative Frobenius {f64['plain_rel']:.3g}")
+    return tuple(dict(max_abs_err=t["err"], ms=t["ms"], plain_ms=t["plain_ms"],
+                      bound_ms=t["bound_ms"], bound_by=bound(t["flops"], t["bytes"])[1],
+                      library_ms=None) for t in (tot["fwd"], tot["bwd"]))
+
+
+def check_wn_train(trainer, lengths, T: int, gen) -> tuple[dict, dict]:
+    """Kernels 6 (WN stack) and 7 (its VJP) on every WN stack of the
+    generator (the posterior encoder's 16 layers, each flow's 3) at the
+    training batch's shape and lengths: values, then dx and every weight
+    and conditioning gradient against autograd of the plain stack."""
+    import torch
+
+    from rvc_tpu_torch.ops import wavenet as wn
+
+    dev = trainer.device
+    synth = trainer.synth
+    stacks = [synth.enc_q.enc] + [f.enc for f in synth.flow.flows if hasattr(f, "enc")]
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    B = len(lengths)
+    mask = (torch.arange(T, device=dev)[None, :] < lens[:, None]).float()[:, None]
+    tot = {key: dict(ms=0.0, plain_ms=0.0, flops=0.0, bytes=0.0, err=0.0, bound_ms=0.0)
+           for key in ("fwd", "bwd")}
+    timed_for = {}
+    for stack in stacks:
+        C, L, k = stack.hidden_channels, stack.n_layers, stack.kernel_size
+        g = torch.randn(B, stack.cond_layer.in_channels, 1, generator=gen).to(dev)
+        with torch.no_grad():
+            *ws, lengths_t = [a.detach().clone() for a in stack.fused_args(mask, g)]
+        x = torch.randn(B, T, C, generator=gen).to(dev) * mask.transpose(1, 2)
+        gy = torch.randn(B, T, C, generator=gen).to(dev)
+        y, xs, pre = wn._forward(x, *ws, lengths_t, k)
+        got = wn.fused_wn_backward(x, xs, pre, gy, *ws, lengths_t, kernel_size=k)
+        torch.cuda.synchronize()
+        y_ref = wn.fused_wn_plain(x, *ws, lengths_t, kernel_size=k)
+        g_ref = wn.fused_wn_backward_plain(x, xs, pre, gy, *ws, lengths_t, kernel_size=k)
+        err, sc = scaled(y, y_ref)
+        if not err <= VALUE_TOL * sc:
+            fail(f"kernel 6 disagrees with its plain version (L={L}): {err:.3g} > "
+                 f"{VALUE_TOL} x {sc:.3g}")
+        gerrs = [scaled(a, r) for a, r in zip(got, g_ref)]
+        names = ("dx", "dWa", "dWb", "dBab", "dG", "dWres", "dWskip", "dBrs")
+        for name, (e, s_) in zip(names, gerrs):
+            if not e <= GRAD_TOL * s_:
+                fail(f"kernel 7 disagrees with autograd of the plain stack (L={L}) in {name}: "
+                     f"{e:.3g} > {GRAD_TOL} x {s_:.3g}")
+        tot["fwd"]["err"] = max(tot["fwd"]["err"], err)
+        tot["bwd"]["err"] = max([tot["bwd"]["err"]] + [e for e, _ in gerrs])
+        if L not in timed_for:  # stacks of one depth share shapes: time one of each
+            ms6 = timed(lambda: wn._forward(x, *ws, lengths_t, k), reps=5)
+            plain6 = timed(lambda: wn.fused_wn_plain(x, *ws, lengths_t, kernel_size=k), reps=5)
+            ms7 = timed(lambda: wn.fused_wn_backward(x, xs, pre, gy, *ws, lengths_t,
+                                                     kernel_size=k), reps=5)
+            plain7 = timed(lambda: wn.fused_wn_backward_plain(x, xs, pre, gy, *ws, lengths_t,
+                                                              kernel_size=k), reps=5)
+            timed_for[L] = (ms6, plain6, ms7, plain7)
+            say(f"  WN stack x ({B}, {T}, {C}), L {L}, lengths {lens.tolist()}: kernel 6 ms "
+                f"{ms6:.3f} (plain {plain6:.3f}, err {err:.3g}), kernel 7 ms {ms7:.3f} "
+                f"(plain {plain7:.3f}, worst grad err {max(e / s_ for e, s_ in gerrs):.3g} "
+                f"of its largest magnitude)")
+        ms6, plain6, ms7, plain7 = timed_for[L]
+        act, wts = B * T * C * 4, sum(w.numel() for w in ws) * 4
+        rows = B * T
+        cost = {"fwd": (L * rows * (4 * k * C * C + 4 * C * C), (3 * L + 1) * act + wts),
+                "bwd": (L * rows * (8 * k * C * C + 8 * C * C), (3 * L + 2) * act + 2 * wts)}
+        for key, ms, plain in (("fwd", ms6, plain6), ("bwd", ms7, plain7)):
+            flops, nbytes = cost[key]
+            t = tot[key]
+            t["ms"] += ms
+            t["plain_ms"] += plain
+            t["flops"] += flops
+            t["bytes"] += nbytes
+            t["bound_ms"] += bound(flops, nbytes)[0]
+    return tuple(dict(max_abs_err=t["err"], ms=t["ms"], plain_ms=t["plain_ms"],
+                      bound_ms=t["bound_ms"], bound_by=bound(t["flops"], t["bytes"])[1],
+                      library_ms=None) for t in (tot["fwd"], tot["bwd"]))
+
+
+def make_dataset(root: str, data) -> str:
+    """An RVCDataset on disk: len(CLIP_SECONDS) clips of the speech fixture
+    resampled to 48 kHz and written as float32 wavs (as preprocessing writes
+    them), seeded random 768-dim features at 50 Hz and f0 of 100-300 Hz with
+    its coarse bins. Returns the filelist's path."""
+    import torch
+    from scipy.io import wavfile
+    from scipy.signal import resample_poly
+
+    from rvc_tpu_torch.pitch.extractor import coarse_f0
+    from rvc_tpu_torch.train.data import write_filelist
+
+    rng = np.random.default_rng(0)
+    rows = []
+    for i, sec in enumerate(CLIP_SECONDS):
+        clip = resample_poly(speech(float(sec), 5.0 + 7.0 * i), 3, 1).astype(np.float32)
+        frames = len(clip) // data.hop_length
+        f0 = rng.uniform(100.0, 300.0, frames).astype(np.float32)
+        paths = [os.path.join(root, f"{i}{ext}") for ext in
+                 (".wav", ".feat.npy", ".pitch.npy", ".pitchf.npy")]
+        wavfile.write(paths[0], data.sampling_rate, clip)
+        np.save(paths[1], rng.standard_normal((frames // 2 + 1, 768)).astype(np.float32))
+        np.save(paths[2], coarse_f0(torch.from_numpy(f0)).numpy().astype(np.int32))
+        np.save(paths[3], f0)
+        rows.append("|".join(paths) + "|0")
+    filelist = os.path.join(root, "filelist.txt")
+    write_filelist(filelist, rows)
+    return filelist
+
+
+def check_train_vs_cpu(cfg, batch: dict) -> None:
+    """One training step on the card and on the CPU (plain versions) from the
+    same weights, batch and draws, at batch 1 and 48 frames."""
+    import torch
+
+    from rvc_tpu_torch.train.step import Trainer
+
+    F = 48
+    hop = cfg.data.hop_length
+    small = {}
+    for key, v in batch.items():
+        v = np.asarray(v)[:1]
+        if key in ("phone", "pitch", "pitchf", "spec"):
+            v = v[:, :F]
+        elif key == "wave":
+            v = v[:, :F * hop]
+        elif key.endswith("lengths"):
+            v = np.minimum(v, F * (hop if key == "wave_lengths" else 1))
+        small[key] = v
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, device=dev)
+        st = tr.init_state(seed=7)
+        st, m = tr.step(st, small, draws=tr.draws(small, seed=3))
+        params = [p.detach().cpu() for p in list(tr.synth.parameters()) +
+                  list(tr.disc.parameters())]
+        runs[dev] = ({k: float(v) for k, v in m.items()}, params, time.perf_counter() - t0)
+        del tr, st
+    (mg, pg, tg), (mc, pc, tc) = runs["cuda"], runs["cpu"]
+    lr = cfg.train.learning_rate
+    loss_err = max(abs(mg[k] - mc[k]) / max(1.0, abs(mc[k])) for k in mg
+                   if not k.startswith("grad_norm"))
+    norm_err = max(abs(mg[k] - mc[k]) / abs(mc[k]) for k in ("grad_norm_g", "grad_norm_d"))
+    delta = torch.cat([(a - b).abs().flatten() for a, b in zip(pg, pc)])
+    worst, share = delta.max().item(), (delta > 0.01 * lr).float().mean().item()
+    say(f"[8/8] one training step, batch 1, {F} frames, card vs CPU: losses within "
+        f"{loss_err:.3g} (relative, of max(1, |loss|); tolerance 1e-3), gradient norms within "
+        f"{norm_err:.3g} (tolerance 1e-2), updated parameters max |diff| {worst:.3g} "
+        f"(tolerance 2.01 lr = {2.01 * lr:.3g}), share above 0.01 lr {share:.4%} (tolerance "
+        f"1%); card run {tg:.1f} s, CPU run {tc:.1f} s")
+    # Tolerances: the forward is the same float32 math summed in another
+    # order (1e-3 of each loss); a gradient norm also sees leaky-ReLU slope
+    # flips at pre-activations within rounding of 0 (1e-2); Adam's first
+    # update moves each parameter by lr times about sign(gradient) (plus
+    # decay), so two runs differ by at most 2 lr where a gradient's sign
+    # differs, which only gradients within rounding of 0 do (1% of elements).
+    if not (loss_err <= 1e-3 and norm_err <= 1e-2 and worst <= 2.01 * lr and share <= 0.01):
+        fail("the card's training step disagrees with the CPU's")
+
+
+def run_training(trainer, batches: list, card: str) -> dict:
+    """One warm-up step and TRAIN_STEPS timed steps; returns the launches of
+    the timed steps."""
+    import torch
+
+    from rvc_tpu_torch.ops import attention, resblock, retrieval, wavenet
+
+    state = trainer.init_state(seed=0, steps_per_epoch=len(batches))
+    t0 = time.perf_counter()
+    state, m = trainer.step(state, batches[0], keep_grads=True)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    dead = [name for module, key in ((trainer.synth, "g"), (trainer.disc, "d"))
+            for (name, _), g in zip(module.named_parameters(), trainer.grads[key])
+            if not torch.any(g != 0).item()]
+    trainer.grads = None
+    if dead:
+        fail(f"{len(dead)} parameters got no gradient in the first step: {dead[:8]}")
+    say(f"  warm-up step {first:.2f} s; every parameter of G "
+        f"({sum(1 for _ in trainer.synth.parameters())}) and D "
+        f"({sum(1 for _ in trainer.disc.parameters())}) has a nonzero gradient")
+    counters = {"fused_resblock1": resblock.fused_resblock1,
+                "fused_resblock1_backward": resblock.fused_resblock1_backward,
+                "fused_wn": wavenet.fused_wn, "fused_wn_backward": wavenet.fused_wn_backward,
+                "fused_resblock_group": resblock.fused_resblock_group,
+                "banded_rel_attention": attention.banded_rel_attention,
+                "nearest_rows_q": retrieval.nearest_rows_q}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        vals = {k: float(v) for k, v in m.items()}
+        losses.append(vals)
+        if not all(math.isfinite(v) for v in vals.values()):
+            fail(f"a loss is not finite: {vals}")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    n_chains = len(trainer.synth.dec.resblocks)
+    n_wn = sum(1 for mod in trainer.synth.modules() if type(mod).__name__ == "WN")
+    steps = len(walls)
+    expected = {"fused_resblock1": n_chains * steps, "fused_resblock1_backward": n_chains * steps,
+                "fused_wn": n_wn * steps, "fused_wn_backward": n_wn * steps,
+                "fused_resblock_group": 0, "banded_rel_attention": 0, "nearest_rows_q": 0}
+    cfg = trainer.config
+    audio_s = TRAIN_BATCH * cfg.train.segment_size / cfg.data.sampling_rate
+    total = sum(walls)
+    say(f"[7/8] training 48k_v2, batch {TRAIN_BATCH}, padded to "
+        f"{np.shape(batches[1]['spec'])[1]} frames: {steps} steps, wall s "
+        f"{[round(w, 4) for w in walls]}, {steps / total:.3f} steps/s, "
+        f"{audio_s * steps / total:.3f} s of audio (the sliced segments) trained per s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"launches {launches}; {card}")
+    for i, vals in enumerate(losses):
+        say(f"  step {i + 1}: " + ", ".join(f"{k} {v:.5g}" for k, v in vals.items()))
+    if launches != expected:
+        fail(f"training kernel launches {launches}, expected {expected}")
+    return launches
 
 
 def main() -> int:
@@ -237,7 +585,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi gave nothing"
-    say(f"[1/5] card: {name}, {count} device(s); torch {torch.__version__}, "
+    say(f"[1/8] card: {name}, {count} device(s); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     say(card)
 
@@ -247,7 +595,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library()
     info = _cuda.build_info
-    say(f"[2/5] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
+    say(f"[2/8] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
         f"(load {time.perf_counter() - t0:.2f} s)")
     say("ptxas: " + "; ".join(info["ptxas"]))
 
@@ -263,7 +611,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions at the 30 s conversion's shapes
     shapes = path_shapes(vc, clips[30])
-    say(f"[3/5] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
+    say(f"[3/8] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz, {shapes['T50']} HuBERT frames per chunk")
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -309,7 +657,7 @@ def main() -> int:
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[4/5] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
+        say(f"[4/8] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
             f"peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x, "
             f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -332,13 +680,66 @@ def main() -> int:
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     diff = np.abs(out_gpu.astype(np.int32) - out_cpu.astype(np.int32))
     tol = 4
-    say(f"[5/5] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
+    say(f"[5/8] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
         f"max |diff| {diff.max()} LSB, share above {tol} LSB {np.mean(diff > tol):.4%} "
         f"(tolerance {tol} LSB: the same float32 math summed in another order, "
         f"~1e-5 relative before the int16 scaling); CPU run "
         f"{time.perf_counter() - t0:.1f} s")
     if out_gpu.shape != out_cpu.shape or diff.max() > tol:
         fail("the card's conversion disagrees with the CPU's")
+
+    del vc, cpu
+    torch.cuda.empty_cache()
+
+    # 6. the training kernels at the training run's shapes
+    from rvc_tpu_torch.config import preset
+    from rvc_tpu_torch.train.data import BucketBatcher, RVCDataset
+    from rvc_tpu_torch.train.step import Trainer
+
+    cfg = preset("48k_v2")
+    tmp = tempfile.TemporaryDirectory(prefix="rvc_smoke_")  # removed when main returns
+    t0 = time.perf_counter()
+    batcher = BucketBatcher(RVCDataset(make_dataset(tmp.name, cfg.data), cfg.data),
+                            TRAIN_BATCH, seed=1234)
+    per_epoch = len(list(batcher.epoch(0)))
+    batches = [b for e in range(-(-(1 + TRAIN_STEPS) // per_epoch))
+               for b in batcher.epoch(e)][:1 + TRAIN_STEPS]
+    trainer = Trainer(cfg, device="cuda")
+    trainer.init_state(seed=0)
+    say(f"dataset of {len(CLIP_SECONDS)} clips, {len(batches)} batches, trainer built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    say(f"[6/8] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
+        f"segment {cfg.train.segment_size} samples, WN over {np.shape(batches[0]['spec'])[1]} "
+        f"frames")
+    gen = torch.Generator().manual_seed(2)
+    checks["chain"], checks["chain_bwd"] = check_resblock_train(trainer, gen)
+    checks["wn"], checks["wn_bwd"] = check_wn_train(
+        trainer, batches[0]["spec_lengths"], np.shape(batches[0]["spec"])[1], gen)
+    per_step = {"chain": len(trainer.synth.dec.resblocks),
+                "wn": sum(1 for m in trainer.synth.modules() if type(m).__name__ == "WN")}
+    for key, kname, held in (
+            ("chain", "kernel 4", f"values within {VALUE_TOL} of the largest"),
+            ("chain_bwd", "kernel 5", f"gradients within relative Frobenius {KINK_TOL}"),
+            ("wn", "kernel 6", f"values within {VALUE_TOL} of the largest"),
+            ("wn_bwd", "kernel 7", f"gradients within {GRAD_TOL} of the largest")):
+        c = checks[key]
+        say(f"  {kname} per training step: max_abs_err {c['max_abs_err']:.3g} ({held}), "
+            f"kernel_ms {c['ms']:.3f}, plain_ms {c['plain_ms']:.3f}, bound_ms "
+            f"{c['bound_ms']:.3f} ({c['bound_by']}), library_ms none, launches per step "
+            f"{per_step[key.split('_')[0]]}")
+
+    # 7. the training path
+    trained = run_training(trainer, batches, card)
+    launches = {"fused_resblock_group": launches["resblock"],
+                "banded_rel_attention": launches["attention"],
+                "nearest_rows_q": launches["nearest"],
+                **{k: trained[k] for k in ("fused_resblock1", "fused_resblock1_backward",
+                                           "fused_wn", "fused_wn_backward")}}
+    del trainer
+    torch.cuda.empty_cache()
+
+    # 8. the card's training step against the CPU's
+    check_train_vs_cpu(cfg, batches[0])
 
     kernels = []
     meta = {
@@ -348,13 +749,20 @@ def main() -> int:
                       "rvc_tpu/ops/pallas_attention.py:156"),
         "nearest": ("nearest_rows_q", "rvc_tpu_torch/csrc/nearest_rows.cu",
                     "rvc_tpu/ops/pallas_retrieval.py:99"),
+        "chain": ("fused_resblock1", "rvc_tpu_torch/csrc/resblock_group.cu",
+                  "rvc_tpu/ops/pallas_resblock.py:86"),
+        "chain_bwd": ("fused_resblock1_backward", "rvc_tpu_torch/csrc/resblock_bwd.cu",
+                      "rvc_tpu/ops/pallas_resblock.py:223"),
+        "wn": ("fused_wn", "rvc_tpu_torch/csrc/wavenet.cu", "rvc_tpu/ops/pallas_wavenet.py:56"),
+        "wn_bwd": ("fused_wn_backward", "rvc_tpu_torch/csrc/wavenet.cu",
+                   "rvc_tpu/ops/pallas_wavenet.py:152"),
     }
     for key, (kname, src, replaces) in meta.items():
         c = checks[key]
         kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches[key], "max_abs_err": c["max_abs_err"],
+                        "launches": launches[kname], "max_abs_err": c["max_abs_err"],
                         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                        "bound_by": c["bound_by"], "library_ms": None})
+                        "bound_by": c["bound_by"], "library_ms": c.get("library_ms")})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

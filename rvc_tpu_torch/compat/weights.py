@@ -6,8 +6,10 @@ a tree as nested dicts of numpy arrays (``jax.tree.map(np.asarray, p)``),
 these functions fold weight norm into plain weights (the reference's
 ``remove_weight_norm``) and rename the keys to the reference's torch names:
 the RVC synthesizer, HuBERT/ContentVec (HF ``HubertModel`` names) and
-RMVPE (``E2E`` names). The port's modules hold folded weights only, so a
-``weight_g``/``weight_v`` pair becomes one ``weight``.
+RMVPE (``E2E`` names). For inference a ``weight_g``/``weight_v`` pair
+becomes one ``weight``; for training (``fold=False``) the pair is kept under
+the names of the reference's ``G_*.pth`` / ``D_*.pth`` checkpoints, which
+the port's layers take after ``models.layers.live_weight_norm_``.
 """
 from __future__ import annotations
 
@@ -61,17 +63,26 @@ def fold_weight_norm(tree: Mapping) -> dict:
     return {k: fold_weight_norm(x) for k, x in tree.items()}
 
 
-def _state_dict(params: Mapping, rename) -> dict[str, np.ndarray]:
-    tree = fold_weight_norm(params.get("params", params))
+def _state_dict(params: Mapping, rename, fold: bool = True) -> dict[str, np.ndarray]:
+    tree = params.get("params", params)
+    if fold:
+        tree = fold_weight_norm(tree)
     return {rename(path): np.ascontiguousarray(arr, np.float32)
             for path, arr in flatten_tree(tree).items()}
 
 
-def synthesizer_state_dict(params: Mapping) -> dict[str, np.ndarray]:
+def synthesizer_state_dict(params: Mapping, fold: bool = True) -> dict[str, np.ndarray]:
     """RVC synthesizer: the generic ``_N -> .N`` rule gives the reference
-    names. The posterior encoder (training only) is dropped."""
-    sd = _state_dict(params, flax_path_to_torch_key)
-    return {k: v for k, v in sd.items() if not k.startswith("enc_q.")}
+    names. Folded (inference), the posterior encoder is dropped; unfolded
+    (training) it stays, with every ``weight_v``/``weight_g``."""
+    sd = _state_dict(params, flax_path_to_torch_key, fold)
+    return {k: v for k, v in sd.items() if not (fold and k.startswith("enc_q."))}
+
+
+def discriminator_state_dict(params: Mapping) -> dict[str, np.ndarray]:
+    """MultiPeriodDiscriminator, unfolded: ``discriminators.{i}.convs.{j}.
+    weight_v`` and so on, the reference's ``D_*.pth`` names."""
+    return _state_dict(params, flax_path_to_torch_key, fold=False)
 
 
 _HUBERT_KEYS = [

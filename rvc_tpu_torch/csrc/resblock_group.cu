@@ -210,3 +210,27 @@ extern "C" int rvc_resblock_unit(const void* x, void* out, const void* wa,
       (const float*)wb, (const float*)bb, T, C, ka, da, kb, db, TT, mode, n_div);
   return (int)cudaGetLastError();
 }
+
+// Kernel 4: one ResBlock1 chain (the forward of fused_resblock1_train), which
+// replaces rvc_tpu/ops/pallas_resblock.py::_fused_call. Its n units run as
+// the unit kernel above (mode 0, no division), unit u writing its output to
+// hs[u] (kept for the backward, kernel 5) and the last unit to out.
+// w (2n, k, C, C) [conv][tap][in][out]; b (2n, C); dil[u] the dilation of
+// unit u's first conv (the second has dilation 1).
+extern "C" int rvc_resblock1_fwd(const void* x, void* hs, void* out, const void* w,
+                                 const void* b, int B, int T, int C, int k, int n_units,
+                                 const int* dil, void* stream) {
+  const size_t btc = (size_t)B * T * C, wsz = (size_t)k * C * C;
+  const float* wf = (const float*)w;
+  const float* bf = (const float*)b;
+  const float* h = (const float*)x;
+  for (int u = 0; u < n_units; ++u) {
+    float* dst = u == n_units - 1 ? (float*)out : (float*)hs + (size_t)u * btc;
+    const int err = rvc_resblock_unit(h, dst, wf + 2 * u * wsz, bf + 2 * u * C,
+                                      wf + (2 * u + 1) * wsz, bf + (2 * u + 1) * C, B, T, C,
+                                      k, dil[u], k, 1, 0, 1, stream);
+    if (err) return err;
+    h = dst;
+  }
+  return 0;
+}

@@ -3,7 +3,9 @@
 Counterpart of ``rvc_tpu/models/attention.py``: post-norm blocks, window-10
 relative-position attention shared across heads, masked conv FFN.
 Activations are (B, C, T); Q/K/V/O are 1x1 convs under the reference's
-names. The attention itself is kernel 2 (``ops.attention``).
+names. The attention itself is kernel 2 (``ops.attention``) at inference;
+in training (gradients wanted) it is the plain version, the JAX
+``Trainer``'s own XLA path (the kernel has no backward, there or here).
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import math
 import torch
 from torch import nn
 
-from ..ops.attention import banded_rel_attention
+from ..ops.attention import banded_rel_attention, banded_rel_attention_plain
 from .layers import Conv1d, LayerNorm
 
 
@@ -38,7 +40,9 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         """Self-attention over x (B, C, T); ``lengths`` (B,) valid frames."""
         q, k, v = (self._heads(conv(x)) for conv in (self.conv_q, self.conv_k, self.conv_v))
-        out = banded_rel_attention(
+        train = torch.is_grad_enabled() and (q.requires_grad or self.emb_rel_k.requires_grad)
+        attend = banded_rel_attention_plain if train else banded_rel_attention
+        out = attend(
             q, k, v, self.emb_rel_k[0].contiguous(), self.emb_rel_v[0].contiguous(),
             lengths, window=self.window_size, scale=1.0 / math.sqrt(self.k_channels))
         B, H, T, D = out.shape

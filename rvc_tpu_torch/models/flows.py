@@ -1,7 +1,10 @@
-"""Residual coupling flows, reverse (inference) direction.
+"""Residual coupling flows: the reverse (inference) and forward (training)
+directions.
 
 Counterpart of ``rvc_tpu/models/flows.py::ResidualCouplingLayer`` /
-``ResidualCouplingBlock`` (mean-only couplings with channel flips).
+``ResidualCouplingBlock`` (mean-only couplings with channel flips). Being
+mean-only, the forward direction's log-determinant is zero and is not
+returned.
 """
 from __future__ import annotations
 
@@ -27,12 +30,18 @@ class ResidualCouplingLayer(nn.Module):
                       gin_channels=gin_channels)
         self.post = Conv1d(hidden_channels, self.half, 1)
 
-    def reverse(self, x: torch.Tensor, x_mask: torch.Tensor, g=None) -> torch.Tensor:
-        x0, x1 = x[:, :self.half], x[:, self.half:]
+    def _mean(self, x0: torch.Tensor, x_mask: torch.Tensor, g) -> torch.Tensor:
         h = self.pre(x0) * x_mask
         h = self.enc(h, x_mask, g=g)
-        m = self.post(h) * x_mask
-        return torch.cat([x0, (x1 - m) * x_mask], dim=1)
+        return self.post(h) * x_mask
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor, g=None) -> torch.Tensor:
+        x0, x1 = x[:, :self.half], x[:, self.half:]
+        return torch.cat([x0, (self._mean(x0, x_mask, g) + x1) * x_mask], dim=1)
+
+    def reverse(self, x: torch.Tensor, x_mask: torch.Tensor, g=None) -> torch.Tensor:
+        x0, x1 = x[:, :self.half], x[:, self.half:]
+        return torch.cat([x0, (x1 - self._mean(x0, x_mask, g)) * x_mask], dim=1)
 
 
 class ResidualCouplingBlock(nn.Module):
@@ -48,6 +57,11 @@ class ResidualCouplingBlock(nn.Module):
                 channels, hidden_channels, kernel_size, dilation_rate, n_layers,
                 gin_channels=gin_channels))
             self.flows.append(Flip())
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor, g=None) -> torch.Tensor:
+        for flow in self.flows:
+            x = flow(x) if isinstance(flow, Flip) else flow(x, x_mask, g=g)
+        return x
 
     def reverse(self, x: torch.Tensor, x_mask: torch.Tensor, g=None) -> torch.Tensor:
         for flow in reversed(self.flows):

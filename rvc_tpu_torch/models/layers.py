@@ -1,13 +1,14 @@
 """Primitive layers of the synthesizer, in PyTorch's (B, C, T) layout.
 
 Counterparts of ``rvc_tpu/models/layers.py``. The JAX package keeps
-activations channels-last and reparameterizes weight norm in the module;
-here activations are (B, C, T) as in the reference's torch code, and
-weight norm arrives folded (``compat.weights.fold_weight_norm``), so the
-convolutions are plain ``nn.Conv1d`` / ``nn.ConvTranspose1d`` under the
-reference's parameter names. ``weight_norm=True`` only records that the
-reference trains the layer with weight norm, which ``init_random_`` uses to
-draw weights the way the JAX package's ``fast_init`` does.
+activations channels-last; here activations are (B, C, T) as in the
+reference's torch code. A layer built with ``weight_norm=True`` holds its
+weight folded (``compat.weights.fold_weight_norm``), as inference loads it,
+until ``live_weight_norm_`` turns it into the trainable form: parameters
+``weight_v`` and ``weight_g`` under the reference's names, and the weight
+``g * v / (|v| + 1e-12)`` (norm over every axis but 0) computed at each
+call, as the JAX modules compute it. ``init_random_`` draws weights the
+way the JAX package's ``fast_init`` does in either form.
 """
 from __future__ import annotations
 
@@ -29,7 +30,42 @@ def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
     return t[None, :] < lengths[:, None]
 
 
-class Conv1d(nn.Conv1d):
+def norm_except_dim0(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.sum(v * v, dim=tuple(range(1, v.dim())), keepdim=True))
+
+
+class _WeightNorm:
+    """Mixin of the conv layers: ``folded_weight()`` is the weight the layer
+    applies, whichever form it holds."""
+
+    weight_norm: bool
+    live: bool = False
+
+    def folded_weight(self) -> torch.Tensor:
+        if self.live:
+            v = self.weight_v
+            return self.weight_g * v / (norm_except_dim0(v) + 1e-12)
+        return self.weight
+
+    @torch.no_grad()
+    def unfold_weight_norm_(self) -> None:
+        """Replace ``weight`` by ``weight_v = weight`` and ``weight_g = |weight|``
+        (the same folded weight up to the 1e-12), keeping the parameter order."""
+        w = self._parameters["weight"]
+        g = norm_except_dim0(w)
+        params = {}
+        for name, p in self._parameters.items():
+            if name == "weight":
+                params["weight_v"] = nn.Parameter(w.detach().clone())
+                params["weight_g"] = nn.Parameter(g)
+            else:
+                params[name] = p
+        self._parameters.clear()
+        self._parameters.update(params)
+        self.live = True
+
+
+class Conv1d(_WeightNorm, nn.Conv1d):
     """``nn.Conv1d`` with symmetric integer padding, as the reference uses it."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
@@ -40,9 +76,13 @@ class Conv1d(nn.Conv1d):
                          bias=bias)
         self.weight_norm = weight_norm
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.folded_weight(), self.bias)
 
-class ConvTranspose1d(nn.ConvTranspose1d):
-    """``nn.ConvTranspose1d``; weight (in, out, k). The JAX package's subpixel
+
+class ConvTranspose1d(_WeightNorm, nn.ConvTranspose1d):
+    """``nn.ConvTranspose1d``; weight (in, out, k), its norm taken over dim 0
+    (the input channels), as the JAX module does. The JAX package's subpixel
     rewrite is a TPU layout trick with the same output."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
@@ -51,6 +91,60 @@ class ConvTranspose1d(nn.ConvTranspose1d):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
                          padding=padding, bias=bias)
         self.weight_norm = weight_norm
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose1d(x, self.folded_weight(), self.bias, self.stride,
+                                  self.padding, self.output_padding, self.groups,
+                                  self.dilation)
+
+
+class Conv2d(_WeightNorm, nn.Conv2d):
+    """``nn.Conv2d`` (the discriminator's); weight (O, I, kh, kw)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: tuple[int, int],
+                 stride: tuple[int, int] = (1, 1), padding: tuple[int, int] = (0, 0),
+                 bias: bool = True, weight_norm: bool = False):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=padding, bias=bias)
+        self.weight_norm = weight_norm
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.folded_weight(), self.bias)
+
+
+def live_weight_norm_(module: nn.Module) -> nn.Module:
+    """Turn every weight-normed layer of ``module`` into its trainable
+    (weight_v, weight_g) form, in place."""
+    for m in module.modules():
+        if isinstance(m, _WeightNorm) and m.weight_norm and not m.live:
+            m.unfold_weight_norm_()
+    return module
+
+
+def slice_segments(x: torch.Tensor, starts: torch.Tensor, segment_size: int) -> torch.Tensor:
+    """Crops ``x[b, ..., s_b : s_b + segment_size]`` along the last axis of
+    (B, T) or (B, C, T). A start past ``T - segment_size`` is clamped to it,
+    as ``jax.lax.dynamic_slice`` clamps (rvc_tpu/models/layers.py:599)."""
+    T = x.shape[-1]
+    s = starts.to(torch.long).clamp(0, max(T - segment_size, 0))
+    idx = s[:, None] + torch.arange(segment_size, device=x.device)[None, :]
+    if x.dim() == 2:
+        return torch.gather(x, 1, idx)
+    return torch.gather(x, 2, idx[:, None, :].expand(x.shape[0], x.shape[1], segment_size))
+
+
+def rand_slice_segments(x: torch.Tensor, lengths: torch.Tensor, segment_size: int,
+                        u: torch.Tensor | None = None,
+                        generator: torch.Generator | None = None):
+    """Random crops of ``segment_size`` frames of x (B, C, T): the start is
+    ``int(u * max(length - segment_size + 1, 1))`` with u ~ U[0, 1) per row,
+    drawn from ``generator`` unless given (rvc_tpu/models/layers.py:578).
+    Returns (slices, starts)."""
+    if u is None:
+        u = torch.rand(x.shape[0], generator=generator, device=x.device)
+    max_start = torch.clamp(lengths - segment_size + 1, min=1).to(u.dtype)
+    starts = (u * max_start).to(torch.int32)
+    return slice_segments(x, starts, segment_size), starts
 
 
 class LayerNorm(nn.Module):
@@ -69,7 +163,7 @@ class LayerNorm(nn.Module):
         return y.transpose(1, -1)
 
 
-_ONES = ("gamma", "weight_g", "running_var")
+_ONES = ("gamma", "weight_g", "running_var")  # as fast_init draws them
 _ZEROS = ("beta", "running_mean", "bias")
 
 
@@ -78,11 +172,11 @@ def init_random_(module: nn.Module, seed: int = 0, scale: float = 0.02) -> nn.Mo
     """Random weights as the JAX package's ``utils/fastinit.fast_init`` draws
     them: N(0, scale²) for weights, ones for gains and running variances,
     zeros for biases and running means. A weight-normed layer draws ``v``
-    with ``g = 1`` and holds the folded ``v / |v|``. Drawn with numpy from
-    ``seed`` in state_dict order."""
+    with ``g = 1``; in the folded form it holds ``v / |v|``. Drawn with numpy
+    from ``seed`` in state_dict order."""
     rng = np.random.default_rng(seed)
     wn = {name + ".weight" for name, m in module.named_modules()
-          if getattr(m, "weight_norm", False)}
+          if getattr(m, "weight_norm", False) and not getattr(m, "live", False)}
     for key, t in module.state_dict().items():
         leaf = key.rsplit(".", 1)[-1]
         if not t.is_floating_point():

@@ -2,8 +2,12 @@
 
 Counterpart of ``rvc_tpu/models/nsf.py`` (sine_source, SourceModuleHnNSF,
 ResBlock1/2, GeneratorNSF), activations (B, C, T). The sample-rate
-ResBlock1 stages run through kernel 1 (``ops.resblock``) as the JAX
-package's ``fuse_group`` path does; ResBlock2 presets stay plain, as there.
+ResBlock1 stages run through ``ops.resblock``: at inference each stage is
+one kernel-1 call, as the JAX package's ``fuse_group`` path does; when
+gradients are wanted each chain is a ``fused_resblock1_train`` call
+(kernels 4 and 5) and the chains are averaged outside, as the JAX
+package's training path does (rvc_tpu/models/nsf.py:162-190). ResBlock2
+presets stay plain, as there.
 
 The sine source draws a start phase per harmonic and Gaussian noise; both
 can be passed in (``rand_ini``, ``noise``) so a test can hand over another
@@ -18,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.resblock import fused_resblock_group
+from ..ops.resblock import fused_resblock1_train, fused_resblock_group, wants_grad
 from .layers import LRELU_SLOPE, Conv1d, ConvTranspose1d, leaky_relu
 
 
@@ -109,11 +113,12 @@ class ResBlock1(nn.Module):
             for _ in self.dilation)
 
     def chain(self):
-        """The convs in order as (weight, bias, k, dilation) for kernel 1."""
+        """The convs in order as (weight, bias, k, dilation), the weights
+        folded, for the kernels of ``ops.resblock``."""
         out = []
         for c1, c2, d in zip(self.convs1, self.convs2, self.dilation):
-            out.append((c1.weight, c1.bias, self.kernel_size, d))
-            out.append((c2.weight, c2.bias, self.kernel_size, 1))
+            out.append((c1.folded_weight(), c1.bias, self.kernel_size, d))
+            out.append((c2.folded_weight(), c2.bias, self.kernel_size, 1))
         return out
 
 
@@ -179,8 +184,16 @@ class GeneratorNSF(nn.Module):
             x = x + noise_conv(har)[..., :x.shape[-1]]
             blocks = self.resblocks[i * nk:(i + 1) * nk]
             if self.resblock == "1":
-                y = fused_resblock_group(x.transpose(1, 2).contiguous(),
-                                         [rb.chain() for rb in blocks])
+                xt = x.transpose(1, 2).contiguous()
+                chains = [rb.chain() for rb in blocks]
+                if wants_grad(xt, chains):
+                    ys = None
+                    for chain in chains:
+                        r = fused_resblock1_train(xt, chain)
+                        ys = r if ys is None else ys + r
+                    y = ys / nk
+                else:
+                    y = fused_resblock_group(xt, chains)
                 x = y.transpose(1, 2)
             else:
                 xs = None

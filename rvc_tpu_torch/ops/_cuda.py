@@ -23,21 +23,33 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("resblock_group.cu", "banded_attention.cu", "nearest_rows.cu")
+SOURCES = ("resblock_group.cu", "banded_attention.cu", "nearest_rows.cu", "resblock_bwd.cu",
+           "wavenet.cu")
+HEADERS = ("rowconv.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry points: name -> argtypes (every one returns a cudaError_t as int)
+_L = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
+# C entry points: name -> argtypes. Each returns a cudaError_t as int, but
+# the *_workspace functions, which return a size in floats (RESTYPES).
 SIGNATURES = {
     "rvc_resblock_unit": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _P],
     "rvc_banded_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _F, _P],
     "rvc_nearest_rows": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rvc_resblock1_fwd": [_P] * 5 + [_I] * 5 + [_IP, _P],
+    "rvc_resblock1_bwd": [_P] * 10 + [_L] + [_I] * 5 + [_IP, _P],
+    "rvc_resblock1_bwd_workspace": [_I] * 4,
+    "rvc_wn_fwd": [_P] * 13 + [_I] * 5 + [_P],
+    "rvc_wn_bwd": [_P] * 17 + [_L] + [_I] * 5 + [_P],
+    "rvc_wn_bwd_workspace": [_I] * 4,
 }
+RESTYPES = {"rvc_resblock1_bwd_workspace": _L, "rvc_wn_bwd_workspace": _L}
 
 _lib: ctypes.CDLL | None = None
 build_info: dict = {}
@@ -57,7 +69,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(CFLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -137,7 +149,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     build_info.update(
         cached=cached, seconds=float((target / "seconds").read_text()),
         ptxas=ptxas_summary((target / "ptxas.log").read_text()),

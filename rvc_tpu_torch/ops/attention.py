@@ -3,7 +3,11 @@
 Counterpart of ``rvc_tpu/ops/pallas_attention.py::banded_rel_attention``,
 same signature. On a CUDA tensor it runs ``csrc/banded_attention.cu``; on a
 CPU tensor the plain version below, which is the JAX module's XLA path
-(``rvc_tpu/models/attention.py``) written in torch.
+(``rvc_tpu/models/attention.py``) written in torch. The kernel has no
+backward, as the Pallas kernel has none: ``banded_rel_attention`` raises
+when gradients are wanted, and the text encoder trains through the plain
+version, which is the JAX ``Trainer``'s own path (it never sets
+``fuse_attention``, so its training attention is XLA, not Pallas).
 """
 from __future__ import annotations
 
@@ -71,7 +75,12 @@ def banded_rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          lengths: torch.Tensor, *, window: int,
                          scale: float) -> torch.Tensor:
     """q, k, v: (B, H, T, D) float32 self-attention; emb_rel_*: (2w+1, D)
-    tables shared by the heads; lengths: (B,) valid frames. -> (B, H, T, D)."""
+    tables shared by the heads; lengths: (B,) valid frames. -> (B, H, T, D).
+    Raises when gradients are wanted (see the module's docstring)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, emb_rel_k,
+                                                                  emb_rel_v)):
+        raise RuntimeError("banded_rel_attention has no backward: a launch would cut "
+                           "the gradient. Train through banded_rel_attention_plain")
     if q.device.type == "cpu":
         return banded_rel_attention_plain(q, k, v, emb_rel_k, emb_rel_v, lengths,
                                           window=window, scale=scale)

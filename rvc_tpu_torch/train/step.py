@@ -1,0 +1,246 @@
+"""The GAN training step of RVC: the entry point of training.
+
+Counterpart of ``rvc_tpu/train/step.py`` (Trainer, TrainState, the
+optimizers' math and ``lr_schedule``), itself the reference's
+training_cli.py:374-602. One step:
+
+  1. the generator's training forward, once (``Synthesizer.forward``);
+  2. the discriminator's update on (real slice, generated slice detached),
+     its losses through the balancer;
+  3. the generator's losses through the *updated* discriminator: LSGAN,
+     feature matching, mel L1 on the sliced target mel (weight ``c_mel``),
+     the prior KL over the posterior's mask, the aux losses (zeros at the
+     default weights), balanced; one backward into the generator;
+  4. both updates are AdamW with optax's semantics: betas (0.8, 0.99),
+     eps 1e-9, decoupled weight decay 0.01 on every parameter, the learning
+     rate ``lr_schedule`` indexed by the update count before its increment.
+
+PyTorch keeps parameters in the modules, so a step updates the trainer's
+generator and discriminator in place; ``TrainState`` carries what else the
+JAX state carries (optimizer moments, step, balancer states). On the card,
+the decoder's ResBlock1 chains run kernels 4 and 5 and the WN stacks of the
+posterior encoder and the flow kernels 6 and 7; the text encoder's
+attention trains through its plain version, as the JAX ``Trainer``'s does.
+Everything is float32 with TF32 off. The JAX package's GroupedAdamW and
+FlatAdamW (the same math, laid out to cut TPU kernel counts) and the
+gradient penalty (``c_gp > 0``) are not ported.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import RVCConfig
+from ..device import resolve_device, set_float32_math
+from ..models.discriminator import MultiPeriodDiscriminator
+from ..models.layers import init_random_, live_weight_norm_, load_numpy_state_dict, slice_segments
+from ..models.synthesizer import Synthesizer
+from ..ops.mel import mel_spectrogram, spec_to_mel
+from . import balancer as bal
+from . import losses as L
+
+G_LOSS_KEYS = ("loss_gen", "loss_fm", "loss_mel", "loss_kl",
+               "harmonic_loss", "tsi_loss", "tefs_loss")
+D_LOSS_KEYS = ("loss_disc", "gradient_penalty")
+
+
+def lr_schedule(base_lr: float, lr_decay: float, steps_per_epoch: int):
+    """Per-epoch exponential decay (the reference's ExponentialLR)."""
+    def fn(step: int) -> float:
+        return base_lr * (lr_decay ** (step // max(steps_per_epoch, 1)))
+
+    return fn
+
+
+class AdamW:
+    """optax.adamw over a list of parameters, updated in place."""
+
+    def __init__(self, params, schedule, betas=(0.8, 0.99), eps=1e-9, weight_decay=0.01):
+        self.params = list(params)
+        self.schedule = schedule
+        self.b1, self.b2 = betas
+        self.eps = eps
+        self.wd = weight_decay
+        self.count = 0
+        self.m = [torch.zeros_like(p) for p in self.params]
+        self.v = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads) -> None:
+        lr = self.schedule(self.count)
+        self.count += 1
+        bc1 = 1.0 - self.b1 ** self.count
+        bc2 = 1.0 - self.b2 ** self.count
+        for p, g, m, v in zip(self.params, grads, self.m, self.v):
+            m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+            v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
+            update = (m / bc1) / (torch.sqrt(v / bc2) + self.eps) + self.wd * p
+            p.sub_(lr * update)
+
+
+class TrainState(NamedTuple):
+    opt_g: AdamW
+    opt_d: AdamW
+    step: int
+    balancer_g: bal.BalancerState
+    balancer_d: bal.BalancerState
+
+
+def _grads(total: torch.Tensor, params: list) -> list:
+    """d total / d params, zeros where a parameter is not reached."""
+    grads = torch.autograd.grad(total, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
+def _global_norm(grads: list) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(g * g) for g in grads))
+
+
+def _mark(events: list | None, name: str) -> None:
+    """A CUDA event after the work queued so far, named for the stage it ends."""
+    if events is not None:
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append((name, e))
+
+
+class Trainer:
+    """The generator (``synth``) and discriminator (``disc``) of one
+    configuration on one device, and the GAN step over them."""
+
+    def __init__(self, config: RVCConfig, balancer_active: bool = True, device=None):
+        from ..pipelines.convert import synth_kwargs_from_config
+
+        self.device = resolve_device(device)
+        set_float32_math()
+        t = config.train
+        if t.c_gp > 0:
+            raise NotImplementedError("the gradient penalty (c_gp > 0) is not ported yet")
+        self.config = config
+        self.balancer_active = balancer_active
+        self.synth = live_weight_norm_(Synthesizer(**synth_kwargs_from_config(config),
+                                                   posterior=True))
+        self.disc = MultiPeriodDiscriminator(config.model.version,
+                                             scale=config.model.disc_scale)
+        self.synth.to(self.device)
+        self.disc.to(self.device)
+        self.seg_frames = t.segment_size // config.data.hop_length
+        self.g_initial = torch.tensor([1.0, 1.0, t.c_mel, t.c_kl, t.c_hd, t.c_tsi, t.c_tefs],
+                                      device=self.device)
+        self.d_initial = torch.tensor([1.0, 0.0], device=self.device)
+        self.grads: dict | None = None  # the last step's, when it was asked to keep them
+
+    def init_state(self, seed: int = 0, steps_per_epoch: int = 100,
+                   state_g: dict | None = None, state_d: dict | None = None) -> TrainState:
+        """Random weights from ``seed`` (the generator's) and ``seed + 1``
+        (the discriminator's), drawn as the JAX package's fast_init draws
+        them, unless reference-named state_dicts of numpy arrays are given
+        (``compat.weights.synthesizer_state_dict(params, fold=False)`` and
+        ``discriminator_state_dict``)."""
+        for module, state, s in ((self.synth, state_g, seed), (self.disc, state_d, seed + 1)):
+            if state is None:
+                init_random_(module, s)
+            else:
+                load_numpy_state_dict(module, state)
+        t = self.config.train
+        sched = lr_schedule(t.learning_rate, t.lr_decay, steps_per_epoch)
+        return TrainState(
+            opt_g=AdamW(self.synth.parameters(), sched, tuple(t.betas), t.eps),
+            opt_d=AdamW(self.disc.parameters(), sched, tuple(t.betas), t.eps),
+            step=0,
+            balancer_g=bal.init_state(len(G_LOSS_KEYS), self.device),
+            balancer_d=bal.init_state(len(D_LOSS_KEYS), self.device))
+
+    def draws(self, batch: dict, seed: int) -> dict:
+        """The step's random draws from a CPU generator seeded with
+        ``seed``, so that every device draws the same: the posterior
+        sample's normal, the segment starts' uniform, the sine source's start
+        phase and noise."""
+        gen = torch.Generator().manual_seed(seed)
+        B, T = np.shape(batch["spec"])[:2]
+        inter = self.synth.enc_p.out_channels
+        out = dict(eps_q=torch.randn(B, inter, T, generator=gen),
+                   u_slice=torch.rand(B, generator=gen),
+                   rand_ini=torch.rand(B, 1, generator=gen),
+                   noise=torch.randn(B, self.seg_frames * self.synth.dec.upp, 1,
+                                     generator=gen))
+        return {k: v.to(self.device) for k, v in out.items()}
+
+    def _tensors(self, batch: dict) -> dict:
+        out = {}
+        for k, v in batch.items():
+            t = torch.tensor(np.asarray(v), device=self.device)
+            out[k] = t.long() if k in ("pitch", "sid") or k.endswith("lengths") else t.float()
+        return out
+
+    def step(self, state: TrainState, batch: dict, draws: dict | None = None,
+             keep_grads: bool = False, events: list | None = None):
+        """One GAN step on a batch of ``train.data.BucketBatcher`` (numpy,
+        the JAX keys and layouts). ``draws`` as ``Trainer.draws`` gives them
+        (seeded with the step number when absent). Updates ``synth`` and
+        ``disc`` in place; returns (new state, metrics as 0-d tensors). With
+        ``keep_grads`` the step's gradients stay in ``self.grads`` ({"g": ...,
+        "d": ...}, in the order of ``named_parameters``). On the card, a list
+        given as ``events`` gets (stage, CUDA event) pairs: the first marks
+        the start, each later one the end of the stage it names."""
+        cfg, d = self.config, self.config.data
+        t = cfg.train
+        b = self._tensors(batch)
+        if draws is None:
+            draws = self.draws(batch, state.step)
+        _mark(events, "start")
+        y_hat, ids_slice, x_mask, z_mask, (z, z_p, m_p, logs_p, m_q, logs_q) = self.synth(
+            b["phone"], b["phone_lengths"], b["pitch"], b["pitchf"], b["spec"],
+            b["spec_lengths"], b["sid"], **draws)
+        wave_seg = slice_segments(b["wave"][:, None], ids_slice * d.hop_length, t.segment_size)
+        mel = spec_to_mel(b["spec"], d.filter_length, d.n_mel_channels, d.sampling_rate,
+                          d.mel_fmin, d.mel_fmax)
+        y_mel = slice_segments(mel.transpose(1, 2), ids_slice, self.seg_frames)
+        y_hat_mel = mel_spectrogram(y_hat[:, 0], d.filter_length, d.n_mel_channels,
+                                    d.sampling_rate, d.hop_length, d.win_length, d.mel_fmin,
+                                    d.mel_fmax).transpose(1, 2)
+        _mark(events, "generator forward")
+
+        # the discriminator's update, the generated slice detached
+        d_params = state.opt_d.params
+        y_d_r, y_d_g, _, _ = self.disc(wave_seg, y_hat.detach())
+        loss_disc, _ = L.discriminator_loss(y_d_r, y_d_g)
+        loss_d_all, new_bd, _ = bal.balance(
+            state.balancer_d, torch.stack([loss_disc, torch.zeros_like(loss_disc)]),
+            self.d_initial, active=self.balancer_active)
+        d_grads = _grads(loss_d_all, d_params)
+        grad_norm_d = _global_norm(d_grads)
+        _mark(events, "discriminator forward and backward")
+        state.opt_d.step(d_grads)
+        _mark(events, "discriminator update")
+
+        # the generator's losses through the updated discriminator
+        y_d_r, y_d_g, fmap_r, fmap_g = self.disc(wave_seg, y_hat)
+        loss_mel = L.mel_l1(y_mel, y_hat_mel)
+        loss_kl = L.kl_loss(z_p, logs_q, m_p, logs_p, z_mask)
+        loss_fm = L.feature_loss(fmap_r, fmap_g)
+        loss_gen, _ = L.generator_loss(y_d_g)
+        harmonic, tefs, tsi = L.combined_aux_loss(wave_seg[:, 0], y_hat[:, 0], c_tefs=t.c_tefs,
+                                                  c_hd=t.c_hd, c_tsi=t.c_tsi)
+        loss_g_all, new_bg, _ = bal.balance(
+            state.balancer_g,
+            torch.stack([loss_gen, loss_fm, loss_mel, loss_kl, harmonic, tsi, tefs]),
+            self.g_initial, active=self.balancer_active)
+        _mark(events, "generator losses")
+        g_grads = _grads(loss_g_all, state.opt_g.params)
+        grad_norm_g = _global_norm(g_grads)
+        _mark(events, "generator backward")
+        state.opt_g.step(g_grads)
+        _mark(events, "generator update")
+
+        if keep_grads:
+            self.grads = {"g": g_grads, "d": d_grads}
+        metrics = {"loss_disc": loss_disc, "loss_disc_all": loss_d_all,
+                   "grad_norm_g": grad_norm_g, "grad_norm_d": grad_norm_d,
+                   "loss_gen": loss_gen, "loss_fm": loss_fm, "loss_mel": loss_mel,
+                   "loss_kl": loss_kl, "harmonic_loss": harmonic, "tsi_loss": tsi,
+                   "tefs_loss": tefs, "loss_gen_all": loss_g_all}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return state._replace(step=state.step + 1, balancer_g=new_bg, balancer_d=new_bd), metrics

@@ -1,4 +1,6 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card;
+for the training kernels (4-7) values and every gradient against autograd
+of the plain version.
 
 Needs a CUDA card and no JAX; every test here skips without a card. On the
 card's machine (which has no JAX, so the repository's conftest cannot load):
@@ -9,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from rvc_tpu_torch.ops import attention, resblock, retrieval
+from rvc_tpu_torch.ops import attention, resblock, retrieval, wavenet
 
 
 @pytest.fixture
@@ -132,3 +134,126 @@ def test_nearest_rows_kernel_edges(rng, cuda, NQ, N):
     got = retrieval.nearest_rows_q(f, bq, s)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, retrieval.topk_blend(f, bq.float() * s), atol=1e-5, rtol=0)
+
+
+def _wn_inputs(rng, B, T, C, L, k):
+    """A WN stack's weights in the split layout, the last layer's res
+    weights zero (its output is all skip)."""
+    f = lambda *s, sc=1.0: (sc * rng.standard_normal(s)).astype(np.float32)  # noqa: E731
+    w_res = f(L, C, C, sc=C ** -0.5)
+    w_res[-1] = 0.0  # the last layer's output is all skip
+    b_rs2 = f(2 * L, C, sc=0.1)
+    b_rs2[L - 1] = 0.0
+    return dict(w_a=f(L * k, C, C, sc=(C * k) ** -0.5), w_b=f(L * k, C, C, sc=(C * k) ** -0.5),
+                b_ab=f(2 * L, C, sc=0.1), g_ab=f(B, 2 * L, C, sc=0.3), w_res=w_res,
+                w_skip=f(L, C, C, sc=C ** -0.5), b_rs2=b_rs2)
+
+
+def _scaled_close(got, ref, tol):
+    """max |got - ref| within tol of the reference's largest magnitude."""
+    scale = max(ref.abs().max().item(), 1e-6)
+    err = (got - ref).abs().max().item()
+    assert err <= tol * scale, f"max abs err {err:.3g} > {tol} x {scale:.3g}"
+
+
+# Through a leaky ReLU a gradient jumps (slope 1 or 0.1) where the
+# pre-activation crosses 0. A pre-activation within float32 rounding of 0
+# (about one in a million at these sizes, and the chain has six such sites per
+# element) can take the other slope in the kernel than in the plain version,
+# which moves a few hundred elements of dx and one column of a dW by up to
+# 0.9 of the cotangent. So the chain's gradients are held by their relative
+# Frobenius error, which such isolated flips keep near 1e-3 while a wrong row,
+# tile or channel group takes it past 1e-2. (The WN stack is smooth: its
+# gradients are held elementwise.)
+KINK_TOL = 1e-2
+
+
+def _frobenius_close(got, ref, tol=KINK_TOL):
+    rel = ((got - ref).norm() / ref.norm().clamp(min=1e-12)).item()
+    assert rel <= tol, f"relative Frobenius error {rel:.3g} > {tol}"
+
+
+def _train_chain(rng, cuda, C, k, dils, T, B=2):
+    convs = [(torch.from_numpy(w).to(cuda).requires_grad_(),
+              torch.from_numpy(b).to(cuda).requires_grad_(), kk, d)
+             for w, b, kk, d in _chains(rng, C, ((k, dils),))[0]]
+    x = torch.from_numpy(rng.standard_normal((B, T, C)).astype(np.float32)).to(cuda)
+    cot = torch.from_numpy(rng.standard_normal((B, T, C)).astype(np.float32)).to(cuda)
+    return x.requires_grad_(), convs, cot
+
+
+def _grads(fn, x, params, cot):
+    """(output, gradients of <output, cot> for x and params); zeros for an
+    input the function does not use (a one-layer WN's zero res weights)."""
+    y = fn()
+    g = torch.autograd.grad((y * cot).sum(), [x, *params], allow_unused=True)
+    return y.detach(), [torch.zeros_like(p) if d is None else d for p, d in zip([x, *params], g)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,T,k,dils", [
+    (32, 5001, 3, (1, 3, 5)), (64, 777, 7, (1, 3, 5)), (128, 301, 11, (1, 3, 5)),
+    (192, 100, 5, (1, 3, 5)), (256, 37, 11, (1, 3, 5)), (16, 3, 3, (1, 3)),
+])
+def test_resblock1_train_kernels_match_plain(rng, cuda, C, T, k, dils):
+    """Kernel 4 (forward) and kernel 5 (dx, dW, db) against autograd of the
+    plain chain: T not a multiple of any tile, shorter than the reach, a
+    2-unit chain. Values within 2e-5 of the largest magnitude (float32 sums
+    in another order); gradients by KINK_TOL."""
+    x, convs, cot = _train_chain(rng, cuda, C, k, dils, T)
+    params = [t for w, b, _, _ in convs for t in (w, b)]
+    n4, n5 = resblock.fused_resblock1.launches, resblock.fused_resblock1_backward.launches
+    got, g_got = _grads(lambda: resblock.fused_resblock1_train(x, convs), x, params, cot)
+    torch.cuda.synchronize()
+    assert (resblock.fused_resblock1.launches, resblock.fused_resblock1_backward.launches) \
+        == (n4 + 1, n5 + 1)
+    ref, g_ref = _grads(lambda: resblock.fused_resblock1_plain(x, convs), x, params, cot)
+    _scaled_close(got, ref, 2e-5)
+    for a, b in zip(g_got, g_ref):
+        _frobenius_close(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,T,L,lengths", [
+    (192, 400, 16, (400, 377, 200, 1)), (192, 400, 3, (400, 400, 399, 250)),
+    (32, 1000, 4, (1000, 613)), (64, 57, 2, (57, 0)), (128, 300, 1, (300,)),
+    (256, 130, 3, (130, 129)),
+])
+def test_wn_kernels_match_plain(rng, cuda, C, T, L, lengths):
+    """Kernel 6 (forward) and kernel 7 (dx, dWa, dWb, dBab, dG, dWres,
+    dWskip, dBrs) against autograd of the plain stack, lengths < T (one of
+    0), the input masked. Values within 2e-5 and gradients within 1e-4 of
+    the largest magnitude (sums over every row in another order)."""
+    B, k = len(lengths), 5
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    mask = (torch.arange(T, device=cuda)[None, :] < lens[:, None]).float()[..., None]
+    x = (torch.from_numpy(rng.standard_normal((B, T, C)).astype(np.float32)).to(cuda)
+         * mask).requires_grad_()
+    w = [torch.from_numpy(a).to(cuda).requires_grad_()
+         for a in _wn_inputs(rng, B, T, C, L, k).values()]
+    cot = torch.from_numpy(rng.standard_normal((B, T, C)).astype(np.float32)).to(cuda)
+    n6, n7 = wavenet.fused_wn.launches, wavenet.fused_wn_backward.launches
+    got, g_got = _grads(lambda: wavenet.fused_wn(x, *w, lens, kernel_size=k), x, w, cot)
+    torch.cuda.synchronize()
+    assert (wavenet.fused_wn.launches, wavenet.fused_wn_backward.launches) == (n6 + 1, n7 + 1)
+    ref, g_ref = _grads(lambda: wavenet.fused_wn_plain(x, *w, lens, kernel_size=k), x, w,
+                        cot)
+    _scaled_close(got, ref, 2e-5)
+    for a, b in zip(g_got, g_ref):
+        _scaled_close(a, b, 1e-4)
+
+
+@pytest.mark.gpu
+def test_forward_only_kernels_raise_under_grad(rng, cuda):
+    """Kernels 1, 2 and 4 have no backward: called with inputs that need
+    gradients they raise instead of cutting the graph."""
+    x, convs, _ = _train_chain(rng, cuda, 32, 3, (1, 3, 5), 50)
+    with pytest.raises(RuntimeError, match="no backward"):
+        resblock.fused_resblock_group(x, [convs])
+    with pytest.raises(RuntimeError, match="no backward"):
+        resblock.fused_resblock1(x, convs)
+    q, k, v, ek, ev, lengths = (torch.from_numpy(a).to(cuda)
+                                for a in _attention_inputs(rng, D=32))
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention.banded_rel_attention(q.requires_grad_(), k, v, ek, ev, lengths, window=10,
+                                       scale=0.2)

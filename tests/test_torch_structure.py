@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from rvc_tpu_torch.ops import attention, resblock, retrieval
+from rvc_tpu_torch.ops import attention, resblock, retrieval, wavenet
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "rvc_tpu")
@@ -40,7 +40,8 @@ def test_port_imports_no_jax(path):
 
 
 def test_import_leaves_jax_unloaded():
-    code = ("import sys, rvc_tpu_torch.pipelines.convert, chip_smoke; "
+    code = ("import sys, rvc_tpu_torch.pipelines.convert, rvc_tpu_torch.train.step, "
+            "rvc_tpu_torch.train.data, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'rvc_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
@@ -60,14 +61,35 @@ def test_entry_points_default_to_the_card():
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_trainer_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from rvc_tpu_torch.config import preset
+    from rvc_tpu_torch.train.step import Trainer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(preset("48k_v2"))
+
+
 def test_wrappers_count_only_kernel_launches(rng):
     """On CPU tensors the wrappers run their plain versions and count nothing."""
     counters = (resblock.fused_resblock_group, attention.banded_rel_attention,
-                retrieval.nearest_rows_q, retrieval.nearest_rows)
+                retrieval.nearest_rows_q, retrieval.nearest_rows, resblock.fused_resblock1,
+                resblock.fused_resblock1_backward, wavenet.fused_wn, wavenet.fused_wn_backward)
     before = [f.launches for f in counters]
     x = torch.from_numpy(rng.standard_normal((1, 20, 4)).astype(np.float32))
     w, b = torch.zeros(4, 4, 3), torch.zeros(4)
     resblock.fused_resblock_group(x, [[(w, b, 3, 1), (w, b, 3, 1)]])
+    resblock.fused_resblock1(x, [(w, b, 3, 1), (w, b, 3, 1)])
+    xg = x.clone().requires_grad_()
+    resblock.fused_resblock1_train(xg, [(w, b, 3, 1), (w, b, 3, 1)]).sum().backward()
+    L, C = 2, 4
+    wn_args = [torch.zeros(s_, requires_grad=True) for s_ in
+               ((L * 5, C, C), (L * 5, C, C), (2 * L, C), (1, 2 * L, C), (L, C, C), (L, C, C),
+                (2 * L, C))]
+    wavenet.fused_wn(xg, *wn_args, torch.tensor([20]), kernel_size=5).sum().backward()
+    resblock.fused_resblock1_backward(x, None, x, [(w, b, 3, 1), (w, b, 3, 1)])
+    wavenet.fused_wn_backward(x, None, None, x, *wn_args, torch.tensor([20]), kernel_size=5)
     q = torch.zeros(1, 1, 8, 4)
     attention.banded_rel_attention(q, q, q, torch.zeros(3, 4), torch.zeros(3, 4),
                                    torch.tensor([8]), window=1, scale=0.5)
@@ -76,6 +98,13 @@ def test_wrappers_count_only_kernel_launches(rng):
     retrieval.nearest_rows_q(torch.zeros(2, 4), torch.from_numpy(bq), torch.from_numpy(s))
     retrieval.nearest_rows(torch.zeros(2, 4), torch.from_numpy(bank))
     assert [f.launches for f in counters] == before
+
+
+def _wn(B, T, C, L, k=5):
+    """fused_wn's arguments after x, zeros of the right shapes."""
+    shapes = ((L * k, C, C), (L * k, C, C), (2 * L, C), (B, 2 * L, C), (L, C, C), (L, C, C),
+              (2 * L, C))
+    return [torch.zeros(s_) for s_ in shapes] + [torch.full((B,), T)]
 
 
 def _bad_inputs():
@@ -112,6 +141,13 @@ def _bad_inputs():
         "nearest float bank with scales": (retrieval._check, feats, bank.to(f32), sc),
         "nearest scales shape": (retrieval._check, feats, bank, torch.ones(8)),
         "nearest float64 queries": (retrieval._check, feats.double(), bank, sc),
+        "chain mixed kernel sizes": (resblock._check_chain, x,
+                                     [(w, b, 3, 1), (torch.zeros(32, 32, 5), b, 5, 1)]),
+        "chain dilated second conv": (resblock._check_chain, x, [(w, b, 3, 1), (w, b, 3, 3)]),
+        "wn C 200": (wavenet._check, torch.zeros(1, 10, 200), *_wn(1, 10, 200, 3), 5),
+        "wn even kernel": (wavenet._check, torch.zeros(1, 10, 32), *_wn(1, 10, 32, 3, k=4), 4),
+        "wn g_ab shape": (wavenet._check, torch.zeros(2, 10, 32), *_wn(1, 10, 32, 3), 5),
+        "wn float64 x": (wavenet._check, torch.zeros(1, 10, 32).double(), *_wn(1, 10, 32, 3), 5),
     }
 
 
@@ -129,6 +165,9 @@ def test_kernel_wrappers_accept_main_path_inputs():
     attention._check(q, q, q, torch.zeros(21, 96), torch.zeros(21, 96), torch.tensor([10, 7]), 10)
     retrieval._check(torch.zeros(4, 768), torch.zeros(8, 768, dtype=torch.int8),
                      torch.ones(8, 1))
+    resblock._check_chain(torch.zeros(4, 10, 32), [(torch.zeros(32, 32, 11), torch.zeros(32),
+                                                    11, d_) for d in (1, 3, 5) for d_ in (d, 1)])
+    wavenet._check(torch.zeros(4, 10, 192), *_wn(4, 10, 192, 16), 5)
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):
