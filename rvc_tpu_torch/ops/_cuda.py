@@ -25,7 +25,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 SOURCES = ("resblock_group.cu", "banded_attention.cu", "nearest_rows.cu", "resblock_bwd.cu",
            "wavenet.cu")
-HEADERS = ("rowconv.cuh",)
+HEADERS = ("rowconv.cuh", "mma.cuh")  # in the build hash with the sources
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -39,6 +39,8 @@ _IP = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "rvc_resblock_unit": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _P],
+    "rvc_resblock_unit_simt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _P],
     "rvc_banded_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _F, _P],
     "rvc_nearest_rows": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -5,19 +5,23 @@ averaged (inference). Counterpart of
 ``rvc_tpu/ops/pallas_resblock.py::fused_resblock_group`` with S = 1. On a
 CUDA tensor the work runs in ``csrc/resblock_group.cu``: one launch per
 residual unit (leaky_relu -> dilated conv -> leaky_relu -> conv ->
-+ residual), the last unit of each chain adding into the stage output.
++ residual), the last unit of each chain adding into the stage output. Its
+convs run on the tensor cores in 3xTF32 (``csrc/mma.cuh``), which keeps
+float32-level error; each call splits and packs the weights for it
+(``pack_tf32_weights``).
 
 Kernels 4 and 5, ``fused_resblock1_train``: one chain, differentiable
 (training). Counterpart of ``pallas_resblock.py::fused_resblock1_train``:
-its forward is kernel 4 (``fused_resblock1``, the same unit kernel, each
-unit's output kept for the backward) and its backward kernel 5
+its forward is kernel 4 (``fused_resblock1``: the float32 SIMT unit
+kernel, each unit's output kept for the backward) and its backward kernel 5
 (``fused_resblock1_backward``, ``csrc/resblock_bwd.cu``: dx, and dW and db
-of every conv, reduced on the card in a fixed order).
+of every conv, reduced on the card in a fixed order). Kernel 5 recomputes
+each unit in the same SIMT float32 arithmetic, so kernel 4 stays on it.
 
 On a CPU tensor each wrapper runs its plain version below instead, the same
 function written with ``F.conv1d`` (and autograd). A wrapper called on a
-CUDA tensor launches its kernel or raises. The two forward-only wrappers
-raise when gradients are wanted: their launches have no autograd node.
+CUDA tensor launches its kernel or raises. The forward-only wrappers raise
+when gradients are wanted: their launches have no autograd node.
 """
 from __future__ import annotations
 
@@ -85,6 +89,74 @@ def _check(x: torch.Tensor, chains) -> None:
                                  "with a (C,) bias, on the input's device")
 
 
+TC_CHANNELS = (16, 32, 64, 128, 256)  # the widths kernel 1 is built for
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 stored mantissa bits), ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds (and ``mma.cuh``'s
+    ``tf32_round``): half the weight of the low 13 bits added to the
+    magnitude bits, then cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def pack_tf32_weights(w: torch.Tensor) -> torch.Tensor:
+    """A conv's (O, I, k) float32 weights (O = I = C, C a multiple of 8) as
+    kernel 1 reads them: for each k8 step (tap j, inputs 8s..8s+7), each n8
+    tile of outputs and each lane 4g + t of a warp, the float4 (w_big[o, i],
+    w_big[o, i + 1], r[o, i], r[o, i + 1]) with o = 8n + g, i = 8s + 2t,
+    w_big = tf32_round(w) and r = w - w_big (exact; the kernel rounds it to
+    TF32). Flat, (k C/8 C/8 32 4,)."""
+    O, I, k = w.shape
+    big = tf32_round(w)
+    parts = []
+    for v in (big, w - big):
+        v = v.permute(2, 1, 0).reshape(k, I // 8, 4, 2, O // 8, 8)  # j, s, t, pair, n, g
+        parts.append(v.permute(0, 1, 4, 5, 2, 3))                    # j, s, n, g, t, pair
+    return torch.stack(parts, dim=-2).reshape(-1).contiguous()
+
+
+def unpack_tf32_weights(packed: torch.Tensor, C: int, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of ``pack_tf32_weights``: (w_big, r), each (O, I, k)."""
+    v = packed.reshape(k, C // 8, C // 8, 8, 4, 2, 2)  # j, s, n, g, t, part, pair
+    out = []
+    for part in range(2):
+        u = v[..., part, :].permute(0, 1, 4, 5, 2, 3)  # j, s, t, pair, n, g
+        out.append(u.reshape(k, C, C).permute(2, 1, 0).contiguous())
+    return out[0], out[1]
+
+
+def _run_units(x: torch.Tensor, chains, entry: str, weights, counted) -> torch.Tensor:
+    """The stage as one launch of ``entry`` per residual unit; ``weights``
+    maps a conv's (O, I, k) weight to the layout the entry reads, and each
+    launch adds one to ``counted.launches``."""
+    lib = _cuda.library()
+    B, T, C = x.shape
+    out = torch.empty_like(x)
+    bufs = (torch.empty_like(x), torch.empty_like(x))
+    stream = _cuda.stream_ptr(x)
+    launch = getattr(lib, entry)
+    n = len(chains)
+    for ci, chain in enumerate(chains):
+        h = x
+        units = list(zip(chain[0::2], chain[1::2]))
+        for ui, ((wa, ba, ka, da), (wb, bb, kb, db)) in enumerate(units):
+            last = ui == len(units) - 1
+            dst = out if last else bufs[ui % 2]
+            mode = 1 if (last and ci > 0) else 0
+            n_div = n if (last and ci == n - 1) else 1
+            pa, pb = weights(wa), weights(wb)
+            ba, bb = ba.contiguous(), bb.contiguous()
+            err = launch(h.data_ptr(), dst.data_ptr(), pa.data_ptr(), ba.data_ptr(),
+                         pb.data_ptr(), bb.data_ptr(), B, T, C, ka, da, kb, db, mode,
+                         n_div, stream)
+            _cuda.check(err, f"{entry} launch")
+            counted.launches += 1
+            h = dst
+    return out
+
+
 def fused_resblock_group(x: torch.Tensor, chains: Sequence[Sequence[Conv]]) -> torch.Tensor:
     """x (B, T, C) float32; chains: per ResBlock1, its convs in order as
     (weight (O, I, k), bias, k, dilation). Returns (Σ_c chain_c(x)) / n.
@@ -95,30 +167,10 @@ def fused_resblock_group(x: torch.Tensor, chains: Sequence[Sequence[Conv]]) -> t
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check(x, chains)
-    lib = _cuda.library()
-    B, T, C = x.shape
-    out = torch.empty_like(x)
-    bufs = (torch.empty_like(x), torch.empty_like(x))
-    stream = _cuda.stream_ptr(x)
-    taps = [[(w.permute(2, 1, 0).contiguous(), b.contiguous(), k, d)
-             for w, b, k, d in chain] for chain in chains]
-    n = len(taps)
-    for ci, chain in enumerate(taps):
-        h = x
-        units = list(zip(chain[0::2], chain[1::2]))
-        for ui, ((wa, ba, ka, da), (wb, bb, kb, db)) in enumerate(units):
-            last = ui == len(units) - 1
-            dst = out if last else bufs[ui % 2]
-            mode = 1 if (last and ci > 0) else 0
-            n_div = n if (last and ci == n - 1) else 1
-            err = lib.rvc_resblock_unit(
-                h.data_ptr(), dst.data_ptr(), wa.data_ptr(), ba.data_ptr(),
-                wb.data_ptr(), bb.data_ptr(), B, T, C, ka, da, kb, db, mode,
-                n_div, stream)
-            _cuda.check(err, "resblock_unit launch")
-            fused_resblock_group.launches += 1
-            h = dst
-    return out
+    if x.shape[2] not in TC_CHANNELS or x.data_ptr() % 16:
+        raise ValueError(f"resblock kernel takes C in {TC_CHANNELS} and 16-byte aligned "
+                         f"rows, got C={x.shape[2]}")
+    return _run_units(x, chains, "rvc_resblock_unit", pack_tf32_weights, fused_resblock_group)
 
 
 fused_resblock_group.launches = 0
@@ -221,6 +273,153 @@ def fused_resblock1_backward(x: torch.Tensor, hs: torch.Tensor, gy: torch.Tensor
 
 
 fused_resblock1_backward.launches = 0
+
+
+def _preactivations(x: torch.Tensor, convs: Sequence[Conv]) -> list[torch.Tensor]:
+    """The inputs of the chain's leaky ReLUs in forward order, each (B, C, T):
+    site 2u is unit u's input h, site 2u + 1 its first conv's output t
+    (site c is the input of conv c)."""
+    h = x.transpose(1, 2)
+    sites = []
+    for (wa, ba, ka, da), (wb, bb, kb, db) in zip(convs[0::2], convs[1::2]):
+        t = F.conv1d(F.leaky_relu(h, 0.1), wa, ba, padding=(ka * da - da) // 2, dilation=da)
+        sites += [h, t]
+        h = h + F.conv1d(F.leaky_relu(t, 0.1), wb, bb, padding=(kb * db - db) // 2,
+                         dilation=db)
+    return sites
+
+
+def _fixed_slope_vjp(acts, slopes, convs: Sequence[Conv], inject):
+    """The chain's VJP with its leaky ReLUs' slopes fixed, for a cotangent
+    injected at the sites only (none at the output): acts[c] (N, C, L) is
+    conv c's input (its leaky ReLU applied), slopes[c] the slope at site c,
+    inject[c] a cotangent added at site c after its slope, or None. Returns
+    dx (N, C, L) and, per batch entry, dW (N, 2n, O, I, k) and db (N, 2n, C)."""
+    dw, db = [None] * len(convs), [None] * len(convs)
+
+    def through(g, c):  # conv c's weight and bias gradients, and its input's
+        w, _, k, d = convs[c]
+        pad = (k - 1) * d // 2
+        a = F.pad(acts[c], (pad, pad))
+        L = g.shape[-1]
+        dw[c] = torch.stack([torch.einsum("nol,nil->noi", g, a[..., j * d:j * d + L])
+                             for j in range(k)], dim=-1)
+        db[c] = g.sum(-1)
+        return F.conv_transpose1d(g, w, padding=pad, dilation=d)
+
+    def site(g, c):
+        return g if inject[c] is None else g + inject[c]
+
+    gh = torch.zeros_like(acts[0])
+    for u in reversed(range(len(convs) // 2)):
+        gt = site(slopes[2 * u + 1] * through(gh, 2 * u + 1), 2 * u + 1)
+        gh = site(gh + slopes[2 * u] * through(gt, 2 * u), 2 * u)
+    return gh, torch.stack(dw, 1), torch.stack(db, 1)
+
+
+MAX_NEAR_ZERO = 4096  # pre-activations near 0 that check_chain_grads will fit
+
+
+def check_chain_grads(x: torch.Tensor, convs: Sequence[Conv], got, ref,
+                      tol: float = 1e-4) -> tuple[str | None, dict]:
+    """Kernel 5's gradients ``got`` = (dx (B, T, C), dW (2n, O, I, k), db
+    (2n, C)) against ``ref`` (autograd of the plain chain), every element.
+
+    A leaky ReLU's slope (1 or 0.1) follows its input's sign, so where a
+    pre-activation lies within float32 rounding of 0 the two versions may
+    take different slopes, and their gradients then differ by that site's
+    change of cotangent carried back through the chain. Such sites are found
+    in a float64 run of the plain chain: |v64| <= 8 x (the largest
+    |v32 - v64| at that site). The gradients are linear in the cotangent at
+    each of them, and everywhere else both versions take the float64 slope;
+    so got - ref = A u up to rounding, where column e of A is the gradients
+    (dx, dW, db, in float64) that a unit cotangent at site e gives, with
+    every such site's slope set to 0, and u_e is the difference of the two
+    versions' cotangents there. u is fitted by least squares (each tensor
+    scaled by its largest magnitude in ``ref``), and what is left must be
+    within ``tol`` of that magnitude in every element of dx, and of dW and
+    db of every conv. A column is computed in a window of 4 x reach + 1 rows
+    around its site (reach: the sum of the convs' halos), wide enough that
+    its gradients are exact. Returns (None or a message, counts)."""
+    T = x.shape[1]
+    c32 = [(w.detach(), b.detach(), k, d) for w, b, k, d in convs]
+    c64 = [(w.double(), b.double(), k, d) for w, b, k, d in c32]
+    with torch.no_grad():
+        s32 = _preactivations(x.detach(), c32)
+        s64 = _preactivations(x.detach().double(), c64)
+        near = [v.abs() <= 8.0 * (a.double() - v).abs().max() for a, v in zip(s32, s64)]
+        at = torch.cat([torch.cat([torch.full_like(i[:, :1], s), i], 1)
+                        for s, m in enumerate(near) for i in [m.nonzero()]])
+        n_e = at.shape[0]
+        # dx, dW, db, each scaled by its (each conv's) largest magnitude in ref
+        scales = [ref[0].abs().max().reshape(1, 1, 1),
+                  ref[1].flatten(1).abs().amax(1).reshape(-1, 1, 1, 1),
+                  ref[2].abs().amax(1).reshape(-1, 1)]
+        scales = [v.double().clamp(min=1e-30) for v in scales]
+        r = [(g - f).double() / v for g, f, v in zip(got, ref, scales)]
+        counts = {"near_zero": n_e, "explained": int(sum((v.abs() > tol).sum() for v in r))}
+        if n_e > MAX_NEAR_ZERO:
+            return f"{n_e} pre-activations near 0, more than {MAX_NEAR_ZERO} to fit", counts
+        if n_e:
+            A = _site_columns(s64, near, c64, at, T)
+            for a, v in zip(A, scales):
+                a.div_(v)
+            b_of = at[:, 1]
+            flat = [a.flatten(1) for a in A]
+            G = (flat[0] @ flat[0].T) * (b_of[:, None] == b_of[None])
+            rhs = (flat[0] * r[0][b_of].flatten(1)).sum(1)
+            for a, v in zip(flat[1:], r[1:]):
+                G += a @ a.T
+                rhs += a @ v.flatten()
+            u = torch.linalg.lstsq(G.cpu(), rhs.cpu()[:, None], driver="gelsd").solution
+            u = u[:, 0].to(G.device)
+            r[0] = r[0].index_add(0, b_of, -u[:, None, None] * A[0])
+            r[1:] = [v - torch.tensordot(u, a, 1) for v, a in zip(r[1:], A[1:])]
+        counts["worst"] = max(v.abs().max().item() for v in r)
+    faults = []
+    bad = r[0].abs() > tol
+    if bad.any():
+        b, t = divmod(int(r[0].abs().amax(-1).argmax()), T)
+        faults.append(f"dx in {int(bad.sum())} elements (the worst at sample {b}, row {t})")
+    for name, v in (("dW", r[1]), ("db", r[2])):
+        for c, n_bad in enumerate((v.abs() > tol).flatten(1).sum(1).tolist()):
+            if n_bad:
+                faults.append(f"{name} of conv {c} in {n_bad} elements")
+    if faults:
+        return (f"beyond {tol} of the largest magnitude after fitting the slopes of {n_e} "
+                f"pre-activations near 0: " + "; ".join(faults)), counts
+    return None, counts
+
+
+def _site_columns(s64, near, c64, at, T: int):
+    """For each site e = (site, sample, channel, row) in ``at``: the float64
+    gradients (dx (T, C) of its sample, dW (2n, O, I, k), db (2n, C)) that a
+    unit cotangent at e gives, every slope near 0 set to 0."""
+    reach = sum((k - 1) * d // 2 for _, _, k, d in c64)
+    L = 4 * reach + 1
+    n_e = at.shape[0]
+    e_i, b_i, ch_i, t_i = at.unbind(1)
+
+    def window(v):  # (B, C, T) -> (n_e, C, L): rows t - 2 reach .. t + 2 reach, zeros outside
+        return F.pad(v, (2 * reach, 2 * reach)).unfold(-1, L, 1)[b_i, :, t_i]
+    acts = [window(F.leaky_relu(v, 0.1)) for v in s64]
+    slopes = [window(v.new_full(v.shape, 0.1).masked_fill_(v > 0, 1.0).masked_fill_(m, 0.0))
+              for v, m in zip(s64, near)]
+    inject = []
+    for s in range(len(s64)):
+        mine = e_i == s
+        if not mine.any():
+            inject.append(None)
+            continue
+        g = torch.zeros_like(acts[0])
+        g[mine.nonzero()[:, 0], ch_i[mine], 2 * reach] = 1.0
+        inject.append(g)
+    dx_w, dw, db = _fixed_slope_vjp(acts, slopes, c64, inject)
+    C = dx_w.shape[1]
+    dx = dx_w.new_zeros((n_e, T + 4 * reach, C))
+    rows = t_i[:, None] + torch.arange(L, device=t_i.device)
+    dx[torch.arange(n_e, device=t_i.device)[:, None], rows] = dx_w.transpose(1, 2)
+    return dx[:, 2 * reach:2 * reach + T], dw, db
 
 
 class _Resblock1Train(torch.autograd.Function):

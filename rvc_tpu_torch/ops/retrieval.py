@@ -6,6 +6,9 @@ Counterpart of ``rvc_tpu/ops/pallas_retrieval.py``: ``quantize_bank``,
 search runs ``csrc/nearest_rows.cu`` (one kernel, templated on the bank's
 type); on a CPU tensor the plain version below, which is also the JAX
 package's CPU path (``retrieval/index.py::_topk_blend`` at k = 1).
+The kernel computes its dot products on the tensor cores from bf16 pieces
+of the float32 operands (``csrc/mma.cuh``): every product exact, so it
+differs from a float32 GEMM only in the order of the sums.
 """
 from __future__ import annotations
 
@@ -50,9 +53,9 @@ def _check(feats: torch.Tensor, bank: torch.Tensor, scales: torch.Tensor | None)
     if int8 and (scales.shape != (N, 1) or scales.dtype != torch.float32
                  or not scales.is_contiguous() or scales.device != feats.device):
         raise ValueError("scales must be a contiguous float32 (N, 1) tensor")
-    if D % 32 or D > 1024 or bank.data_ptr() % 16 or feats.data_ptr() % 16:
-        raise ValueError(f"nearest-row kernel takes D a multiple of 32 up to 1024 "
-                         f"and 16-byte aligned rows, got D={D}")
+    if D % 32 or bank.data_ptr() % 16 or feats.data_ptr() % 16:
+        raise ValueError(f"nearest-row kernel takes D a multiple of 32 and 16-byte "
+                         f"aligned rows, got D={D}")
 
 
 def _nearest(feats: torch.Tensor, bank: torch.Tensor, scales: torch.Tensor | None
@@ -72,7 +75,7 @@ def _nearest(feats: torch.Tensor, bank: torch.Tensor, scales: torch.Tensor | Non
     keys = torch.empty(NQ, device=feats.device, dtype=torch.int64)
     # split the bank over enough blocks to fill the card a few times over
     sms = torch.cuda.get_device_properties(feats.device).multi_processor_count
-    q_tiles = -(-NQ // 32)
+    q_tiles = -(-NQ // 128)  # the kernel's tiles: 128 queries x 128 bank rows
     n_tiles = -(-N // 128)
     n_split = max(1, min(n_tiles, -(-4 * sms // q_tiles)))
     err = lib.rvc_nearest_rows(

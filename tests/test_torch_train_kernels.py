@@ -126,3 +126,64 @@ def test_backward_wrappers_run_their_plain_versions_on_the_cpu(rng):
     ref = torch.autograd.grad(wavenet.fused_wn(*leaves, lens, kernel_size=5), leaves, gy)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _chain_near_zero(rng, C, T, B, n_sites):
+    """A chain, x, a cotangent, and the (sample, row) of one element in each
+    of the first n_sites channels where conv 0's output is moved within
+    float32 rounding of 0 (its bias set to minus the rest of the sum), so
+    that the float32 and float64 chains take different slopes at some."""
+    convs = [(torch.from_numpy(w), torch.from_numpy(b), k, d)
+             for w, b, k, d in _chain(rng, C, 3, (1, 3, 5))]
+    x = torch.from_numpy(rng.standard_normal((B, T, C)).astype(np.float32))
+    gy = torch.from_numpy(rng.standard_normal((B, T, C)).astype(np.float32))
+    w, b, k, d = convs[0]
+    t64 = torch.nn.functional.conv1d(torch.nn.functional.leaky_relu(x.double().transpose(1, 2),
+                                                                    0.1),
+                                     w.double(), None, padding=(k - 1) * d // 2, dilation=d)
+    b = b.clone()
+    sites = [(int(rng.integers(B)), int(rng.integers(T))) for _ in range(n_sites)]
+    for c, (i, t) in enumerate(sites):
+        b[c] = -t64[i, c, t].item()
+    convs[0] = (w, b, k, d)
+    return convs, x, gy, sites
+
+
+@pytest.mark.parametrize("where", ["none", "dx_row", "dw", "dx_row_near", "dw_conv0_tap", "db",
+                                   "dx_row_c256"])
+def test_chain_grad_check(rng, where):
+    """Kernel 5's check (resblock.check_chain_grads), on the plain
+    gradients. The float64 gradients cast to float32 pass against them:
+    they take other slopes at some pre-activations within rounding of 0
+    (so they differ beyond 1e-4 of the largest magnitude), which the check
+    fits. Any one wrong row of dx (also at C = 256, and a row at such a
+    pre-activation), one wrong element of the last conv's dW or of conv 0's
+    db, or one zeroed tap of conv 0's dW fails."""
+    C, T, B = (256, 64, 1) if where == "dx_row_c256" else (16, 400, 2)
+    convs, x, gy, sites = _chain_near_zero(rng, C, T, B, n_sites=8)
+    ref = resblock.fused_resblock1_backward_plain(x, None, gy, convs)
+    g64 = resblock.fused_resblock1_backward_plain(
+        x.double(), None, gy.double(), [(w.double(), b.double(), k, d) for w, b, k, d in convs])
+    msg, counts = resblock.check_chain_grads(x, convs, [g.float() for g in g64], ref)
+    assert msg is None and counts["explained"] > 0, (msg, counts)
+    got = [g.clone() for g in ref]
+    if where.startswith("dx_row"):
+        sample, row = sites[0] if where == "dx_row_near" else (B - 1, T // 2)
+        got[0][sample, row] *= -1.0
+    elif where == "dw":
+        got[1][-1, 3, 5, 1] += 1e-2 * got[1][-1].abs().max()
+    elif where == "dw_conv0_tap":
+        got[1][0, :, :, 0] = 0.0
+    elif where == "db":
+        got[2][0, 3] += 1e-3 * got[2][0].abs().max()
+    msg, counts = resblock.check_chain_grads(x, convs, got, ref)
+    if where == "none":
+        assert msg is None
+    elif where.startswith("dx_row"):
+        assert msg is not None and f"row {row})" in msg, msg
+    elif where == "dw":
+        assert msg is not None and "dW of conv 5" in msg, msg
+    elif where == "dw_conv0_tap":
+        assert msg is not None and "dW of conv 0" in msg, msg
+    else:
+        assert msg is not None and "db of conv 0" in msg, msg
