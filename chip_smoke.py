@@ -27,7 +27,10 @@ Phases, each announced on its own line:
      versions, same weights and draws) agree within a stated tolerance;
   6. the training kernels (4-7) against their plain versions at the shapes
      of the training run of phase 7, values and every gradient, with their
-     times and bounds;
+     times and bounds; for kernels 5 and 7 also previous_ms, per decoder
+     stage or WN depth and in all, the float32 SIMT backward that their
+     tensor-core versions replaced (resblock1_backward_simt,
+     wn_backward_simt), timed in turns with them in the same run;
   7. the training path: an RVCDataset of 8 clips cut from the speech fixture
      (48 kHz, seeded random features and f0), Trainer(preset("48k_v2")) at
      full width with random weights, one warm-up step and 5 timed steps from
@@ -290,6 +293,60 @@ def scaled(got, ref) -> tuple[float, float]:
     return (got - ref).abs().max().item(), max(ref.abs().max().item(), 1e-6)
 
 
+def resblock1_backward_simt(x, hs, gy, convs):
+    """Kernel 5 as PR 5 wrote it, on the float32 SIMT pipes
+    (``rvc_resblock1_bwd_simt``): on no path of the port, timed here beside
+    kernel 5 as its same-run yardstick. Returns what
+    ``fused_resblock1_backward`` returns."""
+    import torch
+
+    from rvc_tpu_torch.ops import _cuda
+    from rvc_tpu_torch.ops import resblock as rb
+
+    B, T, C = x.shape
+    k = convs[0][2]
+    taps, taps_t, bias, dil = rb._packed(convs)
+    lib = _cuda.library()
+    work = x.new_empty(lib.rvc_resblock1_bwd_simt_workspace(B, T, C, k))
+    dx, dw, db = torch.empty_like(x), x.new_empty(taps.shape), x.new_empty(bias.shape)
+    err = lib.rvc_resblock1_bwd_simt(
+        x.data_ptr(), hs.data_ptr(), gy.contiguous().data_ptr(), taps.data_ptr(),
+        taps_t.data_ptr(), bias.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+        work.data_ptr(), work.numel(), B, T, C, k, len(dil), dil, _cuda.stream_ptr(x))
+    _cuda.check(err, "resblock1_bwd_simt launch")
+    return dx, dw.permute(0, 3, 2, 1), db
+
+
+def wn_backward_simt(x, xs, pre, gy, w_a, w_b, b_ab, g_ab, w_res, w_skip, b_rs2, lengths, *,
+                     kernel_size: int):
+    """Kernel 7 as PR 5 wrote it, on the float32 SIMT pipes
+    (``rvc_wn_bwd_simt``): on no path of the port, timed here beside kernel 7
+    as its same-run yardstick. Returns what ``fused_wn_backward`` returns."""
+    import torch
+
+    from rvc_tpu_torch.ops import _cuda
+
+    B, T, C = x.shape
+    L, k = w_res.shape[0], kernel_size
+    # wabT[i][j][c][o] = W{a,b}[i][k-1-j][o][c]; wrsT[i] = [Wres_i^T; Wskip_i^T]
+    wab_t = torch.cat([w.reshape(L, k, C, C).flip(1).transpose(2, 3) for w in (w_a, w_b)],
+                      dim=2).contiguous()
+    wrs_t = torch.cat([w_res.transpose(1, 2), w_skip.transpose(1, 2)], dim=1).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    lib = _cuda.library()
+    work = x.new_empty(lib.rvc_wn_bwd_simt_workspace(B, T, C, k))
+    dx = torch.empty_like(x)
+    grads = [x.new_empty(sh) for sh in ((L * k, C, C), (L * k, C, C), (2 * L, C),
+                                       (B, 2 * L, C), (L, C, C), (L, C, C), (2 * L, C))]
+    err = lib.rvc_wn_bwd_simt(
+        x.data_ptr(), xs.data_ptr(), pre[0].data_ptr(), pre[1].data_ptr(),
+        gy.contiguous().data_ptr(), wab_t.data_ptr(), wrs_t.data_ptr(), lens.data_ptr(),
+        dx.data_ptr(), *[g.data_ptr() for g in grads], work.data_ptr(), work.numel(), B, T, C,
+        k, L, _cuda.stream_ptr(x))
+    _cuda.check(err, "wn_bwd_simt launch")
+    return (dx, *grads)
+
+
 VALUE_TOL = 2e-5  # of the largest magnitude: float32 sums in another order
 GRAD_TOL = 1e-4   # of the largest magnitude: also reductions over every row
 # Through a leaky ReLU a gradient jumps (slope 1 or 0.1) where the
@@ -317,10 +374,11 @@ def check_resblock_train(trainer, gen) -> tuple[dict, dict]:
     nk = dec.num_kernels
     B, T = TRAIN_BATCH, trainer.seg_frames
     tot = {key: dict(ms=0.0, plain_ms=0.0, flops=0.0, bytes=0.0, err=0.0, bound_ms=0.0,
-                     bound_f32_ms=0.0) for key in ("fwd", "bwd")}
+                     bound_f32_ms=0.0, previous_ms=0.0) for key in ("fwd", "bwd")}
     kinks = dict(near_zero=0, explained=0, worst=0.0)
     for i, rate in enumerate(dec.upsample_rates):
         T *= rate
+        stage = dict(ms=0.0, previous_ms=0.0)
         for blk in dec.resblocks[i * nk:(i + 1) * nk]:
             with torch.no_grad():
                 convs = [(w.detach().clone(), b.detach().clone(), k, d)
@@ -353,7 +411,15 @@ def check_resblock_train(trainer, gen) -> tuple[dict, dict]:
                                                            for a, r in zip(got, g_ref)])
             ms4 = timed(lambda: rb.fused_resblock1(x, convs), reps=5)
             plain4 = timed(lambda: rb.fused_resblock1_plain(x, convs), reps=5)
-            ms5 = timed(lambda: rb.fused_resblock1_backward(x, hs, gy, convs), reps=5)
+            # kernel 5 and the SIMT backward it replaced, in turns
+            run5 = lambda: rb.fused_resblock1_backward(x, hs, gy, convs)  # noqa: E731
+            run_prev = lambda: resblock1_backward_simt(x, hs, gy, convs)  # noqa: E731
+            prev5 = timed(run_prev, reps=5)
+            ms5 = min(timed(run5, reps=5), timed(run5, reps=5))
+            prev5 = min(prev5, timed(run_prev, reps=5))
+            stage["ms"] += ms5
+            stage["previous_ms"] += prev5
+            tot["bwd"]["previous_ms"] += prev5
             plain5 = timed(lambda: rb.fused_resblock1_backward_plain(x, hs, gy, convs), reps=5)
             act, wts = B * T * C * 4, sum(p.numel() for p in params) * 4
             conv = 2 * k * C * C * B * T  # flops of one conv
@@ -369,19 +435,30 @@ def check_resblock_train(trainer, gen) -> tuple[dict, dict]:
                 t["bound_ms"] += bound_tc(flops, nbytes)[0]
                 t["bound_f32_ms"] += bound(flops, nbytes)[0]
             say(f"  chain x ({B}, {T}, {C}), k {k}: kernel 4 ms {ms4:.3f} (plain {plain4:.3f}, "
-                f"err {err:.3g}), kernel 5 ms {ms5:.3f} (plain {plain5:.3f}; pre-activations "
+                f"err {err:.3g}), kernel 5 ms {ms5:.3f} (previous_ms {prev5:.3f}, plain "
+                f"{plain5:.3f}; pre-activations "
                 f"near 0 {counts['near_zero']}, elements beyond {GRAD_TOL} {counts['explained']}, "
                 f"left after the fit {counts['worst']:.3g}), "
                 f"bounds {bound_tc(*cost['fwd'])[0]:.3f} / {bound_tc(*cost['bwd'])[0]:.3f} ms "
                 f"(float32 {bound(*cost['fwd'])[0]:.3f} / {bound(*cost['bwd'])[0]:.3f})")
+        say(f"  kernel 5, stage {i + 1} ({len(dec.resblocks[i * nk:(i + 1) * nk])} chains): "
+            f"kernel_ms {stage['ms']:.3f}, previous_ms {stage['previous_ms']:.3f} (kernel below "
+            f"it: {stage['ms'] < stage['previous_ms']})")
     say(f"  kernel 5 over all chains: {kinks['explained']} elements of dx, dW and db beyond "
         f"{GRAD_TOL} of their largest magnitude, explained by fitting the cotangents at "
         f"{kinks['near_zero']} pre-activations near 0; the worst element left after the fit "
         f"{kinks['worst']:.3g} of its largest magnitude")
+    return _train_results(tot)
+
+
+def _train_results(tot) -> tuple[dict, dict]:
+    """The forward's and the backward's entries of the kernels line; the
+    backward's with previous_ms, its SIMT yardstick's time."""
     return tuple(dict(max_abs_err=t["err"], ms=t["ms"], plain_ms=t["plain_ms"],
                       bound_ms=t["bound_ms"], bound_by=bound_tc(t["flops"], t["bytes"])[1],
-                      bound_f32_ms=t["bound_f32_ms"], library_ms=None)
-                 for t in (tot["fwd"], tot["bwd"]))
+                      bound_f32_ms=t["bound_f32_ms"], library_ms=None,
+                      **({"previous_ms": t["previous_ms"]} if key == "bwd" else {}))
+                 for key, t in tot.items())
 
 
 def check_wn_train(trainer, lengths, T: int, gen) -> tuple[dict, dict]:
@@ -400,7 +477,7 @@ def check_wn_train(trainer, lengths, T: int, gen) -> tuple[dict, dict]:
     B = len(lengths)
     mask = (torch.arange(T, device=dev)[None, :] < lens[:, None]).float()[:, None]
     tot = {key: dict(ms=0.0, plain_ms=0.0, flops=0.0, bytes=0.0, err=0.0, bound_ms=0.0,
-                     bound_f32_ms=0.0) for key in ("fwd", "bwd")}
+                     bound_f32_ms=0.0, previous_ms=0.0) for key in ("fwd", "bwd")}
     timed_for = {}
     for stack in stacks:
         C, L, k = stack.hidden_channels, stack.n_layers, stack.kernel_size
@@ -429,16 +506,24 @@ def check_wn_train(trainer, lengths, T: int, gen) -> tuple[dict, dict]:
         if L not in timed_for:  # stacks of one depth share shapes: time one of each
             ms6 = timed(lambda: wn._forward(x, *ws, lengths_t, k), reps=5)
             plain6 = timed(lambda: wn.fused_wn_plain(x, *ws, lengths_t, kernel_size=k), reps=5)
-            ms7 = timed(lambda: wn.fused_wn_backward(x, xs, pre, gy, *ws, lengths_t,
-                                                     kernel_size=k), reps=5)
+            # kernel 7 and the SIMT backward it replaced, in turns
+            run7 = lambda: wn.fused_wn_backward(x, xs, pre, gy, *ws, lengths_t,  # noqa: E731
+                                                kernel_size=k)
+            run_prev = lambda: wn_backward_simt(x, xs, pre, gy, *ws, lengths_t,  # noqa: E731
+                                                kernel_size=k)
+            prev7 = timed(run_prev, reps=5)
+            ms7 = min(timed(run7, reps=5), timed(run7, reps=5))
+            prev7 = min(prev7, timed(run_prev, reps=5))
             plain7 = timed(lambda: wn.fused_wn_backward_plain(x, xs, pre, gy, *ws, lengths_t,
                                                               kernel_size=k), reps=5)
-            timed_for[L] = (ms6, plain6, ms7, plain7)
+            timed_for[L] = (ms6, plain6, ms7, plain7, prev7)
             say(f"  WN stack x ({B}, {T}, {C}), L {L}, lengths {lens.tolist()}: kernel 6 ms "
                 f"{ms6:.3f} (plain {plain6:.3f}, err {err:.3g}), kernel 7 ms {ms7:.3f} "
-                f"(plain {plain7:.3f}, worst grad err {max(e / s_ for e, s_ in gerrs):.3g} "
+                f"(previous_ms {prev7:.3f}, kernel below it: {ms7 < prev7}; plain "
+                f"{plain7:.3f}, worst grad err {max(e / s_ for e, s_ in gerrs):.3g} "
                 f"of its largest magnitude)")
-        ms6, plain6, ms7, plain7 = timed_for[L]
+        ms6, plain6, ms7, plain7, prev7 = timed_for[L]
+        tot["bwd"]["previous_ms"] += prev7
         act, wts = B * T * C * 4, sum(w.numel() for w in ws) * 4
         rows = B * T
         cost = {"fwd": (L * rows * (4 * k * C * C + 4 * C * C), (3 * L + 1) * act + wts),
@@ -452,10 +537,7 @@ def check_wn_train(trainer, lengths, T: int, gen) -> tuple[dict, dict]:
             t["bytes"] += nbytes
             t["bound_ms"] += bound_tc(flops, nbytes)[0]
             t["bound_f32_ms"] += bound(flops, nbytes)[0]
-    return tuple(dict(max_abs_err=t["err"], ms=t["ms"], plain_ms=t["plain_ms"],
-                      bound_ms=t["bound_ms"], bound_by=bound_tc(t["flops"], t["bytes"])[1],
-                      bound_f32_ms=t["bound_f32_ms"], library_ms=None)
-                 for t in (tot["fwd"], tot["bwd"]))
+    return _train_results(tot)
 
 
 def make_dataset(root: str, data) -> str:
@@ -759,8 +841,10 @@ def main() -> int:
         say(f"  {kname} per training step: max_abs_err {c['max_abs_err']:.3g} ({held}), "
             f"kernel_ms {c['ms']:.3f}, plain_ms {c['plain_ms']:.3f}, bound_ms "
             f"{c['bound_ms']:.3f} ({c['bound_by']}), bound_f32_ms {c['bound_f32_ms']:.3f}, "
-            f"library_ms none, launches per step "
-            f"{per_step[key.split('_')[0]]}")
+            f"library_ms none, "
+            + (f"previous_ms {c['previous_ms']:.3f} (kernel below it: "
+               f"{c['ms'] < c['previous_ms']}), " if "previous_ms" in c else "")
+            + f"launches per step {per_step[key.split('_')[0]]}")
 
     # 7. the training path
     trained = run_training(trainer, batches, card)

@@ -1,6 +1,6 @@
 // Tensor-core building blocks shared by the kernels that keep float32-level
 // agreement through split-precision products (nearest_rows.cu,
-// resblock_group.cu), for sm_90a.
+// resblock_group.cu, tc_rowconv.cuh), for sm_90a.
 //
 // Hopper's tensor cores take bf16 (989 TFLOP/s dense) or TF32 (495 TFLOP/s)
 // operands and accumulate in float32; the card's float32 pipes outside them
@@ -14,8 +14,11 @@
 //     |e| <= 2^-22 |x|. a.b ~ a_big.b_big + a_big.b_small + a_small.b_big;
 //     the dropped a_small.b_small and the two residuals are each about 2^-22
 //     of |a.b|, float32's own rounding scale (2^-24) within a factor 4.
-// Products of pieces are exact in float32 (8 x 8 or 11 x 11 bits); what
-// differs from a float32 dot product is only the order of the sums.
+// Products of pieces are exact in float32 (8 x 8 or 11 x 11 bits). Their
+// sums are not a float32 GEMM's: mma.sync adds them into its accumulator
+// with truncation (below), which the TF32 kernels (resblock_group.cu,
+// tc_rowconv.cuh) bound by adding each short span's fresh sum into float32
+// registers, and kernel 3 (nearest_rows.cu) leaves as it is.
 //
 // The mma.sync fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16
 // / m16n8k8"), lane = 4 g + t:

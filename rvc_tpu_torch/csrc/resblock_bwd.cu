@@ -1,4 +1,7 @@
-// The backward of one HiFiGAN ResBlock1 chain (kernel 5), float32, sm_90a.
+// The backward of one HiFiGAN ResBlock1 chain (kernel 5), float32-accurate,
+// sm_90a: a tensor-core version (rvc_resblock1_bwd) and the float32 SIMT
+// version it replaced (rvc_resblock1_bwd_simt, on no path of the port; kept
+// as the same-run yardstick that chip_smoke.py times beside it).
 //
 // Replaces rvc_tpu/ops/pallas_resblock.py::_fused_bwd_call (glue
 // _fused_resblock1_bwd), the VJP of fused_resblock1_train. One residual unit
@@ -10,27 +13,32 @@
 // [0, T) after each conv, which is the same thing). Given the unit's input h
 // (kept by kernel 4) and gy, the cotangent of its output, per unit and in
 // reverse order:
-//   1. bwd_dt: recompute t for a tile (conv_a over lrelu(h) with its halo in
-//      shared memory), da2 = conv_b^T(gy) (the conv with flipped taps and
-//      transposed (C, C) blocks, gy with its halo in shared memory),
+//   1. dt: recompute t = conv_a(lrelu(h)) for a tile, da2 = conv_b^T(gy)
+//      (the conv with flipped taps and transposed (C, C) blocks),
 //      dt = da2 * lrelu'(t); writes dt and a2 = lrelu(t);
-//   2. bwd_dx: dh = gy + conv_a^T(dt) * lrelu'(h); dh is the next unit's gy;
-//   3. wgrad (rowconv.cuh): dW_a[j] = sum a1[t + j d - p_a]^T dt[t],
-//      db_a = sum dt, dW_b[j] = sum a2[t + j - p_b]^T gy[t], db_b = sum gy,
-//      by per-block partial sums and a second pass in a fixed order.
-// rvc_resblock1_bwd runs the three units' kernels in stream order; the
-// Python wrapper counts it as one launch.
+//   2. dx: dh = gy + conv_a^T(dt) * lrelu'(h); dh is the next unit's gy;
+//   3. wgrad: dW_a[j] = sum a1[t + j d - p_a]^T dt[t], db_a = sum dt,
+//      dW_b[j] = sum a2[t + j - p_b]^T gy[t], db_b = sum gy, by partial sums
+//      per chunk of rows and a second pass that adds them in a fixed order.
+// rvc_resblock1_bwd runs the units' kernels in stream order (4 launches a
+// unit); the Python wrapper counts it as one launch.
 //
-// What bounds it: operations. Per unit, bwd_dt and bwd_dx are three convs
-// of the forward's size and wgrad two more, 5 * 2 k C^2 flops per row, against
-// 4 reads and 3 writes of the (B, T, C) activations. Design: the data convs
-// are rowconv tiles as in the forward (a tile's inputs and halo in shared
-// memory, sums in registers); the weight reductions are split into chunks of
-// rows per sample, the chunk length picked per stage so that the first pass
-// fills the card whether the stage is long and narrow (C = 32, 69120 rows) or
-// short and wide (C = 256, 1728 rows).
+// What bounds it: operations. Per unit, dt and dx are three convs of the
+// forward's size and wgrad two more, 5 * 2 k C^2 flops per row, against 4
+// reads and 3 writes of the (B, T, C) activations. On the float32 pipes
+// (67 TFLOP/s) the SIMT version reached about a fifth of that pipe's bound,
+// and at C = 256 (T = 432) its dt and dx launches had 56 blocks for 132 SMs.
+// The tensor-core version runs all five convolutions in 3xTF32 on mma.sync
+// (tc_rowconv.cuh): the three data convs as implicit GEMMs (blocks of up to
+// 256 rows x 32 channels; at C = 256, 64 rows, 224 blocks), the two weight
+// gradients as one split-K GEMM launch in which a block serves up to 6 taps
+// of its (i, o) tile from one staged window of rows. The
+// recomputed t therefore rounds as 3xTF32 products summed in float32, not as
+// kernel 4's SIMT forward; a pre-activation within rounding of 0 may take the
+// other leaky-ReLU slope, which ops/resblock.py::check_chain_grads allows
+// for and nothing else does.
 
-#include "rowconv.cuh"
+#include "tc_rowconv.cuh"
 
 namespace {
 
@@ -119,8 +127,8 @@ WgPlan plan_for(int B, int T, int C, int k) {
 
 }  // namespace
 
-// Workspace of rvc_resblock1_bwd, in floats.
-extern "C" long long rvc_resblock1_bwd_workspace(int B, int T, int C, int k) {
+// Workspace of rvc_resblock1_bwd_simt, in floats.
+extern "C" long long rvc_resblock1_bwd_simt_workspace(int B, int T, int C, int k) {
   const int ks[2] = {k, k};
   return (long long)(4 * act_floats(B, T, C) + wgrad_floats(B, T, C, 2, ks));
 }
@@ -130,12 +138,14 @@ extern "C" long long rvc_resblock1_bwd_workspace(int B, int T, int C, int k) {
 // convs' taps [tap][in][out] and their flipped transposes; b (2n, C).
 // Writes dx (B, T, C), dw (2n, k, C, C) [tap][in][out], db (2n, C).
 // C a multiple of 16, at most 256 (the wrapper checks).
-extern "C" int rvc_resblock1_bwd(const void* x, const void* hs, const void* gy, const void* w,
-                                 const void* wT, const void* b, void* dx, void* dw, void* db,
-                                 void* work, long long work_floats, int B, int T, int C, int k,
-                                 int n_units, const int* dil, void* stream) {
+extern "C" int rvc_resblock1_bwd_simt(const void* x, const void* hs, const void* gy,
+                                      const void* w, const void* wT, const void* b, void* dx,
+                                      void* dw, void* db, void* work, long long work_floats,
+                                      int B, int T, int C, int k, int n_units, const int* dil,
+                                      void* stream) {
   const size_t btc = act_floats(B, T, C), wsz = (size_t)k * C * C;
-  if (work_floats < rvc_resblock1_bwd_workspace(B, T, C, k)) return (int)cudaErrorInvalidValue;
+  if (work_floats < rvc_resblock1_bwd_simt_workspace(B, T, C, k))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   float* wk = (float*)work;
   float* gbuf[2] = {wk, wk + btc};
@@ -171,6 +181,175 @@ extern "C" int rvc_resblock1_bwd(const void* x, const void* hs, const void* gy, 
     P.job[1] = WgJob{a2b, g, (float*)dw + (2 * u + 1) * wsz, (float*)db + (2 * u + 1) * C,
                      nullptr, k, 1, pb, 0, 0};
     if ((err = wgrad_launch(P, part, s)) != cudaSuccess) return (int)err;
+    g = dh;
+  }
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// kernel 5 on the tensor cores
+
+namespace {
+
+// rows [t0, t0 + M) of sample blockIdx.y, the channels of blockIdx.z: dt and a2
+template <int NT>
+__global__ void __launch_bounds__(32 * tck::MAX_WARPS, 2) rb_tc_dt_kernel(
+    const float* __restrict__ h, const float* __restrict__ gy, const float4* __restrict__ pa,
+    const float* __restrict__ ba, const float4* __restrict__ pbT, float* __restrict__ dt,
+    float* __restrict__ a2, int T, int C, int k, int da) {
+  extern __shared__ float4 smem4[];
+  float* tile = reinterpret_cast<float*>(smem4);
+  const tck::Warp W = tck::warp_of<NT>(C);
+  const int M = blockDim.x / 32 * tck::WROWS;
+  const int tile_rows = M + (k - 1) * da;
+  float4* ring = smem4 + (size_t)tile_rows * tck::pitch(C) / 4;
+  const int b = blockIdx.y, t0 = blockIdx.x * M, rows = min(M, T - t0);
+  const int pa_ = (k - 1) * da / 2, pb_ = (k - 1) / 2;
+  const float* hb = h + (size_t)b * T * C;
+  const float* gb = gy + (size_t)b * T * C;
+  float acc[tck::MT][NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int n = 8 * (W.n0 + nt) + 2 * W.t;
+    const float2 bv =
+        n < C ? __ldg(reinterpret_cast<const float2*>(ba + n)) : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int mt = 0; mt < tck::MT; ++mt) {
+      acc[mt][nt][0] = bv.x; acc[mt][nt][1] = bv.y;
+      acc[mt][nt][2] = bv.x; acc[mt][nt][3] = bv.y;
+    }
+  }
+  tck::conv<NT, true>(tile, ring, pa, C, C, k, da, acc, W,
+                      [&](float* tl, int S, int c0, int cw) {
+                        tck::stage_rows(tl, S, hb, nullptr, C, c0, cw, t0 - pa_, M + 2 * pa_, T);
+                      });
+  // t > 0 per sum, one bit each (MT * NT * 4 <= 64)
+  unsigned long long pos = 0;
+  const size_t base = (size_t)b * T * C + (size_t)t0 * C;
+  tck::for_outputs<NT>(acc, rows, C, W, [&](int mt, int hh, int nt, int r, int n, float v0,
+                                           float v1) {
+    const int bit = ((mt * NT + nt) * 2 + hh) * 2;
+    pos |= (v0 > 0.f ? 1ull : 0ull) << bit;
+    pos |= (v1 > 0.f ? 1ull : 0ull) << (bit + 1);
+    *reinterpret_cast<float2*>(a2 + base + (size_t)r * C + n) =
+        make_float2(rowk::lrelu(v0), rowk::lrelu(v1));
+  });
+  tck::zero<NT>(acc);
+  tck::conv<NT>(tile, ring, pbT, C, C, k, 1, acc, W,
+                [&](float* tl, int S, int c0, int cw) {
+                  tck::stage_rows(tl, S, gb, nullptr, C, c0, cw, t0 - pb_, M + 2 * pb_, T);
+                });
+  tck::for_outputs<NT>(acc, rows, C, W, [&](int mt, int hh, int nt, int r, int n, float v0,
+                                           float v1) {
+    const int bit = ((mt * NT + nt) * 2 + hh) * 2;
+    const float s0 = (pos >> bit) & 1ull ? 1.f : rowk::SLOPE;
+    const float s1 = (pos >> (bit + 1)) & 1ull ? 1.f : rowk::SLOPE;
+    *reinterpret_cast<float2*>(dt + base + (size_t)r * C + n) = make_float2(v0 * s0, v1 * s1);
+  });
+}
+
+// rows [t0, t0 + M) of sample blockIdx.y, the channels of blockIdx.z:
+// dh = gy + conv_a^T(dt) * lrelu'(h)
+template <int NT>
+__global__ void __launch_bounds__(32 * tck::MAX_WARPS) rb_tc_dx_kernel(
+    const float* __restrict__ h, const float* __restrict__ gy, const float* __restrict__ dt,
+    const float4* __restrict__ paT, float* __restrict__ dh, int T, int C, int k, int da) {
+  extern __shared__ float4 smem4[];
+  float* tile = reinterpret_cast<float*>(smem4);
+  const tck::Warp W = tck::warp_of<NT>(C);
+  const int M = blockDim.x / 32 * tck::WROWS;
+  const int tile_rows = M + (k - 1) * da;
+  float4* ring = smem4 + (size_t)tile_rows * tck::pitch(C) / 4;
+  const int b = blockIdx.y, t0 = blockIdx.x * M, rows = min(M, T - t0);
+  const int pa_ = (k - 1) * da / 2;
+  const float* db_ = dt + (size_t)b * T * C;
+  float acc[tck::MT][NT][4];
+  tck::zero<NT>(acc);
+  tck::conv<NT>(tile, ring, paT, C, C, k, da, acc, W,
+                [&](float* tl, int S, int c0, int cw) {
+                  tck::stage_rows(tl, S, db_, nullptr, C, c0, cw, t0 - pa_, M + 2 * pa_, T);
+                });
+  const size_t base = (size_t)b * T * C + (size_t)t0 * C;
+  tck::for_outputs<NT>(acc, rows, C, W, [&](int, int, int, int r, int n, float v0, float v1) {
+    const size_t at = base + (size_t)r * C + n;
+    const float2 hv = __ldg(reinterpret_cast<const float2*>(h + at));
+    const float2 g = __ldg(reinterpret_cast<const float2*>(gy + at));
+    *reinterpret_cast<float2*>(dh + at) =
+        make_float2(g.x + v0 * rowk::lrelu_grad(hv.x), g.y + v1 * rowk::lrelu_grad(hv.y));
+  });
+}
+
+tck::TcWgPlan tc_plan(int B, int T, int C, int k, int da) {
+  const int ks[2] = {k, k}, ds[2] = {da, 1};
+  return tck::tc_wgrad_plan(B, T, C, 2, ks, ds);
+}
+
+template <int NT>
+cudaError_t launch_unit(const tck::Geo& G, const float* h, const float* g, const float4* pa,
+                        const float* ba, const float4* pbT, const float4* paT, float* dtb,
+                        float* a2b, float* dh, int T, int C, int k, int da, cudaStream_t s) {
+  const int smem = G.smem(C, k, da);  // conv_a's halo, at least conv_b^T's
+  cudaError_t err = rowk::allow_smem((const void*)rb_tc_dt_kernel<NT>, smem);
+  if (err == cudaSuccess) err = rowk::allow_smem((const void*)rb_tc_dx_kernel<NT>, smem);
+  if (err != cudaSuccess) return err;
+  rb_tc_dt_kernel<NT><<<G.grid, G.threads, smem, s>>>(h, g, pa, ba, pbT, dtb, a2b, T, C, k,
+                                                         da);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  rb_tc_dx_kernel<NT><<<G.grid, G.threads, smem, s>>>(h, g, dtb, paT, dh, T, C, k, da);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Workspace of rvc_resblock1_bwd, in floats (the dilation only moves the
+// workspace's layout, not its size).
+extern "C" long long rvc_resblock1_bwd_workspace(int B, int T, int C, int k) {
+  return (long long)(4 * act_floats(B, T, C) + tck::tc_wgrad_floats(tc_plan(B, T, C, k, 1)));
+}
+
+// Kernel 5. x (B, T, C): the chain's input; hs (n-1, B, T, C): the inputs of
+// units 1..n-1; gy: the cotangent of the chain's output; pa (n packed convs):
+// each unit's conv_a; pT (2n packed convs): every conv's flipped transpose,
+// both as ops/resblock.py::pack_tf32_weights lays a (C, C, k) conv out
+// (k C/8 k8 steps x C/8 n8 tiles x 32 lanes of float4); b (2n, C). Writes
+// dx (B, T, C), dw (2n, k, C, C) [tap][in][out], db (2n, C). C a multiple
+// of 16, at most 256, k odd, at most 15 (the wrapper checks).
+extern "C" int rvc_resblock1_bwd(const void* x, const void* hs, const void* gy, const void* pa,
+                                 const void* pT, const void* b, void* dx, void* dw, void* db,
+                                 void* work, long long work_floats, int B, int T, int C, int k,
+                                 int n_units, const int* dil, void* stream) {
+  const size_t btc = act_floats(B, T, C), wsz = (size_t)k * C * C;
+  if (work_floats < rvc_resblock1_bwd_workspace(B, T, C, k) || k > tck::WG_MAX_TAPS)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  float* wk = (float*)work;
+  float* gbuf[2] = {wk, wk + btc};
+  float* dtb = wk + 2 * btc;
+  float* a2b = wk + 3 * btc;
+  float* part = wk + 4 * btc;
+  const float4* pa4 = (const float4*)pa;
+  const float4* pT4 = (const float4*)pT;
+  const size_t psz = 2 * wsz / 4;  // float4 of one packed conv
+  const float* bf = (const float*)b;
+  const float* g = (const float*)gy;
+  const tck::Geo G = tck::geo(B, T, C);
+  for (int u = n_units - 1; u >= 0; --u) {
+    const int da = dil[u], pa_ = (k - 1) * da / 2, pb = (k - 1) / 2;
+    const float* h = u == 0 ? (const float*)x : (const float*)hs + (size_t)(u - 1) * btc;
+    float* dh = u == 0 ? (float*)dx : gbuf[u % 2];
+    const float4* wa = pa4 + u * psz;
+    const float4* waT = pT4 + 2 * u * psz;
+    const float4* wbT = pT4 + (2 * u + 1) * psz;
+    cudaError_t err = G.NT == 4
+        ? launch_unit<4>(G, h, g, wa, bf + 2 * u * C, wbT, waT, dtb, a2b, dh, T, C, k, da, s)
+        : launch_unit<2>(G, h, g, wa, bf + 2 * u * C, wbT, waT, dtb, a2b, dh, T, C, k, da, s);
+    if (err != cudaSuccess) return (int)err;
+    tck::TcWgPlan P = tc_plan(B, T, C, k, da);
+    P.P.job[0] = rowk::WgJob{h, dtb, (float*)dw + 2 * u * wsz, (float*)db + 2 * u * C,
+                             nullptr, k, da, pa_, 1, 0};
+    P.P.job[1] = rowk::WgJob{a2b, g, (float*)dw + (2 * u + 1) * wsz,
+                             (float*)db + (2 * u + 1) * C, nullptr, k, 1, pb, 0, 0};
+    if ((err = tck::tc_wgrad_launch(P, part, s)) != cudaSuccess) return (int)err;
     g = dh;
   }
   return 0;

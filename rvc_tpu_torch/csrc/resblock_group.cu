@@ -47,8 +47,11 @@
 // The SIMT kernel (kernel 1's first version): the same unit in float32 FMAs, each
 // thread keeping a 16-row x 4-channel block of sums and reading the weights,
 // laid out [tap][in][out], from a 16-channel slice in shared memory. Kernel 4
-// (rvc_resblock1_fwd) runs it, because kernel 5 (resblock_bwd.cu) recomputes
-// each unit's pre-activations in the same float32 SIMT arithmetic.
+// (rvc_resblock1_fwd) still runs it: kernel 4 is not yet redesigned for the
+// tensor cores. Kernel 5 (resblock_bwd.cu) recomputes each unit's
+// pre-activations in 3xTF32, so they round differently from kernel 4's
+// float32 forward; its gradient check (ops/resblock.py::check_chain_grads)
+// allows for the leaky-ReLU slopes that this may flip.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

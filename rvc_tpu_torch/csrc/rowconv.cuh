@@ -1,6 +1,16 @@
-// Device code shared by the training kernels (resblock_bwd.cu, wavenet.cu),
-// float32, for sm_90a. Activations are (B, T, C) row-major: a row is one
-// time step's C channels.
+// Float32 SIMT device code of the training kernels, for sm_90a: the row
+// tile of kernel 6 (the WaveNet forward, wavenet.cu) and of the PR 5
+// backward kernels kept as chip_smoke's yardsticks (rvc_resblock1_bwd_simt,
+// rvc_wn_bwd_simt). Activations are (B, T, C) row-major: a row is one time
+// step's C channels.
+//
+// What bounds it on this card: it runs on the float32 pipes (67 TFLOP/s),
+// and measured about a fifth of that (kernel 5) down to a tenth (kernel 7's
+// gate and dx at (4, 400, 192), whose 40 blocks left most of the 132 SMs
+// idle). Kernels 5 and 7 now run on the tensor cores instead, through
+// tc_rowconv.cuh, which keeps this header's weight-gradient workspace layout
+// and its fixed-order second pass (wgrad_reduce_kernel); kernel 6 moves
+// there when it is redesigned.
 //
 // rowconv: a block owns M consecutive output rows and all Cout output
 // channels of a 1-D convolution (or several convolutions over the same

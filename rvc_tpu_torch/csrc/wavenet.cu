@@ -23,7 +23,7 @@
 //         d_b = d_acts tanh(a) sigmoid(b)(1 - sigmoid(b));
 //   dx:   dx_i = d_res + conv over [d_a | d_b] with the flipped transposed
 //         in-conv taps;
-//   wgrad (rowconv.cuh): dW{a,b}_i = sum x_i[t + j - p]^T d_{a,b}[t],
+//   wgrad: dW{a,b}_i = sum x_i[t + j - p]^T d_{a,b}[t],
 //         dWres_i = sum acts^T d_res, dWskip_i = sum acts^T ds, the bias
 //         sums, and dG[b, i] = sum over t of d_a[b, t] (the conditioning is
 //         broadcast along T), the same for d_b.
@@ -32,9 +32,17 @@
 //
 // What bounds it: operations. A layer's in-conv does 2 k C^2 multiply-adds
 // per row for each half and the 1x1 products 2 C^2, about 1.1 GFLOP per
-// layer at (4, 400, 192), against ~4 MB of activations moved.
+// layer at (4, 400, 192), against ~4 MB of activations moved. The forward
+// runs on the float32 pipes (rowconv). The backward ran there too
+// (rvc_wn_bwd_simt, kept on no path of the port as the same-run yardstick),
+// at under a tenth of that pipe's bound: at (4, 400, 192) its gate and dx
+// launches had 40 blocks for 132 SMs. rvc_wn_bwd runs the gate's 1x1
+// product (K = 2C over [d_res | ds]), the dx conv (K = 2C k over
+// [d_a | d_b]) and the four weight gradients in 3xTF32 on mma.sync
+// (tc_rowconv.cuh), with grids sized to fill the card; the gate math and
+// the mask stay float32 in the epilogue.
 
-#include "rowconv.cuh"
+#include "tc_rowconv.cuh"
 
 namespace {
 
@@ -254,24 +262,26 @@ extern "C" int rvc_wn_fwd(const void* x, void* xs, void* pre_a, void* pre_b, voi
   return 0;
 }
 
-// Workspace of rvc_wn_bwd, in floats.
-extern "C" long long rvc_wn_bwd_workspace(int B, int T, int C, int k) {
+// Workspace of rvc_wn_bwd_simt, in floats.
+extern "C" long long rvc_wn_bwd_simt_workspace(int B, int T, int C, int k) {
   const int ks[4] = {k, k, 1, 1};
   return (long long)(7 * (size_t)B * T * C + wgrad_floats(B, T, C, 4, ks));
 }
 
-// The VJP of rvc_wn_fwd. wabT (L, k, 2C, C): [d_a | d_b] -> dx taps;
+// The VJP of rvc_wn_fwd on the float32 SIMT pipes (the yardstick of
+// rvc_wn_bwd). wabT (L, k, 2C, C): [d_a | d_b] -> dx taps;
 // wrsT (L, 2C, C): [Wres_i^T; Wskip_i^T]. Writes dx (B, T, C) and the
 // weight gradients dwa, dwb (L k, C, C), dbab (2L, C), dg (B, 2L, C),
 // dwres, dwskip (L, C, C), dbrs (2L, C).
-extern "C" int rvc_wn_bwd(const void* x, const void* xs, const void* pre_a, const void* pre_b,
-                          const void* gy, const void* wabT, const void* wrsT,
-                          const void* lengths, void* dx, void* dwa, void* dwb, void* dbab,
-                          void* dg, void* dwres, void* dwskip, void* dbrs, void* work,
-                          long long work_floats, int B, int T, int C, int k, int L,
-                          void* stream) {
+extern "C" int rvc_wn_bwd_simt(const void* x, const void* xs, const void* pre_a,
+                               const void* pre_b, const void* gy, const void* wabT,
+                               const void* wrsT, const void* lengths, void* dx, void* dwa,
+                               void* dwb, void* dbab, void* dg, void* dwres, void* dwskip,
+                               void* dbrs, void* work, long long work_floats, int B, int T,
+                               int C, int k, int L, void* stream) {
   const size_t btc = (size_t)B * T * C, wk = (size_t)k * C * C, cc = (size_t)C * C;
-  if (work_floats < rvc_wn_bwd_workspace(B, T, C, k)) return (int)cudaErrorInvalidValue;
+  if (work_floats < rvc_wn_bwd_simt_workspace(B, T, C, k))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   float* w = (float*)work;
   float *ds = w, *da = w + btc, *db = w + 2 * btc, *acts = w + 3 * btc, *dres = w + 4 * btc;
@@ -310,6 +320,175 @@ extern "C" int rvc_wn_bwd(const void* x, const void* xs, const void* pre_a, cons
                      nullptr, 1, 1, 0, 0, 0};
     if ((err = wgrad_launch(P, part, s)) != cudaSuccess) return (int)err;
     dx_next = dxi;
+  }
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// kernel 7 on the tensor cores
+
+namespace {
+
+// rows [t0, t0 + M) of sample blockIdx.y, the channels of blockIdx.z: d_acts
+// = [d_res | ds] [Wres^T; Wskip^T], then d_a, d_b and acts.
+template <int NT>
+__global__ void __launch_bounds__(32 * tck::MAX_WARPS) wn_tc_gate_kernel(
+    const float* __restrict__ d_res, const float* __restrict__ ds,
+    const float* __restrict__ pre_a, const float* __restrict__ pre_b,
+    const float4* __restrict__ prs, float* __restrict__ d_a, float* __restrict__ d_b,
+    float* __restrict__ acts, int T, int C) {
+  extern __shared__ float4 smem4[];
+  float* tile = reinterpret_cast<float*>(smem4);
+  const tck::Warp W = tck::warp_of<NT>(C);
+  const int M = blockDim.x / 32 * tck::WROWS;
+  const int tile_rows = M;
+  float4* ring = smem4 + (size_t)tile_rows * tck::pitch(2 * C) / 4;
+  const int b = blockIdx.y, t0 = blockIdx.x * M, rows = min(M, T - t0);
+  const size_t base = (size_t)b * T * C + (size_t)t0 * C;
+  float acc[tck::MT][NT][4];
+  tck::zero<NT>(acc);
+  tck::conv<NT>(tile, ring, prs, 2 * C, C, 1, 1, acc, W,
+                [&](float* tl, int S, int c0, int cw) {
+                  tck::stage_rows(tl, S, d_res + (size_t)b * T * C, ds + (size_t)b * T * C, C,
+                                  c0, cw, t0, M, T);
+                });
+  tck::for_outputs<NT>(acc, rows, C, W, [&](int, int, int, int r, int n, float v0, float v1) {
+    const size_t at = base + (size_t)r * C + n;
+    const float2 a = __ldg(reinterpret_cast<const float2*>(pre_a + at));
+    const float2 bb = __ldg(reinterpret_cast<const float2*>(pre_b + at));
+    const float av[2] = {a.x, a.y}, bv[2] = {bb.x, bb.y}, gv[2] = {v0, v1};
+    float oa[2], ob[2], oc[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const float th = tanhf(av[q]), sg = rowk::sigmoidf_(bv[q]);
+      oa[q] = gv[q] * sg * (1.f - th * th);
+      ob[q] = gv[q] * th * sg * (1.f - sg);
+      oc[q] = th * sg;
+    }
+    *reinterpret_cast<float2*>(d_a + at) = make_float2(oa[0], oa[1]);
+    *reinterpret_cast<float2*>(d_b + at) = make_float2(ob[0], ob[1]);
+    *reinterpret_cast<float2*>(acts + at) = make_float2(oc[0], oc[1]);
+  });
+}
+
+// rows [t0, t0 + M) of sample blockIdx.y, the channels of blockIdx.z:
+// dx_i = d_res + conv over [d_a | d_b] (flipped, transposed taps), written
+// as it is (layer 0: the stack's dx) or masked (d_res of layer i - 1)
+template <int NT>
+__global__ void __launch_bounds__(32 * tck::MAX_WARPS) wn_tc_dx_kernel(
+    const float* __restrict__ d_a, const float* __restrict__ d_b,
+    const float* __restrict__ d_res, const float4* __restrict__ pab, float* __restrict__ out,
+    const int* __restrict__ lengths, int masked, int T, int C, int k) {
+  extern __shared__ float4 smem4[];
+  float* tile = reinterpret_cast<float*>(smem4);
+  const tck::Warp W = tck::warp_of<NT>(C);
+  const int M = blockDim.x / 32 * tck::WROWS;
+  const int tile_rows = M + (k - 1);
+  float4* ring = smem4 + (size_t)tile_rows * tck::pitch(2 * C) / 4;
+  const int b = blockIdx.y, t0 = blockIdx.x * M, rows = min(M, T - t0);
+  const int p = (k - 1) / 2;
+  const int keep_to = masked ? lengths[b] - t0 : rows;  // local rows kept
+  float acc[tck::MT][NT][4];
+  tck::zero<NT>(acc);
+  tck::conv<NT>(tile, ring, pab, 2 * C, C, k, 1, acc, W,
+                [&](float* tl, int S, int c0, int cw) {
+                  tck::stage_rows(tl, S, d_a + (size_t)b * T * C, d_b + (size_t)b * T * C, C,
+                                  c0, cw, t0 - p, M + 2 * p, T);
+                });
+  const size_t base = (size_t)b * T * C + (size_t)t0 * C;
+  tck::for_outputs<NT>(acc, rows, C, W, [&](int, int, int, int r, int n, float v0, float v1) {
+    const size_t at = base + (size_t)r * C + n;
+    const float2 dr = __ldg(reinterpret_cast<const float2*>(d_res + at));
+    const float2 v = r < keep_to ? make_float2(dr.x + v0, dr.y + v1) : make_float2(0.f, 0.f);
+    *reinterpret_cast<float2*>(out + at) = v;
+  });
+}
+
+tck::TcWgPlan tc_plan(int B, int T, int C, int k) {
+  const int ks[4] = {k, k, 1, 1}, ds[4] = {1, 1, 1, 1};
+  return tck::tc_wgrad_plan(B, T, C, 4, ks, ds);
+}
+
+template <int NT>
+cudaError_t launch_layer(const tck::Geo& G, const float* dres, const float* ds, const float* pa,
+                         const float* pb, const float4* prs, const float4* pab, float* da,
+                         float* db, float* acts, float* out, const int* lens, int masked, int T,
+                         int C, int k, cudaStream_t s) {
+  const int smem_gate = G.smem(2 * C, 1, 1), smem_dx = G.smem(2 * C, k, 1);
+  cudaError_t err = rowk::allow_smem((const void*)wn_tc_gate_kernel<NT>, smem_gate);
+  if (err == cudaSuccess) err = rowk::allow_smem((const void*)wn_tc_dx_kernel<NT>, smem_dx);
+  if (err != cudaSuccess) return err;
+  wn_tc_gate_kernel<NT><<<G.grid, G.threads, smem_gate, s>>>(dres, ds, pa, pb, prs, da, db,
+                                                             acts, T, C);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  wn_tc_dx_kernel<NT><<<G.grid, G.threads, smem_dx, s>>>(da, db, dres, pab, out, lens, masked,
+                                                         T, C, k);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Workspace of rvc_wn_bwd, in floats.
+extern "C" long long rvc_wn_bwd_workspace(int B, int T, int C, int k) {
+  return (long long)(6 * (size_t)B * T * C + tck::tc_wgrad_floats(tc_plan(B, T, C, k)));
+}
+
+// Kernel 7: the VJP of rvc_wn_fwd on the tensor cores. pab (L packed convs):
+// each layer's [d_a | d_b] -> dx conv, a (C, 2C, k) conv with flipped,
+// transposed taps; prs (L packed convs): [Wres_i^T; Wskip_i^T] as a (C, 2C,
+// 1) conv; both as ops/resblock.py::pack_tf32_weights lays a conv out.
+// Writes dx (B, T, C) and the weight gradients dwa, dwb (L k, C, C), dbab
+// (2L, C), dg (B, 2L, C), dwres, dwskip (L, C, C), dbrs (2L, C). C a
+// multiple of 16, at most 256, k odd, at most 15 (the wrapper checks).
+// Per layer: the gate, dx (which writes the next layer's d_res = dx_i
+// masked) and the two passes of the weight gradients; first, ds = gy mask.
+extern "C" int rvc_wn_bwd(const void* x, const void* xs, const void* pre_a, const void* pre_b,
+                          const void* gy, const void* pab, const void* prs,
+                          const void* lengths, void* dx, void* dwa, void* dwb, void* dbab,
+                          void* dg, void* dwres, void* dwskip, void* dbrs, void* work,
+                          long long work_floats, int B, int T, int C, int k, int L,
+                          void* stream) {
+  const size_t btc = (size_t)B * T * C, wk = (size_t)k * C * C, cc = (size_t)C * C;
+  if (work_floats < rvc_wn_bwd_workspace(B, T, C, k) || k > tck::WG_MAX_TAPS)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  float* w = (float*)work;
+  float *ds = w, *da = w + btc, *db = w + 2 * btc, *acts = w + 3 * btc;
+  float* dres[2] = {w + 4 * btc, w + 5 * btc};  // layer i reads dres[i % 2]
+  float* part = w + 6 * btc;
+  const int* lens = (const int*)lengths;
+  const float4* pab4 = (const float4*)pab;
+  const float4* prs4 = (const float4*)prs;
+  wn_mask_kernel<<<264, 256, 0, s>>>((const float*)gy, ds, lens, B, T, C);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) err = cudaMemsetAsync(dres[(L - 1) % 2], 0, btc * sizeof(float), s);
+  if (err != cudaSuccess) return (int)err;
+  const int p = (k - 1) / 2;
+  const tck::Geo G = tck::geo(B, T, C);
+  for (int i = L - 1; i >= 0; --i) {
+    const float* xi = i == 0 ? (const float*)x : (const float*)xs + (size_t)(i - 1) * btc;
+    const float* dr = dres[i % 2];
+    float* out = i == 0 ? (float*)dx : dres[(i + 1) % 2];
+    const float* pa = (const float*)pre_a + i * btc;
+    const float* pb = (const float*)pre_b + i * btc;
+    const float4* prs_i = prs4 + (size_t)i * cc;  // (C, 2C, 1) packed: C^2 float4
+    const float4* pab_i = pab4 + (size_t)i * wk;  // (C, 2C, k) packed: k C^2 float4
+    err = G.NT == 4 ? launch_layer<4>(G, dr, ds, pa, pb, prs_i, pab_i, da, db, acts, out, lens,
+                                      i > 0, T, C, k, s)
+                    : launch_layer<2>(G, dr, ds, pa, pb, prs_i, pab_i, da, db, acts, out, lens,
+                                      i > 0, T, C, k, s);
+    if (err != cudaSuccess) return (int)err;
+    tck::TcWgPlan P = tc_plan(B, T, C, k);
+    const int gs = 2 * L * C;
+    P.P.job[0] = rowk::WgJob{xi, da, (float*)dwa + i * wk, (float*)dbab + (size_t)i * C,
+                             (float*)dg + (size_t)i * C, k, 1, p, 0, gs};
+    P.P.job[1] = rowk::WgJob{xi, db, (float*)dwb + i * wk, (float*)dbab + (size_t)(L + i) * C,
+                             (float*)dg + (size_t)(L + i) * C, k, 1, p, 0, gs};
+    P.P.job[2] = rowk::WgJob{acts, dr, (float*)dwres + i * cc, (float*)dbrs + (size_t)i * C,
+                             nullptr, 1, 1, 0, 0, 0};
+    P.P.job[3] = rowk::WgJob{acts, ds, (float*)dwskip + i * cc,
+                             (float*)dbrs + (size_t)(L + i) * C, nullptr, 1, 1, 0, 0, 0};
+    if ((err = tck::tc_wgrad_launch(P, part, s)) != cudaSuccess) return (int)err;
   }
   return 0;
 }

@@ -25,7 +25,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 SOURCES = ("resblock_group.cu", "banded_attention.cu", "nearest_rows.cu", "resblock_bwd.cu",
            "wavenet.cu")
-HEADERS = ("rowconv.cuh", "mma.cuh")  # in the build hash with the sources
+HEADERS = ("rowconv.cuh", "tc_rowconv.cuh", "mma.cuh")  # in the build hash with the sources
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -47,11 +47,15 @@ SIGNATURES = {
     "rvc_resblock1_fwd": [_P] * 5 + [_I] * 5 + [_IP, _P],
     "rvc_resblock1_bwd": [_P] * 10 + [_L] + [_I] * 5 + [_IP, _P],
     "rvc_resblock1_bwd_workspace": [_I] * 4,
+    "rvc_resblock1_bwd_simt": [_P] * 10 + [_L] + [_I] * 5 + [_IP, _P],
+    "rvc_resblock1_bwd_simt_workspace": [_I] * 4,
     "rvc_wn_fwd": [_P] * 13 + [_I] * 5 + [_P],
     "rvc_wn_bwd": [_P] * 17 + [_L] + [_I] * 5 + [_P],
     "rvc_wn_bwd_workspace": [_I] * 4,
+    "rvc_wn_bwd_simt": [_P] * 17 + [_L] + [_I] * 5 + [_P],
+    "rvc_wn_bwd_simt_workspace": [_I] * 4,
 }
-RESTYPES = {"rvc_resblock1_bwd_workspace": _L, "rvc_wn_bwd_workspace": _L}
+RESTYPES = {name: _L for name in SIGNATURES if name.endswith("_workspace")}
 
 _lib: ctypes.CDLL | None = None
 build_info: dict = {}

@@ -15,8 +15,11 @@ Kernels 4 and 5, ``fused_resblock1_train``: one chain, differentiable
 its forward is kernel 4 (``fused_resblock1``: the float32 SIMT unit
 kernel, each unit's output kept for the backward) and its backward kernel 5
 (``fused_resblock1_backward``, ``csrc/resblock_bwd.cu``: dx, and dW and db
-of every conv, reduced on the card in a fixed order). Kernel 5 recomputes
-each unit in the same SIMT float32 arithmetic, so kernel 4 stays on it.
+of every conv, reduced on the card in a fixed order), all its products on
+the tensor cores in 3xTF32 (``csrc/tc_rowconv.cuh``). Kernel 5 recomputes
+each unit's first conv in 3xTF32, so it may take the other leaky-ReLU slope
+than kernel 4's float32 forward at a pre-activation within rounding of 0;
+``check_chain_grads`` allows for that.
 
 On a CPU tensor each wrapper runs its plain version below instead, the same
 function written with ``F.conv1d`` (and autograd). A wrapper called on a
@@ -90,6 +93,7 @@ def _check(x: torch.Tensor, chains) -> None:
 
 
 TC_CHANNELS = (16, 32, 64, 128, 256)  # the widths kernel 1 is built for
+MAX_TAPS = 15  # kernels 5 and 7: their weight gradients give each tap a warp
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -102,19 +106,22 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 
 def pack_tf32_weights(w: torch.Tensor) -> torch.Tensor:
-    """A conv's (O, I, k) float32 weights (O = I = C, C a multiple of 8) as
-    kernel 1 reads them: for each k8 step (tap j, inputs 8s..8s+7), each n8
-    tile of outputs and each lane 4g + t of a warp, the float4 (w_big[o, i],
-    w_big[o, i + 1], r[o, i], r[o, i + 1]) with o = 8n + g, i = 8s + 2t,
-    w_big = tf32_round(w) and r = w - w_big (exact; the kernel rounds it to
-    TF32). Flat, (k C/8 C/8 32 4,)."""
-    O, I, k = w.shape
+    """A conv's (O, I, k) float32 weights (O and I multiples of 8), or a
+    stack of them (..., O, I, k), as the tensor-core kernels read them: for
+    each k8 step (tap j, inputs 8s..8s+7), each n8 tile of outputs and each
+    lane 4g + t of a warp, the float4 (w_big[o, i], w_big[o, i + 1], r[o, i],
+    r[o, i + 1]) with o = 8n + g, i = 8s + 2t, w_big = tf32_round(w) and
+    r = w - w_big (exact; the kernel rounds it to TF32). Flat per conv,
+    (..., k I/8 O/8 32 4)."""
+    *lead, O, I, k = w.shape
+    n = len(lead)
     big = tf32_round(w)
     parts = []
     for v in (big, w - big):
-        v = v.permute(2, 1, 0).reshape(k, I // 8, 4, 2, O // 8, 8)  # j, s, t, pair, n, g
-        parts.append(v.permute(0, 1, 4, 5, 2, 3))                    # j, s, n, g, t, pair
-    return torch.stack(parts, dim=-2).reshape(-1).contiguous()
+        v = v.permute(*range(n), n + 2, n + 1, n).reshape(*lead, k, I // 8, 4, 2, O // 8, 8)
+        # j, s, t, pair, n, g -> j, s, n, g, t, pair
+        parts.append(v.permute(*range(n), n, n + 1, n + 4, n + 5, n + 2, n + 3))
+    return torch.stack(parts, dim=-2).reshape(*lead, -1).contiguous()
 
 
 def unpack_tf32_weights(packed: torch.Tensor, C: int, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -249,22 +256,30 @@ def fused_resblock1_backward(x: torch.Tensor, hs: torch.Tensor, gy: torch.Tensor
                              convs: Sequence[Conv]):
     """Kernel 5: the chain's VJP at x, given the unit inputs ``hs`` that
     kernel 4 kept. Returns (dx (B, T, C), dW (2n, C, C, k) in the convs'
-    (O, I, k) layout, db (2n, C))."""
+    (O, I, k) layout, db (2n, C)). On the card its convolutions run on the
+    tensor cores in 3xTF32; each call splits and packs the chain's weights
+    (each unit's conv_a, and every conv's flipped transpose)."""
     if x.device.type == "cpu":
         return fused_resblock1_backward_plain(x, hs, gy, convs)
     _device_only(x)
     _check_chain(x, convs)
     B, T, C = x.shape
     k = convs[0][2]
-    taps, taps_t, bias, dil = _packed(convs)
+    if k > MAX_TAPS:
+        raise ValueError(f"kernel 5 takes k up to {MAX_TAPS}, got {k}")
+    w = torch.stack([cw for cw, _, _, _ in convs])  # (2n, O, I, k)
+    packed_a = pack_tf32_weights(w[0::2])
+    packed_t = pack_tf32_weights(w.transpose(1, 2).flip(3))
+    bias = torch.stack([cb for _, cb, _, _ in convs]).contiguous()
+    dil = (ctypes.c_int * (len(convs) // 2))(*[d for _, _, _, d in convs[0::2]])
     gy = gy.contiguous()
     lib = _cuda.library()
     work = x.new_empty(lib.rvc_resblock1_bwd_workspace(B, T, C, k))
     dx = torch.empty_like(x)
-    dw = x.new_empty(taps.shape)
+    dw = x.new_empty((len(convs), k, C, C))
     db = x.new_empty(bias.shape)
     err = lib.rvc_resblock1_bwd(
-        x.data_ptr(), hs.data_ptr(), gy.data_ptr(), taps.data_ptr(), taps_t.data_ptr(),
+        x.data_ptr(), hs.data_ptr(), gy.data_ptr(), packed_a.data_ptr(), packed_t.data_ptr(),
         bias.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(), work.data_ptr(),
         work.numel(), B, T, C, k, len(dil), dil, _cuda.stream_ptr(x))
     _cuda.check(err, "resblock1_bwd launch")

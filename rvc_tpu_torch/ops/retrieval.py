@@ -7,8 +7,9 @@ search runs ``csrc/nearest_rows.cu`` (one kernel, templated on the bank's
 type); on a CPU tensor the plain version below, which is also the JAX
 package's CPU path (``retrieval/index.py::_topk_blend`` at k = 1).
 The kernel computes its dot products on the tensor cores from bf16 pieces
-of the float32 operands (``csrc/mma.cuh``): every product exact, so it
-differs from a float32 GEMM only in the order of the sums.
+of the float32 operands (``csrc/mma.cuh``): every product is exact, and the
+sums are ``mma.sync``'s, which truncates as it accumulates (``mma.cuh``);
+the rows it picks are held to the plain version's.
 """
 from __future__ import annotations
 

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
+from .resblock import MAX_TAPS, pack_tf32_weights
 
 
 def fused_wn_plain(x, w_a, w_b, b_ab, g_ab, w_res, w_skip, b_rs2, lengths, *,
@@ -108,12 +109,24 @@ def fused_wn_backward_plain(x, xs, pre, gy, w_a, w_b, b_ab, g_ab, w_res, w_skip,
     return tuple(torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads))
 
 
+def backward_convs(w_a, w_b, w_res, w_skip, k: int):
+    """The convs of the stack's backward in (O, I, k) layout, per layer:
+    dx from [d_a | d_b] with the flipped, transposed in-conv taps
+    (L, C, 2C, k): wab[i][c][o][j] = W{a,b}[i][k-1-j][c][o]; and d_acts
+    from [d_res | ds], (L, C, 2C, 1): [Wres_i, Wskip_i] side by side."""
+    L, C = w_res.shape[0], w_res.shape[1]
+    taps = [w.reshape(L, k, C, C).flip(1).permute(0, 2, 3, 1) for w in (w_a, w_b)]
+    return torch.cat(taps, dim=2), torch.cat([w_res, w_skip], dim=2)[..., None]
+
+
 def fused_wn_backward(x, xs, pre, gy, w_a, w_b, b_ab, g_ab, w_res, w_skip, b_rs2, lengths, *,
                       kernel_size: int):
     """Kernel 7: the stack's VJP, given what kernel 6 kept (xs, pre) and the
     output cotangent gy (B, T, C). Returns (dx, dWa, dWb, dBab, dG, dWres,
-    dWskip, dBrs) in the layouts of the forward's arguments. The kernel does
-    not read the biases and the conditioning (the kept pre-activations hold
+    dWskip, dBrs) in the layouts of the forward's arguments. On the card its
+    products run on the tensor cores in 3xTF32, and each call splits and
+    packs the backward's convs (``backward_convs``). The kernel does not
+    read the biases and the conditioning (the kept pre-activations hold
     them); the plain version does."""
     if x.device.type == "cpu":
         return fused_wn_backward_plain(x, xs, pre, gy, w_a, w_b, b_ab, g_ab, w_res, w_skip,
@@ -122,13 +135,10 @@ def fused_wn_backward(x, xs, pre, gy, w_a, w_b, b_ab, g_ab, w_res, w_skip, b_rs2
         raise ValueError(f"unsupported device {x.device}")
     B, T, C = x.shape
     L, k = w_res.shape[0], kernel_size
-    # flipped transposed in-conv taps, [d_a | d_b] stacked on the input axis:
-    # wabT[i][j][c][o] = W{a,b}[i][k-1-j][o][c]
-    wa = w_a.reshape(L, k, C, C).flip(1).transpose(2, 3)
-    wb = w_b.reshape(L, k, C, C).flip(1).transpose(2, 3)
-    wab_t = torch.cat([wa, wb], dim=2).contiguous()
-    # res/skip transposed, stacked: wrsT[i] = [Wres_iᵀ; Wskip_iᵀ] (2C, C)
-    wrs_t = torch.cat([w_res.transpose(1, 2), w_skip.transpose(1, 2)], dim=1).contiguous()
+    if k > MAX_TAPS:
+        raise ValueError(f"kernel 7 takes k up to {MAX_TAPS}, got {k}")
+    wab, wrs = backward_convs(w_a, w_b, w_res, w_skip, k)
+    wab_t, wrs_t = pack_tf32_weights(wab), pack_tf32_weights(wrs)
     lens = lengths.to(torch.int32).contiguous()
     lib = _cuda.library()
     work = x.new_empty(lib.rvc_wn_bwd_workspace(B, T, C, k))

@@ -36,7 +36,7 @@ from rvc_tpu_torch.train.data import BucketBatcher, RVCDataset  # noqa: E402
 from rvc_tpu_torch.train.step import Trainer  # noqa: E402
 
 # name fragments of the kernels of csrc/ that the training step launches
-OWN_KERNELS = ("resblock_unit_kernel", "rb_bwd_", "wgrad", "wn_")
+OWN_KERNELS = ("resblock_unit_kernel", "rb_bwd_", "rb_tc_", "wgrad", "wn_")
 
 
 def main():

@@ -367,3 +367,88 @@ def test_nearest_rows_tensor_core_tiles(rng, cuda, int8, NQ, N):
         got = retrieval.nearest_rows(f, bank_f)
     torch.cuda.synchronize()
     _nearest_within_ties(got, f, bank_f)
+
+
+def _wn_case(rng, cuda, C, T, L, lengths, k=5):
+    B = len(lengths)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    mask = (torch.arange(T, device=cuda)[None, :] < lens[:, None]).float()[..., None]
+    x = (torch.from_numpy(rng.standard_normal((B, T, C)).astype(np.float32)).to(cuda)
+         * mask).requires_grad_()
+    w = [torch.from_numpy(a).to(cuda).requires_grad_()
+         for a in _wn_inputs(rng, B, T, C, L, k).values()]
+    cot = torch.from_numpy(rng.standard_normal((B, T, C)).astype(np.float32)).to(cuda)
+    return x, w, lens, cot
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,T,B,k,dils", [
+    (64, 5, 1, 3, (1, 3, 5)),        # B T smaller than one row tile
+    (128, 300, 2, 7, (1, 3, 5)),     # T not a multiple of the 256-row tile
+    (256, 433, 4, 11, (1, 3, 5)),    # C = 256: 64-row tiles, taps in two groups
+    (16, 70, 3, 5, (1, 3)),          # C = 16: 16-channel warp tiles, a 2-unit chain
+    (48, 257, 2, 3, (1, 3, 5)),      # C not a multiple of 32
+])
+def test_resblock1_backward_tensor_core_tiles(rng, cuda, C, T, B, k, dils):
+    """Kernel 5's row, channel, tap and K tiling at its edges, against
+    autograd of the plain chain (_chain_grads_close)."""
+    x, convs, cot = _train_chain(rng, cuda, C, k, dils, T, B=B)
+    got, ref = _kernel_grads(x, convs, cot)
+    torch.cuda.synchronize()
+    _chain_grads_close(x, convs, got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,T,L,lengths", [
+    (16, 40, 2, (40, 0)), (48, 33, 3, (0, 33, 17)), (256, 70, 2, (70, 1)),
+    (192, 400, 3, (400, 0, 257, 300)),
+])
+def test_wn_backward_tensor_core_tiles(rng, cuda, C, T, L, lengths):
+    """Kernel 7 at C = 16, 48 (not a multiple of 32), 192 and 256, with
+    lengths of 0 and T: every gradient within 1e-4 of its largest magnitude
+    of autograd of the plain stack."""
+    x, w, lens, cot = _wn_case(rng, cuda, C, T, L, lengths)
+    _, g_got = _grads(lambda: wavenet.fused_wn(x, *w, lens, kernel_size=5), x, w, cot)
+    torch.cuda.synchronize()
+    _, g_ref = _grads(lambda: wavenet.fused_wn_plain(x, *w, lens, kernel_size=5), x, w, cot)
+    for a, b in zip(g_got, g_ref):
+        _scaled_close(a, b, 1e-4)
+
+
+@pytest.mark.gpu
+def test_backward_weight_gradients_are_bit_identical(rng, cuda):
+    """The weight gradients are reduced in a fixed order (no atomics): two
+    calls of kernels 5 and 7 give the same bits in every output."""
+    x, convs, cot = _train_chain(rng, cuda, 128, 11, (1, 3, 5), 1001, B=4)
+    with torch.no_grad():
+        _, hs = resblock._resblock1_forward(x, convs)
+        runs = [resblock.fused_resblock1_backward(x, hs, cot, convs) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    x, w, lens, cot = _wn_case(rng, cuda, 192, 400, 4, (400, 377, 200, 1))
+    with torch.no_grad():
+        _, xs, pre = wavenet._forward(x, *w, lens, 5)
+        runs = [wavenet.fused_wn_backward(x, xs, pre, cot, *w, lens, kernel_size=5)
+                for _ in range(2)]
+    for a, b in zip(*runs):  # dx, dWa, dWb, dBab, dG, dWres, dWskip, dBrs
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_simt_yardsticks_are_on_no_path(rng, cuda, monkeypatch):
+    """The float32 SIMT backward entries that kernels 5 and 7 replaced stay
+    in the library only as chip_smoke.py's yardstick: a differentiable chain
+    and WN stack on the card never call them."""
+    from rvc_tpu_torch.ops import _cuda
+
+    lib = _cuda.library()
+    called = []
+    for name in ("rvc_resblock1_bwd_simt", "rvc_wn_bwd_simt"):
+        monkeypatch.setattr(lib, name, lambda *a, _n=name: called.append(_n) or 0)
+    x, convs, cot = _train_chain(rng, cuda, 32, 3, (1, 3, 5), 100)
+    params = [t for w, b, _, _ in convs for t in (w, b)]
+    _grads(lambda: resblock.fused_resblock1_train(x, convs), x, params, cot)
+    x, w, lens, cot = _wn_case(rng, cuda, 32, 50, 2, (50, 20))
+    _grads(lambda: wavenet.fused_wn(x, *w, lens, kernel_size=5), x, w, cot)
+    torch.cuda.synchronize()
+    assert called == []

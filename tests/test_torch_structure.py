@@ -39,6 +39,16 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_simt_yardsticks_are_named_only_by_chip_smoke():
+    """The float32 SIMT backward entries that kernels 5 and 7 replaced are
+    on no path of the port: no module names them but the library's table of
+    entry points, and chip_smoke.py times them as its yardstick."""
+    names = ("rvc_resblock1_bwd_simt", "rvc_wn_bwd_simt")
+    naming = {str(p.relative_to(REPO)) for p in _port_files()
+              if any(n in p.read_text() for n in names)}
+    assert naming == {"rvc_tpu_torch/ops/_cuda.py", "chip_smoke.py"}
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import sys, rvc_tpu_torch.pipelines.convert, rvc_tpu_torch.train.step, "
             "rvc_tpu_torch.train.data, chip_smoke; "
