@@ -40,7 +40,20 @@ Phases, each announced on its own line:
      (a launch per ResBlock1 chain and per WN stack, each direction);
   8. a reference check: one training step on the card and on the CPU
      (plain versions, same weights, batch and draws) at batch 1, 48 frames:
-     losses, gradient norms and updated parameters within stated tolerances.
+     losses, gradient norms and updated parameters within stated tolerances;
+  9. the bf16 kernels at the shapes of the 30 s bfloat16 conversion of
+     phase 10 against their plain versions, with their times, one-pass
+     bf16 bounds and the float32 kernels' times on the same values: kernel
+     1 in bf16 per decoder stage, kernel 8 (fused_resblock1_v2) per chain,
+     kernel 2 in bf16; and kernel 8 against the float32 chain kernel at the
+     seven stages of scripts/bench_resblock_v2.py;
+ 10. the main path in bfloat16: make_random_converter(..., dtype=bfloat16)
+     converts 10 s and 30 s as in phase 4 (RTF beside phase 4's float32
+     RTF, peak memory, exact launches of bf16 kernels 1 and 2 and kernel 3);
+ 11. the same 30 s with fuse_group=False: kernel 8 per ResBlock, its output
+     bit-identical to the default route's;
+ 12. a reference check: 3 s in bf16 on the card and on the CPU, both on the
+     card's f0, within a stated relative L2.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that.
 Without a CUDA card it exits 1 and prints no result.
@@ -286,6 +299,187 @@ def check_nearest(vc, shapes, gen) -> dict:
         results[mode] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by, bound_f32_ms=f32_ms, library_ms=lib_ms)
     return results
+
+
+# ---- bfloat16 (phases 9-12) ----
+# A bf16 kernel and its plain version round at the same points and differ
+# only in the order of float32 sums: a rounding flips by one bf16 ulp now and
+# then, and through a chain of wide convs each flip moves what it reaches by
+# a fraction of an ulp and flips more (tests/test_torch_gpu.py measured this:
+# after a stage of three chains at C = 256, 7% of elements lie more than one
+# ulp apart, for the plain version on the card against the CPU as for the
+# kernel against the plain version). So a bf16 kernel is held by size: the
+# relative L2 distance within one bf16 ulp (2^-8), the largest difference
+# within 2e-2 of the largest magnitude (5 ulps there).
+BF16_L2 = 2.0 ** -8
+BF16_MAX = 2e-2
+BF16_CPU_L2 = 5e-2  # phase 12, over the int16 waveform: see there
+
+
+def bf16_agreement(got, ref) -> tuple[float, float, float]:
+    """(max |got - ref| / max |ref|, relative L2, share of elements more than
+    one bf16 ulp apart) of two bf16 tensors."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=2.0 ** -126))) - 7)
+    return ((diff.max() / ref.abs().max()).item(), (diff.norm() / ref.norm()).item(),
+            (diff > ulp).float().mean().item())
+
+
+def bound_bf16(flops: float, nbytes: float) -> tuple[float, str]:
+    """one bf16 pass on the tensor cores"""
+    return bound(flops, nbytes, PEAK_BF16)
+
+
+def check_resblock_bf16(vc, shapes, gen) -> tuple[dict, dict]:
+    """Kernel 1 in bf16 on each decoder stage, and kernel 8 on each of the
+    stage's chains, at the 30 s bf16 conversion's shapes, against their plain
+    versions; beside each, the float32 kernel on the same values (kernel 1,
+    and kernel 4 for a chain) in the same run."""
+    import torch
+
+    from rvc_tpu_torch.ops import resblock as rb
+
+    dec = vc.synth.dec
+    nk = dec.num_kernels
+    N, T = shapes["N"], shapes["Tp"]
+    keys = ("ms", "plain_ms", "float32_ms", "bound_ms", "flops", "bytes", "err")
+    tot = {name: dict.fromkeys(keys, 0.0) for name in ("group", "chain")}
+    for i, rate in enumerate(dec.upsample_rates):
+        T = T * rate
+        chains = [blk.chain() for blk in dec.resblocks[i * nk:(i + 1) * nk]]
+        C = chains[0][0][0].shape[0]
+        x = torch.randn(N, T, C, generator=gen).to(vc.device).bfloat16()
+        x32 = x.float()
+        for name, calls in (("group", [chains]), ("chain", [[c] for c in chains])):
+            for cs in calls:
+                if name == "group":
+                    run, plain = (lambda: rb.fused_resblock_group(x, cs),
+                                  lambda: rb.resblock_group_plain(x, cs))
+                    run32 = lambda: rb.fused_resblock_group(x32, cs)  # noqa: E731
+                else:
+                    run, plain = (lambda: rb.fused_resblock1_v2(x, cs[0]),
+                                  lambda: rb.fused_resblock1_plain(x, cs[0]))
+                    run32 = lambda: rb.fused_resblock1(x32, cs[0])  # noqa: E731
+                got = run()
+                torch.cuda.synchronize()
+                ref = plain()
+                rel, l2, beyond = bf16_agreement(got, ref)
+                if not (l2 <= BF16_L2 and rel <= BF16_MAX):
+                    fail(f"bf16 {name} kernel disagrees with its plain version at stage "
+                         f"{i + 1}: max {rel:.3g}, relative L2 {l2:.3g}")
+                ms = timed(run, reps=5)
+                ms32 = timed(run32, reps=5)
+                ms = min(ms, timed(run, reps=5))
+                plain_ms = timed(plain, reps=3)
+                macs = sum(w.shape[2] for c in cs for (w, _, _, _) in c) * C * C * N * T
+                nbytes = 2 * x.numel() * 2 + sum(w.numel() * 2 + b.numel() * 4
+                                                 for c in cs for (w, b, _, _) in c)
+                t = tot[name]
+                for k, v in (("ms", ms), ("plain_ms", plain_ms), ("float32_ms", ms32),
+                             ("bound_ms", bound_bf16(2 * macs, nbytes)[0]),
+                             ("flops", 2 * macs), ("bytes", nbytes)):
+                    t[k] += v
+                t["err"] = max(t["err"], (got.float() - ref.float()).abs().max().item())
+                del got, ref
+                say(f"  bf16 {'kernel 1' if name == 'group' else 'kernel 8'} stage {i + 1}: x "
+                    f"({N}, {T}, {C}), {len(cs)} chain(s) -> max {rel:.3g} of the largest, "
+                    f"relative L2 {l2:.3g}, beyond one ulp {beyond:.3%} (tolerance "
+                    f"{BF16_MAX} / {BF16_L2:.3g}), kernel_ms {ms:.3f}, float32 kernel "
+                    f"{ms32:.3f}, plain_ms {plain_ms:.3f}, bound_ms "
+                    f"{bound_bf16(2 * macs, nbytes)[0]:.3f}")
+        del x, x32
+    return tuple(dict(max_abs_err=t["err"], ms=t["ms"], plain_ms=t["plain_ms"],
+                      bound_ms=t["bound_ms"], bound_by=bound_bf16(t["flops"], t["bytes"])[1],
+                      float32_ms=t["float32_ms"], library_ms=None)
+                 for t in (tot["group"], tot["chain"]))
+
+
+def check_attention_bf16(vc, shapes, gen) -> dict:
+    """Kernel 2 in bf16 at the 30 s bf16 conversion's shapes against its
+    plain version, with the float32 kernel on the same values."""
+    import torch
+
+    from rvc_tpu_torch.ops.attention import banded_rel_attention, banded_rel_attention_plain
+
+    attn = vc.synth.enc_p.encoder.attn_layers
+    layer = attn[0]
+    N, T = shapes["N"], shapes["Tp"]
+    H, D, w = layer.n_heads, layer.k_channels, layer.window_size
+    q, k, v = (torch.randn(N, H, T, D, generator=gen).to(vc.device).bfloat16()
+               for _ in range(3))
+    ek, ev = (e[0].detach().bfloat16().contiguous() for e in (layer.emb_rel_k, layer.emb_rel_v))
+    lengths = torch.as_tensor(shapes["p_len"], device=vc.device)
+    args = (q, k, v, ek, ev, lengths)
+    args32 = tuple(a.float() for a in args[:5]) + (lengths,)
+    kw = dict(window=w, scale=D ** -0.5)
+    got = banded_rel_attention(*args, **kw)
+    torch.cuda.synchronize()
+    ref = banded_rel_attention_plain(*args, **kw)
+    rel, l2, beyond = bf16_agreement(got, ref)
+    W = 2 * w + 1
+    flops = N * H * (4 * T * T * D + 4 * T * W * D + 5 * T * T)
+    nbytes = 4 * N * H * T * D * 2 + 2 * W * D * 2 + N * 4
+    ms = timed(lambda: banded_rel_attention(*args, **kw))
+    ms32 = timed(lambda: banded_rel_attention(*args32, **kw))
+    plain_ms = timed(lambda: banded_rel_attention_plain(*args, **kw))
+    b_ms, b_by = bound_bf16(flops, nbytes)
+    n_layers = len(attn)
+    say(f"  bf16 banded attention: q ({N}, {H}, {T}, {D}) -> max {rel:.3g} of the largest, "
+        f"relative L2 {l2:.3g}, beyond one ulp {beyond:.3%} (tolerance {BF16_MAX} / "
+        f"{BF16_L2:.3g}), kernel_ms {ms:.3f}, float32 kernel {ms32:.3f}, plain_ms "
+        f"{plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by}); x {n_layers} layers")
+    if not (l2 <= BF16_L2 and rel <= BF16_MAX):
+        fail("bf16 banded attention disagrees with its plain version")
+    return dict(max_abs_err=(got.float() - ref.float()).abs().max().item(), ms=ms * n_layers,
+                plain_ms=plain_ms * n_layers, bound_ms=b_ms * n_layers, bound_by=b_by,
+                float32_ms=ms32 * n_layers, library_ms=None)
+
+
+def bench_v2_stages() -> None:
+    """Kernel 8 against the float32 chain kernel at the seven stages of
+    scripts/bench_resblock_v2.py (scripts/bench_torch_resblock_v2.py)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_torch_resblock_v2", os.path.join(REPO, "scripts", "bench_torch_resblock_v2.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    for r in mod.run(reps=3):
+        say(f"  {r['label']:16s} x {r['shape']} bf16: kernel 8 {r['v2_ms']:.3f} ms, float32 "
+            f"chain kernel {r['f32_ms']:.3f} ms ({r['f32_ms'] / r['v2_ms']:.2f}x), max err vs "
+            f"plain {r['max_rel_err']:.3g} of the largest, bit-identical to plain {r['exact']}")
+        if not r["max_rel_err"] <= BF16_MAX:
+            fail(f"kernel 8 disagrees with its plain version at {r['label']}")
+
+
+def counted_convert(vc, audio, settings, counters: dict) -> tuple[np.ndarray, int, dict, float]:
+    """One conversion with every count set to 0 just before it and read just
+    after: (out, sr, launches, wall s)."""
+    import torch
+
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    out, sr = vc.convert(audio, settings=settings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, sr, {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}, wall
+
+
+def launch_counters() -> dict:
+    """name -> (wrapper, count attribute) of every kernel of conversion."""
+    from rvc_tpu_torch.ops import attention, resblock, retrieval
+
+    return {"fused_resblock_group": (resblock.fused_resblock_group, "launches"),
+            "fused_resblock_group[bf16]": (resblock.fused_resblock_group, "launches_bf16"),
+            "fused_resblock1": (resblock.fused_resblock1, "launches"),
+            "fused_resblock1_v2": (resblock.fused_resblock1_v2, "launches"),
+            "banded_rel_attention": (attention.banded_rel_attention, "launches"),
+            "banded_rel_attention[bf16]": (attention.banded_rel_attention, "launches_bf16"),
+            "nearest_rows_q": (retrieval.nearest_rows_q, "launches")}
 
 
 def scaled(got, ref) -> tuple[float, float]:
@@ -606,7 +800,7 @@ def check_train_vs_cpu(cfg, batch: dict) -> None:
     norm_err = max(abs(mg[k] - mc[k]) / abs(mc[k]) for k in ("grad_norm_g", "grad_norm_d"))
     delta = torch.cat([(a - b).abs().flatten() for a, b in zip(pg, pc)])
     worst, share = delta.max().item(), (delta > 0.01 * lr).float().mean().item()
-    say(f"[8/8] one training step, batch 1, {F} frames, card vs CPU: losses within "
+    say(f"[8/12] one training step, batch 1, {F} frames, card vs CPU: losses within "
         f"{loss_err:.3g} (relative, of max(1, |loss|); tolerance 1e-3), gradient norms within "
         f"{norm_err:.3g} (tolerance 1e-2), updated parameters max |diff| {worst:.3g} "
         f"(tolerance 2.01 lr = {2.01 * lr:.3g}), share above 0.01 lr {share:.4%} (tolerance "
@@ -671,7 +865,7 @@ def run_training(trainer, batches: list, card: str) -> dict:
     cfg = trainer.config
     audio_s = TRAIN_BATCH * cfg.train.segment_size / cfg.data.sampling_rate
     total = sum(walls)
-    say(f"[7/8] training 48k_v2, batch {TRAIN_BATCH}, padded to "
+    say(f"[7/12] training 48k_v2, batch {TRAIN_BATCH}, padded to "
         f"{np.shape(batches[1]['spec'])[1]} frames: {steps} steps, wall s "
         f"{[round(w, 4) for w in walls]}, {steps / total:.3f} steps/s, "
         f"{audio_s * steps / total:.3f} s of audio (the sliced segments) trained per s, "
@@ -682,6 +876,132 @@ def run_training(trainer, batches: list, card: str) -> dict:
     if launches != expected:
         fail(f"training kernel launches {launches}, expected {expected}")
     return launches
+
+
+def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dict:
+    """Phases 9-12: the bf16 kernels, the bf16 main path on both decoder
+    routes, and a card-vs-CPU bf16 conversion. Fills ``checks`` with the
+    bf16 kernels' entries; returns their launches on their main paths."""
+    import torch
+
+    from rvc_tpu_torch.ops.filters import butter_highpass_host
+    from rvc_tpu_torch.pipelines.convert import WINDOW, make_random_converter
+
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    vc = make_random_converter("48k_v2", seed=0, chunking=CHUNKING, index_rows=BANK_ROWS,
+                               device="cuda", dtype=bf16)
+    say(f"bf16 converter built in {time.perf_counter() - t0:.1f} s")
+    shapes = path_shapes(vc, clips[30])
+    say(f"[9/12] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
+        f"{shapes['Tp']} frames at 100 Hz")
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        checks["resblock_bf16"], checks["chain_v2"] = check_resblock_bf16(vc, shapes, gen)
+        checks["attention_bf16"] = check_attention_bf16(vc, shapes, gen)
+        say("  kernel 8 at the seven stages of scripts/bench_resblock_v2.py (B 4, S 1):")
+        bench_v2_stages()
+    torch.cuda.empty_cache()
+
+    dec = vc.synth.dec
+    units = sum(len(rb.convs1) for rb in dec.resblocks)
+    layers = len(vc.synth.enc_p.encoder.attn_layers)
+    counters = launch_counters()
+    nothing = dict.fromkeys(counters, 0)
+    expected = {True: {**nothing, "fused_resblock_group[bf16]": units,
+                       "banded_rel_attention[bf16]": layers, "nearest_rows_q": 1},
+                False: {**nothing, "fused_resblock1_v2": units,
+                        "banded_rel_attention[bf16]": layers, "nearest_rows_q": 1}}
+
+    # 10. the bf16 main path, default route (kernel 1 in bf16)
+    outs = {}
+    for sec, audio in clips.items():
+        t0 = time.perf_counter()
+        vc.convert(audio, settings=settings)  # first call at this length: set-up
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        out, sr, launched, wall = counted_convert(vc, audio, settings, counters)
+        walls = [wall]
+        for _ in range(2):  # the spread of the wall time, uncounted
+            walls.append(counted_convert(vc, audio, settings, counters)[3])
+        wall = float(np.median(walls))
+        spans = vc.spans(butter_highpass_host(audio))
+        Tp = path_shapes(vc, audio)["Tp"]
+        expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
+                     for b, e in spans)
+        peak = int(np.abs(out.astype(np.int32)).max())
+        say(f"[10/12] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
+            f"{sr} Hz, peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
+            f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x (float32 "
+            f"in this run {rtf32[sec]:.2f}x), max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+            f"{ {k: v for k, v in launched.items() if v} }; {card}")
+        if sr != 48000 or out.dtype != np.int16 or len(out) != expect:
+            fail(f"bf16 output is {out.dtype} at {sr} Hz, {len(out)} samples; the spans "
+                 f"give {expect} at 48000 Hz")
+        if peak <= 0:
+            fail("silent bf16 output")
+        if launched != expected[True]:
+            fail(f"bf16 kernel launches {launched}, expected {expected[True]}")
+        outs[sec] = out
+    main_launches = {k: launched[k] for k in ("fused_resblock_group[bf16]",
+                                              "banded_rel_attention[bf16]")}
+
+    # 11. the fuse_group=False route: kernel 8 per ResBlock, bit-identical
+    audio = clips[30]
+    again = counted_convert(vc, audio, settings, counters)[0]
+    vc.synth.dec.fuse_group = False
+    vc.convert(audio, settings=settings)  # set-up
+    out, sr, launched, wall = counted_convert(vc, audio, settings, counters)
+    vc.synth.dec.fuse_group = True
+    same = bool(np.array_equal(out, outs[30]))
+    say(f"[11/12] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
+        f"(RTF {30 / wall:.2f}x), launches { {k: v for k, v in launched.items() if v} }, "
+        f"bit-identical to the default route: {same} (the default route against itself: "
+        f"{bool(np.array_equal(again, outs[30]))})")
+    if launched != expected[False]:
+        fail(f"fuse_group=False launches {launched}, expected {expected[False]}")
+    if not same:
+        fail("the fuse_group=False route is not bit-identical to the default route")
+    main_launches["fused_resblock1_v2"] = launched["fused_resblock1_v2"]
+
+    # 12. 3 s in bf16 on the card and on the CPU, on the card's f0
+    ref_clip = speech(3.0, 40.0)
+    f0s = []
+    method_fn = vc.pitch.method_fn
+
+    def recording(*args):
+        fn = method_fn(*args)
+        return lambda chunks: f0s.append(fn(chunks)) or f0s[-1]
+
+    vc.pitch.method_fn = recording
+    out_gpu, _ = vc.convert(ref_clip, settings=settings)
+    vc.pitch.method_fn = method_fn
+    f0_card = f0s[0].cpu()
+    del vc
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu = make_random_converter("48k_v2", seed=0, chunking=CHUNKING, index_rows=BANK_ROWS,
+                                device="cpu", dtype=bf16)
+    chunks, _ = cpu.chunks(ref_clip)
+    f0_cpu = cpu.pitch.method_fn("rmvpe", 50.0, 1100.0)(chunks)
+    differ = float(torch.mean((torch.abs(f0_cpu - f0_card)
+                               > 1e-2 * torch.clamp(f0_card, min=1.0)).float()))
+    cpu.pitch.method_fn = lambda *args: (lambda chunks: f0_card)
+    out_cpu, _ = cpu.convert(ref_clip, settings=settings)
+    a, b = out_gpu.astype(np.float64), out_cpu.astype(np.float64)
+    l2 = float(np.linalg.norm(a - b) / np.linalg.norm(b)) if a.shape == b.shape else math.inf
+    say(f"[12/12] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
+        f"differs on {differ:.2%} of frames between them): {len(out_gpu)} vs {len(out_cpu)} "
+        f"samples, relative L2 {l2:.4g} (tolerance {BF16_CPU_L2}: bf16 roundings flip "
+        f"between the card's sums and the CPU's and the flips travel through the decoder; "
+        f"at tiny width the port and the JAX package, two such orders, stay 1.4e-2 apart, "
+        f"and a wrong kernel moves it by O(1)), max |diff| {np.abs(a - b).max():.0f} LSB; "
+        f"CPU run {time.perf_counter() - t0:.1f} s")
+    if not l2 <= BF16_CPU_L2:
+        fail("the card's bf16 conversion disagrees with the CPU's")
+    return main_launches
 
 
 def main() -> int:
@@ -699,7 +1019,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi gave nothing"
-    say(f"[1/8] card: {name}, {count} device(s); torch {torch.__version__}, "
+    say(f"[1/12] card: {name}, {count} device(s); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     say(card)
 
@@ -709,7 +1029,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library()
     info = _cuda.build_info
-    say(f"[2/8] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
+    say(f"[2/12] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
         f"(load {time.perf_counter() - t0:.2f} s)")
     say("ptxas: " + "; ".join(info["ptxas"]))
 
@@ -725,7 +1045,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions at the 30 s conversion's shapes
     shapes = path_shapes(vc, clips[30])
-    say(f"[3/8] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
+    say(f"[3/12] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz, {shapes['T50']} HuBERT frames per chunk")
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -747,6 +1067,7 @@ def main() -> int:
                 "nearest": retrieval.nearest_rows_q}
     settings = ConvertSettings(**SETTINGS)
     launches = {}
+    rtf32 = {}
     for sec, audio in clips.items():
         t0 = time.perf_counter()
         vc.convert(audio, settings=settings)  # first call at this length: set-up
@@ -754,24 +1075,32 @@ def main() -> int:
         first = time.perf_counter() - t0
         for fn in counters.values():
             fn.launches = 0
+        others = {k: c for k, c in launch_counters().items()
+                  if k not in ("fused_resblock_group", "banded_rel_attention", "nearest_rows_q")}
+        for fn, attr in others.values():  # the other routes' kernels: none in float32
+            setattr(fn, attr, 0)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out, sr = vc.convert(audio, settings=settings)
         torch.cuda.synchronize()
         walls = [time.perf_counter() - t0]
         launches = {k: fn.launches for k, fn in counters.items()}
+        stray = {k: getattr(fn, attr) for k, (fn, attr) in others.items() if getattr(fn, attr)}
+        if stray:
+            fail(f"the float32 conversion launched other routes' kernels: {stray}")
         for _ in range(2):  # the spread of the wall time, uncounted
             t0 = time.perf_counter()
             vc.convert(audio, settings=settings)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         wall = float(np.median(walls))
+        rtf32[sec] = sec / wall
         spans = vc.spans(butter_highpass_host(audio))
         Tp = path_shapes(vc, audio)["Tp"]
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[4/8] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
+        say(f"[4/12] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
             f"peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x, "
             f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -794,7 +1123,7 @@ def main() -> int:
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     diff = np.abs(out_gpu.astype(np.int32) - out_cpu.astype(np.int32))
     tol = 4
-    say(f"[5/8] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
+    say(f"[5/12] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
         f"max |diff| {diff.max()} LSB, share above {tol} LSB {np.mean(diff > tol):.4%} "
         f"(tolerance {tol} LSB: the same float32 math summed in another order, "
         f"~1e-5 relative before the int16 scaling); CPU run "
@@ -822,7 +1151,7 @@ def main() -> int:
     trainer.init_state(seed=0)
     say(f"dataset of {len(CLIP_SECONDS)} clips, {len(batches)} batches, trainer built in "
         f"{time.perf_counter() - t0:.1f} s")
-    say(f"[6/8] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
+    say(f"[6/12] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
         f"segment {cfg.train.segment_size} samples, WN over {np.shape(batches[0]['spec'])[1]} "
         f"frames")
     gen = torch.Generator().manual_seed(2)
@@ -859,6 +1188,9 @@ def main() -> int:
     # 8. the card's training step against the CPU's
     check_train_vs_cpu(cfg, batches[0])
 
+    # 9-12. conversion in bfloat16 (the JAX package's bench configuration)
+    launches.update(run_bf16(clips, settings, card, rtf32, checks))
+
     kernels = []
     meta = {
         "resblock": ("fused_resblock_group", "rvc_tpu_torch/csrc/resblock_group.cu",
@@ -874,15 +1206,22 @@ def main() -> int:
         "wn": ("fused_wn", "rvc_tpu_torch/csrc/wavenet.cu", "rvc_tpu/ops/pallas_wavenet.py:56"),
         "wn_bwd": ("fused_wn_backward", "rvc_tpu_torch/csrc/wavenet.cu",
                    "rvc_tpu/ops/pallas_wavenet.py:152"),
+        "resblock_bf16": ("fused_resblock_group[bf16]", "rvc_tpu_torch/csrc/resblock_group.cu",
+                          "rvc_tpu/ops/pallas_resblock.py:591"),
+        "attention_bf16": ("banded_rel_attention[bf16]",
+                           "rvc_tpu_torch/csrc/banded_attention.cu",
+                           "rvc_tpu/ops/pallas_attention.py:156"),
+        "chain_v2": ("fused_resblock1_v2", "rvc_tpu_torch/csrc/resblock_group.cu",
+                     "scripts/bench_resblock_v2.py:36"),
     }
     for key, (kname, src, replaces) in meta.items():
         c = checks[key]
         kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches[kname], "max_abs_err": c["max_abs_err"],
                         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                        "bound_by": c["bound_by"], "bound_f32_ms": c["bound_f32_ms"],
-                        "library_ms": c.get("library_ms"),
-                        **({"previous_ms": c["previous_ms"]} if "previous_ms" in c else {})})
+                        "bound_by": c["bound_by"], "library_ms": c.get("library_ms"),
+                        **{k: c[k] for k in ("bound_f32_ms", "previous_ms", "float32_ms")
+                           if k in c}})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -6,7 +6,8 @@ package so each piece has an obvious counterpart; weights use the
 reference torch state_dict names, and ``compat.weights`` turns JAX
 parameter trees (as nested dicts of numpy arrays) into them.
 
-Everything computes in float32. Entry points run on ``cuda`` unless the
+Conversion computes in float32 by default, or in bfloat16 (``dtype``);
+training computes in float32. Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``; without a card they raise instead of
 falling back. This package never imports JAX.
 """

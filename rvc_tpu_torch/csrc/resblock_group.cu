@@ -494,6 +494,240 @@ int launch_unit(const float* x, float* out, const float4* pa, const float* ba,
 
 }  // namespace tc
 
+// ---- kernels 1 (bf16) and 8: the unit in bfloat16 on the tensor cores ----
+//
+// Replaces _fused_group_call (kernel 1) and scripts/bench_resblock_v2.py::
+// _fused_call_v2 (kernel 8, one chain) as they run in bfloat16: activations
+// carry in bf16 and every conv is one bf16 pass on mma.sync m16n8k16 with
+// float32 sums (the products of bf16 operands are exact), rounded once:
+//   t  = bf16(sum_taps conv_a + bias_a), zeroed outside [0, T)
+//   u  = bf16(sum_taps conv_b(lrelu(t)) + bias_b)
+//   h' = bf16(h + u)
+// with lrelu(v) = max(v, bf16(v * bf16(0.1))), the biases float32, and a
+// stage's chains added in order in bf16 and divided once (mode, n_div as the
+// float32 unit). This is the rounding of pallas_resblock.py:601-656 and of
+// bench_resblock_v2.py:56-70. Geometry as the 3xTF32 unit (16 warps, a
+// block's rows x all C channels, conv_a's output over the input tile), in
+// half the shared memory. Weights: bf16, packed once per call by
+// ops/resblock.py::pack_bf16_weights so that a lane's B fragment of one
+// (k16 step, n8 tile) is one 8-byte load; read through L1. Each (tap, 64
+// input channels) sums from zero in its fragments and is added into float32
+// registers, as mma.sync truncates as it accumulates (mma.cuh). What bounds
+// it: operations (one bf16 pass: 2 k C^2 flops per row and conv).
+
+namespace bf {
+
+constexpr int WARPS = 16;
+constexpr int MT = 2;     // m16 tiles per warp
+constexpr int KS = 4;     // k16 steps (64 input channels) per float32 partial sum
+constexpr float SLOPE = 0.10009765625f;  // bf16(0.1)
+
+template <int C>
+struct Tile {
+  static constexpr int NT = C >= 32 ? 4 : 2;   // n8 tiles per warp
+  static constexpr int WN = C / (8 * NT);      // warps along the channels
+  static constexpr int WM = WARPS / WN;        // warps along the rows
+  static constexpr int M = WM * MT * 16;       // conv rows per block
+  static constexpr int S = C + 8;              // row pitch in bf16
+  static constexpr int STEPS = C / 16;         // k16 steps per tap
+};
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// v a bf16 value: max(v, bf16(v * bf16(0.1)))
+__device__ __forceinline__ float lrelu_bf16(float v) {
+  return v >= 0.f ? v : round_bf16(v * SLOPE);
+}
+
+// acc += conv(in_s) over the block's rows: out row r reads in rows r + j*d.
+// w: packed bf16 weights as uint2, ((tap * STEPS + step) * C/8 + n8) * 32 + lane.
+template <int C>
+__device__ __forceinline__ void conv(const __nv_bfloat16* in_s, const uint2* __restrict__ w,
+                                     int k, int d, float (&acc)[MT][Tile<C>::NT][4], int rows,
+                                     int wm, int wn, int g, int t, int lane) {
+  using L = Tile<C>;
+  __syncthreads();  // the tile is written
+  for (int j = 0; j < k; ++j) {
+    for (int s0 = 0; s0 < L::STEPS; s0 += KS) {
+      float part[MT][L::NT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < L::NT; ++nt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) part[mt][nt][c] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const int step = s0 + ks;
+        if (step >= L::STEPS) break;
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if ((wm * MT + mt) * 16 >= rows) continue;
+          const int r = (wm * MT + mt) * 16 + g;
+          const __nv_bfloat16* base = in_s + (size_t)(r + j * d) * L::S + step * 16 + 4 * t;
+          const uint2 lo = *reinterpret_cast<const uint2*>(base);
+          const uint2 hi = *reinterpret_cast<const uint2*>(base + 8 * L::S);
+          a[mt][0] = lo.x;  // (row g,   k 2t..2t+1)
+          a[mt][1] = hi.x;  // (row g+8, k 2t..2t+1)
+          a[mt][2] = lo.y;  // (row g,   k 2t+8..2t+9)
+          a[mt][3] = hi.y;  // (row g+8, k 2t+8..2t+9)
+        }
+        uint2 b[L::NT];
+#pragma unroll
+        for (int nt = 0; nt < L::NT; ++nt)
+          b[nt] = __ldg(w + ((size_t)(j * L::STEPS + step) * (C / 8) + wn * L::NT + nt) * 32 +
+                        lane);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < L::NT; ++nt)
+            if ((wm * MT + mt) * 16 < rows) mma::bf16_16816(part[mt][nt], a[mt], b[nt].x, b[nt].y);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < L::NT; ++nt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[mt][nt][c] += part[mt][nt][c];
+    }
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void zero(float (&acc)[MT][Tile<C>::NT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < Tile<C>::NT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
+}
+
+// x, out: (B, T, C) bf16; pa, pb: packed bf16 weights; ba, bb: (C,) float32.
+// mode 0: out = h'; 1: out = bf16(out + h'). If n_div > 1: out = bf16(out / n_div).
+template <int C>
+__global__ void __launch_bounds__(WARPS * 32, 1) resblock_unit_bf16_kernel(
+    const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
+    const uint2* __restrict__ pa, const float* __restrict__ ba, const uint2* __restrict__ pb,
+    const float* __restrict__ bb, int T, int ka, int da, int kb, int db, int mode, int n_div) {
+  using L = Tile<C>;
+  extern __shared__ uint4 smem_bf[];
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem_bf);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / L::WN, wn = warp % L::WN;
+  const int pa_rows = (ka - 1) * da / 2, pb_rows = (kb - 1) * db / 2;
+  const int rows_h = L::M + (ka - 1) * da, rows_t = L::M + (kb - 1) * db;
+  const int TT = L::M - (kb - 1) * db;  // output rows of this block
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * TT;
+  const __nv_bfloat16* xb = x + (size_t)b * T * C;
+
+  // lrelu(h) with its halo; rows outside [0, T) are zero
+  const int g0 = t0 - pb_rows - pa_rows;
+  for (int e = tid; e < rows_h * (C / 8); e += WARPS * 32) {
+    const int r = e / (C / 8), c8 = e % (C / 8), gr = g0 + r;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (gr >= 0 && gr < T) {
+      v = __ldg(reinterpret_cast<const uint4*>(xb + (size_t)gr * C) + c8);
+      __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        h2[q] = __floats2bfloat162_rn(lrelu_bf16(__low2float(h2[q])),
+                                      lrelu_bf16(__high2float(h2[q])));
+    }
+    *reinterpret_cast<uint4*>(tile + (size_t)r * L::S + 8 * c8) = v;
+  }
+
+  float acc[MT][L::NT][4];
+  zero<C>(acc);
+  conv<C>(tile, pa, ka, da, acc, L::M, wm, wn, g, t, lane);
+  __syncthreads();  // every warp is done reading the input tile
+
+  // conv_a rows cover [t0 - pb, t0 - pb + M): bf16(sum + bias), zero outside
+  // [0, T), lrelu
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (wm * MT + mt) * 16 + g + 8 * h;
+      const int gr = t0 - pb_rows + r;
+      const bool in = gr >= 0 && gr < T;
+#pragma unroll
+      for (int nt = 0; nt < L::NT; ++nt) {
+        const int c = (wn * L::NT + nt) * 8 + 2 * t;
+        const float2 bias = __ldg(reinterpret_cast<const float2*>(ba + c));
+        __nv_bfloat162 v = __floats2bfloat162_rn(0.f, 0.f);
+        if (in)
+          v = __floats2bfloat162_rn(
+              lrelu_bf16(round_bf16(acc[mt][nt][2 * h] + bias.x)),
+              lrelu_bf16(round_bf16(acc[mt][nt][2 * h + 1] + bias.y)));
+        *reinterpret_cast<__nv_bfloat162*>(tile + (size_t)r * L::S + c) = v;
+      }
+    }
+  // rows past M only feed discarded rows of conv_b
+  for (int e = tid; e < (rows_t - L::M) * (C / 8); e += WARPS * 32) {
+    const int r = L::M + e / (C / 8), c8 = e % (C / 8);
+    *reinterpret_cast<uint4*>(tile + (size_t)r * L::S + 8 * c8) = make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  zero<C>(acc);
+  conv<C>(tile, pb, kb, db, acc, TT, wm, wn, g, t, lane);
+
+  __nv_bfloat16* ob = out + (size_t)b * T * C;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (wm * MT + mt) * 16 + g + 8 * h;
+      const int gr = t0 + r;
+      if (r >= TT || gr >= T) continue;
+#pragma unroll
+      for (int nt = 0; nt < L::NT; ++nt) {
+        const int c = (wn * L::NT + nt) * 8 + 2 * t;
+        const float2 bias = __ldg(reinterpret_cast<const float2*>(bb + c));
+        const __nv_bfloat162 hv =
+            *reinterpret_cast<const __nv_bfloat162*>(xb + (size_t)gr * C + c);
+        float v0 = round_bf16(__low2float(hv) + round_bf16(acc[mt][nt][2 * h] + bias.x));
+        float v1 = round_bf16(__high2float(hv) + round_bf16(acc[mt][nt][2 * h + 1] + bias.y));
+        __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(ob + (size_t)gr * C + c);
+        if (mode == 1) {
+          const __nv_bfloat162 o = *dst;
+          v0 = round_bf16(__low2float(o) + v0);
+          v1 = round_bf16(__high2float(o) + v1);
+        }
+        if (n_div > 1) {
+          v0 = __fdiv_rn(v0, (float)n_div);
+          v1 = __fdiv_rn(v1, (float)n_div);
+        }
+        *dst = __floats2bfloat162_rn(v0, v1);
+      }
+    }
+}
+
+template <int C>
+int launch_unit(const __nv_bfloat16* x, __nv_bfloat16* out, const uint2* pa, const float* ba,
+                const uint2* pb, const float* bb, int B, int T, int ka, int da, int kb, int db,
+                int mode, int n_div, cudaStream_t stream) {
+  using L = Tile<C>;
+  const int TT = L::M - (kb - 1) * db;
+  if (TT <= 0) return (int)cudaErrorInvalidValue;
+  const int halo = (ka - 1) * da > (kb - 1) * db ? (ka - 1) * da : (kb - 1) * db;
+  const int smem = (L::M + halo) * L::S * 2;
+  cudaError_t err = cudaFuncSetAttribute(resblock_unit_bf16_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((T + TT - 1) / TT, B);
+  resblock_unit_bf16_kernel<C><<<grid, WARPS * 32, smem, stream>>>(
+      x, out, pa, ba, pb, bb, T, ka, da, kb, db, mode, n_div);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bf
+
 }  // namespace
 
 // The SIMT unit: weights (k, C, C) [tap][in][out]. C must be a multiple of
@@ -561,4 +795,30 @@ extern "C" int rvc_resblock1_fwd(const void* x, void* hs, void* out, const void*
     h = dst;
   }
   return 0;
+}
+
+
+// Kernels 1 (bf16) and 8: the bf16 unit. x, out: (B, T, C) bf16; pa, pb:
+// conv_a's and conv_b's weights as pack_bf16_weights lays them out (k x C/16
+// k16 steps x C/8 n8 tiles x 32 lanes x 4 bf16); ba, bb: (C,) float32. C must
+// be 16, 32, 64, 128 or 256 (the wrapper checks).
+extern "C" int rvc_resblock_unit_bf16(const void* x, void* out, const void* pa,
+                                      const void* ba, const void* pb, const void* bb,
+                                      int B, int T, int C, int ka, int da, int kb,
+                                      int db, int mode, int n_div, void* stream) {
+  const __nv_bfloat16* xh = (const __nv_bfloat16*)x;
+  __nv_bfloat16* oh = (__nv_bfloat16*)out;
+  const uint2* a2 = (const uint2*)pa;
+  const uint2* b2 = (const uint2*)pb;
+  cudaStream_t s = (cudaStream_t)stream;
+#define RVC_UNIT_BF16(CC)                                                                  \
+  case CC:                                                                                 \
+    return bf::launch_unit<CC>(xh, oh, a2, (const float*)ba, b2, (const float*)bb, B, T,   \
+                               ka, da, kb, db, mode, n_div, s);
+  switch (C) {
+    RVC_UNIT_BF16(16) RVC_UNIT_BF16(32) RVC_UNIT_BF16(64) RVC_UNIT_BF16(128) RVC_UNIT_BF16(256)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef RVC_UNIT_BF16
 }

@@ -16,6 +16,9 @@ def resolve_device(device=None) -> torch.device:
 
 def set_float32_math() -> None:
     """Full float32 on the card: cuDNN convolutions and RNNs default to TF32,
-    which keeps about three decimal digits and would cost parity."""
+    which keeps about three decimal digits and would cost parity. And a
+    bfloat16 GEMM sums in float32 throughout, as JAX's do: cuBLAS's default
+    may reduce part of it in bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

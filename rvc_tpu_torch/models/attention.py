@@ -3,7 +3,8 @@
 Counterpart of ``rvc_tpu/models/attention.py``: post-norm blocks, window-10
 relative-position attention shared across heads, masked conv FFN.
 Activations are (B, C, T); Q/K/V/O are 1x1 convs under the reference's
-names. The attention itself is kernel 2 (``ops.attention``) at inference;
+names. In a compute dtype below float32 (``layers.set_dtype_``) the
+relative tables are cast to it, as the JAX module casts them. The attention itself is kernel 2 (``ops.attention``) at inference;
 in training (gradients wanted) it is the plain version, the JAX
 ``Trainer``'s own XLA path (the kernel has no backward, there or here).
 """
@@ -43,7 +44,8 @@ class MultiHeadAttention(nn.Module):
         train = torch.is_grad_enabled() and (q.requires_grad or self.emb_rel_k.requires_grad)
         attend = banded_rel_attention_plain if train else banded_rel_attention
         out = attend(
-            q, k, v, self.emb_rel_k[0].contiguous(), self.emb_rel_v[0].contiguous(),
+            q, k, v, self.emb_rel_k[0].to(q.dtype).contiguous(),
+            self.emb_rel_v[0].to(q.dtype).contiguous(),
             lengths, window=self.window_size, scale=1.0 / math.sqrt(self.k_channels))
         B, H, T, D = out.shape
         return self.conv_o(out.transpose(2, 3).reshape(B, H * D, T))

@@ -5,7 +5,9 @@ parameter names: 7-layer conv feature extractor (per-channel group norm on
 layer 0, masked by the valid length), feature projection, grouped conv
 positional embedding, post-norm transformer layers. Attention is written
 out as matmul + softmax, as the JAX package writes it. Activations of the
-transformer are (B, T, C); the conv stack runs in (B, C, T).
+transformer are (B, T, C); the conv stack runs in (B, C, T). In a compute
+dtype below float32 the norms take their statistics in float32 and the
+softmax runs in float32 (rvc_tpu/models/hubert.py:63-103, :165).
 """
 from __future__ import annotations
 
@@ -14,10 +16,9 @@ from dataclasses import dataclass
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv1d
+from .layers import Conv1d, Linear, TorchLayerNorm, gelu, rounded, set_dtype_
 
 
 @dataclass(frozen=True)
@@ -55,15 +56,17 @@ class GroupNormPerChannel(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        dt, x = x.dtype, x.float()
         if mask is None:
             mu = x.mean(dim=2, keepdim=True)
             var = torch.mean(torch.square(x - mu), dim=2, keepdim=True)
         else:
+            mask = mask.float()
             denom = torch.clamp(mask.sum(dim=2, keepdim=True), min=1.0)
             mu = (x * mask).sum(dim=2, keepdim=True) / denom
             var = (torch.square(x - mu) * mask).sum(dim=2, keepdim=True) / denom
         y = (x - mu) * torch.rsqrt(var + self.eps)
-        return y * self.weight[:, None] + self.bias[:, None]
+        return (y * self.weight[:, None] + self.bias[:, None]).to(dt)
 
 
 class ConvLayer(nn.Module):
@@ -99,15 +102,15 @@ class FeatureExtractor(nn.Module):
                     t = torch.arange(h.shape[2], device=h.device)
                     mask = (t[None, None, :] < cur[:, None, None]).to(h.dtype)
                 h = layer.layer_norm(h, mask)
-            h = F.gelu(h)
+            h = gelu(h)
         return h
 
 
 class FeatureProjection(nn.Module):
     def __init__(self, cfg: HubertConfig):
         super().__init__()
-        self.layer_norm = nn.LayerNorm(cfg.conv_dim[-1], eps=cfg.layer_norm_eps)
-        self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
+        self.layer_norm = TorchLayerNorm(cfg.conv_dim[-1], eps=cfg.layer_norm_eps)
+        self.projection = Linear(cfg.conv_dim[-1], cfg.hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.projection(self.layer_norm(x))
@@ -117,22 +120,23 @@ class SelfAttention(nn.Module):
     def __init__(self, dim: int, heads: int):
         super().__init__()
         self.heads = heads
-        self.q_proj = nn.Linear(dim, dim)
-        self.k_proj = nn.Linear(dim, dim)
-        self.v_proj = nn.Linear(dim, dim)
-        self.out_proj = nn.Linear(dim, dim)
+        self.q_proj = Linear(dim, dim)
+        self.k_proj = Linear(dim, dim)
+        self.v_proj = Linear(dim, dim)
+        self.out_proj = Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, attn_bias: torch.Tensor | None = None) -> torch.Tensor:
         B, T, C = x.shape
         dk = C // self.heads
         split = lambda t: t.reshape(B, T, self.heads, dk).transpose(1, 2)  # noqa: E731
-        q = split(self.q_proj(x) / math.sqrt(dk))
+        q = self.q_proj(x)
+        q = split(q / rounded(math.sqrt(dk), q.dtype))
         k = split(self.k_proj(x))
         v = split(self.v_proj(x))
         scores = torch.matmul(q, k.transpose(-1, -2))
         if attn_bias is not None:
             scores = scores + attn_bias
-        p = torch.softmax(scores, dim=-1)
+        p = torch.softmax(scores.float(), dim=-1).to(q.dtype)
         o = torch.matmul(p, v).transpose(1, 2).reshape(B, T, C)
         return self.out_proj(o)
 
@@ -140,20 +144,20 @@ class SelfAttention(nn.Module):
 class FeedForward(nn.Module):
     def __init__(self, cfg: HubertConfig):
         super().__init__()
-        self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.intermediate_dense = Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.output_dense = Linear(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.output_dense(F.gelu(self.intermediate_dense(x)))
+        return self.output_dense(gelu(self.intermediate_dense(x)))
 
 
 class EncoderLayer(nn.Module):
     def __init__(self, cfg: HubertConfig):
         super().__init__()
         self.attention = SelfAttention(cfg.hidden_size, cfg.num_attention_heads)
-        self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.layer_norm = TorchLayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.feed_forward = FeedForward(cfg)
-        self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.final_layer_norm = TorchLayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
     def forward(self, x: torch.Tensor, attn_bias=None) -> torch.Tensor:
         x = self.layer_norm(x + self.attention(x, attn_bias))
@@ -173,14 +177,14 @@ class PosConvEmbed(nn.Module):
         pos = self.conv(x)
         if self.trim:
             pos = pos[..., :-1]
-        return F.gelu(pos)
+        return gelu(pos)
 
 
 class Encoder(nn.Module):
     def __init__(self, cfg: HubertConfig, n_layers: int):
         super().__init__()
         self.pos_conv_embed = PosConvEmbed(cfg)
-        self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.layer_norm = TorchLayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(n_layers))
 
 
@@ -189,9 +193,11 @@ class HubertEncoder(nn.Module):
 
     ``version`` "v2" keeps the output after 11 transformer layers (the
     reference's output_layer 12); "v1" the output after 8, through
-    ``final_proj``. Only the layers that run are built."""
+    ``final_proj``. Only the layers that run are built. ``dtype`` is the
+    compute dtype (``layers.set_dtype_``)."""
 
-    def __init__(self, cfg: HubertConfig | None = None, version: str = "v2"):
+    def __init__(self, cfg: HubertConfig | None = None, version: str = "v2",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg = cfg or HubertConfig()
         self.version = version
@@ -199,7 +205,8 @@ class HubertEncoder(nn.Module):
         self.feature_projection = FeatureProjection(cfg)
         self.encoder = Encoder(cfg, 8 if version == "v1" else 11)
         if version == "v1":
-            self.final_proj = nn.Linear(cfg.hidden_size, cfg.classifier_proj_size)
+            self.final_proj = Linear(cfg.hidden_size, cfg.classifier_proj_size)
+        set_dtype_(self, dtype)
 
     def extract_features(self, source: torch.Tensor,
                          lengths: torch.Tensor | None = None) -> torch.Tensor:

@@ -9,6 +9,15 @@ until ``live_weight_norm_`` turns it into the trainable form: parameters
 ``g * v / (|v| + 1e-12)`` (norm over every axis but 0) computed at each
 call, as the JAX modules compute it. ``init_random_`` draws weights the
 way the JAX package's ``fast_init`` does in either form.
+
+Compute dtype: every layer computes in its ``dtype`` (float32 unless
+``set_dtype_`` sets another), as the JAX layers' ``dtype`` field does.
+Parameters stay float32 and are cast where they are used; a conv or linear
+layer rounds its product to the compute dtype and then adds the bias in
+that dtype (rvc_tpu/models/layers.py:197-206). A Python scalar that meets
+a bfloat16 tensor is rounded to bfloat16 first (``rounded``), as JAX
+rounds a weakly typed scalar; torch would keep it in float32. In float32
+every layer runs exactly as before.
 """
 from __future__ import annotations
 
@@ -20,8 +29,57 @@ from torch import nn
 LRELU_SLOPE = 0.1
 
 
+def low_precision(dtype: torch.dtype) -> bool:
+    """A floating dtype narrower than float32 (bfloat16)."""
+    return dtype.is_floating_point and dtype.itemsize < 4
+
+
+def rounded(v: float, dtype: torch.dtype) -> float:
+    """The Python scalar ``v`` as a tensor of ``dtype`` holds it, for ops
+    on tensors of a compute dtype below float32 (JAX rounds a weakly typed
+    scalar to the array's dtype before the op)."""
+    return float(torch.tensor(v, dtype=dtype)) if low_precision(dtype) else v
+
+
 def leaky_relu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
-    return F.leaky_relu(x, slope)
+    return F.leaky_relu(x, rounded(slope, x.dtype))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """In a dtype below float32, 1 / (1 + exp(-x)) with each op rounded, as
+    XLA expands ``jax.nn.sigmoid`` (``lax.logistic``) there."""
+    return 1 / (1 + torch.exp(-x)) if low_precision(x.dtype) else torch.sigmoid(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact GELU; in a dtype below float32 written as ``jax.nn.gelu``
+    (approximate=False) writes it, 0.5 x erfc(-x sqrt(1/2)), each op rounded."""
+    if not low_precision(x.dtype):
+        return F.gelu(x)
+    return 0.5 * x * torch.erfc(-x * rounded(0.5 ** 0.5, x.dtype))
+
+
+def set_dtype_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Make ``module`` and everything in it compute in ``dtype``; the
+    parameters stay float32."""
+    for m in module.modules():
+        m.dtype = dtype
+    return module
+
+
+class _Cast:
+    """Mixin of the layers: ``dtype`` is the compute dtype (class default
+    float32, set per instance by ``set_dtype_``)."""
+
+    dtype = torch.float32
+
+    def _affine(self, y: torch.Tensor, channels_last: bool = False) -> torch.Tensor:
+        """The bias added to a product already rounded to the compute dtype;
+        the channels on axis 1, or last."""
+        if self.bias is None:
+            return y
+        b = self.bias.to(self.dtype)
+        return y + (b if channels_last else b.view((-1,) + (1,) * (y.dim() - 2)))
 
 
 def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
@@ -34,7 +92,7 @@ def norm_except_dim0(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(v * v, dim=tuple(range(1, v.dim())), keepdim=True))
 
 
-class _WeightNorm:
+class _WeightNorm(_Cast):
     """Mixin of the conv layers: ``folded_weight()`` is the weight the layer
     applies, whichever form it holds."""
 
@@ -77,7 +135,16 @@ class Conv1d(_WeightNorm, nn.Conv1d):
         self.weight_norm = weight_norm
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.folded_weight(), self.bias)
+        if self.dtype == torch.float32:
+            return self._conv_forward(x, self.folded_weight(), self.bias)
+        dt = self.dtype
+        x, w = x.to(dt), self.folded_weight().to(dt)
+        if self.groups > 1:
+            # the same sums over bf16 operands, taken in float32: ATen's CPU
+            # bf16 grouped conv gives wrong sums at HuBERT's positional
+            # conv (k 128, 16 groups; off by the output's own size)
+            return self._affine(self._conv_forward(x.float(), w.float(), None).to(dt))
+        return self._affine(self._conv_forward(x, w, None))
 
 
 class ConvTranspose1d(_WeightNorm, nn.ConvTranspose1d):
@@ -93,13 +160,18 @@ class ConvTranspose1d(_WeightNorm, nn.ConvTranspose1d):
         self.weight_norm = weight_norm
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose1d(x, self.folded_weight(), self.bias, self.stride,
-                                  self.padding, self.output_padding, self.groups,
-                                  self.dilation)
+        if self.dtype == torch.float32:
+            return F.conv_transpose1d(x, self.folded_weight(), self.bias, self.stride,
+                                      self.padding, self.output_padding, self.groups,
+                                      self.dilation)
+        dt = self.dtype
+        return self._affine(F.conv_transpose1d(
+            x.to(dt), self.folded_weight().to(dt), None, self.stride, self.padding,
+            self.output_padding, self.groups, self.dilation))
 
 
 class Conv2d(_WeightNorm, nn.Conv2d):
-    """``nn.Conv2d`` (the discriminator's); weight (O, I, kh, kw)."""
+    """``nn.Conv2d`` (the discriminator's and RMVPE's); weight (O, I, kh, kw)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: tuple[int, int],
                  stride: tuple[int, int] = (1, 1), padding: tuple[int, int] = (0, 0),
@@ -109,7 +181,49 @@ class Conv2d(_WeightNorm, nn.Conv2d):
         self.weight_norm = weight_norm
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.folded_weight(), self.bias)
+        if self.dtype == torch.float32:
+            return self._conv_forward(x, self.folded_weight(), self.bias)
+        dt = self.dtype
+        return self._affine(self._conv_forward(x.to(dt), self.folded_weight().to(dt), None))
+
+
+class ConvTranspose2d(_Cast, nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` (RMVPE's decoder); weight (I, O, kh, kw)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype == torch.float32:
+            return super().forward(x)
+        dt = self.dtype
+        return self._affine(F.conv_transpose2d(
+            x.to(dt), self.weight.to(dt), None, self.stride, self.padding,
+            self.output_padding, self.groups, self.dilation))
+
+
+class Linear(_Cast, nn.Linear):
+    """``nn.Linear``; weight (out, in)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype == torch.float32:
+            return super().forward(x)
+        dt = self.dtype
+        return self._affine(F.linear(x.to(dt), self.weight.to(dt)), channels_last=True)
+
+
+class Embedding(_Cast, nn.Embedding):
+    """``nn.Embedding``, its rows cast to the compute dtype."""
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return super().forward(ids).to(self.dtype)
+
+
+class TorchLayerNorm(_Cast, nn.LayerNorm):
+    """``nn.LayerNorm`` over the last axis (HuBERT's; names weight/bias),
+    statistics in float32, output in the compute dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype == torch.float32:
+            return super().forward(x)
+        return super().forward(x.float()).to(self.dtype)
 
 
 def live_weight_norm_(module: nn.Module) -> nn.Module:
@@ -147,9 +261,9 @@ def rand_slice_segments(x: torch.Tensor, lengths: torch.Tensor, segment_size: in
     return slice_segments(x, starts, segment_size), starts
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(_Cast, nn.Module):
     """LayerNorm over the channel axis of (B, C, T), reference names
-    ``gamma``/``beta``."""
+    ``gamma``/``beta``; statistics in float32, output in the compute dtype."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -158,9 +272,9 @@ class LayerNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.transpose(1, -1), (x.shape[1],), self.gamma,
+        y = F.layer_norm(x.transpose(1, -1).float(), (x.shape[1],), self.gamma,
                          self.beta, self.eps)
-        return y.transpose(1, -1)
+        return y.transpose(1, -1).to(self.dtype)
 
 
 _ONES = ("gamma", "weight_g", "running_var")  # as fast_init draws them

@@ -2,12 +2,17 @@
 
 Counterpart of ``rvc_tpu/models/nsf.py`` (sine_source, SourceModuleHnNSF,
 ResBlock1/2, GeneratorNSF), activations (B, C, T). The sample-rate
-ResBlock1 stages run through ``ops.resblock``: at inference each stage is
-one kernel-1 call, as the JAX package's ``fuse_group`` path does; when
+ResBlock1 stages run through ``ops.resblock``: at inference with
+``fuse_group`` (the default) each stage is one kernel-1 call, as the JAX
+package's ``fuse_group`` path does; without it each ResBlock is one chain
+call (kernel 8 in bfloat16, kernel 4 in float32) and the chains are added
+in order and divided in the compute dtype, as the JAX package's
+``fuse_resblocks`` path does (rvc_tpu/models/nsf.py:337-342). When
 gradients are wanted each chain is a ``fused_resblock1_train`` call
 (kernels 4 and 5) and the chains are averaged outside, as the JAX
 package's training path does (rvc_tpu/models/nsf.py:162-190). ResBlock2
-presets stay plain, as there.
+presets stay plain, as there. The source's sine runs in float32 and is
+cast at ``l_linear`` (rvc_tpu/models/nsf.py:110-120).
 
 The sine source draws a start phase per harmonic and Gaussian noise; both
 can be passed in (``rand_ini``, ``noise``) so a test can hand over another
@@ -22,8 +27,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.resblock import fused_resblock1_train, fused_resblock_group, wants_grad
-from .layers import LRELU_SLOPE, Conv1d, ConvTranspose1d, leaky_relu
+from ..ops.resblock import (fused_resblock1, fused_resblock1_train, fused_resblock1_v2,
+                            fused_resblock_group, wants_grad)
+from .layers import LRELU_SLOPE, Conv1d, ConvTranspose1d, Linear, leaky_relu
 
 
 def wrapped_cumsum(x: torch.Tensor, block: int = 64) -> torch.Tensor:
@@ -86,7 +92,7 @@ class SourceModuleHnNSF(nn.Module):
         self.sine_amp = sine_amp
         self.noise_std = add_noise_std
         self.voiced_threshold = voiced_threshold
-        self.l_linear = nn.Linear(harmonic_num + 1, 1)
+        self.l_linear = Linear(harmonic_num + 1, 1)
 
     def forward(self, f0: torch.Tensor, upp: int, **draws) -> torch.Tensor:
         sine, _ = sine_source(f0.float(), upp, self.sampling_rate, self.harmonic_num,
@@ -136,15 +142,28 @@ class ResBlock2(nn.Module):
         return x
 
 
+def mean_of(ys: Sequence[torch.Tensor]) -> torch.Tensor:
+    """((y0 + y1) + ...) / n in the tensors' dtype, the division a true one
+    on every device (torch divides a CUDA tensor by a Python scalar through
+    its reciprocal, which kernel 1's in-kernel division does not)."""
+    acc = ys[0]
+    for y in ys[1:]:
+        acc = acc + y
+    return acc / torch.full((), float(len(ys)), dtype=acc.dtype, device=acc.device)
+
+
 class GeneratorNSF(nn.Module):
-    """NSF-HiFiGAN decoder (reference models.GeneratorNSF)."""
+    """NSF-HiFiGAN decoder (reference models.GeneratorNSF). ``fuse_group``
+    picks the inference route of the ResBlock1 stages (module docstring)."""
 
     def __init__(self, initial_channel: int, resblock: str,
                  resblock_kernel_sizes: Sequence[int],
                  resblock_dilation_sizes: Sequence[Sequence[int]],
                  upsample_rates: Sequence[int], upsample_initial_channel: int,
-                 upsample_kernel_sizes: Sequence[int], gin_channels: int, sr: int):
+                 upsample_kernel_sizes: Sequence[int], gin_channels: int, sr: int,
+                 fuse_group: bool = True):
         super().__init__()
+        self.fuse_group = fuse_group
         self.upsample_rates = tuple(upsample_rates)
         self.upp = int(np.prod(upsample_rates))
         self.num_kernels = len(resblock_kernel_sizes)
@@ -192,8 +211,11 @@ class GeneratorNSF(nn.Module):
                         r = fused_resblock1_train(xt, chain)
                         ys = r if ys is None else ys + r
                     y = ys / nk
-                else:
+                elif self.fuse_group:
                     y = fused_resblock_group(xt, chains)
+                else:
+                    one = fused_resblock1_v2 if xt.dtype == torch.bfloat16 else fused_resblock1
+                    y = mean_of([one(xt, chain) for chain in chains])
                 x = y.transpose(1, 2)
             else:
                 xs = None

@@ -3,7 +3,10 @@
 Counterpart of ``rvc_tpu/models/rmvpe.py`` with the reference ``E2E``
 state_dict names. Layout (B, C, time, mel) for the U-net; the JAX
 package's frequency space-to-depth packing is a TPU lane trick and is left
-out.
+out. In a compute dtype below float32 the mel is computed in float32 and
+cast (rvc_tpu/models/rmvpe.py:40-48), every layer computes in that dtype,
+the BiGRU too (its weights cast, its state carried in the dtype), and the
+decode runs in float32 (:322).
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.mel import log_mel
+from .layers import Conv2d, ConvTranspose2d, Linear, set_dtype_, sigmoid
 
 N_MELS = 128
 N_CLASS = 360
@@ -39,8 +43,8 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         inv = torch.rsqrt(self.running_var + self.eps)
-        scale = self.weight * inv
-        shift = self.bias - self.running_mean * self.weight * inv
+        scale = (self.weight * inv).to(x.dtype)
+        shift = (self.bias - self.running_mean * self.weight * inv).to(x.dtype)
         shape = (1, -1) + (1,) * (x.dim() - 2)
         return x * scale.view(shape) + shift.view(shape)
 
@@ -49,10 +53,10 @@ class ConvBlockRes(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.conv = nn.Sequential(
-            nn.Conv2d(cin, cout, 3, padding=1, bias=False), BatchNorm(cout), nn.ReLU(),
-            nn.Conv2d(cout, cout, 3, padding=1, bias=False), BatchNorm(cout), nn.ReLU())
+            Conv2d(cin, cout, 3, padding=1, bias=False), BatchNorm(cout), nn.ReLU(),
+            Conv2d(cout, cout, 3, padding=1, bias=False), BatchNorm(cout), nn.ReLU())
         if cin != cout:
-            self.shortcut = nn.Conv2d(cin, cout, 1)
+            self.shortcut = Conv2d(cin, cout, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         skip = self.shortcut(x) if hasattr(self, "shortcut") else x
@@ -78,8 +82,8 @@ class ResDecoderBlock(nn.Module):
     def __init__(self, cin: int, cout: int, n_blocks: int):
         super().__init__()
         self.conv1 = nn.Sequential(
-            nn.ConvTranspose2d(cin, cout, 3, stride=2, padding=1, output_padding=1,
-                               bias=False),
+            ConvTranspose2d(cin, cout, 3, stride=2, padding=1, output_padding=1,
+                            bias=False),
             BatchNorm(cout), nn.ReLU())
         self.conv2 = nn.ModuleList(
             ConvBlockRes(cout * 2 if i == 0 else cout, cout) for i in range(n_blocks))
@@ -130,12 +134,22 @@ class DeepUnet(nn.Module):
 
 
 class BiGRU(nn.Module):
+    """One bidirectional GRU layer (``nn.GRU``'s parameters and names); in
+    a compute dtype below float32 its weights are cast and it runs in that
+    dtype."""
+
     def __init__(self, input_size: int, hidden_size: int):
         super().__init__()
         self.gru = nn.GRU(input_size, hidden_size, batch_first=True, bidirectional=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.gru(x)[0]
+        dt = getattr(self, "dtype", torch.float32)
+        if dt == torch.float32:
+            return self.gru(x)[0]
+        gru = self.gru
+        h0 = x.new_zeros((2, x.shape[0], gru.hidden_size), dtype=dt)
+        weights = [w.to(dt) for w in gru._flat_weights]
+        return torch.gru(x.to(dt), h0, weights, True, 1, 0.0, False, True, True)[0]
 
 
 class E2E(nn.Module):
@@ -144,14 +158,14 @@ class E2E(nn.Module):
     def __init__(self, n_blocks: int = 4, en_out_channels: int = 16):
         super().__init__()
         self.unet = DeepUnet(n_blocks=n_blocks, en_out_channels=en_out_channels)
-        self.cnn = nn.Conv2d(en_out_channels, 3, 3, padding=1)
-        self.fc = nn.Sequential(BiGRU(3 * N_MELS, 256), nn.Linear(512, N_CLASS))
+        self.cnn = Conv2d(en_out_channels, 3, 3, padding=1)
+        self.fc = nn.Sequential(BiGRU(3 * N_MELS, 256), Linear(512, N_CLASS))
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         """(B, T, 128) log-mel -> (B, T, 360) salience."""
         x = self.cnn(self.unet(mel[:, None]))  # (B, 3, T, 128)
         x = x.transpose(1, 2).flatten(-2)
-        return torch.sigmoid(self.fc(x))
+        return sigmoid(self.fc(x))
 
 
 _CENTS = np.pad(20 * np.arange(N_CLASS) + 1997.3794084376191, (4, 4)).astype(np.float32)
@@ -171,14 +185,17 @@ def decode_cents(salience: torch.Tensor, thred: float = 0.03) -> torch.Tensor:
 
 
 class RMVPE(nn.Module):
-    """16 kHz audio -> f0 Hz per 10 ms frame; frames padded to a multiple of 32."""
+    """16 kHz audio -> f0 Hz per 10 ms frame; frames padded to a multiple of
+    32. ``dtype`` is the compute dtype (``layers.set_dtype_``)."""
 
-    def __init__(self, n_blocks: int = 4, en_out_channels: int = 16):
+    def __init__(self, n_blocks: int = 4, en_out_channels: int = 16,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.model = E2E(n_blocks, en_out_channels)
+        set_dtype_(self, dtype)
 
     def forward(self, audio: torch.Tensor, thred: float = 0.03) -> torch.Tensor:
-        mel = mel_frontend(audio)
+        mel = mel_frontend(audio).to(self.dtype)
         n = mel.shape[1]
         pad = min(32 * ((n - 1) // 32 + 1) - n, n)
         if pad:

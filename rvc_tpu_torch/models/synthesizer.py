@@ -17,7 +17,8 @@ from torch import nn
 
 from .attention import Encoder
 from .flows import ResidualCouplingBlock
-from .layers import Conv1d, leaky_relu, rand_slice_segments, sequence_mask, slice_segments
+from .layers import (Conv1d, Embedding, Linear, leaky_relu, rand_slice_segments, rounded,
+                     sequence_mask, set_dtype_, slice_segments)
 from .nsf import GeneratorNSF
 from .wavenet import WN
 
@@ -31,9 +32,9 @@ class TextEncoder(nn.Module):
         super().__init__()
         self.out_channels = out_channels
         self.hidden_channels = hidden_channels
-        self.emb_phone = nn.Linear(in_dim, hidden_channels)
+        self.emb_phone = Linear(in_dim, hidden_channels)
         if f0:
-            self.emb_pitch = nn.Embedding(256, hidden_channels)
+            self.emb_pitch = Embedding(256, hidden_channels)
         self.encoder = Encoder(hidden_channels, filter_channels, n_heads, n_layers,
                                kernel_size)
         self.proj = Conv1d(hidden_channels, out_channels * 2, 1)
@@ -45,7 +46,8 @@ class TextEncoder(nn.Module):
         x = self.emb_phone(phone)
         if pitch is not None:
             x = x + self.emb_pitch(pitch)
-        x = leaky_relu(x * math.sqrt(self.hidden_channels), 0.1).transpose(1, 2)
+        x = leaky_relu(x * rounded(math.sqrt(self.hidden_channels), x.dtype), 0.1)
+        x = x.transpose(1, 2)
         x_mask = sequence_mask(lengths, x.shape[2])[:, None].to(x.dtype)
         x = self.encoder(x * x_mask, x_mask)
         stats = self.proj(x) * x_mask
@@ -79,7 +81,10 @@ class PosteriorEncoder(nn.Module):
 
 
 class Synthesizer(nn.Module):
-    """RVC v1/v2 synthesizer with f0 (SynthesizerTrnMs{256,768}NSFsid)."""
+    """RVC v1/v2 synthesizer with f0 (SynthesizerTrnMs{256,768}NSFsid).
+
+    ``dtype`` is the compute dtype (``layers.set_dtype_``); ``fuse_group``
+    picks the decoder's inference route (``nsf.GeneratorNSF``)."""
 
     def __init__(self, spec_channels: int, segment_size: int, inter_channels: int,
                  hidden_channels: int, filter_channels: int, n_heads: int, n_layers: int,
@@ -89,7 +94,8 @@ class Synthesizer(nn.Module):
                  upsample_rates: Sequence[int], upsample_initial_channel: int,
                  upsample_kernel_sizes: Sequence[int], spk_embed_dim: int,
                  gin_channels: int, sr: int, feature_dim: int = 768, use_f0: bool = True,
-                 posterior: bool = False):
+                 posterior: bool = False, fuse_group: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.segment_size = segment_size
         if not use_f0:
@@ -99,13 +105,14 @@ class Synthesizer(nn.Module):
         self.dec = GeneratorNSF(inter_channels, resblock, resblock_kernel_sizes,
                                 resblock_dilation_sizes, upsample_rates,
                                 upsample_initial_channel, upsample_kernel_sizes,
-                                gin_channels=gin_channels, sr=sr)
+                                gin_channels=gin_channels, sr=sr, fuse_group=fuse_group)
         self.flow = ResidualCouplingBlock(inter_channels, hidden_channels, 5, 1, 3,
                                           gin_channels=gin_channels)
-        self.emb_g = nn.Embedding(spk_embed_dim, gin_channels)
+        self.emb_g = Embedding(spk_embed_dim, gin_channels)
         if posterior:
             self.enc_q = PosteriorEncoder(spec_channels, inter_channels, hidden_channels, 5, 1,
                                           16, gin_channels=gin_channels)
+        set_dtype_(self, dtype)
 
     def forward(self, phone: torch.Tensor, phone_lengths: torch.Tensor, pitch: torch.Tensor,
                 pitchf: torch.Tensor, spec: torch.Tensor, spec_lengths: torch.Tensor,
@@ -139,16 +146,17 @@ class Synthesizer(nn.Module):
         """Sample the prior, invert the flow, decode.
 
         phone (B, T, feat); pitch (B, T) coarse bins; nsff0 (B, T) Hz; sid (B,).
-        ``eps`` (B, inter, T) is the prior's standard normal draw and
-        ``draws`` the sine source's (``rand_ini``, ``noise``); each is drawn
-        from ``generator`` when absent. Returns (o (B, 1, T*upp), x_mask,
-        (z, z_p, m_p, logs_p))."""
+        ``eps`` (B, inter, T) is the prior's standard normal draw, used in
+        ``m_p``'s dtype, and ``draws`` the sine source's (``rand_ini``,
+        ``noise``); each is drawn from ``generator`` when absent. Returns
+        (o (B, 1, T*upp), x_mask, (z, z_p, m_p, logs_p))."""
         g = self.emb_g(sid)[:, :, None]
         m_p, logs_p, x_mask = self.enc_p(phone, pitch, phone_lengths)
         if eps is None:
             eps = torch.randn(m_p.shape, generator=generator, device=m_p.device,
                               dtype=m_p.dtype)
-        z_p = (m_p + torch.exp(logs_p) * eps * noise_scale) * x_mask
+        eps = eps.to(m_p.dtype)
+        z_p = (m_p + torch.exp(logs_p) * eps * rounded(noise_scale, m_p.dtype)) * x_mask
         z = self.flow.reverse(z_p, x_mask, g=g)
         o = self.dec(z * x_mask, nsff0, g=g, generator=generator, **draws)
         return o, x_mask, (z, z_p, m_p, logs_p)

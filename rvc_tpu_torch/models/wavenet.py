@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from ..ops.wavenet import fused_wn
-from .layers import Conv1d
+from .layers import Conv1d, sigmoid
 
 
 class WN(nn.Module):
@@ -52,7 +52,7 @@ class WN(nn.Module):
             s = in_layer(x)
             if g_all is not None:
                 s = s + g_all[:, i * 2 * H:(i + 1) * 2 * H]
-            acts = torch.tanh(s[:, :H]) * torch.sigmoid(s[:, H:])
+            acts = torch.tanh(s[:, :H]) * sigmoid(s[:, H:])
             rs = rs_layer(acts)
             if i < self.n_layers - 1:
                 x = (x + rs[:, :H]) * x_mask

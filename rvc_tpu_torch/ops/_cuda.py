@@ -39,10 +39,14 @@ _IP = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "rvc_resblock_unit": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _P],
+    "rvc_resblock_unit_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _P],
     "rvc_resblock_unit_simt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _P],
     "rvc_banded_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _F, _P],
+    "rvc_banded_attention_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _F, _P],
     "rvc_nearest_rows": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rvc_resblock1_fwd": [_P] * 5 + [_I] * 5 + [_IP, _P],
     "rvc_resblock1_bwd": [_P] * 10 + [_L] + [_I] * 5 + [_IP, _P],

@@ -21,10 +21,23 @@ each unit's first conv in 3xTF32, so it may take the other leaky-ReLU slope
 than kernel 4's float32 forward at a pre-activation within rounding of 0;
 ``check_chain_grads`` allows for that.
 
+In bfloat16, kernel 1 and kernel 8 (``fused_resblock1_v2``, one chain:
+the counterpart of ``scripts/bench_resblock_v2.py::fused_resblock1_v2``)
+run one bf16 unit kernel (``rvc_resblock_unit_bf16``): activations carry
+in bf16, each conv is one bf16 pass summed in float32, the float32 bias is
+added and the sum rounded once to bf16, leaky ReLU rounds its product, the
+residual add rounds, and a stage's chains add in order in bf16 before one
+division (rvc_tpu/ops/pallas_resblock.py:591-656). Each call packs the
+weights as bf16 (``pack_bf16_weights``). Kernel 1 counts its float32
+launches in ``fused_resblock_group.launches`` and its bf16 ones in
+``fused_resblock_group.launches_bf16``.
+
 On a CPU tensor each wrapper runs its plain version below instead, the same
-function written with ``F.conv1d`` (and autograd). A wrapper called on a
-CUDA tensor launches its kernel or raises. The forward-only wrappers raise
-when gradients are wanted: their launches have no autograd node.
+function written with ``F.conv1d`` (and autograd); in bf16 the plain
+version convolves bf16-valued operands in float32 and rounds where the
+kernel rounds. A wrapper called on a CUDA tensor launches its kernel or
+raises. The forward-only wrappers raise when gradients are wanted: their
+launches have no autograd node.
 """
 from __future__ import annotations
 
@@ -38,20 +51,32 @@ from . import _cuda
 
 # (weight (O, I, k), bias (O,), k, dilation) for each conv of a chain
 Conv = tuple[torch.Tensor, torch.Tensor, int, int]
+BF16_SLOPE = 0.10009765625  # bf16(0.1), the leaky ReLU's slope in bfloat16
+
+
+def _lrelu_conv(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int, d: int
+                ) -> torch.Tensor:
+    """conv(leaky_relu(h)) with same padding, (B, C, T). In bf16: the
+    product of the bf16 slope rounded, the conv of bf16 operands summed in
+    float32 with the float32 bias, then rounded once to bf16."""
+    pad = (k * d - d) // 2
+    if h.dtype != torch.bfloat16:
+        return F.conv1d(F.leaky_relu(h, 0.1), w, b, padding=pad, dilation=d)
+    a = F.leaky_relu(h, BF16_SLOPE).float()
+    return F.conv1d(a, w.to(h.dtype).float(), b.float(), padding=pad,
+                    dilation=d).to(h.dtype)
 
 
 def resblock_group_plain(x: torch.Tensor, chains: Sequence[Sequence[Conv]]) -> torch.Tensor:
-    """x (B, T, C) -> mean over chains of the chain applied to x."""
+    """x (B, T, C) -> mean over chains of the chain applied to x; in x's
+    dtype (float32 or bfloat16), rounding where kernel 1 rounds."""
     xc = x.transpose(1, 2)
     acc = None
     for chain in chains:
         h = xc
         for (wa, ba, ka, da), (wb, bb, kb, db) in zip(chain[0::2], chain[1::2]):
-            t = F.conv1d(F.leaky_relu(h, 0.1), wa, ba, padding=(ka * da - da) // 2,
-                         dilation=da)
-            t = F.conv1d(F.leaky_relu(t, 0.1), wb, bb, padding=(kb * db - db) // 2,
-                         dilation=db)
-            h = h + t
+            t = _lrelu_conv(h, wa, ba, ka, da)
+            h = h + _lrelu_conv(t, wb, bb, kb, db)
         acc = h if acc is None else acc + h
     return (acc / len(chains)).transpose(1, 2)
 
@@ -76,8 +101,8 @@ def _refuse_grad(x: torch.Tensor, chains, name: str) -> None:
 
 
 def _check(x: torch.Tensor, chains) -> None:
-    if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
-        raise ValueError("x must be a contiguous float32 (B, T, C) tensor")
+    if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 3 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous float32 or bfloat16 (B, T, C) tensor")
     C = x.shape[2]
     if C % 16 or C > 256:
         raise ValueError(f"resblock kernel takes C a multiple of 16 up to 256, got {C}")
@@ -134,10 +159,23 @@ def unpack_tf32_weights(packed: torch.Tensor, C: int, k: int) -> tuple[torch.Ten
     return out[0], out[1]
 
 
-def _run_units(x: torch.Tensor, chains, entry: str, weights, counted) -> torch.Tensor:
+def pack_bf16_weights(w: torch.Tensor) -> torch.Tensor:
+    """A conv's (O, I, k) float32 weights (O a multiple of 8, I of 16) as
+    the bf16 unit kernel reads them: for each tap j, k16 step s (inputs
+    16s..16s+15), n8 tile n of outputs and lane 4g + t of a warp, the four
+    bf16 values w[8n + g, 16s + 4t + e, j], e = 0..3 (the B fragment of
+    mma.m16n8k16 with k relabelled as in ``csrc/mma.cuh``).
+    (k, I/16, O/8, 8, 4, 4) bf16."""
+    O, I, k = w.shape
+    v = w.to(torch.bfloat16).permute(2, 1, 0).reshape(k, I // 16, 4, 4, O // 8, 8)
+    return v.permute(0, 1, 4, 5, 2, 3).contiguous()  # j, s, n, g, t, e
+
+
+def _run_units(x: torch.Tensor, chains, entry: str, weights, counted,
+               count: str = "launches") -> torch.Tensor:
     """The stage as one launch of ``entry`` per residual unit; ``weights``
     maps a conv's (O, I, k) weight to the layout the entry reads, and each
-    launch adds one to ``counted.launches``."""
+    launch adds one to ``counted``'s attribute ``count``."""
     lib = _cuda.library()
     B, T, C = x.shape
     out = torch.empty_like(x)
@@ -159,28 +197,56 @@ def _run_units(x: torch.Tensor, chains, entry: str, weights, counted) -> torch.T
                          pb.data_ptr(), bb.data_ptr(), B, T, C, ka, da, kb, db, mode,
                          n_div, stream)
             _cuda.check(err, f"{entry} launch")
-            counted.launches += 1
+            setattr(counted, count, getattr(counted, count) + 1)
             h = dst
     return out
 
 
+def _check_tc(x: torch.Tensor, chains) -> None:
+    _check(x, chains)
+    if x.shape[2] not in TC_CHANNELS or x.data_ptr() % 16:
+        raise ValueError(f"resblock kernel takes C in {TC_CHANNELS} and 16-byte aligned "
+                         f"rows, got C={x.shape[2]}")
+
+
 def fused_resblock_group(x: torch.Tensor, chains: Sequence[Sequence[Conv]]) -> torch.Tensor:
-    """x (B, T, C) float32; chains: per ResBlock1, its convs in order as
-    (weight (O, I, k), bias, k, dilation). Returns (Σ_c chain_c(x)) / n.
-    Raises when gradients are wanted."""
+    """x (B, T, C) float32 or bfloat16; chains: per ResBlock1, its convs in
+    order as (weight (O, I, k), bias, k, dilation), float32. Returns
+    (Σ_c chain_c(x)) / n in x's dtype. Raises when gradients are wanted."""
     _refuse_grad(x, chains, "fused_resblock_group")
     if x.device.type == "cpu":
         return resblock_group_plain(x, chains)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check(x, chains)
-    if x.shape[2] not in TC_CHANNELS or x.data_ptr() % 16:
-        raise ValueError(f"resblock kernel takes C in {TC_CHANNELS} and 16-byte aligned "
-                         f"rows, got C={x.shape[2]}")
+    _check_tc(x, chains)
+    if x.dtype == torch.bfloat16:
+        return _run_units(x, chains, "rvc_resblock_unit_bf16", pack_bf16_weights,
+                          fused_resblock_group, "launches_bf16")
     return _run_units(x, chains, "rvc_resblock_unit", pack_tf32_weights, fused_resblock_group)
 
 
 fused_resblock_group.launches = 0
+fused_resblock_group.launches_bf16 = 0
+
+
+def fused_resblock1_v2(x: torch.Tensor, convs: Sequence[Conv]) -> torch.Tensor:
+    """Kernel 8: one ResBlock1 chain over x (B, T, C) bfloat16 with the bf16
+    carry (the bf16 unit kernel, a launch per unit); convs as in
+    ``fused_resblock_group``. Its plain version is ``fused_resblock1_plain``.
+    Forward only: raises when gradients are wanted."""
+    _refuse_grad(x, [convs], "fused_resblock1_v2")
+    if x.dtype != torch.bfloat16:
+        raise ValueError("fused_resblock1_v2 takes bfloat16 activations")
+    if x.device.type == "cpu":
+        return fused_resblock1_plain(x, convs)
+    _device_only(x)
+    _check_chain(x, convs, torch.bfloat16)
+    _check_tc(x, [convs])
+    return _run_units(x, [convs], "rvc_resblock_unit_bf16", pack_bf16_weights,
+                      fused_resblock1_v2)
+
+
+fused_resblock1_v2.launches = 0
 
 
 def _device_only(x: torch.Tensor) -> None:
@@ -201,8 +267,11 @@ def _packed(convs: Sequence[Conv]):
     return taps, taps_t, bias, dil
 
 
-def _check_chain(x: torch.Tensor, convs: Sequence[Conv]) -> None:
+def _check_chain(x: torch.Tensor, convs: Sequence[Conv],
+                 dtype: torch.dtype = torch.float32) -> None:
     _check(x, [convs])
+    if x.dtype != dtype:
+        raise ValueError(f"this chain kernel takes {dtype} activations, got {x.dtype}")
     k = convs[0][2]
     if any(ck != k for _, _, ck, _ in convs) or any(d != 1 for _, _, _, d in convs[1::2]):
         raise ValueError("a ResBlock1 chain has one kernel size, and dilation 1 "

@@ -9,7 +9,10 @@ package's CPU path (``retrieval/index.py::_topk_blend`` at k = 1).
 The kernel computes its dot products on the tensor cores from bf16 pieces
 of the float32 operands (``csrc/mma.cuh``): every product is exact, and the
 sums are ``mma.sync``'s, which truncates as it accumulates (``mma.cuh``);
-the rows it picks are held to the plain version's.
+the rows it picks are held to the plain version's. Features in bfloat16
+go up to float32 exactly before the search, and the blend is cast back to
+bf16 (rvc_tpu/ops/pallas_retrieval.py:125-130, :227-234): the float32
+kernel serves both dtypes unchanged.
 """
 from __future__ import annotations
 
@@ -109,16 +112,26 @@ nearest_rows_q.launches = 0
 nearest_rows.launches = 0
 
 
+def _blend(feats: torch.Tensor, nearest: torch.Tensor, index_rate: float) -> torch.Tensor:
+    """rate·nearest + (1 - rate)·feats in float32, cast back to the features'
+    dtype (rvc_tpu/ops/pallas_retrieval.py:227-234)."""
+    out = index_rate * nearest.reshape(feats.shape) + (1.0 - index_rate) * feats.float()
+    return out.to(feats.dtype)
+
+
+def _queries(feats: torch.Tensor) -> torch.Tensor:
+    """(B, T, D) features, float32 or bfloat16, as float32 (T·B, D) queries:
+    bf16 goes up to float32 exactly, and the float32 kernel searches it."""
+    B, T, D = feats.shape
+    return feats.reshape(B * T, D).float().contiguous()
+
+
 def blend_into_q(feats: torch.Tensor, bank_q: torch.Tensor, scales: torch.Tensor,
                  index_rate: float) -> torch.Tensor:
     """rate·nearest + (1 - rate)·feats over a (B, T, D) batch, int8 bank."""
-    B, T, D = feats.shape
-    nearest = nearest_rows_q(feats.reshape(B * T, D).contiguous(), bank_q, scales)
-    return index_rate * nearest.reshape(B, T, D) + (1.0 - index_rate) * feats
+    return _blend(feats, nearest_rows_q(_queries(feats), bank_q, scales), index_rate)
 
 
 def blend_into(feats: torch.Tensor, bank: torch.Tensor, index_rate: float) -> torch.Tensor:
     """float32-bank version of ``blend_into_q``."""
-    B, T, D = feats.shape
-    nearest = nearest_rows(feats.reshape(B * T, D).contiguous(), bank)
-    return index_rate * nearest.reshape(B, T, D) + (1.0 - index_rate) * feats
+    return _blend(feats, nearest_rows(_queries(feats), bank), index_rate)

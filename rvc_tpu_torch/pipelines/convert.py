@@ -16,6 +16,15 @@ Chunk spans, bucketing and pad trim equal the JAX package's. The JAX
 package's TPU-only tricks (int16 bit-pair upload, s2d packing, dp mesh)
 are left out; outputs are kept. ``input_sr`` other than 16 kHz,
 ``resample_sr`` and multi-method f0 are not ported yet and raise.
+
+``dtype`` is the compute dtype of HuBERT and the synthesizer (and of the
+pitch model built by ``from_state_dicts`` / ``make_random_converter``), as
+the JAX ``VoiceConverter(dtype=)``: float32 by default, or bfloat16, the
+configuration the JAX package benchmarks (bench.py:52). In bfloat16 the
+protect blend promotes the features to float32 as JAX does, and the
+synthesizer's output goes to float32 before the RMS mix
+(rvc_tpu/pipelines/convert.py:263-266). ``synth_kwargs["fuse_group"]``
+(default True) picks the decoder's route (``models.nsf``).
 """
 from __future__ import annotations
 
@@ -29,7 +38,7 @@ import torch
 from ..config import RVCConfig, preset as get_preset
 from ..device import resolve_device, set_float32_math
 from ..models.hubert import HubertConfig, HubertEncoder
-from ..models.layers import init_random_, load_numpy_state_dict
+from ..models.layers import init_random_, load_numpy_state_dict, set_dtype_
 from ..models.rmvpe import RMVPE
 from ..models.synthesizer import Synthesizer
 from ..ops.filters import butter_highpass_host, change_rms, peak_quantize_i16
@@ -89,23 +98,26 @@ def synth_kwargs_from_config(cfg: RVCConfig) -> dict:
 
 
 class VoiceConverter:
-    """End-to-end RVC conversion on one device, float32."""
+    """End-to-end RVC conversion on one device, in float32 or bfloat16."""
 
     def __init__(self, synth: Synthesizer, synth_kwargs: dict, hubert: HubertEncoder,
                  pitch: PitchExtractor | None = None, index_bank: np.ndarray | None = None,
                  config: RVCConfig | None = None, index_int8: bool = False,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, dtype: torch.dtype = torch.float32):
         """``synth``, ``hubert`` and ``pitch`` hold loaded weights; they are
-        moved to ``device`` (default: the card). ``index_bank`` (N, D) is
-        the retrieval bank, stored int8 with per-row scales when
-        ``index_int8``. ``seed`` seeds the synthesizer's random draws."""
+        moved to ``device`` (default: the card), and ``synth`` and ``hubert``
+        compute in ``dtype``. ``index_bank`` (N, D) is the retrieval bank,
+        stored int8 with per-row scales when ``index_int8``. ``seed`` seeds
+        the synthesizer's random draws."""
         self.device = resolve_device(device)
         set_float32_math()
         self.config = config or RVCConfig()
         self.seed = seed
-        self.synth = synth.to(self.device).eval()
-        self.hubert = hubert.to(self.device).eval()
-        self.pitch = pitch or PitchExtractor()
+        self.dtype = dtype
+        self.synth = set_dtype_(synth.to(self.device).eval(), dtype)
+        self.synth.dec.fuse_group = synth_kwargs.get("fuse_group", True)
+        self.hubert = set_dtype_(hubert.to(self.device).eval(), dtype)
+        self.pitch = pitch or PitchExtractor(dtype=dtype)
         if self.pitch.rmvpe is not None:
             self.pitch.rmvpe = self.pitch.rmvpe.to(self.device).eval()
         self.tgt_sr = synth_kwargs["sr"]
@@ -131,7 +143,8 @@ class VoiceConverter:
                          hubert_cfg: HubertConfig | None = None,
                          rmvpe_state: dict | None = None, **kwargs) -> "VoiceConverter":
         """Build from reference-named state_dicts ({name: array}), e.g. those
-        of ``compat.weights``."""
+        of ``compat.weights``; ``kwargs`` go to the constructor, the pitch
+        model computing in its ``dtype`` too."""
         synth = load_numpy_state_dict(Synthesizer(**synth_kwargs), synth_state)
         version = "v1" if synth_kwargs.get("feature_dim", 768) == 256 else "v2"
         hubert = load_numpy_state_dict(HubertEncoder(hubert_cfg, version), hubert_state)
@@ -139,7 +152,8 @@ class VoiceConverter:
         if rmvpe_state is not None:  # reference E2E names
             rmvpe = RMVPE()
             load_numpy_state_dict(rmvpe.model, rmvpe_state)
-        return cls(synth, synth_kwargs, hubert, PitchExtractor(rmvpe), **kwargs)
+        pitch = PitchExtractor(rmvpe, dtype=kwargs.get("dtype", torch.float32))
+        return cls(synth, synth_kwargs, hubert, pitch, **kwargs)
 
     def spans(self, audio: np.ndarray) -> list[tuple[int, int]]:
         """Chunk spans over the reflect-padded waveform of high-passed audio."""
@@ -238,7 +252,7 @@ class VoiceConverter:
         draws = draws or self.draws(N, Tp)
         sid = torch.full((N,), s.sid, device=dev, dtype=torch.int64)
         o, _, _ = self.synth.infer(feats, p_len, pitch[:, :Tp], f0[:, :Tp], sid, **draws)
-        o = o[:, 0]
+        o = o[:, 0].float()
         if s.rms_mix_rate < 1:
             o = change_rms(chunks, SR, o, self.tgt_sr, s.rms_mix_rate)
         # pad trim + concat, then int16 peak normalization
@@ -258,12 +272,13 @@ def make_random_converter(
     chunking: tuple[int, int, int, int] | None = None,
     index_rows: int = 0,
     device=None,
+    dtype: torch.dtype = torch.float32,
 ) -> VoiceConverter:
     """A converter with random weights at the preset's full width, drawn from
     numpy as the JAX package's ``fast_init`` draws them (scale 0.02), and
-    the default HuBERT and RMVPE. ``chunking`` overrides (x_pad, x_query,
-    x_center, x_max); ``index_rows`` > 0 attaches a random int8 retrieval
-    bank of that many rows."""
+    the default HuBERT and RMVPE, computing in ``dtype``. ``chunking``
+    overrides (x_pad, x_query, x_center, x_max); ``index_rows`` > 0
+    attaches a random int8 retrieval bank of that many rows."""
     dev = resolve_device(device)
     cfg = get_preset(preset)
     if chunking is not None:
@@ -277,5 +292,6 @@ def make_random_converter(
     if index_rows > 0:
         index_bank = np.random.default_rng(seed + 7).standard_normal(
             (index_rows, kwargs["feature_dim"])).astype(np.float32)
-    return VoiceConverter(synth, kwargs, hubert, PitchExtractor(rmvpe), index_bank=index_bank,
-                          config=cfg, index_int8=True, device=dev, seed=seed)
+    return VoiceConverter(synth, kwargs, hubert, PitchExtractor(rmvpe, dtype=dtype),
+                          index_bank=index_bank, config=cfg, index_int8=True, device=dev,
+                          seed=seed, dtype=dtype)

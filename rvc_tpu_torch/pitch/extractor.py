@@ -13,6 +13,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..models.layers import set_dtype_
 from ..models.rmvpe import RMVPE
 from ..ops.filters import median_filter_1d
 
@@ -48,10 +49,16 @@ def median_pass(f0: torch.Tensor, radius: int) -> torch.Tensor:
 
 
 class PitchExtractor:
-    """Holds the pitch models; ``method_fn`` builds one method's f0 function."""
+    """Holds the pitch models; ``method_fn`` builds one method's f0 function.
+    ``dtype`` is the pitch models' compute dtype, as JAX's
+    ``PitchExtractor(dtype=)`` (rvc_tpu/pitch/extractor.py:270); f0 comes
+    out in float32 either way."""
 
-    def __init__(self, rmvpe: RMVPE | None = None):
+    def __init__(self, rmvpe: RMVPE | None = None, dtype: torch.dtype = torch.float32):
         self.rmvpe = rmvpe
+        self.dtype = dtype
+        if rmvpe is not None:
+            set_dtype_(rmvpe, dtype)
 
     def method_fn(self, method: str, f0_min: float, f0_max: float
                   ) -> Callable[[torch.Tensor], torch.Tensor]:

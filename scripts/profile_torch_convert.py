@@ -1,9 +1,10 @@
 """Where the time of one conversion goes on the card (rvc_tpu_torch).
 
-    python3 scripts/profile_torch_convert.py [--seconds 30]
+    python3 scripts/profile_torch_convert.py [--seconds 30] [--dtype bfloat16]
 
 Builds the 48k_v2 converter of chip_smoke.py (full width, random weights,
-131072-row int8 bank), warms it up, then converts a slice of
+131072-row int8 bank), computing in ``--dtype`` (float32 by default, or
+bfloat16), warms it up, then converts a slice of
 assets/speech_65s.wav three times:
   1. plain: the wall time;
   2. with CUDA events around each stage (RMVPE, HuBERT, retrieval, text
@@ -67,6 +68,7 @@ class StageTimer:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seconds", type=float, default=30.0)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -74,7 +76,7 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     vc = convert.make_random_converter("48k_v2", chunking=(1, 5, 16, 20), index_rows=131072,
-                                       device="cuda")
+                                       device="cuda", dtype=getattr(torch, args.dtype))
     audio = speech(args.seconds)
     s = convert.ConvertSettings(f0_method="rmvpe", index_rate=0.75, protect=0.33)
     vc.convert(audio, settings=s)
@@ -86,7 +88,7 @@ def main():
         vc.convert(audio, settings=s)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    print(f"card: {card}")
+    print(f"card: {card}; compute dtype {args.dtype}")
     print(f"{args.seconds:g} s of audio: wall ms {[round(w, 2) for w in walls]}, "
           f"RTF {args.seconds * 1e3 / min(walls):.2f}x (best of 3)")
 

@@ -50,3 +50,22 @@ def recorded_draws(monkeypatch):
     monkeypatch.setattr(jax.random, "uniform", wrap(jax.random.uniform))
     yield draws
     jax.effects_barrier()
+
+
+def replayed_draws(monkeypatch, draws) -> list:
+    """jax.random.normal / uniform return the recorded ``draws`` in call
+    order, cast to the dtype asked for (a float32 run on a bf16 run's
+    draws); a call of another shape (flax checking a parameter's
+    initializer) draws as before. Returns the draws not yet replayed."""
+    pending = list(draws)
+
+    def wrap(fn):
+        def replay(key, shape=(), dtype=jax.numpy.float32, *args, **kwargs):
+            if pending and pending[0].shape == tuple(shape):
+                return jax.numpy.asarray(pending.pop(0)).astype(dtype)
+            return fn(key, shape, dtype, *args, **kwargs)
+        return replay
+
+    monkeypatch.setattr(jax.random, "normal", wrap(jax.random.normal))
+    monkeypatch.setattr(jax.random, "uniform", wrap(jax.random.uniform))
+    return pending

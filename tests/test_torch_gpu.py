@@ -452,3 +452,129 @@ def test_simt_yardsticks_are_on_no_path(rng, cuda, monkeypatch):
     _grads(lambda: wavenet.fused_wn(x, *w, lens, kernel_size=5), x, w, cot)
     torch.cuda.synchronize()
     assert called == []
+
+
+# ---- bfloat16: kernels 1 and 2 in bf16 and kernel 8 ----
+# The kernel and its plain version round at the same points and differ only
+# in the order of float32 sums, so a rounding flips by one bf16 ulp now and
+# then. In one residual unit that stays at single flips (measured on the
+# card at C = 256: 0.08% of elements differ, as the plain version on the
+# card differs from itself on the CPU). Through a chain of wide convs each
+# flip moves every output it reaches by a fraction of an ulp, which flips
+# more roundings: after a stage of three chains at C = 256, 16% of elements
+# differ and 7% by more than one ulp, for the kernel against the plain
+# version as for the plain version on the card against the CPU. So a unit
+# is held elementwise and a chain or stage by its size: the relative L2
+# distance within one bf16 ulp (2^-8) and the largest difference within
+# 2e-2 of the largest magnitude (5 ulps there).
+
+
+def _bf16_close(got, ref, unit: bool = False):
+    assert got.dtype == ref.dtype == torch.bfloat16
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    rel = (diff.max() / ref.abs().max()).item()
+    l2 = (diff.norm() / ref.norm()).item()
+    if unit:
+        ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=2.0 ** -126))) - 7)
+        beyond = (diff > ulp).float().mean().item()
+        assert rel <= 1e-2 and beyond <= 1e-3, (rel, beyond)
+    assert rel <= 2e-2 and l2 <= 2.0 ** -8, (rel, l2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [16, 32, 64, 128, 256])
+def test_resblock_bf16_unit_matches_plain(rng, cuda, C):
+    """One residual unit (k 11, d 5: the widest halo) at T = 1237, held
+    elementwise: at most 0.1% of the elements more than one ulp apart."""
+    x = torch.from_numpy(rng.standard_normal((2, 1237, C)).astype(np.float32)).to(cuda)
+    chains = _bf16_chains(rng, cuda, C, ((11, (5,)),))
+    got = resblock.fused_resblock_group(x.bfloat16(), chains)
+    _bf16_close(got, resblock.resblock_group_plain(x.bfloat16(), chains), unit=True)
+
+
+def _bf16_chains(rng, cuda, C, spec):
+    return [[(torch.from_numpy(w).to(cuda), torch.from_numpy(b).to(cuda), k, d)
+             for w, b, k, d in c] for c in _chains(rng, C, spec)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,T,spec", [
+    (256, 1000, ((3, (1, 3, 5)), (7, (1, 3, 5)), (11, (1, 3, 5)))),
+] + TILE_CASES)
+def test_resblock_bf16_kernel_tiles(rng, cuda, C, T, spec):
+    """Kernel 1 in bf16 at every width it is built for, the widest halo, T
+    of 1 and not a multiple of any row tile; a launch per unit, counted as
+    bf16."""
+    x = torch.from_numpy(rng.standard_normal((2, T, C)).astype(np.float32)).to(cuda).bfloat16()
+    chains = _bf16_chains(rng, cuda, C, spec)
+    n32, n16 = resblock.fused_resblock_group.launches, resblock.fused_resblock_group.launches_bf16
+    got = resblock.fused_resblock_group(x, chains)
+    torch.cuda.synchronize()
+    assert resblock.fused_resblock_group.launches == n32
+    assert resblock.fused_resblock_group.launches_bf16 == n16 + sum(len(c) // 2 for c in chains)
+    _bf16_close(got, resblock.resblock_group_plain(x, chains))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,T,k", [(16, 1237, 11), (256, 1237, 11), (128, 77, 3)])
+def test_resblock1_v2_kernel_matches_plain(rng, cuda, C, T, k):
+    """Kernel 8 (one chain, bf16 carry), and the mean of a stage's chains
+    through it equal, bit for bit, to kernel 1 in bf16 on the same stage."""
+    x = torch.from_numpy(rng.standard_normal((2, T, C)).astype(np.float32)).to(cuda).bfloat16()
+    chains = _bf16_chains(rng, cuda, C, ((k, (1, 3, 5)), (3, (1, 3, 5)), (7, (1, 3, 5))))
+    n = resblock.fused_resblock1_v2.launches
+    got = resblock.fused_resblock1_v2(x, chains[0])
+    torch.cuda.synchronize()
+    assert resblock.fused_resblock1_v2.launches == n + 3
+    _bf16_close(got, resblock.fused_resblock1_plain(x, chains[0]))
+    from rvc_tpu_torch.models.nsf import mean_of
+
+    per_chain = mean_of([resblock.fused_resblock1_v2(x, c) for c in chains])
+    assert torch.equal(per_chain, resblock.fused_resblock_group(x, chains))
+
+
+@pytest.mark.gpu
+def test_resblock1_v2_raises_under_grad_and_on_float32(rng, cuda):
+    x, convs, _ = _train_chain(rng, cuda, 32, 3, (1, 3, 5), 50)
+    with pytest.raises(RuntimeError, match="no backward"):
+        resblock.fused_resblock1_v2(x.detach().bfloat16().requires_grad_(), convs)
+    with pytest.raises(RuntimeError, match="no backward"):
+        resblock.fused_resblock_group(x.detach().bfloat16().requires_grad_(), [convs])
+    with pytest.raises(ValueError, match="bfloat16"):
+        resblock.fused_resblock1_v2(x.detach(), [(w.detach(), b.detach(), k, d)
+                                                 for w, b, k, d in convs])
+
+
+def _bf16_attention(rng, cuda, T, D, lengths=None):
+    q, k, v, ek, ev, lens = _attention_inputs(rng, T=T, D=D)
+    args = [torch.from_numpy(a).to(cuda).bfloat16() for a in (q, k, v, ek, ev)]
+    if lengths is not None:
+        lens = np.array(lengths, np.int32)
+    return args + [torch.from_numpy(lens).to(cuda)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,D,lengths", [
+    (70, 96, None), (1937, 96, None), (300, 32, None), (300, 128, None),
+    (1, 96, [1, 0, 1]), (5, 64, [5, 0, 2]), (65, 96, [65, 64, 1])])
+def test_attention_bf16_kernel_matches_plain(rng, cuda, T, D, lengths):
+    """Kernel 2 in bf16: the head widths it is built for, key tiles of 64
+    cut at T, one-row sequences and a length of 0 (every row uniform)."""
+    args = _bf16_attention(rng, cuda, T, D, lengths)
+    n = attention.banded_rel_attention.launches_bf16
+    got = attention.banded_rel_attention(*args, window=10, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert attention.banded_rel_attention.launches_bf16 == n + 1
+    _bf16_close(got, attention.banded_rel_attention_plain(*args, window=10, scale=D ** -0.5))
+
+
+@pytest.mark.gpu
+def test_attention_bf16_kernel_beyond_the_longest_default_chunk(rng, cuda):
+    """T = 7700 frames, longer than any chunk of the default chunking (at
+    most x_center + x_query = 70 s and the 3 s pads on both sides), lengths
+    < T on two rows: the kernel keeps no row of scores."""
+    args = _bf16_attention(rng, cuda, 7700, 96, [7700, 6000, 100])
+    got = attention.banded_rel_attention(*args, window=10, scale=96 ** -0.5)
+    torch.cuda.synchronize()
+    _bf16_close(got, attention.banded_rel_attention_plain(*args, window=10, scale=96 ** -0.5))
