@@ -6,14 +6,18 @@ Phases, each announced on its own line:
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. the build: nvcc compiles the CUDA kernels of rvc_tpu_torch/csrc into
      one shared library (seconds and the -Xptxas -v summary are printed);
+     the library's SASS must hold wgmma (HGMMA) and bulk copies (UBLKCP)
+     in the bf16 unit kernel and mma.sync (HMMA) in kernel 2;
   3. each kernel against its plain PyTorch version at the shapes of the
      30 s conversion of phase 4, with its time, its plain version's time
      and two bounds (the least time the card could take): bound_ms for
      float32-accurate work on the tensor cores (three bf16 passes for
      kernel 3, three TF32 passes for the conv and attention kernels) and
-     bound_f32_ms on the float32 pipes (67 TFLOP/s); for kernel 1 also
-     previous_ms, each stage through the float32 SIMT unit kernel that
-     kernel 1 replaced (still kernel 4's), timed in the same run;
+     bound_f32_ms on the float32 pipes (67 TFLOP/s); also previous_ms,
+     timed in turns in the same run, for kernel 1 each stage through the
+     float32 SIMT unit kernel it replaced (still kernel 4's) and for kernel
+     2 the SIMT kernel it replaced (rvc_banded_attention_simt); weights are packed
+     once per set of weights, and the packing is timed apart;
   4. the main path: make_random_converter("48k_v2") at full width with
      random weights from a seed and a 131072-row int8 retrieval bank
      converts 10 s and 30 s of assets/speech_65s.wav with RMVPE f0,
@@ -46,7 +50,10 @@ Phases, each announced on its own line:
      bf16 bounds and the float32 kernels' times on the same values: kernel
      1 in bf16 per decoder stage, kernel 8 (fused_resblock1_v2) per chain,
      kernel 2 in bf16; and kernel 8 against the float32 chain kernel at the
-     seven stages of scripts/bench_resblock_v2.py;
+     seven stages of scripts/bench_resblock_v2.py; for kernels 1 and 8
+     also previous_ms, the unit kernel on mma.sync they replaced
+     (rvc_resblock_unit_bf16_sync) timed in turns, the packing of each
+     unit kernel's weights apart, and the achieved TFLOP/s;
  10. the main path in bfloat16: make_random_converter(..., dtype=bfloat16)
      converts 10 s and 30 s as in phase 4 (RTF beside phase 4's float32
      RTF, peak memory, exact launches of bf16 kernels 1 and 2 and kernel 3);
@@ -132,6 +139,30 @@ def bound_tc(flops: float, nbytes: float) -> tuple[float, str]:
     return bound(3 * flops, nbytes, PEAK_TF32)
 
 
+SASS_OPS = {"HGMMA": ("HGMMA",), "bulk copies": ("UBLKCP", "UTMALDG"), "HMMA": ("HMMA",)}
+
+
+def sass_counts() -> dict:
+    """Per kernel (template arguments dropped) of the built library, how many
+    of its SASS instructions are wgmma (HGMMA), bulk or tensor copies
+    (UBLKCP, UTMALDG) and mma.sync (HMMA), from cuobjdump -sass."""
+    from rvc_tpu_torch.ops import _cuda
+
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    lib = os.path.join(_cuda.build_info["path"], "librvc_kernels.so")
+    text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          timeout=300).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = _cuda._kernel_name(line.split("Function :")[1].strip()).split("<")[0]
+            counts.setdefault(name, dict.fromkeys(SASS_OPS, 0))
+        elif name:
+            for op, words in SASS_OPS.items():
+                counts[name][op] += any(w in line for w in words)
+    return counts
+
+
 def path_shapes(vc, audio: np.ndarray) -> dict:
     """The kernels' input shapes in vc.convert(audio), from the converter's
     own chunking (spans, length bucket, frame counts)."""
@@ -150,17 +181,71 @@ def path_shapes(vc, audio: np.ndarray) -> dict:
                 spans=spans)
 
 
+# ---- the yardsticks: kernels that redesigned ones replaced, on no path of
+# the port, launched only here and timed in turns with their successors ----
+UNCOUNTED = types.SimpleNamespace(launches=0)
+
+
+def simt_taps(w):
+    """A conv's (O, I, k) weights as the SIMT unit kernel reads them, (k, I, O)."""
+    return w.permute(2, 1, 0).contiguous()
+
+
+def previous_f32(x, chains):
+    """Kernel 1 in float32 through the SIMT unit kernel it replaced (still
+    kernel 4's), ``rvc_resblock_unit_simt``."""
+    from rvc_tpu_torch.ops import resblock as rb
+
+    return rb._run_units(x, chains, "rvc_resblock_unit_simt", simt_taps, UNCOUNTED)
+
+
+def pack_bf16_sync_weights(w):
+    """A conv's (O, I, k) float32 weights as the bf16 unit kernel on mma.sync
+    (the yardstick) reads them: for each tap j, k16 step s (inputs
+    16s..16s+15), n8 tile n of outputs and lane 4g + t of a warp, the four
+    bf16 values w[8n + g, 16s + 4t + e, j], e = 0..3 (the B fragment of
+    mma.m16n8k16 with k relabelled as in ``csrc/mma.cuh``).
+    (k, I/16, O/8, 8, 4, 4) bf16."""
+    import torch
+
+    O, I, k = w.shape
+    v = w.to(torch.bfloat16).permute(2, 1, 0).reshape(k, I // 16, 4, 4, O // 8, 8)
+    return v.permute(0, 1, 4, 5, 2, 3).contiguous()  # j, s, n, g, t, e
+
+
+def previous_bf16(x, chains):
+    """Kernels 1 (bf16) and 8 as first written, on mma.sync
+    (``rvc_resblock_unit_bf16_sync``): a launch per residual unit, the same
+    rounding as the wgmma unit kernel that replaced it."""
+    from rvc_tpu_torch.ops import resblock as rb
+
+    return rb._run_units(x, chains, "rvc_resblock_unit_bf16_sync", pack_bf16_sync_weights,
+                         UNCOUNTED)
+
+
+def attention_simt(q, k, v, ek, ev, lengths, *, window: int, scale: float):
+    """Kernel 2 in float32 as first written, on the float32 SIMT pipes
+    (``rvc_banded_attention_simt``); what ``banded_rel_attention`` returns."""
+    import torch
+
+    from rvc_tpu_torch.ops import _cuda
+
+    B, H, T, D = q.shape
+    lens = lengths.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    err = _cuda.library().rvc_banded_attention_simt(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ek.data_ptr(), ev.data_ptr(), lens.data_ptr(),
+        out.data_ptr(), B, H, T, D, window, float(scale), _cuda.stream_ptr(q))
+    _cuda.check(err, "banded_attention_simt launch")
+    return out
+
+
 def check_resblock(vc, shapes, gen) -> dict:
     import torch
 
     from rvc_tpu_torch.ops import resblock as rb
     from rvc_tpu_torch.ops.resblock import fused_resblock_group, resblock_group_plain
 
-    simt = types.SimpleNamespace(launches=0)
-
-    def previous(x, chains):  # the stage through the SIMT unit kernel (kernel 4's)
-        return rb._run_units(x, chains, "rvc_resblock_unit_simt",
-                             lambda w: w.permute(2, 1, 0).contiguous(), simt)
 
     dec = vc.synth.dec
     nk = dec.num_kernels
@@ -181,12 +266,12 @@ def check_resblock(vc, shapes, gen) -> dict:
         nbytes = 2 * x.numel() * 4 + sum(w.numel() * 4 + b.numel() * 4
                                          for c in chains for (w, b, _, _) in c)
         # kernel 1 and the SIMT unit kernel it replaced, in turns
-        prev_ms = timed(lambda: previous(x, chains), reps=5)
+        prev_ms = timed(lambda: previous_f32(x, chains), reps=5)
         ms = timed(lambda: fused_resblock_group(x, chains), reps=5)
         ms = min(ms, timed(lambda: fused_resblock_group(x, chains), reps=5))
-        prev_ms = min(prev_ms, timed(lambda: previous(x, chains), reps=5))
-        # the split and packing of the stage's weights, which every call of
-        # kernel 1 does (inside kernel_ms)
+        prev_ms = min(prev_ms, timed(lambda: previous_f32(x, chains), reps=5))
+        # the split and packing of the stage's weights, done once per set of
+        # weights (ops/resblock.py::packed), so in no kernel_ms: timed apart
         pack_ms = timed(lambda: [rb.pack_tf32_weights(w) for c in chains for w, _, _, _ in c])
         plain_ms = timed(lambda: resblock_group_plain(x, chains), reps=5)
         b_ms, b_by = bound_tc(2 * macs, nbytes)
@@ -194,7 +279,7 @@ def check_resblock(vc, shapes, gen) -> dict:
         say(f"  resblock stage {i + 1}: x ({N}, {T}, {C}), {len(chains)} chains -> "
             f"max_abs_err {err:.3g} (tolerance {tol:.3g}), kernel_ms {ms:.3f}, "
             f"previous_ms {prev_ms:.3f} (kernel below it: {ms < prev_ms}), weight packing "
-            f"{pack_ms:.3f} ms of kernel_ms, "
+            f"{pack_ms:.3f} ms once per set of weights (in neither), "
             f"plain_ms {plain_ms:.3f}, bound_ms {b_ms:.3f} ({b_by}), bound_f32_ms {f32_ms:.3f}, "
             f"library_ms none, achieved {2 * macs / ms / 1e9:.1f} TFLOP/s")
         if not err <= tol:
@@ -232,19 +317,31 @@ def check_attention(vc, shapes, gen) -> dict:
     W = 2 * w + 1
     flops = N * H * (4 * T * T * D + 4 * T * W * D + 5 * T * T)
     nbytes = 4 * N * H * T * D * 4 + 2 * W * D * 4 + N * 4
-    ms = timed(lambda: banded_rel_attention(*args, **kw))
+    prev = attention_simt(*args, **kw)
+    torch.cuda.synchronize()
+    prev_err = (prev - ref).abs().max().item()
+    # the kernel and the SIMT kernel it replaced, in turns
+    run = lambda: banded_rel_attention(*args, **kw)  # noqa: E731
+    run_prev = lambda: attention_simt(*args, **kw)  # noqa: E731
+    prev_ms = timed(run_prev)
+    ms = min(timed(run), timed(run))
+    prev_ms = min(prev_ms, timed(run_prev))
     plain_ms = timed(lambda: banded_rel_attention_plain(*args, **kw))
     b_ms, b_by = bound_tc(flops, nbytes)
     f32_ms = bound(flops, nbytes)[0]
     n_layers = len(attn)
+    grid = (-(-T // 32), N * H)
     say(f"  banded attention: q ({N}, {H}, {T}, {D}), lengths {shapes['p_len'].tolist()} -> "
-        f"max_abs_err {err:.3g} (tolerance {tol:.3g}), kernel_ms {ms:.3f}, "
+        f"max_abs_err {err:.3g} (tolerance {tol:.3g}), kernel_ms {ms:.4f} (grid {grid} of 2 "
+        f"warps, {flops / ms / 1e9:.1f} TFLOP/s), previous_ms {prev_ms:.4f} (the SIMT kernel, "
+        f"its max_abs_err {prev_err:.3g}; kernel below it: {ms < prev_ms}), "
         f"plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by}), bound_f32_ms {f32_ms:.4f}, "
         f"library_ms none; x {n_layers} layers")
     if not err <= tol:
         fail("banded attention disagrees with its plain version")
     return dict(max_abs_err=err, ms=ms * n_layers, plain_ms=plain_ms * n_layers,
-                bound_ms=b_ms * n_layers, bound_by=b_by, bound_f32_ms=f32_ms * n_layers)
+                previous_ms=prev_ms * n_layers, bound_ms=b_ms * n_layers, bound_by=b_by,
+                bound_f32_ms=f32_ms * n_layers)
 
 
 def check_nearest(vc, shapes, gen) -> dict:
@@ -336,8 +433,11 @@ def bound_bf16(flops: float, nbytes: float) -> tuple[float, str]:
 def check_resblock_bf16(vc, shapes, gen) -> tuple[dict, dict]:
     """Kernel 1 in bf16 on each decoder stage, and kernel 8 on each of the
     stage's chains, at the 30 s bf16 conversion's shapes, against their plain
-    versions; beside each, the float32 kernel on the same values (kernel 1,
-    and kernel 4 for a chain) in the same run."""
+    versions. Beside each, in the same run: the unit kernel on mma.sync
+    (previous_ms, timed in turns with the wgmma kernel), the float32 kernel
+    on the same values (kernel 1, and kernel 4 for a chain), and the packing
+    of the weights for each unit kernel, done once per set of weights and so
+    in neither time."""
     import torch
 
     from rvc_tpu_torch.ops import resblock as rb
@@ -345,7 +445,8 @@ def check_resblock_bf16(vc, shapes, gen) -> tuple[dict, dict]:
     dec = vc.synth.dec
     nk = dec.num_kernels
     N, T = shapes["N"], shapes["Tp"]
-    keys = ("ms", "plain_ms", "float32_ms", "bound_ms", "flops", "bytes", "err")
+    keys = ("ms", "previous_ms", "pack_ms", "previous_pack_ms", "plain_ms", "float32_ms",
+            "bound_ms", "flops", "bytes", "err")
     tot = {name: dict.fromkeys(keys, 0.0) for name in ("group", "chain")}
     for i, rate in enumerate(dec.upsample_rates):
         T = T * rate
@@ -363,6 +464,7 @@ def check_resblock_bf16(vc, shapes, gen) -> tuple[dict, dict]:
                     run, plain = (lambda: rb.fused_resblock1_v2(x, cs[0]),
                                   lambda: rb.fused_resblock1_plain(x, cs[0]))
                     run32 = lambda: rb.fused_resblock1(x32, cs[0])  # noqa: E731
+                prev = lambda: previous_bf16(x, cs)  # noqa: E731
                 got = run()
                 torch.cuda.synchronize()
                 ref = plain()
@@ -370,28 +472,47 @@ def check_resblock_bf16(vc, shapes, gen) -> tuple[dict, dict]:
                 if not (l2 <= BF16_L2 and rel <= BF16_MAX):
                     fail(f"bf16 {name} kernel disagrees with its plain version at stage "
                          f"{i + 1}: max {rel:.3g}, relative L2 {l2:.3g}")
-                ms = timed(run, reps=5)
+                # the wgmma unit kernel and the mma.sync one, in turns
+                prev_ms = timed(prev, reps=5)
+                ms = min(timed(run, reps=5), timed(run, reps=5))
+                prev_ms = min(prev_ms, timed(prev, reps=5))
                 ms32 = timed(run32, reps=5)
-                ms = min(ms, timed(run, reps=5))
                 plain_ms = timed(plain, reps=3)
+                weights = [w for c in cs for w, _, _, _ in c]
+                pack_ms = timed(lambda: [rb.pack_bf16_weights(w) for w in weights])
+                prev_pack_ms = timed(lambda: [pack_bf16_sync_weights(w) for w in weights])
                 macs = sum(w.shape[2] for c in cs for (w, _, _, _) in c) * C * C * N * T
                 nbytes = 2 * x.numel() * 2 + sum(w.numel() * 2 + b.numel() * 4
                                                  for c in cs for (w, b, _, _) in c)
+                b_ms = bound_bf16(2 * macs, nbytes)[0]
                 t = tot[name]
-                for k, v in (("ms", ms), ("plain_ms", plain_ms), ("float32_ms", ms32),
-                             ("bound_ms", bound_bf16(2 * macs, nbytes)[0]),
-                             ("flops", 2 * macs), ("bytes", nbytes)):
+                for k, v in (("ms", ms), ("previous_ms", prev_ms), ("pack_ms", pack_ms),
+                             ("previous_pack_ms", prev_pack_ms), ("plain_ms", plain_ms),
+                             ("float32_ms", ms32), ("bound_ms", b_ms), ("flops", 2 * macs),
+                             ("bytes", nbytes)):
                     t[k] += v
                 t["err"] = max(t["err"], (got.float() - ref.float()).abs().max().item())
                 del got, ref
                 say(f"  bf16 {'kernel 1' if name == 'group' else 'kernel 8'} stage {i + 1}: x "
                     f"({N}, {T}, {C}), {len(cs)} chain(s) -> max {rel:.3g} of the largest, "
                     f"relative L2 {l2:.3g}, beyond one ulp {beyond:.3%} (tolerance "
-                    f"{BF16_MAX} / {BF16_L2:.3g}), kernel_ms {ms:.3f}, float32 kernel "
-                    f"{ms32:.3f}, plain_ms {plain_ms:.3f}, bound_ms "
-                    f"{bound_bf16(2 * macs, nbytes)[0]:.3f}")
+                    f"{BF16_MAX} / {BF16_L2:.3g}), kernel_ms {ms:.3f} "
+                    f"({2 * macs / ms / 1e9:.1f} TFLOP/s), previous_ms {prev_ms:.3f} "
+                    f"({2 * macs / prev_ms / 1e9:.1f} TFLOP/s; kernel below it: {ms < prev_ms}), "
+                    f"weight packing {pack_ms:.3f} ms (the mma.sync kernel's layout "
+                    f"{prev_pack_ms:.3f}) once per set of weights, in neither, float32 kernel "
+                    f"{ms32:.3f}, plain_ms "
+                    f"{plain_ms:.3f}, bound_ms {b_ms:.3f}")
         del x, x32
+    for name, t in tot.items():
+        what = "kernel 1 over the 4 stages" if name == "group" else "kernel 8 over the 12 chains"
+        say(f"  bf16 {what}: "
+            f"kernel_ms {t['ms']:.3f} ({t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s), previous_ms "
+            f"{t['previous_ms']:.3f} ({t['ms'] / t['previous_ms']:.2f} of it), packing "
+            f"{t['pack_ms']:.3f} ms (the mma.sync kernel's {t['previous_pack_ms']:.3f}), bound_ms "
+            f"{t['bound_ms']:.3f}")
     return tuple(dict(max_abs_err=t["err"], ms=t["ms"], plain_ms=t["plain_ms"],
+                      previous_ms=t["previous_ms"], pack_ms=t["pack_ms"],
                       bound_ms=t["bound_ms"], bound_by=bound_bf16(t["flops"], t["bytes"])[1],
                       float32_ms=t["float32_ms"], library_ms=None)
                  for t in (tot["group"], tot["chain"]))
@@ -439,18 +560,23 @@ def check_attention_bf16(vc, shapes, gen) -> dict:
 
 
 def bench_v2_stages() -> None:
-    """Kernel 8 against the float32 chain kernel at the seven stages of
-    scripts/bench_resblock_v2.py (scripts/bench_torch_resblock_v2.py)."""
+    """Kernel 8 against the float32 chain kernel and, in turns, the mma.sync unit
+    kernel at the seven stages of scripts/bench_resblock_v2.py
+    (scripts/bench_torch_resblock_v2.py)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
         "bench_torch_resblock_v2", os.path.join(REPO, "scripts", "bench_torch_resblock_v2.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    for r in mod.run(reps=3):
-        say(f"  {r['label']:16s} x {r['shape']} bf16: kernel 8 {r['v2_ms']:.3f} ms, float32 "
-            f"chain kernel {r['f32_ms']:.3f} ms ({r['f32_ms'] / r['v2_ms']:.2f}x), max err vs "
-            f"plain {r['max_rel_err']:.3g} of the largest, bit-identical to plain {r['exact']}")
+    for r in mod.run(reps=3, beside=lambda x, convs: previous_bf16(x, [convs])):
+        flops = 2 * r["shape"][0] * r["shape"][1] * r["shape"][2] ** 2 * r["k"] * 6
+        say(f"  {r['label']:16s} x {r['shape']} bf16: kernel 8 {r['v2_ms']:.3f} ms "
+            f"({flops / r['v2_ms'] / 1e9:.1f} TFLOP/s), previous_ms {r['beside_ms']:.3f} (the "
+            f"mma.sync unit, {flops / r['beside_ms'] / 1e9:.1f} TFLOP/s; kernel below it: "
+            f"{r['v2_ms'] < r['beside_ms']}), float32 chain kernel {r['f32_ms']:.3f} ms "
+            f"({r['f32_ms'] / r['v2_ms']:.2f}x), max err vs plain {r['max_rel_err']:.3g} of the "
+            f"largest, bit-identical to plain {r['exact']}")
         if not r["max_rel_err"] <= BF16_MAX:
             fail(f"kernel 8 disagrees with its plain version at {r['label']}")
 
@@ -1032,6 +1158,11 @@ def main() -> int:
     say(f"[2/12] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
         f"(load {time.perf_counter() - t0:.2f} s)")
     say("ptxas: " + "; ".join(info["ptxas"]))
+    sass = sass_counts()
+    unit, attn = sass.get("resblock_unit_wgmma_kernel"), sass.get("banded_attention_tc_kernel")
+    say(f"sass: the bf16 unit kernel (kernels 1 and 8) {unit}, kernel 2 in float32 {attn}")
+    if not (unit and unit["HGMMA"] and unit["bulk copies"] and attn and attn["HMMA"]):
+        fail("the bf16 unit kernel lacks wgmma or bulk copies, or kernel 2 lacks mma.sync")
 
     from rvc_tpu_torch.ops import attention, resblock, retrieval
     from rvc_tpu_torch.ops.filters import butter_highpass_host
@@ -1220,8 +1351,8 @@ def main() -> int:
                         "launches": launches[kname], "max_abs_err": c["max_abs_err"],
                         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                         "bound_by": c["bound_by"], "library_ms": c.get("library_ms"),
-                        **{k: c[k] for k in ("bound_f32_ms", "previous_ms", "float32_ms")
-                           if k in c}})
+                        **{k: c[k] for k in ("bound_f32_ms", "previous_ms", "pack_ms",
+                                             "float32_ms") if k in c}})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -13,7 +13,11 @@
 //
 // What bounds it: operations at the text encoder's shapes (T up to ~2k
 // frames, D = 96): 4*T*T*D flops per (batch, head) against 4*T*D*4 bytes of
-// q, k, v and out. Design: one block per 32 query rows of one (batch, head),
+// q, k, v and out. Two kernels compute it in float32: the tensor-core kernel
+// (rvc_banded_attention, namespace tfa below) and the SIMT kernel that it
+// replaced (rvc_banded_attention_simt, this first one), which only
+// chip_smoke.py launches, as its yardstick. The SIMT kernel's design: one
+// block per 32 query rows of one (batch, head),
 // an online softmax over key tiles of 64 rows held in shared memory, so the
 // T x T scores never reach device memory. Masked entries are the finite
 // -1e4 of the reference, never -inf, and no tile is skipped, so rows past
@@ -503,6 +507,341 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* 
 
 }  // namespace bfa
 
+// ---- kernel 2 in float32 on the tensor cores (3xTF32) ----
+//
+// The function of the SIMT kernel above, with QK^T and P.V on mma.sync
+// m16n8k8 in 3xTF32 (mma.cuh): each product a_big.b_small + a_small.b_big +
+// a_big.b_big, which keeps float32-level error. What bounds it: operations,
+// 4 T^2 D multiply-adds per (batch, head), three TF32 passes of them on the
+// tensor cores; the SIMT kernel ran them on the float32 pipes at about a
+// sixth of even those pipes' rate. Design:
+// - 16 query rows a warp; a block is 32 rows (two row groups) and the keys
+//   split into two halves, each walked by its own pair of warps: 4 warps a
+//   block, 276 blocks at the 30 s conversion's shapes, (2, 2, 2178, 96),
+//   where 64 rows a block gave 136 for 132 SMs; with 74 KB of shared memory
+//   (D = 96) three blocks fit an SM, so every block runs at once and an SM
+//   holds 8 to 12 warps to hide each other's latencies. At the end the
+//   second half's running max, sum and P.V sum join the first's in that
+//   order (a fixed-order combine in shared memory);
+// - K and V tiles of 16 keys, copied by cp.async into shared memory for the
+//   half's two warps, double-buffered (the next tile's copies run under this
+//   tile's products);
+// - one pass with an online softmax per half (float32 need not round p
+//   before P.V): the scores stay in the mma C fragments; p is split and fed
+//   back as the A fragment of P.V with the keys of a k8 step relabelled
+//   (k t <-> key 2t, k t + 4 <-> key 2t + 1), so that a C fragment is an A
+//   fragment, and V's B fragment reads the same keys. Q and K are relabelled
+//   alike within 8 of D (k t <-> d 2t, k t + 4 <-> d 2t + 1), so each
+//   fragment is one 8-byte load;
+// - mma.sync truncates as it accumulates (mma.cuh), so each 8 of D of a
+//   score and each tile's P.V sum start from zero in fragments and are
+//   added into float32 registers;
+// - the band and the mask as in the SIMT kernel: the finite -1e4, no tile
+//   skipped, the raw band scores kept per row and normalised after the last
+//   tile for the value-side band term.
+// Not on wgmma: its 64 rows a warpgroup would give a block at least 64
+// query rows, 136 blocks for 132 SMs at these shapes, so a second wave of 4
+// blocks after a first of one block an SM.
+
+namespace tfa {
+
+constexpr int ROWS = 2;             // warps along the query rows, 16 rows each
+constexpr int HALVES = 2;           // key halves, each walked by ROWS warps
+constexpr int WARPS = ROWS * HALVES;
+constexpr int BQ = 16 * ROWS;       // query rows per block
+constexpr int BK = 16;              // keys per tile
+constexpr int WP = 2 * WMAX + 1;
+
+template <int D>
+struct Smem {
+  static constexpr int SQ = D + 8;  // pitch of q and k rows (floats): = 8 mod 32, so the
+                                    // 8-byte loads of a half warp hit distinct banks
+  static constexpr int SV = D + 4;  // pitch of v rows: = 4 mod 32, so keys 2t (t < 4) of
+                                    // columns g (g < 8) hit distinct banks
+  static constexpr int KV = 2 * BK * (SQ + SV);  // a key half's two K and V tiles
+  static constexpr int BYTES = (BQ * SQ + HALVES * KV + 2 * BQ * WP) * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(WARPS * 32) banded_attention_tc_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ ek, const float* __restrict__ ev, const int* __restrict__ lengths,
+    float* __restrict__ out, int H, int T, int w, float scale) {
+  using SM = Smem<D>;
+  constexpr int SQ = SM::SQ, SV = SM::SV, NT = BK / 8, DT = D / 8;
+  const int W = 2 * w + 1;
+  extern __shared__ float4 smem_t[];
+  float* qs = reinterpret_cast<float*>(smem_t);  // BQ x SQ: q * scale
+  float* kv = qs + BQ * SQ;                      // per half: 2 K tiles, 2 V tiles
+  float* qe = kv + HALVES * SM::KV;              // BQ x WP: qs . ek
+  float* band = qe + BQ * WP;                    // BQ x WP: raw band scores, then their p
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int rg = warp % ROWS, hf = warp / ROWS;  // row group, key half
+  const int htid = tid % (ROWS * 32);            // thread of the half
+  const int bh = blockIdx.y;
+  const int t0 = blockIdx.x * BQ;
+  const int tw = t0 + 16 * rg;  // the warp's first row
+  const int len = lengths[bh / H];
+  const size_t base = (size_t)bh * T * D;
+  float* ks = kv + hf * SM::KV;  // this half's K tiles, then its V tiles
+  float* vs = ks + 2 * BK * SQ;
+
+  auto load_kv = [&](int k0, int buf) {  // by the half's threads; keys past T read as zero
+    float* kd = ks + buf * BK * SQ;
+    float* vd = vs + buf * BK * SV;
+    for (int e = htid; e < BK * (D / 4); e += ROWS * 32) {
+      const int r = e / (D / 4), c4 = e % (D / 4), j = k0 + r;
+      const size_t src = base + (size_t)min(j, T - 1) * D + 4 * c4;
+      mma::cp_async16(kd + r * SQ + 4 * c4, k + src, j < T ? 16 : 0);
+      mma::cp_async16(vd + r * SV + 4 * c4, v + src, j < T ? 16 : 0);
+    }
+    mma::cp_async_commit();
+  };
+
+  // the key tiles of this half: the first ceil(n / 2) tiles, or the rest
+  const int n_tiles = (T + BK - 1) / BK, per_half = (n_tiles + 1) / 2;
+  const int it0 = hf * per_half, it1 = min(n_tiles, it0 + per_half);
+  if (it0 < it1) load_kv(it0 * BK, 0);
+  for (int e = tid; e < BQ * (D / 4); e += WARPS * 32) {
+    const int r = e / (D / 4), c4 = e % (D / 4), t = t0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (t < T) {
+      x = __ldg(reinterpret_cast<const float4*>(q + base + (size_t)t * D) + c4);
+      x = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
+    }
+    *reinterpret_cast<float4*>(qs + r * SQ + 4 * c4) = x;
+  }
+  __syncthreads();
+  for (int e = tid; e < BQ * W; e += WARPS * 32) {
+    const int r = e / W, m = e % W;
+    float a = 0.f;
+    for (int d = 0; d < D; d += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(qs + r * SQ + d);
+      const float4 y = __ldg(reinterpret_cast<const float4*>(ek + m * D + d));
+      a = fmaf(x.x, y.x, a); a = fmaf(x.y, y.y, a);
+      a = fmaf(x.z, y.z, a); a = fmaf(x.w, y.w, a);
+    }
+    qe[r * WP + m] = a;
+    band[r * WP + m] = -INFINITY;
+  }
+  __syncthreads();
+
+  const float* qw = qs + 16 * rg * SQ;
+  const float* qew = qe + 16 * rg * WP;
+  float* bw = band + 16 * rg * WP;
+  float acc[DT][4];
+#pragma unroll
+  for (int nd = 0; nd < DT; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  for (int it = it0; it < it1; ++it) {
+    const int k0 = it * BK, buf = (it - it0) & 1;
+    mma::cp_async_wait<0>();
+    // tile it landed for the half, and its warps are done with tile it - 1
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + hf), "n"(ROWS * 32) : "memory");
+    if (it + 1 < it1) load_kv(k0 + BK, buf ^ 1);
+    const float* kt = ks + buf * BK * SQ;
+    const float* vt = vs + buf * BK * SV;
+
+    // the warp's 16 x BK scores: sc[nt][c] is row g + 8 (c / 2), key
+    // k0 + 8 nt + 2 t4 + (c % 2)
+    float sc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+#pragma unroll
+    for (int s0 = 0; s0 < DT; s0 += 2) {
+      // k8 steps s0 and s0 + 1 into two partial sums, so that 2 NT
+      // independent sums are in flight
+      float part[2][NT][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          part[h][nt][0] = part[h][nt][1] = part[h][nt][2] = part[h][nt][3] = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int st = s0 + h;
+        const float2 lo = *reinterpret_cast<const float2*>(qw + g * SQ + 8 * st + 2 * t4);
+        const float2 hi = *reinterpret_cast<const float2*>(qw + (g + 8) * SQ + 8 * st + 2 * t4);
+        uint32_t ab[4], as[4];
+        mma::split_tf32(lo.x, ab[0], as[0]);  // (row g,     k t)     = d 8 st + 2 t4
+        mma::split_tf32(hi.x, ab[1], as[1]);  // (row g + 8, k t)
+        mma::split_tf32(lo.y, ab[2], as[2]);  // (row g,     k t + 4) = d 8 st + 2 t4 + 1
+        mma::split_tf32(hi.y, ab[3], as[3]);  // (row g + 8, k t + 4)
+        uint32_t kb[NT][2], ksm[NT][2];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float2 kx =
+              *reinterpret_cast<const float2*>(kt + (8 * nt + g) * SQ + 8 * st + 2 * t4);
+          mma::split_tf32(kx.x, kb[nt][0], ksm[nt][0]);
+          mma::split_tf32(kx.y, kb[nt][1], ksm[nt][1]);
+        }
+        // small products first; consecutive products update different sums
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma::tf32_1688(part[h][nt], ab, ksm[nt][0], ksm[nt][1]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma::tf32_1688(part[h][nt], as, kb[nt][0], kb[nt][1]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma::tf32_1688(part[h][nt], ab, kb[nt][0], kb[nt][1]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sc[nt][c] = (sc[nt][c] + part[0][nt][c]) + part[1][nt][c];
+    }
+
+    // the band, the mask; keys past T are no keys (-inf)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = g + 8 * (c / 2), t = tw + r;
+        const int j = k0 + 8 * nt + 2 * t4 + (c % 2);
+        float x = sc[nt][c];
+        const int rel = j - t + w;
+        const bool in_band = rel >= 0 && rel < W;
+        if (in_band) x += qew[r * WP + rel];
+        if (t >= len || j >= len) x = -1e4f;
+        if (j >= T) x = -INFINITY;
+        else if (in_band) bw[r * WP + rel] = x;
+        sc[nt][c] = x;
+      }
+
+    // online softmax: the rows' new maxima, the rescale, p = exp(s - max)
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = m_run[h];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mx = fmaxf(mx, fmaxf(sc[nt][2 * h], sc[nt][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      alpha[h] = expf(m_run[h] - mx);  // 0 on the half's first tile
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        sc[nt][2 * h] = expf(sc[nt][2 * h] - mx);
+        sc[nt][2 * h + 1] = expf(sc[nt][2 * h + 1] - mx);
+        sum += sc[nt][2 * h] + sc[nt][2 * h + 1];
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_run[h] = l_run[h] * alpha[h] + sum;
+      m_run[h] = mx;
+    }
+
+    // P.V: k8 step s is the keys of score tile s; its C fragment is P's A
+    // fragment with k t <-> key 2 t4, k t + 4 <-> key 2 t4 + 1
+    float pv[DT][4];
+#pragma unroll
+    for (int nd = 0; nd < DT; ++nd) pv[nd][0] = pv[nd][1] = pv[nd][2] = pv[nd][3] = 0.f;
+#pragma unroll
+    for (int s = 0; s < NT; ++s) {
+      uint32_t pb[4], ps[4];
+      mma::split_tf32(sc[s][0], pb[0], ps[0]);  // (row g,     key 8 s + 2 t4)
+      mma::split_tf32(sc[s][2], pb[1], ps[1]);  // (row g + 8, key 8 s + 2 t4)
+      mma::split_tf32(sc[s][1], pb[2], ps[2]);  // (row g,     key 8 s + 2 t4 + 1)
+      mma::split_tf32(sc[s][3], pb[3], ps[3]);  // (row g + 8, key 8 s + 2 t4 + 1)
+      const float* v0 = vt + (8 * s + 2 * t4) * SV + g;
+#pragma unroll
+      for (int nd = 0; nd < DT; ++nd) {
+        uint32_t vb0, vs0, vb1, vs1;
+        mma::split_tf32(v0[8 * nd], vb0, vs0);
+        mma::split_tf32(v0[SV + 8 * nd], vb1, vs1);
+        mma::tf32_1688(pv[nd], pb, vs0, vs1);
+        mma::tf32_1688(pv[nd], ps, vb0, vb1);
+        mma::tf32_1688(pv[nd], pb, vb0, vb1);
+      }
+    }
+#pragma unroll
+    for (int nd = 0; nd < DT; ++nd)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[nd][c] = acc[nd][c] * alpha[c / 2] + pv[nd][c];
+  }
+
+  // the second half hands its rows' max, sum and P.V sum to the first
+  // (through its K and V tiles, free now), which combines them in that
+  // order: M = max(m0, m1), l = l0 e^(m0 - M) + l1 e^(m1 - M), likewise acc
+  __syncthreads();
+  float* xm = kv + SM::KV + rg * 16 * (D + 2);  // rows of the row group: m, l, acc[D]
+  if (hf == 1) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* row = xm + (g + 8 * h) * (D + 2);
+      if (t4 == 0) {
+        row[0] = m_run[h];
+        row[1] = l_run[h];
+      }
+#pragma unroll
+      for (int nd = 0; nd < DT; ++nd)
+        *reinterpret_cast<float2*>(row + 2 + 8 * nd + 2 * t4) =
+            make_float2(acc[nd][2 * h], acc[nd][2 * h + 1]);
+    }
+  }
+  __syncthreads();
+  if (hf == 1) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float* row = xm + (g + 8 * h) * (D + 2);
+    const float m1 = row[0], l1 = row[1];
+    const float mx = fmaxf(m_run[h], m1);
+    const float a0 = expf(m_run[h] - mx), a1 = expf(m1 - mx);  // 0 for a half with no keys
+    l_run[h] = l_run[h] * a0 + l1 * a1;
+    m_run[h] = mx;
+#pragma unroll
+    for (int nd = 0; nd < DT; ++nd) {
+      const float2 o = *reinterpret_cast<const float2*>(row + 2 + 8 * nd + 2 * t4);
+      acc[nd][2 * h] = acc[nd][2 * h] * a0 + o.x * a1;
+      acc[nd][2 * h + 1] = acc[nd][2 * h + 1] * a0 + o.y * a1;
+    }
+  }
+
+  // out = acc / l + sum_m p_band[m] ev[m], p_band normalised with the final
+  // max and sum; the warp's rows of the band are its own now
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = g + 8 * h;
+    const float inv_l = 1.f / l_run[h];
+    for (int m = t4; m < W; m += 4) bw[r * WP + m] = expf(bw[r * WP + m] - m_run[h]) * inv_l;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = g + 8 * h, t = tw + r;
+    if (t >= T) continue;
+    const float inv_l = 1.f / l_run[h];
+#pragma unroll
+    for (int nd = 0; nd < DT; ++nd) {
+      const int c = 8 * nd + 2 * t4;
+      float o0 = acc[nd][2 * h] * inv_l, o1 = acc[nd][2 * h + 1] * inv_l;
+      for (int m = 0; m < W; ++m) {
+        const float p = bw[r * WP + m];
+        const float2 e2 = __ldg(reinterpret_cast<const float2*>(ev + m * D + c));
+        o0 = fmaf(p, e2.x, o0);
+        o1 = fmaf(p, e2.y, o1);
+      }
+      *reinterpret_cast<float2*>(out + base + (size_t)t * D + c) = make_float2(o0, o1);
+    }
+  }
+}
+
+template <int D>
+int launch(const float* q, const float* k, const float* v, const float* ek, const float* ev,
+           const int* lengths, float* out, int B, int H, int T, int w, float scale,
+           cudaStream_t stream) {
+  constexpr int smem = Smem<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(banded_attention_tc_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((T + BQ - 1) / BQ, B * H);
+  banded_attention_tc_kernel<D><<<grid, WARPS * 32, smem, stream>>>(q, k, v, ek, ev, lengths,
+                                                                    out, H, T, w, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tfa
+
 }  // namespace
 
 // Kernel 2 in bf16. q, k, v, out: (B, H, T, D) bf16; ek, ev: (2w+1, D) bf16;
@@ -531,13 +870,37 @@ extern "C" int rvc_banded_attention_bf16(const void* q, const void* k, const voi
   }
 }
 
-// q, k, v, out: (B, H, T, D) float32; ek, ev: (2w+1, D); lengths: (B,) int32.
-// D must be 32, 64, 96 or 128 and w at most 16 (the wrapper checks).
+// Kernel 2 in float32 on the tensor cores. q, k, v, out: (B, H, T, D)
+// float32; ek, ev: (2w+1, D); lengths: (B,) int32. D must be 32, 64, 96 or
+// 128 and w at most 16 (the wrapper checks).
 extern "C" int rvc_banded_attention(const void* q, const void* k, const void* v,
                                     const void* ek, const void* ev,
                                     const void* lengths, void* out, int B,
                                     int H, int T, int D, int w, float scale,
                                     void* stream) {
+  const float* qf = (const float*)q;
+  const float* kf = (const float*)k;
+  const float* vf = (const float*)v;
+  const float* ekf = (const float*)ek;
+  const float* evf = (const float*)ev;
+  const int* lens = (const int*)lengths;
+  float* o = (float*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (D) {
+    case 32: return tfa::launch<32>(qf, kf, vf, ekf, evf, lens, o, B, H, T, w, scale, s);
+    case 64: return tfa::launch<64>(qf, kf, vf, ekf, evf, lens, o, B, H, T, w, scale, s);
+    case 96: return tfa::launch<96>(qf, kf, vf, ekf, evf, lens, o, B, H, T, w, scale, s);
+    case 128: return tfa::launch<128>(qf, kf, vf, ekf, evf, lens, o, B, H, T, w, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The SIMT kernel 2 (the yardstick): the same arguments and function.
+extern "C" int rvc_banded_attention_simt(const void* q, const void* k, const void* v,
+                                         const void* ek, const void* ev,
+                                         const void* lengths, void* out, int B,
+                                         int H, int T, int D, int w, float scale,
+                                         void* stream) {
   const float* qf = (const float*)q;
   const float* kf = (const float*)k;
   const float* vf = (const float*)v;

@@ -1,6 +1,8 @@
-// One residual unit of a HiFiGAN ResBlock1 chain, for sm_90a, in two kernels:
-// a tensor-core kernel (kernel 1, rvc_resblock_unit) and the float32 SIMT
-// kernel it replaced (rvc_resblock_unit_simt), which kernel 4 still runs.
+// One residual unit of a HiFiGAN ResBlock1 chain, for sm_90a: in float32 a
+// tensor-core kernel (kernel 1, rvc_resblock_unit) and the SIMT kernel it
+// replaced (rvc_resblock_unit_simt), which kernel 4 still runs; in bfloat16
+// the wgmma kernel of kernels 1 and 8 (rvc_resblock_unit_bf16, at the end of
+// the file) and the mma.sync kernel it replaced (rvc_resblock_unit_bf16_sync).
 //
 // Kernel 1 replaces rvc_tpu/ops/pallas_resblock.py::_fused_group_call
 // (reached from fused_resblock_group), which runs a whole decoder stage - the
@@ -56,6 +58,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -494,11 +497,13 @@ int launch_unit(const float* x, float* out, const float4* pa, const float* ba,
 
 }  // namespace tc
 
-// ---- kernels 1 (bf16) and 8: the unit in bfloat16 on the tensor cores ----
+// ---- the first bf16 unit, on mma.sync: the yardstick of kernels 1 (bf16) and 8 ----
 //
-// Replaces _fused_group_call (kernel 1) and scripts/bench_resblock_v2.py::
-// _fused_call_v2 (kernel 8, one chain) as they run in bfloat16: activations
-// carry in bf16 and every conv is one bf16 pass on mma.sync m16n8k16 with
+// The first port of _fused_group_call (kernel 1) and scripts/bench_resblock_v2.py::
+// _fused_call_v2 (kernel 8, one chain) as they run in bfloat16, kept as
+// rvc_resblock_unit_bf16_sync: chip_smoke.py times it beside the wgmma unit
+// below (its previous_ms); no path of the port launches it. Activations carry
+// in bf16 and every conv is one bf16 pass on mma.sync m16n8k16 with
 // float32 sums (the products of bf16 operands are exact), rounded once:
 //   t  = bf16(sum_taps conv_a + bias_a), zeroed outside [0, T)
 //   u  = bf16(sum_taps conv_b(lrelu(t)) + bias_b)
@@ -508,12 +513,11 @@ int launch_unit(const float* x, float* out, const float4* pa, const float* ba,
 // float32 unit). This is the rounding of pallas_resblock.py:601-656 and of
 // bench_resblock_v2.py:56-70. Geometry as the 3xTF32 unit (16 warps, a
 // block's rows x all C channels, conv_a's output over the input tile), in
-// half the shared memory. Weights: bf16, packed once per call by
-// ops/resblock.py::pack_bf16_weights so that a lane's B fragment of one
-// (k16 step, n8 tile) is one 8-byte load; read through L1. Each (tap, 64
+// half the shared memory. Weights: bf16, laid out so that a lane's B fragment
+// of one (k16 step, n8 tile) is one 8-byte load (chip_smoke.py::
+// pack_bf16_sync_weights); read through L1 with no staging. Each (tap, 64
 // input channels) sums from zero in its fragments and is added into float32
-// registers, as mma.sync truncates as it accumulates (mma.cuh). What bounds
-// it: operations (one bf16 pass: 2 k C^2 flops per row and conv).
+// registers, as mma.sync truncates as it accumulates (mma.cuh).
 
 namespace bf {
 
@@ -728,6 +732,350 @@ int launch_unit(const __nv_bfloat16* x, __nv_bfloat16* out, const uint2* pa, con
 
 }  // namespace bf
 
+// ---- kernels 1 (bf16) and 8: the bf16 unit on wgmma ----
+//
+// Replaces _fused_group_call (kernel 1) and scripts/bench_resblock_v2.py::
+// _fused_call_v2 (kernel 8) as they run in bfloat16, with the yardstick's
+// rounding above, unchanged. What bounds it: operations, 2 k C^2 flops per
+// row and conv in one bf16 pass, then the bytes of a unit's input and
+// output (a unit a launch). The mma.sync unit (the yardstick) was held back
+// by its weights, read through L1 inside the innermost loop with no
+// staging, 64 rows per weight byte at C = 256 (2.9 MB of weights a unit at
+// k = 11) and one block of 16 warps an SM to hide the wait, and by mma.sync
+// itself (about 65% of wgmma's rate). The design:
+// - the products on wgmma m64nNk16 (bf16, float32 sums). A, the
+//   activations, comes from registers, loaded with ldmatrix from the padded
+//   tile in shared memory: tap j of a dilated conv reads rows shifted by j d,
+//   which a swizzled shared-memory descriptor for A could not follow. B, the
+//   weights, comes from shared memory through a descriptor (hopper.cuh);
+// - the weights are packed once per set of weights by the wrapper
+//   (ops/resblock.py::pack_bf16_weights) into the exact image B's descriptor
+//   reads: K = (tap, input channel) in that order cut into slices of 64, each
+//   slice C rows of 128 bytes with the 128-byte swizzle. A producer
+//   warpgroup (one lane) streams conv_a's slices and then conv_b's with 1-D
+//   bulk copies (cp.async.bulk, no tensor map) into a ring of STAGES slots
+//   that complete on mbarriers; the consumers free a slot once their
+//   products on it are done, so conv_b's first slices arrive during conv_a's
+//   epilogue;
+// - more rows per weight byte where the weights are largest: at C = 256 and
+//   128 two consumer warpgroups own 256 / C m64 tiles each and every slice
+//   feeds M = 128 and 256 rows (the mma.sync unit: 64 and 128), one block
+//   an SM; at C <= 64 one consumer warpgroup owns 4 or 8 m64 tiles, M = 256
+//   and 512 rows (as the mma.sync unit), and two such blocks share an SM, so
+//   that one block's loads and element-wise passes run under the other's
+//   products (setmaxnreg gives each consumer thread 232 registers and each
+//   producer thread 40, or 24 where two blocks share the SM's registers);
+// - float32 sums as before: each slice's sum (its 4 k16 steps) starts in the
+//   wgmma registers with scale-d = 0 and is added into float32 registers,
+//   one chunk of 128 outputs (64 or C at C <= 64) at a time, since wgmma
+//   truncates as it accumulates, as mma.sync does (bench/wgmma_peak.cu
+//   measured both);
+// - the input tile comes in by cp.async, all rows in flight at once, and the
+//   element-wise work (lrelu, the residual add, the stage's sum) runs on
+//   packed bf16 pairs: a product or sum of two bf16 values is exact in
+//   float32, so __hmul2's and __hadd2's one rounding is the scalar path's;
+// - the epilogues as before: conv_a's output, rounded, zeroed outside
+//   [0, T) and lrelu'd, overwrites the input tile, so C = 256 with k = 11,
+//   d = 5 fits one launch; conv_b's rounded sums go through the tile too, and
+//   the output rows leave in 16-byte pieces with their loads batched. One
+//   launch computes one residual unit.
+
+namespace wg {
+
+constexpr int KSTEPS = 4;  // k16 steps of one weight slice (64 of K)
+
+template <int C>
+struct Geo {
+  // C >= 128: two consumer warpgroups, one block an SM; C <= 64: one, and
+  // two blocks an SM, so that one block's loads and element-wise passes run
+  // under the other's products
+  static constexpr bool WIDE = C >= 128;
+  static constexpr int CONSUMERS = WIDE ? 2 : 1;      // consumer warpgroups
+  static constexpr int BLOCKS = WIDE ? 1 : 2;         // blocks an SM
+  static constexpr int CTHREADS = CONSUMERS * 128;    // consumer threads
+  static constexpr int THREADS = CTHREADS + 128;      // and the producer warpgroup
+  // registers a thread after setmaxnreg: the producer's and the consumers'
+  static constexpr int PRODUCER_REGS = WIDE ? 40 : 24;
+  static constexpr int REGS = 232;
+  static constexpr int NCH = WIDE ? 128 : (C < 64 ? C : 64);  // outputs of one partial
+                                                              // sum (wgmma's N)
+  static constexpr int NC = C / NCH;                  // partial sums per m64 tile and slice
+  static constexpr int ACC = NCH / 2;                 // floats of one partial sum a thread
+  static constexpr int MT = C >= 64 ? 256 / C : 8;    // m64 tiles per consumer warpgroup
+  static constexpr int M = CONSUMERS * MT * 64;       // conv rows per block
+  static constexpr int S = C + 8;                     // tile row pitch in bf16: the 8 rows of
+                                                      // an ldmatrix phase on distinct banks
+  static constexpr int STEPS = C / 16;                // k16 steps per tap
+  static constexpr int SLICE = C * 128;               // bytes of one weight slice
+  static constexpr int STAGES = C == 256 ? 4 : 8;     // ring slots
+};
+
+// lrelu of two bf16 values, max(v, bf16(v bf16(0.1))): the product of two
+// bf16 values is exact in float32, so __hmul2's one rounding is the scalar
+// path's (bf::lrelu_bf16)
+__device__ __forceinline__ __nv_bfloat162 lrelu2(__nv_bfloat162 v) {
+  return __hmax2(v, __hmul2(v, __float2bfloat162_rn(bf::SLOPE)));
+}
+
+// lrelu of the 8 bf16 values of a 16-byte piece
+__device__ __forceinline__ uint4 lrelu8(uint4 v) {
+  __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h2[i] = lrelu2(h2[i]);
+  return v;
+}
+
+template <int C>
+using Acc = float[Geo<C>::MT][Geo<C>::NC][Geo<C>::ACC];
+
+template <int C>
+__device__ __forceinline__ void zero(Acc<C>& acc) {
+#pragma unroll
+  for (int mt = 0; mt < Geo<C>::MT; ++mt)
+#pragma unroll
+    for (int nc = 0; nc < Geo<C>::NC; ++nc)
+#pragma unroll
+      for (int i = 0; i < Geo<C>::ACC; ++i) acc[mt][nc][i] = 0.f;
+}
+
+// acc += conv(tile) over the warpgroup's m64 tiles from row0 (those at or
+// past `rows` skipped): out row r reads tile rows r + j d. The conv's
+// n_steps k16 steps come as slices through the ring; q counts the launch's
+// slices (conv_a's, then conv_b's): slice q sits in slot q % STAGES in
+// round q / STAGES.
+template <int C>
+__device__ __forceinline__ void conv(const __nv_bfloat16* tile, int d, int n_steps,
+                                     const uint8_t* ring, uint64_t* full, uint64_t* empty, int& q,
+                                     Acc<C>& acc, int row0, int rows, int wq, int lane) {
+  using G = Geo<C>;
+  const int n_slices = (n_steps + KSTEPS - 1) / KSTEPS;
+  // this lane's ldmatrix row and column in the warp's 16 rows of an m64 tile
+  const __nv_bfloat16* a_lane =
+      tile + (size_t)(row0 + wq * 16 + lane % 16) * G::S + (lane / 16) * 8;
+  float part[G::ACC];
+#pragma unroll
+  for (int i = 0; i < G::ACC; ++i) part[i] = 0.f;
+  for (int s = 0; s < n_slices; ++s, ++q) {
+    const int slot = q % G::STAGES;
+    const int nk = min(KSTEPS, n_steps - s * KSTEPS);
+    hop::mbar_wait(&full[slot], (q / G::STAGES) & 1);
+    const uint64_t desc = hop::desc_sw128(ring + (size_t)slot * G::SLICE);
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt) {
+      if (row0 + mt * 64 >= rows) break;  // the same for the whole warpgroup
+      uint32_t a[KSTEPS][4];
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        const int u = s * KSTEPS + kk;  // tap u / STEPS, inputs 16 (u % STEPS) ..
+        if (kk < nk)
+          hop::ldmatrix_x4(a[kk], a_lane + (size_t)(mt * 64 + (u / G::STEPS) * d) * G::S +
+                                      (u % G::STEPS) * 16);
+      }
+#pragma unroll
+      for (int nc = 0; nc < G::NC; ++nc) {
+        hop::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk)
+          if (kk < nk) hop::Wgmma<G::NCH>::mma(part, a[kk], desc + nc * (G::NCH * 8) + 2 * kk, kk);
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_regs(part);
+#pragma unroll
+        for (int i = 0; i < G::ACC; ++i) acc[mt][nc][i] += part[i];
+      }
+    }
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(&empty[slot]);  // this warp is done with the slot
+  }
+}
+
+// x, out: (B, T, C) bf16; pa, pb: packed bf16 weights (pack_bf16_weights);
+// ba, bb: (C,) float32. mode 0: out = h'; 1: out = bf16(out + h'). If
+// n_div > 1: out = bf16(out / n_div).
+template <int C>
+__global__ void __launch_bounds__(Geo<C>::THREADS, Geo<C>::BLOCKS) resblock_unit_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
+    const uint8_t* __restrict__ pa, const float* __restrict__ ba, const uint8_t* __restrict__ pb,
+    const float* __restrict__ bb, int T, int ka, int da, int kb, int db, int mode, int n_div) {
+  using G = Geo<C>;
+  extern __shared__ __align__(1024) uint8_t smem_wg[];
+  // the ring's slots on 1024-byte boundaries (the swizzle's atoms), then the
+  // barriers, then the activation tile
+  uint8_t* ring = smem_wg + ((1024 - (hop::smem_addr(smem_wg) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + G::STAGES * G::SLICE);
+  uint64_t* empty = full + G::STAGES;
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(empty + G::STAGES);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int na = ka * G::STEPS, nb = kb * G::STEPS;  // k16 steps of each conv
+  if (tid == 0) {
+    for (int i = 0; i < G::STAGES; ++i) {
+      hop::mbar_init(&full[i], 1);
+      hop::mbar_init(&empty[i], G::CTHREADS / 32);
+    }
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= G::CTHREADS / 32) {  // the producer warpgroup: one lane starts every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(G::PRODUCER_REGS));
+    if (warp == G::CTHREADS / 32 && lane == 0) {
+      const int sa = (na + KSTEPS - 1) / KSTEPS, n = sa + (nb + KSTEPS - 1) / KSTEPS;
+      for (int q = 0; q < n; ++q) {
+        const int slot = q % G::STAGES;
+        if (q >= G::STAGES) hop::mbar_wait(&empty[slot], (q / G::STAGES - 1) & 1);
+        hop::mbar_arrive_expect_tx(&full[slot], G::SLICE);
+        const uint8_t* src = q < sa ? pa + (size_t)q * G::SLICE : pb + (size_t)(q - sa) * G::SLICE;
+        hop::bulk_copy(ring + (size_t)slot * G::SLICE, src, G::SLICE, &full[slot]);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(G::REGS));
+
+  const int wq = warp % 4, g = lane / 4, t = lane % 4;
+  const int row0 = (warp / 4) * G::MT * 64;  // the warpgroup's first row
+  const int pa_rows = (ka - 1) * da / 2, pb_rows = (kb - 1) * db / 2;
+  const int rows_h = G::M + (ka - 1) * da, rows_t = G::M + (kb - 1) * db;
+  const int TT = G::M - (kb - 1) * db;  // output rows of this block
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * TT;
+  const __nv_bfloat16* xb = x + (size_t)b * T * C;
+
+  // h with its halo by cp.async, all rows in flight at once (rows outside
+  // [0, T) are zero-filled), then lrelu in place
+  const int g0 = t0 - pb_rows - pa_rows;
+  for (int e = tid; e < rows_h * (C / 8); e += G::CTHREADS) {
+    const int r = e / (C / 8), c8 = e % (C / 8), gr = g0 + r;
+    const bool in = gr >= 0 && gr < T;
+    mma::cp_async16(tile + (size_t)r * G::S + 8 * c8, xb + (size_t)(in ? gr : 0) * C + 8 * c8,
+                    in ? 16 : 0);
+  }
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  hop::bar_sync(1, G::CTHREADS);
+  for (int e = tid; e < rows_h * (C / 8); e += G::CTHREADS) {
+    uint4* p = reinterpret_cast<uint4*>(tile + (size_t)(e / (C / 8)) * G::S + 8 * (e % (C / 8)));
+    *p = lrelu8(*p);
+  }
+  hop::bar_sync(1, G::CTHREADS);
+
+  Acc<C> acc;
+  zero<C>(acc);
+  int q = 0;
+  conv<C>(tile, da, na, ring, full, empty, q, acc, row0, G::M, wq, lane);
+  hop::bar_sync(1, G::CTHREADS);  // every consumer is done reading the input tile
+
+  // conv_a's rows cover [t0 - pb, t0 - pb + M): bf16(sum + bias), zero
+  // outside [0, T), lrelu. acc[mt][nc][4 j + c] is row 16 wq + g + 8 (c / 2)
+  // of m64 tile mt, column nc NCH + 8 j + 2 t + (c % 2).
+#pragma unroll
+  for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+    for (int nc = 0; nc < G::NC; ++nc)
+#pragma unroll
+      for (int j = 0; j < G::NCH / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row0 + mt * 64 + wq * 16 + g + 8 * h;
+          const int gr = t0 - pb_rows + r;
+          const int c = nc * G::NCH + 8 * j + 2 * t;
+          const float2 bias = __ldg(reinterpret_cast<const float2*>(ba + c));
+          __nv_bfloat162 v = __floats2bfloat162_rn(0.f, 0.f);
+          if (gr >= 0 && gr < T)
+            v = lrelu2(__floats2bfloat162_rn(acc[mt][nc][4 * j + 2 * h] + bias.x,
+                                             acc[mt][nc][4 * j + 2 * h + 1] + bias.y));
+          *reinterpret_cast<__nv_bfloat162*>(tile + (size_t)r * G::S + c) = v;
+        }
+  // rows past M only feed discarded rows of conv_b
+  for (int e = tid; e < (rows_t - G::M) * (C / 8); e += G::CTHREADS) {
+    const int r = G::M + e / (C / 8), c8 = e % (C / 8);
+    *reinterpret_cast<uint4*>(tile + (size_t)r * G::S + 8 * c8) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  hop::bar_sync(1, G::CTHREADS);
+
+  zero<C>(acc);
+  conv<C>(tile, db, nb, ring, full, empty, q, acc, row0, TT, wq, lane);
+  hop::bar_sync(1, G::CTHREADS);  // every consumer is done reading conv_b's input
+
+  // u = bf16(sum + bias) of the output rows into the tile, then the rows out
+  // in 16-byte pieces: h' = bf16(h + u), added into out and divided as asked
+#pragma unroll
+  for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+    for (int nc = 0; nc < G::NC; ++nc)
+#pragma unroll
+      for (int j = 0; j < G::NCH / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row0 + mt * 64 + wq * 16 + g + 8 * h;
+          if (r >= TT) continue;
+          const int c = nc * G::NCH + 8 * j + 2 * t;
+          const float2 bias = __ldg(reinterpret_cast<const float2*>(bb + c));
+          *reinterpret_cast<__nv_bfloat162*>(tile + (size_t)r * G::S + c) = __floats2bfloat162_rn(
+              acc[mt][nc][4 * j + 2 * h] + bias.x, acc[mt][nc][4 * j + 2 * h + 1] + bias.y);
+        }
+  hop::bar_sync(1, G::CTHREADS);
+  // in batches of UB pieces a thread, their loads made before any store
+  constexpr int UB = 8;
+  __nv_bfloat16* ob = out + (size_t)b * T * C;
+  const int n8 = min(TT, T - t0) * (C / 8);
+  for (int e0 = tid; e0 < n8; e0 += UB * G::CTHREADS) {
+    uint4 hv[UB], ov[UB];
+#pragma unroll
+    for (int i = 0; i < UB; ++i) {
+      const int e = e0 + i * G::CTHREADS;
+      if (e >= n8) break;
+      const size_t at = (size_t)(t0 + e / (C / 8)) * C + 8 * (e % (C / 8));
+      hv[i] = __ldg(reinterpret_cast<const uint4*>(xb + at));
+      if (mode == 1) ov[i] = *reinterpret_cast<const uint4*>(ob + at);
+    }
+#pragma unroll
+    for (int i = 0; i < UB; ++i) {
+      const int e = e0 + i * G::CTHREADS;
+      if (e >= n8) break;
+      const int r = e / (C / 8), c8 = e % (C / 8);
+      uint4 u = *reinterpret_cast<const uint4*>(tile + (size_t)r * G::S + 8 * c8);
+      __nv_bfloat162* u2 = reinterpret_cast<__nv_bfloat162*>(&u);
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&hv[i]);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov[i]);
+      // the sum of two bf16 values rounds once in __hadd2, as in float32
+      // and then to bf16
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        u2[c] = __hadd2(h2[c], u2[c]);
+        if (mode == 1) u2[c] = __hadd2(o2[c], u2[c]);
+        if (n_div > 1)
+          u2[c] = __floats2bfloat162_rn(__fdiv_rn(__low2float(u2[c]), (float)n_div),
+                                        __fdiv_rn(__high2float(u2[c]), (float)n_div));
+      }
+      *reinterpret_cast<uint4*>(ob + (size_t)(t0 + r) * C + 8 * c8) = u;
+    }
+  }
+}
+
+template <int C>
+int launch_unit(const __nv_bfloat16* x, __nv_bfloat16* out, const uint8_t* pa, const float* ba,
+                const uint8_t* pb, const float* bb, int B, int T, int ka, int da, int kb, int db,
+                int mode, int n_div, cudaStream_t stream) {
+  using G = Geo<C>;
+  const int TT = G::M - (kb - 1) * db;
+  if (TT <= 0) return (int)cudaErrorInvalidValue;
+  const int halo = (ka - 1) * da > (kb - 1) * db ? (ka - 1) * da : (kb - 1) * db;
+  const int smem = 1024 + G::STAGES * (G::SLICE + 16) + (G::M + halo) * G::S * 2;
+  cudaError_t err = cudaFuncSetAttribute(resblock_unit_wgmma_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(resblock_unit_wgmma_kernel<C>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((T + TT - 1) / TT, B);
+  resblock_unit_wgmma_kernel<C><<<grid, G::THREADS, smem, stream>>>(x, out, pa, ba, pb, bb, T,
+                                                                     ka, da, kb, db, mode, n_div);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // The SIMT unit: weights (k, C, C) [tap][in][out]. C must be a multiple of
@@ -798,14 +1146,14 @@ extern "C" int rvc_resblock1_fwd(const void* x, void* hs, void* out, const void*
 }
 
 
-// Kernels 1 (bf16) and 8: the bf16 unit. x, out: (B, T, C) bf16; pa, pb:
-// conv_a's and conv_b's weights as pack_bf16_weights lays them out (k x C/16
-// k16 steps x C/8 n8 tiles x 32 lanes x 4 bf16); ba, bb: (C,) float32. C must
-// be 16, 32, 64, 128 or 256 (the wrapper checks).
-extern "C" int rvc_resblock_unit_bf16(const void* x, void* out, const void* pa,
-                                      const void* ba, const void* pb, const void* bb,
-                                      int B, int T, int C, int ka, int da, int kb,
-                                      int db, int mode, int n_div, void* stream) {
+// The mma.sync bf16 unit (the yardstick). x, out: (B, T, C) bf16; pa, pb: conv_a's
+// and conv_b's weights as chip_smoke.py::pack_bf16_sync_weights lays them out
+// (k x C/16 k16 steps x C/8 n8 tiles x 32 lanes x 4 bf16); ba, bb: (C,)
+// float32. C must be 16, 32, 64, 128 or 256.
+extern "C" int rvc_resblock_unit_bf16_sync(const void* x, void* out, const void* pa,
+                                           const void* ba, const void* pb, const void* bb,
+                                           int B, int T, int C, int ka, int da, int kb,
+                                           int db, int mode, int n_div, void* stream) {
   const __nv_bfloat16* xh = (const __nv_bfloat16*)x;
   __nv_bfloat16* oh = (__nv_bfloat16*)out;
   const uint2* a2 = (const uint2*)pa;
@@ -821,4 +1169,29 @@ extern "C" int rvc_resblock_unit_bf16(const void* x, void* out, const void* pa,
       return (int)cudaErrorInvalidValue;
   }
 #undef RVC_UNIT_BF16
+}
+
+// Kernels 1 (bf16) and 8: the bf16 unit on wgmma. x, out: (B, T, C) bf16;
+// pa, pb: conv_a's and conv_b's weights as pack_bf16_weights lays them out
+// (ceil(k C / 64) slices of C rows x 64 bf16, 128-byte swizzled); ba, bb:
+// (C,) float32. C must be 16, 32, 64, 128 or 256 (the wrapper checks).
+extern "C" int rvc_resblock_unit_bf16(const void* x, void* out, const void* pa,
+                                      const void* ba, const void* pb, const void* bb,
+                                      int B, int T, int C, int ka, int da, int kb,
+                                      int db, int mode, int n_div, void* stream) {
+  const __nv_bfloat16* xh = (const __nv_bfloat16*)x;
+  __nv_bfloat16* oh = (__nv_bfloat16*)out;
+  const uint8_t* a8 = (const uint8_t*)pa;
+  const uint8_t* b8 = (const uint8_t*)pb;
+  cudaStream_t s = (cudaStream_t)stream;
+#define RVC_UNIT_WG(CC)                                                                    \
+  case CC:                                                                                 \
+    return wg::launch_unit<CC>(xh, oh, a8, (const float*)ba, b8, (const float*)bb, B, T,   \
+                               ka, da, kb, db, mode, n_div, s);
+  switch (C) {
+    RVC_UNIT_WG(16) RVC_UNIT_WG(32) RVC_UNIT_WG(64) RVC_UNIT_WG(128) RVC_UNIT_WG(256)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef RVC_UNIT_WG
 }

@@ -25,7 +25,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 SOURCES = ("resblock_group.cu", "banded_attention.cu", "nearest_rows.cu", "resblock_bwd.cu",
            "wavenet.cu")
-HEADERS = ("rowconv.cuh", "tc_rowconv.cuh", "mma.cuh")  # in the build hash with the sources
+HEADERS = ("rowconv.cuh", "tc_rowconv.cuh", "mma.cuh", "hopper.cuh")  # in the build hash with the sources
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -41,10 +41,14 @@ SIGNATURES = {
                           _I, _I, _P],
     "rvc_resblock_unit_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _P],
+    "rvc_resblock_unit_bf16_sync": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _P],
     "rvc_resblock_unit_simt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _P],
     "rvc_banded_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _F, _P],
+    "rvc_banded_attention_simt": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _F, _P],
     "rvc_banded_attention_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _F, _P],
     "rvc_nearest_rows": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -1,9 +1,10 @@
 """Kernel 2: self-attention with a banded relative-position bias.
 
 Counterpart of ``rvc_tpu/ops/pallas_attention.py::banded_rel_attention``,
-same signature. On a CUDA tensor it runs ``csrc/banded_attention.cu``; on a
-CPU tensor the plain version below, which is the JAX module's XLA path
-(``rvc_tpu/models/attention.py``) written in torch. The kernel has no
+same signature. On a CUDA tensor it runs ``csrc/banded_attention.cu``
+(``rvc_banded_attention``: QK^T and P.V on the tensor cores in 3xTF32, an
+online softmax); on a CPU tensor the plain version below, which is the JAX
+module's XLA path (``rvc_tpu/models/attention.py``) written in torch. The kernel has no
 backward, as the Pallas kernel has none: ``banded_rel_attention`` raises
 when gradients are wanted, and the text encoder trains through the plain
 version, which is the JAX ``Trainer``'s own path (it never sets

@@ -7,8 +7,8 @@ CUDA tensor the work runs in ``csrc/resblock_group.cu``: one launch per
 residual unit (leaky_relu -> dilated conv -> leaky_relu -> conv ->
 + residual), the last unit of each chain adding into the stage output. Its
 convs run on the tensor cores in 3xTF32 (``csrc/mma.cuh``), which keeps
-float32-level error; each call splits and packs the weights for it
-(``pack_tf32_weights``).
+float32-level error, on weights split and packed for it
+(``pack_tf32_weights``) once per set of weights (``packed``).
 
 Kernels 4 and 5, ``fused_resblock1_train``: one chain, differentiable
 (training). Counterpart of ``pallas_resblock.py::fused_resblock1_train``:
@@ -23,14 +23,15 @@ than kernel 4's float32 forward at a pre-activation within rounding of 0;
 
 In bfloat16, kernel 1 and kernel 8 (``fused_resblock1_v2``, one chain:
 the counterpart of ``scripts/bench_resblock_v2.py::fused_resblock1_v2``)
-run one bf16 unit kernel (``rvc_resblock_unit_bf16``): activations carry
-in bf16, each conv is one bf16 pass summed in float32, the float32 bias is
-added and the sum rounded once to bf16, leaky ReLU rounds its product, the
-residual add rounds, and a stage's chains add in order in bf16 before one
-division (rvc_tpu/ops/pallas_resblock.py:591-656). Each call packs the
-weights as bf16 (``pack_bf16_weights``). Kernel 1 counts its float32
-launches in ``fused_resblock_group.launches`` and its bf16 ones in
-``fused_resblock_group.launches_bf16``.
+run one bf16 unit kernel on ``wgmma`` (``rvc_resblock_unit_bf16``):
+activations carry in bf16, each conv is one bf16 pass summed in float32,
+the float32 bias is added and the sum rounded once to bf16, leaky ReLU
+rounds its product, the residual add rounds, and a stage's chains add in
+order in bf16 before one division (rvc_tpu/ops/pallas_resblock.py:591-656).
+Its weights are packed as bf16 into the image its shared-memory operand
+reads (``pack_bf16_weights``), once per set of weights. Kernel 1 counts
+its float32 launches in ``fused_resblock_group.launches`` and its bf16 ones
+in ``fused_resblock_group.launches_bf16``.
 
 On a CPU tensor each wrapper runs its plain version below instead, the same
 function written with ``F.conv1d`` (and autograd); in bf16 the plain
@@ -42,7 +43,8 @@ launches have no autograd node.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from collections import OrderedDict
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -159,23 +161,71 @@ def unpack_tf32_weights(packed: torch.Tensor, C: int, k: int) -> tuple[torch.Ten
     return out[0], out[1]
 
 
+SLICE_K = 64  # the bf16 unit kernel's weight slice: 64 of K = (tap, input)
+
+
 def pack_bf16_weights(w: torch.Tensor) -> torch.Tensor:
-    """A conv's (O, I, k) float32 weights (O a multiple of 8, I of 16) as
-    the bf16 unit kernel reads them: for each tap j, k16 step s (inputs
-    16s..16s+15), n8 tile n of outputs and lane 4g + t of a warp, the four
-    bf16 values w[8n + g, 16s + 4t + e, j], e = 0..3 (the B fragment of
-    mma.m16n8k16 with k relabelled as in ``csrc/mma.cuh``).
-    (k, I/16, O/8, 8, 4, 4) bf16."""
+    """A conv's (O, I, k) float32 weights (O and I multiples of 16) as the
+    bf16 unit kernel's B operand lies in shared memory: K = (tap j, input i)
+    flattened as j I + i and zero-padded to a multiple of 64; slice s is O
+    rows, row o holding w[o, K 64 s .. 64 s + 63] in bf16 (128 bytes), with
+    the 128-byte swizzle: 16-byte chunk c of row o stored at chunk c ^ (o % 8)
+    (``csrc/hopper.cuh``). (ceil(k I / 64), O, 8, 8) bf16, each slice one
+    bulk copy."""
     O, I, k = w.shape
-    v = w.to(torch.bfloat16).permute(2, 1, 0).reshape(k, I // 16, 4, 4, O // 8, 8)
-    return v.permute(0, 1, 4, 5, 2, 3).contiguous()  # j, s, n, g, t, e
+    v = w.to(torch.bfloat16).permute(0, 2, 1).reshape(O, k * I)
+    v = F.pad(v, (0, -(k * I) % SLICE_K)).reshape(O, -1, 8, 8).transpose(0, 1)
+    return _swizzle(v).contiguous()
+
+
+def unpack_bf16_weights(packed: torch.Tensor, I: int, k: int) -> torch.Tensor:
+    """Inverse of ``pack_bf16_weights``: the (O, I, k) bf16 weights."""
+    O = packed.shape[1]
+    v = _swizzle(packed).transpose(0, 1).reshape(O, -1)[:, :k * I]
+    return v.reshape(O, k, I).permute(0, 2, 1)
+
+
+def _swizzle(v: torch.Tensor) -> torch.Tensor:
+    """(..., O, 8, 8): chunk p of row o takes chunk p ^ (o % 8), the
+    128-byte swizzle and its own inverse."""
+    rows = torch.arange(v.shape[-3], device=v.device) % 8
+    src = torch.arange(8, device=v.device)[None, :] ^ rows[:, None]  # (O, 8)
+    return torch.gather(v, -2, src[..., None].expand(v.shape))
+
+
+PACK_CACHE_SIZE = 256
+_pack_cache: OrderedDict = OrderedDict()
+
+
+def packed(w: torch.Tensor, pack: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """``pack(w)``, computed once per set of weights. The cache is keyed by
+    the packing and by w's device, storage pointer, shape, strides and dtype,
+    and an entry is used only while w's version counter is unchanged, so a
+    change in place repacks. An entry holds w itself: its storage stays
+    alive, so its pointer cannot be reused by other weights while the entry
+    lasts. The least recently used entries beyond ``PACK_CACHE_SIZE`` go.
+    Inference tensors have no version counter and are packed at every call."""
+    if w.is_inference():
+        return pack(w)
+    key = (pack, w.device, w.data_ptr(), tuple(w.shape), w.stride(), w.dtype)
+    hit = _pack_cache.get(key)
+    if hit is not None and hit[1] == w._version:
+        _pack_cache.move_to_end(key)
+        return hit[2]
+    out = pack(w)
+    _pack_cache[key] = (w, w._version, out)
+    _pack_cache.move_to_end(key)
+    while len(_pack_cache) > PACK_CACHE_SIZE:
+        _pack_cache.popitem(last=False)
+    return out
 
 
 def _run_units(x: torch.Tensor, chains, entry: str, weights, counted,
                count: str = "launches") -> torch.Tensor:
     """The stage as one launch of ``entry`` per residual unit; ``weights``
-    maps a conv's (O, I, k) weight to the layout the entry reads, and each
-    launch adds one to ``counted``'s attribute ``count``."""
+    maps a conv's (O, I, k) weight to the layout the entry reads (once per
+    set of weights, ``packed``), and each launch adds one to ``counted``'s
+    attribute ``count``."""
     lib = _cuda.library()
     B, T, C = x.shape
     out = torch.empty_like(x)
@@ -191,7 +241,7 @@ def _run_units(x: torch.Tensor, chains, entry: str, weights, counted,
             dst = out if last else bufs[ui % 2]
             mode = 1 if (last and ci > 0) else 0
             n_div = n if (last and ci == n - 1) else 1
-            pa, pb = weights(wa), weights(wb)
+            pa, pb = packed(wa, weights), packed(wb, weights)
             ba, bb = ba.contiguous(), bb.contiguous()
             err = launch(h.data_ptr(), dst.data_ptr(), pa.data_ptr(), ba.data_ptr(),
                          pb.data_ptr(), bb.data_ptr(), B, T, C, ka, da, kb, db, mode,

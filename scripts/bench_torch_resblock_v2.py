@@ -64,9 +64,11 @@ def make_convs(gen: torch.Generator, C: int, k: int, dils=(1, 3, 5)) -> list:
     return convs
 
 
-def run(stages=STAGES, reps: int = 3, seed: int = 0) -> list[dict]:
-    """One row per stage: label, shape, kernel 8 ms, the float32 chain
-    kernel's ms, max |kernel 8 - plain| / max |plain|, bit-identical."""
+def run(stages=STAGES, reps: int = 3, seed: int = 0, beside=None) -> list[dict]:
+    """One row per stage: label, shape, k, kernel 8 ms, the float32 chain
+    kernel's ms, max |kernel 8 - plain| / max |plain|, bit-identical; with
+    ``beside`` (a function of the bf16 input and the convs) also its ms on
+    the same input, timed in turns with kernel 8 (``beside_ms``)."""
     set_float32_math()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
@@ -83,9 +85,17 @@ def run(stages=STAGES, reps: int = 3, seed: int = 0) -> list[dict]:
             exact = bool(torch.equal(got, ref))
             del ref
             f32_ms = timed(lambda: rb.fused_resblock1(x32, convs), reps)
-            v2_ms = timed(lambda: rb.fused_resblock1_v2(x, convs), reps)
-            rows.append(dict(label=label, shape=(B, T, C), k=k, v2_ms=v2_ms, f32_ms=f32_ms,
-                             max_rel_err=err, exact=exact))
+            row = dict(label=label, shape=(B, T, C), k=k, f32_ms=f32_ms, max_rel_err=err,
+                       exact=exact)
+            v2 = lambda: rb.fused_resblock1_v2(x, convs)  # noqa: E731
+            if beside is None:
+                row["v2_ms"] = timed(v2, reps)
+            else:
+                other = lambda: beside(x, convs)  # noqa: E731
+                b_ms = timed(other, reps)
+                row["v2_ms"] = min(timed(v2, reps), timed(v2, reps))
+                row["beside_ms"] = min(b_ms, timed(other, reps))
+            rows.append(row)
             del x, x32, got
             torch.cuda.empty_cache()
     return rows

@@ -192,3 +192,58 @@ def test_bf16_wrappers_count_only_kernel_launches(rng):
     assert counts() == before
     with pytest.raises(ValueError, match="bfloat16"):
         resblock.fused_resblock1_v2(x.float(), chain)
+
+
+def conv_in_slices(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int,
+                   d: int) -> torch.Tensor:
+    """A conv of the bf16 unit kernel on wgmma, (B, I, T) bf16 -> (B, O, T)
+    bf16: K = (tap j, input i) as j I + i cut into slices of 64
+    (``resblock.SLICE_K``), each slice's sum in float32, the slices added in
+    order into float32, the float32 bias added, one rounding."""
+    O, I, _ = w.shape
+    T = a.shape[-1]
+    pad = (k - 1) * d // 2
+    ap = torch.nn.functional.pad(a.float(), (pad, pad))
+    X = torch.cat([ap[..., j * d:j * d + T] for j in range(k)], 1)  # (B, k I, T)
+    Wf = w.to(torch.bfloat16).float().permute(0, 2, 1).reshape(O, k * I)
+    acc = torch.zeros(a.shape[0], O, T)
+    for s0 in range(0, k * I, resblock.SLICE_K):
+        acc = acc + torch.einsum("ok,bkt->bot", Wf[:, s0:s0 + resblock.SLICE_K],
+                                 X[:, s0:s0 + resblock.SLICE_K])
+    return (acc + b.float()[None, :, None]).to(torch.bfloat16)
+
+
+def unit_kernel_emulated(x: torch.Tensor, chains) -> torch.Tensor:
+    """Kernel 1 in bf16 with the wgmma unit kernel's sums (``conv_in_slices``)
+    and the plain version's roundings: lrelu(v) = max(v, bf16(v bf16(0.1))),
+    the residual add in bf16, the chains added in order and divided once."""
+    slope = resblock.BF16_SLOPE
+    acc = None
+    for chain in chains:
+        h = x.transpose(1, 2)
+        for (wa, ba, ka, da), (wb, bb, kb, db) in zip(chain[0::2], chain[1::2]):
+            t = conv_in_slices(torch.nn.functional.leaky_relu(h, slope), wa, ba, ka, da)
+            h = h + conv_in_slices(torch.nn.functional.leaky_relu(t, slope), wb, bb, kb, db)
+        acc = h if acc is None else acc + h
+    return (acc / len(chains)).transpose(1, 2)
+
+
+@pytest.mark.parametrize("C,T", [(16, 77), (32, 50)])
+def test_bf16_unit_slice_sums_match_plain_and_pallas(rng, C, T):
+    """The wgmma unit kernel sums each 64 of K = (tap, input) apart, so at C
+    = 16 and 32 a partial sum spans 4 or 2 taps (the mma.sync unit summed each
+    tap apart there). Its arithmetic, emulated, against the plain version and
+    the Pallas kernel in interpret mode, at the file's bars: within 1e-2 of
+    the largest magnitude, at most 1% of elements more than one bf16 ulp
+    apart."""
+    x = rng.standard_normal((2, T, C)).astype(np.float32)
+    chains = _chains(rng, C, ((11, (1, 3, 5)), (3, (1, 3, 5))))
+    xj, xt = to_bf16(x)
+    tchains = [_torch_chain(c) for c in chains]
+    got = unit_kernel_emulated(xt, tchains).float().numpy()
+    plain = resblock.resblock_group_plain(xt, tchains).float().numpy()
+    ref = np.asarray(jax_group(xj, [_jax_chain(c) for c in chains], S=1, interpret=True),
+                     np.float32)
+    for other, what in ((plain, "plain version"), (ref, "Pallas kernel")):
+        rel, beyond = agreement(got, other, f"wgmma unit sums vs the {what}, C={C}, T={T}")
+        assert rel <= MAX_REL and beyond <= MAX_BEYOND

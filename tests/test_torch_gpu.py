@@ -436,22 +436,63 @@ def test_backward_weight_gradients_are_bit_identical(rng, cuda):
 
 @pytest.mark.gpu
 def test_simt_yardsticks_are_on_no_path(rng, cuda, monkeypatch):
-    """The float32 SIMT backward entries that kernels 5 and 7 replaced stay
-    in the library only as chip_smoke.py's yardstick: a differentiable chain
-    and WN stack on the card never call them."""
+    """The entries that redesigned kernels replaced stay in the library only
+    as chip_smoke.py's yardsticks: a differentiable chain and WN stack (the
+    float32 SIMT backward of kernels 5 and 7), a bf16 stage through both
+    decoder routes (the bf16 unit on mma.sync) and kernel 2 in float32 (its
+    SIMT kernel) on the card never call them."""
     from rvc_tpu_torch.ops import _cuda
 
     lib = _cuda.library()
     called = []
-    for name in ("rvc_resblock1_bwd_simt", "rvc_wn_bwd_simt"):
+    for name in ("rvc_resblock1_bwd_simt", "rvc_wn_bwd_simt", "rvc_resblock_unit_bf16_sync",
+                 "rvc_banded_attention_simt"):
         monkeypatch.setattr(lib, name, lambda *a, _n=name: called.append(_n) or 0)
     x, convs, cot = _train_chain(rng, cuda, 32, 3, (1, 3, 5), 100)
     params = [t for w, b, _, _ in convs for t in (w, b)]
     _grads(lambda: resblock.fused_resblock1_train(x, convs), x, params, cot)
     x, w, lens, cot = _wn_case(rng, cuda, 32, 50, 2, (50, 20))
     _grads(lambda: wavenet.fused_wn(x, *w, lens, kernel_size=5), x, w, cot)
+    xb = torch.from_numpy(rng.standard_normal((2, 300, 64)).astype(np.float32)).to(cuda).bfloat16()
+    chains = _bf16_chains(rng, cuda, 64, ((3, (1, 3, 5)), (7, (1, 3, 5))))
+    resblock.fused_resblock_group(xb, chains)
+    resblock.fused_resblock1_v2(xb, chains[0])
+    args = [torch.from_numpy(a).to(cuda) for a in _attention_inputs(rng, T=100, D=96)]
+    attention.banded_rel_attention(*args, window=10, scale=96 ** -0.5)
     torch.cuda.synchronize()
     assert called == []
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+def test_yardsticks_compute_the_same_function(rng, cuda):
+    """chip_smoke.py's yardsticks for the redesigned kernels (the bf16
+    unit on mma.sync, the SIMT kernel 2) still compute their kernels' functions, so
+    their times are comparable: the bf16 stage within the bf16 bars of the
+    plain version, kernel 2 within 1e-5."""
+    cs = _chip_smoke()
+    x = torch.from_numpy(rng.standard_normal((2, 1237, 128)).astype(np.float32)).to(cuda)
+    chains = _bf16_chains(rng, cuda, 128, ((11, (1, 3, 5)), (3, (1, 3, 5))))
+    got = cs.previous_bf16(x.bfloat16(), chains)
+    torch.cuda.synchronize()
+    _bf16_close(got, resblock.resblock_group_plain(x.bfloat16(), chains))
+    args = [torch.from_numpy(a).to(cuda) for a in _attention_inputs(rng, T=300, D=96)]
+    got = cs.attention_simt(*args, window=10, scale=96 ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, attention.banded_rel_attention_plain(*args, window=10, scale=96 ** -0.5),
+        atol=1e-5, rtol=1e-5)
 
 
 # ---- bfloat16: kernels 1 and 2 in bf16 and kernel 8 ----
@@ -578,3 +619,62 @@ def test_attention_bf16_kernel_beyond_the_longest_default_chunk(rng, cuda):
     got = attention.banded_rel_attention(*args, window=10, scale=96 ** -0.5)
     torch.cuda.synchronize()
     _bf16_close(got, attention.banded_rel_attention_plain(*args, window=10, scale=96 ** -0.5))
+
+
+# the wgmma unit kernel's output rows a block at k = 11 (conv_b's halo 10):
+# M - 10 with M = 128, 256, 256, 512, 512 conv rows at C = 256 .. 16
+WG_ROWS = {256: 118, 128: 246, 64: 246, 32: 502, 16: 502}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,T", [(C, T) for C in (16, 32, 64, 128, 256)
+                                 for T in (30, WG_ROWS[C], WG_ROWS[C] + 1, 2 * WG_ROWS[C] + 7)])
+def test_resblock_bf16_wgmma_unit_tiles(rng, cuda, C, T):
+    """The wgmma unit kernel at its tiles' edges: every width it is built
+    for, one unit of k = 11 and d = 5 (the widest halo), T below the halo
+    (30 < 50), T of one block's output rows, one past it, and two blocks and
+    a part. Held elementwise, as one unit: at most 0.1% of the elements more
+    than one ulp from the plain version."""
+    x = torch.from_numpy(rng.standard_normal((2, T, C)).astype(np.float32)).to(cuda).bfloat16()
+    chains = _bf16_chains(rng, cuda, C, ((11, (5,)),))
+    n = resblock.fused_resblock_group.launches_bf16
+    got = resblock.fused_resblock_group(x, chains)
+    torch.cuda.synchronize()
+    assert resblock.fused_resblock_group.launches_bf16 == n + 1
+    _bf16_close(got, resblock.resblock_group_plain(x, chains), unit=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,D", [(31, 32), (32, 96), (33, 128), (97, 96), (2178, 96)])
+def test_attention_tensor_core_tiles(rng, cuda, T, D):
+    """Kernel 2 in float32 on the tensor cores at its tiles' edges (32 query
+    rows a block, 32 keys a tile): T one short of, at and one past a tile,
+    three tiles and a part, the 30 s conversion's T; lengths T, 1 and 0."""
+    q, k, v, ek, ev, _ = _attention_inputs(rng, T=T, D=D)
+    args = [torch.from_numpy(a).to(cuda) for a in (q, k, v, ek, ev)]
+    lens = torch.tensor([T, 1, 0], dtype=torch.int32, device=cuda)
+    n = attention.banded_rel_attention.launches
+    got = attention.banded_rel_attention(*args, lens, window=10, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert attention.banded_rel_attention.launches == n + 1
+    ref = attention.banded_rel_attention_plain(*args, lens, window=10, scale=D ** -0.5)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_packing_cache_follows_in_place_changes(rng, cuda):
+    """The unit kernels pack a set of weights once; a change of the weights
+    in place is seen at the next call."""
+    x = torch.from_numpy(rng.standard_normal((2, 500, 64)).astype(np.float32)).to(cuda)
+    chains = _bf16_chains(rng, cuda, 64, ((3, (1, 3)),))
+    for xx in (x, x.bfloat16()):
+        resblock.fused_resblock_group(xx, chains)
+        with torch.no_grad():
+            chains[0][0][0].mul_(-2.0)
+        got = resblock.fused_resblock_group(xx, chains)
+        torch.cuda.synchronize()
+        ref = resblock.resblock_group_plain(xx, chains)
+        if xx.dtype == torch.bfloat16:
+            _bf16_close(got, ref)
+        else:
+            torch.testing.assert_close(got, ref, atol=5e-5, rtol=1e-5)

@@ -193,3 +193,118 @@ def test_kernel1_arithmetic_matches_plain_and_pallas(rng, C, T, spec):
     scale = exact.abs().max().item()
     assert (got.double() - exact).abs().max().item() <= 1e-5 * scale
     assert np.abs(got.numpy() - ref).max() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("C,k", [(16, 3), (32, 11), (256, 7)])
+def test_bf16_unit_weight_packing_round_trips(rng, C, k):
+    """The bf16 unit kernel's weights, laid out as its shared-memory B
+    image (slices of 64 of K = (tap, input), rows of 128 bytes, 128-byte
+    swizzle): unpacked, they are the bf16 weights bit for bit, and a value
+    sits where wgmma's descriptor reads it."""
+    w = torch.from_numpy(_spread(rng, (C, C, k), -3, 1))
+    packed = resblock.pack_bf16_weights(w)
+    assert packed.dtype == torch.bfloat16 and packed.shape == (-(-k * C // 64), C, 8, 8)
+    got = resblock.unpack_bf16_weights(packed, C, k)
+    assert torch.equal(got.view(torch.int16), w.to(torch.bfloat16).view(torch.int16))
+    # K index q = j C + i lies in slice q // 64 at 16-byte chunk (q % 64) // 8,
+    # stored in row o at chunk ((q % 64) // 8) ^ (o % 8), element q % 8
+    flat = packed.reshape(packed.shape[0], C, 64)
+    for o, i, j in ((C - 1, C - 1, k - 1), (0, 0, 0), (5, C // 2 + 3, k // 2), (9, 7, 1)):
+        q = j * C + i
+        chunk = ((q % 64) // 8) ^ (o % 8)
+        assert flat[q // 64, o, 8 * chunk + q % 8] == w[o, i, j].to(torch.bfloat16)
+    # the last slice's K past k C is zero
+    tail = (k * C) % 64
+    if tail:
+        assert torch.all(resblock._swizzle(packed)[-1].reshape(C, 64)[:, tail:] == 0)
+
+
+def attention_3xtf32(q, k, v, ek, ev, lengths, *, window: int, scale: float,
+                     BK: int = 16, QD: int = 8, halves: int = 2) -> torch.Tensor:
+    """Kernel 2 in float32 as the tensor-core kernel computes it: qs = q *
+    scale, each score as float32 partial sums over 8 of D of the three TF32
+    piece products (qs_big.k_small + qs_small.k_big + qs_big.k_big), the
+    band (qs . ek) and the mask; the key tiles of 16 split into two halves
+    (the first ceil(n / 2) tiles and the rest), each with its own online
+    softmax: per tile the new maximum, p = exp(s - max), P.V as the three
+    piece products of p and v summed in float32 and added into the rescaled
+    running sum; the halves' maxima, sums and P.V sums combined in order;
+    at the end out = sum / l + the value-side band term from the raw band
+    scores with the final maximum and sum."""
+    B, H, T, D = q.shape
+    W = 2 * window + 1
+    qs = q * scale
+    qb, qsm = split_tf32(qs)
+    qe = qs @ ek.T  # (B, H, T, W)
+    t = torch.arange(T)
+    valid = t[None, :] < lengths[:, None]  # (B, T)
+    n_tiles = -(-T // BK)
+    per_half = -(-n_tiles // halves)
+    scores, runs = [], []
+    for hf in range(halves):
+        m = torch.full((B, H, T), -torch.inf)
+        l = torch.zeros(B, H, T)
+        acc = torch.zeros(B, H, T, D)
+        for it in range(hf * per_half, min(n_tiles, (hf + 1) * per_half)):
+            j = torch.arange(it * BK, min((it + 1) * BK, T))
+            kb, ksm = split_tf32(k[:, :, j])
+            vb, vsm = split_tf32(v[:, :, j])
+            s = torch.zeros(B, H, T, len(j))
+            for d0 in range(0, D, QD):
+                sl = slice(d0, d0 + QD)
+                mt = lambda a, b: a[..., sl] @ b[..., sl].transpose(-1, -2)  # noqa: E731
+                s = s + (mt(qb, ksm) + mt(qsm, kb) + mt(qb, kb))
+            rel = j[None, :] - t[:, None] + window
+            in_band = (rel >= 0) & (rel < W)
+            band = torch.gather(qe, 3, rel.clamp(0, W - 1).expand(B, H, T, len(j)))
+            s = torch.where(in_band, s + band, s)
+            masked = ~(valid[:, None, :, None] & valid[:, None, None, j])
+            s = torch.where(masked, torch.full_like(s, -1e4), s)
+            scores.append(s)
+            mx = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - mx)
+            p = torch.exp(s - mx[..., None])
+            l = l * alpha + p.sum(-1)
+            pb, psm = split_tf32(p)
+            acc = acc * alpha[..., None] + (pb @ vsm + psm @ vb + pb @ vb)
+            m = mx
+        runs.append((m, l, acc))
+    m, l, acc = runs[0]
+    for m1, l1, acc1 in runs[1:]:
+        mx = torch.maximum(m, m1)
+        a0, a1 = torch.exp(m - mx), torch.exp(m1 - mx)
+        l = l * a0 + l1 * a1
+        acc = acc * a0[..., None] + acc1 * a1[..., None]
+        m = mx
+    S = torch.cat(scores, -1)  # the raw scores, (B, H, T, T)
+    jj = t[:, None] + torch.arange(W)[None, :] - window  # (T, W): the band's keys
+    ok = (jj >= 0) & (jj < T)
+    raw = torch.gather(S, 3, jj.clamp(0, T - 1).expand(B, H, T, W))
+    p_band = torch.where(ok, torch.exp(raw - m[..., None]), torch.zeros(())) / l[..., None]
+    return acc / l[..., None] + p_band @ ev
+
+
+@pytest.mark.parametrize("T,D", [(77, 64), (33, 32)])
+def test_kernel2_arithmetic_matches_plain_and_pallas(rng, T, D):
+    """Kernel 2 in float32 (3xTF32, online softmax over 16-key tiles in two
+    key halves, combined) within 1e-5 of the largest magnitude of the exact
+    plain version (float64 here) and of the Pallas kernel in interpret mode;
+    T not a multiple of the key tile, an odd number of tiles, and rows of
+    length T, 1 and 0 (a length-0 row is uniform over all T keys)."""
+    from rvc_tpu.ops.pallas_attention import banded_rel_attention as jax_attention
+    from rvc_tpu_torch.ops import attention
+
+    B, H, w = 3, 2, 10
+    q, k, v = (rng.standard_normal((B, H, T, D)).astype(np.float32) for _ in range(3))
+    ek, ev = ((D ** -0.5) * rng.standard_normal((2 * w + 1, D)).astype(np.float32)
+              for _ in range(2))
+    lengths = np.array([T, 1, 0], np.int32)
+    args = [torch.from_numpy(a) for a in (q, k, v, ek, ev, lengths)]
+    got = attention_3xtf32(*args, window=w, scale=D ** -0.5)
+    exact = attention.banded_rel_attention_plain(
+        *[a.double() for a in args[:5]], args[5], window=w, scale=D ** -0.5)
+    ref = np.asarray(jax_attention(*map(jnp.asarray, (q, k, v, ek, ev, lengths)), window=w,
+                                   scale=D ** -0.5, interpret=True))
+    scale = exact.abs().max().item()
+    assert (got.double() - exact).abs().max().item() <= 1e-5 * scale
+    assert np.abs(got.numpy() - ref).max() <= 1e-5 * scale

@@ -40,10 +40,13 @@ def test_port_imports_no_jax(path):
 
 
 def test_simt_yardsticks_are_named_only_by_chip_smoke():
-    """The float32 SIMT backward entries that kernels 5 and 7 replaced are
-    on no path of the port: no module names them but the library's table of
-    entry points, and chip_smoke.py times them as its yardstick."""
-    names = ("rvc_resblock1_bwd_simt", "rvc_wn_bwd_simt")
+    """The entries that redesigned kernels replaced are on no path of the
+    port: the float32 SIMT backward of kernels 5 and 7, the bf16 unit on
+    mma.sync (kernels 1 and 8) and the SIMT kernel 2. No module names them
+    but the library's table of entry points, and chip_smoke.py times them as
+    its yardsticks."""
+    names = ("rvc_resblock1_bwd_simt", "rvc_wn_bwd_simt", "rvc_resblock_unit_bf16_sync",
+             "rvc_banded_attention_simt")
     naming = {str(p.relative_to(REPO)) for p in _port_files()
               if any(n in p.read_text() for n in names)}
     assert naming == {"rvc_tpu_torch/ops/_cuda.py", "chip_smoke.py"}
@@ -190,3 +193,26 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
                            capture_output=True, text=True, timeout=300)
         assert r.returncode != 0
         assert '"ok": true' not in r.stdout
+
+
+def test_weights_are_packed_once_per_set_of_weights():
+    """``resblock.packed`` packs a set of weights once: again for the same
+    storage (also through another tensor viewing it), anew after a change
+    in place, and apart for other weights of the same shape."""
+    calls = []
+
+    def pack(w):
+        calls.append(1)
+        return w * 2
+
+    w = torch.arange(24.0).reshape(2, 3, 4)
+    first = resblock.packed(w, pack)
+    assert resblock.packed(w, pack) is first and resblock.packed(w.detach(), pack) is first
+    assert len(calls) == 1
+    with torch.no_grad():
+        w.mul_(3)
+    again = resblock.packed(w, pack)
+    assert len(calls) == 2 and torch.equal(again, w * 2)
+    other = w.clone()
+    assert resblock.packed(other, pack) is not again and len(calls) == 3
+    assert resblock.packed(other, resblock.pack_bf16_weights) is not resblock.packed(other, pack)
