@@ -7,7 +7,8 @@ Phases, each announced on its own line:
   2. the build: nvcc compiles the CUDA kernels of rvc_tpu_torch/csrc into
      one shared library (seconds and the -Xptxas -v summary are printed);
      the library's SASS must hold wgmma (HGMMA) and bulk copies (UBLKCP)
-     in the bf16 unit kernel and mma.sync (HMMA) in kernel 2;
+     in the bf16 unit kernel and in kernel 4's conv kernel, and mma.sync
+     (HMMA) in kernel 2 (float32) and in kernel 2's bf16 launches;
   3. each kernel against its plain PyTorch version at the shapes of the
      30 s conversion of phase 4, with its time, its plain version's time
      and two bounds (the least time the card could take): bound_ms for
@@ -31,10 +32,14 @@ Phases, each announced on its own line:
      versions, same weights and draws) agree within a stated tolerance;
   6. the training kernels (4-7) against their plain versions at the shapes
      of the training run of phase 7, values and every gradient, with their
-     times and bounds; for kernels 5 and 7 also previous_ms, per decoder
-     stage or WN depth and in all, the float32 SIMT backward that their
-     tensor-core versions replaced (resblock1_backward_simt,
-     wn_backward_simt), timed in turns with them in the same run;
+     times and bounds; previous_ms, per decoder stage or WN depth and in
+     all, the float32 SIMT kernels that their tensor-core versions replaced
+     (kernel 4: previous_chain; kernels 5 and 7: resblock1_backward_simt,
+     wn_backward_simt), timed in turns with them in the same run; for
+     kernel 4 also mma_sync_ms, the chain through kernel 1's float32 unit
+     on mma.sync (mma_sync_chain); the weights' packing of kernels 4, 5 and
+     7 (per training step, as the weights change every step) timed apart
+     as pack_ms and left out of every kernel time;
   7. the training path: an RVCDataset of 8 clips cut from the speech fixture
      (48 kHz, seeded random features and f0), Trainer(preset("48k_v2")) at
      full width with random weights, one warm-up step and 5 timed steps from
@@ -53,7 +58,9 @@ Phases, each announced on its own line:
      seven stages of scripts/bench_resblock_v2.py; for kernels 1 and 8
      also previous_ms, the unit kernel on mma.sync they replaced
      (rvc_resblock_unit_bf16_sync) timed in turns, the packing of each
-     unit kernel's weights apart, and the achieved TFLOP/s;
+     unit kernel's weights apart, and the achieved TFLOP/s; for kernel 2
+     in bf16 previous_ms, its first version (attention_bf16_sync) in turns,
+     at the 30 s and the 10 s conversion's shapes;
  10. the main path in bfloat16: make_random_converter(..., dtype=bfloat16)
      converts 10 s and 30 s as in phase 4 (RTF beside phase 4's float32
      RTF, peak memory, exact launches of bf16 kernels 1 and 2 and kernel 3);
@@ -63,6 +70,9 @@ Phases, each announced on its own line:
      card's f0, within a stated relative L2.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that.
+A kernel's time beside its yardsticks (previous_ms, mma_sync_ms) is
+reported, with whether the kernel is below them, and fails no run: these
+are times on a shared host, and a narrow margin moves between runs.
 Without a CUDA card it exits 1 and prints no result.
 """
 from __future__ import annotations
@@ -237,6 +247,67 @@ def attention_simt(q, k, v, ek, ev, lengths, *, window: int, scale: float):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ek.data_ptr(), ev.data_ptr(), lens.data_ptr(),
         out.data_ptr(), B, H, T, D, window, float(scale), _cuda.stream_ptr(q))
     _cuda.check(err, "banded_attention_simt launch")
+    return out
+
+
+def previous_chain(x, convs):
+    """Kernel 4's first version, the SIMT unit kernel a launch per unit
+    (``rvc_resblock1_fwd_simt``): what ``fused_resblock1`` returns. Its
+    weights, (2n, k, C, C) [conv][tap][in][out], are laid out outside the
+    timed calls by ``simt_chain_weights``."""
+    import torch
+
+    from rvc_tpu_torch.ops import _cuda
+
+    taps, bias, dil = simt_chain_weights(convs) if isinstance(convs, list) else convs
+    n = len(dil)
+    B, T, C = x.shape
+    hs = x.new_empty((max(n - 1, 1), B, T, C))
+    out = torch.empty_like(x)
+    err = _cuda.library().rvc_resblock1_fwd_simt(
+        x.data_ptr(), hs.data_ptr(), out.data_ptr(), taps.data_ptr(), bias.data_ptr(), B, T, C,
+        taps.shape[1], n, dil, _cuda.stream_ptr(x))
+    _cuda.check(err, "resblock1_fwd_simt launch")
+    return out
+
+
+def simt_chain_weights(convs):
+    """A chain's weights as the SIMT kernels read them: taps (2n, k, C, C)
+    [conv][tap][in][out], biases (2n, C), the units' dilations as a C array."""
+    import ctypes
+
+    import torch
+
+    taps = torch.stack([w for w, _, _, _ in convs]).permute(0, 3, 2, 1).contiguous()
+    bias = torch.stack([b for _, b, _, _ in convs]).contiguous()
+    dil = (ctypes.c_int * (len(convs) // 2))(*[d for _, _, _, d in convs[0::2]])
+    return taps, bias, dil
+
+
+def mma_sync_chain(x, convs):
+    """The chain through kernel 1's float32 unit on mma.sync in 3xTF32
+    (``rvc_resblock_unit``), a launch per unit; its weights packed
+    once per set of weights, as kernel 1 packs them."""
+    from rvc_tpu_torch.ops import resblock as rb
+
+    return rb._run_units(x, [convs], "rvc_resblock_unit", rb.pack_tf32_weights, UNCOUNTED)
+
+
+def attention_bf16_sync(q, k, v, ek, ev, lengths, *, window: int, scale: float):
+    """Kernel 2 in bf16's first version (``rvc_banded_attention_bf16_sync``):
+    64 query rows a block, Q.K^T twice, K and V loaded between barriers."""
+    import torch
+
+    from rvc_tpu_torch.models.layers import rounded
+    from rvc_tpu_torch.ops import _cuda
+
+    B, H, T, D = q.shape
+    lens = lengths.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    err = _cuda.library().rvc_banded_attention_bf16_sync(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ek.data_ptr(), ev.data_ptr(), lens.data_ptr(),
+        out.data_ptr(), B, H, T, D, window, rounded(scale, q.dtype), _cuda.stream_ptr(q))
+    _cuda.check(err, "banded_attention_bf16_sync launch")
     return out
 
 
@@ -518,45 +589,71 @@ def check_resblock_bf16(vc, shapes, gen) -> tuple[dict, dict]:
                  for t in (tot["group"], tot["chain"]))
 
 
-def check_attention_bf16(vc, shapes, gen) -> dict:
-    """Kernel 2 in bf16 at the 30 s bf16 conversion's shapes against its
-    plain version, with the float32 kernel on the same values."""
+def check_attention_bf16(vc, shapes_by_sec: dict, gen) -> dict:
+    """Kernel 2 in bf16 against its plain version at the 30 s and the 10 s
+    bf16 conversion's shapes, with its first version (previous_ms, in turns)
+    and the float32 kernel on the same values. The entry's times are the 30 s
+    conversion's; the 10 s ones beside them."""
     import torch
 
     from rvc_tpu_torch.ops.attention import banded_rel_attention, banded_rel_attention_plain
 
     attn = vc.synth.enc_p.encoder.attn_layers
     layer = attn[0]
-    N, T = shapes["N"], shapes["Tp"]
-    H, D, w = layer.n_heads, layer.k_channels, layer.window_size
-    q, k, v = (torch.randn(N, H, T, D, generator=gen).to(vc.device).bfloat16()
-               for _ in range(3))
-    ek, ev = (e[0].detach().bfloat16().contiguous() for e in (layer.emb_rel_k, layer.emb_rel_v))
-    lengths = torch.as_tensor(shapes["p_len"], device=vc.device)
-    args = (q, k, v, ek, ev, lengths)
-    args32 = tuple(a.float() for a in args[:5]) + (lengths,)
-    kw = dict(window=w, scale=D ** -0.5)
-    got = banded_rel_attention(*args, **kw)
-    torch.cuda.synchronize()
-    ref = banded_rel_attention_plain(*args, **kw)
-    rel, l2, beyond = bf16_agreement(got, ref)
-    W = 2 * w + 1
-    flops = N * H * (4 * T * T * D + 4 * T * W * D + 5 * T * T)
-    nbytes = 4 * N * H * T * D * 2 + 2 * W * D * 2 + N * 4
-    ms = timed(lambda: banded_rel_attention(*args, **kw))
-    ms32 = timed(lambda: banded_rel_attention(*args32, **kw))
-    plain_ms = timed(lambda: banded_rel_attention_plain(*args, **kw))
-    b_ms, b_by = bound_bf16(flops, nbytes)
     n_layers = len(attn)
-    say(f"  bf16 banded attention: q ({N}, {H}, {T}, {D}) -> max {rel:.3g} of the largest, "
-        f"relative L2 {l2:.3g}, beyond one ulp {beyond:.3%} (tolerance {BF16_MAX} / "
-        f"{BF16_L2:.3g}), kernel_ms {ms:.3f}, float32 kernel {ms32:.3f}, plain_ms "
-        f"{plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by}); x {n_layers} layers")
-    if not (l2 <= BF16_L2 and rel <= BF16_MAX):
-        fail("bf16 banded attention disagrees with its plain version")
-    return dict(max_abs_err=(got.float() - ref.float()).abs().max().item(), ms=ms * n_layers,
-                plain_ms=plain_ms * n_layers, bound_ms=b_ms * n_layers, bound_by=b_by,
-                float32_ms=ms32 * n_layers, library_ms=None)
+    H, D, w = layer.n_heads, layer.k_channels, layer.window_size
+    ek, ev = (e[0].detach().bfloat16().contiguous() for e in (layer.emb_rel_k, layer.emb_rel_v))
+    kw = dict(window=w, scale=D ** -0.5)
+    entry = {}
+    for sec in (30, 10):
+        shapes = shapes_by_sec[sec]
+        N, T = shapes["N"], shapes["Tp"]
+        q, k, v = (torch.randn(N, H, T, D, generator=gen).to(vc.device).bfloat16()
+                   for _ in range(3))
+        lengths = torch.as_tensor(shapes["p_len"], device=vc.device)
+        args = (q, k, v, ek, ev, lengths)
+        args32 = tuple(a.float() for a in args[:5]) + (lengths,)
+        got = banded_rel_attention(*args, **kw)
+        again = banded_rel_attention(*args, **kw)
+        torch.cuda.synchronize()
+        ref = banded_rel_attention_plain(*args, **kw)
+        rel, l2, beyond = bf16_agreement(got, ref)
+        prev = attention_bf16_sync(*args, **kw)
+        torch.cuda.synchronize()
+        p_rel, p_l2, _ = bf16_agreement(prev, ref)
+        W = 2 * w + 1
+        flops = N * H * (4 * T * T * D + 4 * T * W * D + 5 * T * T)
+        nbytes = 4 * N * H * T * D * 2 + 2 * W * D * 2 + N * 4
+        # the kernel and its first version, in turns
+        run = lambda: banded_rel_attention(*args, **kw)  # noqa: E731
+        run_prev = lambda: attention_bf16_sync(*args, **kw)  # noqa: E731
+        prev_ms = timed(run_prev)
+        ms = min(timed(run), timed(run))
+        prev_ms = min(prev_ms, timed(run_prev))
+        ms32 = timed(lambda: banded_rel_attention(*args32, **kw))
+        plain_ms = timed(lambda: banded_rel_attention_plain(*args, **kw))
+        b_ms, b_by = bound_bf16(flops, nbytes)
+        say(f"  bf16 banded attention at the {sec} s shapes: q ({N}, {H}, {T}, {D}), lengths "
+            f"{shapes['p_len'].tolist()} -> max {rel:.3g} of the largest, relative L2 {l2:.3g}, "
+            f"beyond one ulp {beyond:.3%} (tolerance {BF16_MAX} / {BF16_L2:.3g}), two calls "
+            f"bit-identical {torch.equal(got, again)}, kernel_ms {ms:.4f} "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), previous_ms {prev_ms:.4f} (the first bf16 kernel, max "
+            f"{p_rel:.3g}, relative L2 {p_l2:.3g}; kernel below it: {ms < prev_ms}), float32 "
+            f"kernel {ms32:.4f}, plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by}); "
+            f"x {n_layers} layers: {ms * n_layers:.3f} ms against {prev_ms * n_layers:.3f}")
+        if not (l2 <= BF16_L2 and rel <= BF16_MAX):
+            fail(f"bf16 banded attention disagrees with its plain version at the {sec} s shapes")
+        if not torch.equal(got, again):
+            fail("two calls of bf16 banded attention differ")
+        if sec == 30:
+            entry = dict(max_abs_err=(got.float() - ref.float()).abs().max().item(),
+                         ms=ms * n_layers, plain_ms=plain_ms * n_layers,
+                         previous_ms=prev_ms * n_layers, bound_ms=b_ms * n_layers,
+                         bound_by=b_by, float32_ms=ms32 * n_layers, library_ms=None)
+        else:
+            entry.update(ms_10s=ms * n_layers, previous_ms_10s=prev_ms * n_layers)
+        del q, k, v, got, again, ref, prev
+    return entry
 
 
 def bench_v2_stages() -> None:
@@ -613,19 +710,19 @@ def scaled(got, ref) -> tuple[float, float]:
     return (got - ref).abs().max().item(), max(ref.abs().max().item(), 1e-6)
 
 
-def resblock1_backward_simt(x, hs, gy, convs):
+def resblock1_backward_simt(x, hs, gy, convs, packs=None):
     """Kernel 5 as PR 5 wrote it, on the float32 SIMT pipes
     (``rvc_resblock1_bwd_simt``): on no path of the port, timed here beside
-    kernel 5 as its same-run yardstick. Returns what
-    ``fused_resblock1_backward`` returns."""
+    kernel 5 as its same-run yardstick. ``packs``: its weights as
+    ``simt_backward_weights`` lays them out (laid out here when not given).
+    Returns what ``fused_resblock1_backward`` returns."""
     import torch
 
     from rvc_tpu_torch.ops import _cuda
-    from rvc_tpu_torch.ops import resblock as rb
 
     B, T, C = x.shape
     k = convs[0][2]
-    taps, taps_t, bias, dil = rb._packed(convs)
+    taps, taps_t, bias, dil = simt_backward_weights(convs) if packs is None else packs
     lib = _cuda.library()
     work = x.new_empty(lib.rvc_resblock1_bwd_simt_workspace(B, T, C, k))
     dx, dw, db = torch.empty_like(x), x.new_empty(taps.shape), x.new_empty(bias.shape)
@@ -635,6 +732,14 @@ def resblock1_backward_simt(x, hs, gy, convs):
         work.data_ptr(), work.numel(), B, T, C, k, len(dil), dil, _cuda.stream_ptr(x))
     _cuda.check(err, "resblock1_bwd_simt launch")
     return dx, dw.permute(0, 3, 2, 1), db
+
+
+def simt_backward_weights(convs):
+    """Kernel 5's SIMT yardstick's weights: the taps and biases of
+    ``simt_chain_weights``, the flipped transposed taps (WT[c][j][o][i] =
+    W[c][k-1-j][i][o]) and the dilations."""
+    taps, bias, dil = simt_chain_weights(convs)
+    return taps, taps.flip(1).transpose(2, 3).contiguous(), bias, dil
 
 
 def wn_backward_simt(x, xs, pre, gy, w_a, w_b, b_ab, g_ab, w_res, w_skip, b_rs2, lengths, *,
@@ -694,11 +799,13 @@ def check_resblock_train(trainer, gen) -> tuple[dict, dict]:
     nk = dec.num_kernels
     B, T = TRAIN_BATCH, trainer.seg_frames
     tot = {key: dict(ms=0.0, plain_ms=0.0, flops=0.0, bytes=0.0, err=0.0, bound_ms=0.0,
-                     bound_f32_ms=0.0, previous_ms=0.0) for key in ("fwd", "bwd")}
+                     bound_f32_ms=0.0, previous_ms=0.0, pack_ms=0.0, mma_sync_ms=0.0)
+           for key in ("fwd", "bwd")}
     kinks = dict(near_zero=0, explained=0, worst=0.0)
     for i, rate in enumerate(dec.upsample_rates):
         T *= rate
-        stage = dict(ms=0.0, previous_ms=0.0)
+        stage = {key: dict(ms=0.0, previous_ms=0.0, mma_sync_ms=0.0, pack_ms=0.0)
+                 for key in ("fwd", "bwd")}
         for blk in dec.resblocks[i * nk:(i + 1) * nk]:
             with torch.no_grad():
                 convs = [(w.detach().clone(), b.detach().clone(), k, d)
@@ -708,8 +815,11 @@ def check_resblock_train(trainer, gen) -> tuple[dict, dict]:
             x = torch.randn(B, T, C, generator=gen).to(dev)
             gy = torch.randn(B, T, C, generator=gen).to(dev)
             y, hs = rb._resblock1_forward(x, convs)
+            y_again = rb.fused_resblock1(x, convs)
             dx, dw, db = rb.fused_resblock1_backward(x, hs, gy, convs)
             torch.cuda.synchronize()
+            if not torch.equal(y, y_again):
+                fail(f"two calls of kernel 4 differ at C={C}, k={k}")
             y_ref = rb.fused_resblock1_plain(x, convs)
             dx_ref, dw_ref, db_ref = rb.fused_resblock1_backward_plain(x, hs, gy, convs)
             g_ref = [dx_ref] + [t for c in range(2 * n) for t in (dw_ref[c], db_ref[c])]
@@ -729,17 +839,36 @@ def check_resblock_train(trainer, gen) -> tuple[dict, dict]:
             tot["fwd"]["err"] = max(tot["fwd"]["err"], err)
             tot["bwd"]["err"] = max([tot["bwd"]["err"]] + [scaled(a, r)[0]
                                                            for a, r in zip(got, g_ref)])
-            ms4 = timed(lambda: rb.fused_resblock1(x, convs), reps=5)
+            # kernel 4 and the two chains it is held against, in turns: the
+            # SIMT chain it replaced and kernel 1's float32 unit on mma.sync;
+            # each one's weights laid out before the timed calls (kernel 4's
+            # and the mma.sync unit's by the packing cache)
+            simt_w = simt_chain_weights(convs)
+            run4 = lambda: rb.fused_resblock1(x, convs)  # noqa: E731
+            run_prev4 = lambda: previous_chain(x, simt_w)  # noqa: E731
+            run_mma4 = lambda: mma_sync_chain(x, convs)  # noqa: E731
+            prev4, mma4 = timed(run_prev4, reps=5), timed(run_mma4, reps=5)
+            ms4 = min(timed(run4, reps=5), timed(run4, reps=5))
+            mma4, prev4 = min(mma4, timed(run_mma4, reps=5)), min(prev4, timed(run_prev4, reps=5))
+            # the packing of the chain's weights: once a training step
+            pack4 = timed(lambda: rb.pack_chain_weights([w for w, _, _, _ in convs]), reps=5)
             plain4 = timed(lambda: rb.fused_resblock1_plain(x, convs), reps=5)
-            # kernel 5 and the SIMT backward it replaced, in turns
-            run5 = lambda: rb.fused_resblock1_backward(x, hs, gy, convs)  # noqa: E731
-            run_prev = lambda: resblock1_backward_simt(x, hs, gy, convs)  # noqa: E731
+            # kernel 5 and the SIMT backward it replaced, in turns, each on
+            # weights laid out before the timed calls
+            packs5, simt5 = rb.pack_backward_weights(convs), simt_backward_weights(convs)
+            run5 = lambda: rb.fused_resblock1_backward(x, hs, gy, convs, packs5)  # noqa: E731
+            run_prev = lambda: resblock1_backward_simt(x, hs, gy, convs, simt5)  # noqa: E731
             prev5 = timed(run_prev, reps=5)
             ms5 = min(timed(run5, reps=5), timed(run5, reps=5))
             prev5 = min(prev5, timed(run_prev, reps=5))
-            stage["ms"] += ms5
-            stage["previous_ms"] += prev5
-            tot["bwd"]["previous_ms"] += prev5
+            pack5 = timed(lambda: rb.pack_backward_weights(convs), reps=5)
+            for key, vals in (("fwd", dict(ms=ms4, previous_ms=prev4, mma_sync_ms=mma4,
+                                           pack_ms=pack4)),
+                              ("bwd", dict(ms=ms5, previous_ms=prev5, pack_ms=pack5))):
+                for name, val in vals.items():
+                    stage[key][name] += val
+                    if name != "ms":
+                        tot[key][name] += val
             plain5 = timed(lambda: rb.fused_resblock1_backward_plain(x, hs, gy, convs), reps=5)
             act, wts = B * T * C * 4, sum(p.numel() for p in params) * 4
             conv = 2 * k * C * C * B * T  # flops of one conv
@@ -754,16 +883,23 @@ def check_resblock_train(trainer, gen) -> tuple[dict, dict]:
                 t["bytes"] += nbytes
                 t["bound_ms"] += bound_tc(flops, nbytes)[0]
                 t["bound_f32_ms"] += bound(flops, nbytes)[0]
-            say(f"  chain x ({B}, {T}, {C}), k {k}: kernel 4 ms {ms4:.3f} (plain {plain4:.3f}, "
-                f"err {err:.3g}), kernel 5 ms {ms5:.3f} (previous_ms {prev5:.3f}, plain "
-                f"{plain5:.3f}; pre-activations "
+            say(f"  chain x ({B}, {T}, {C}), k {k}: kernel 4 ms {ms4:.3f} (previous_ms "
+                f"{prev4:.3f}, mma_sync_ms {mma4:.3f}, packing {pack4:.3f}, plain {plain4:.3f}, "
+                f"err {err:.3g}), kernel 5 ms {ms5:.3f} (previous_ms {prev5:.3f}, packing "
+                f"{pack5:.3f}, plain {plain5:.3f}; pre-activations "
                 f"near 0 {counts['near_zero']}, elements beyond {GRAD_TOL} {counts['explained']}, "
                 f"left after the fit {counts['worst']:.3g}), "
                 f"bounds {bound_tc(*cost['fwd'])[0]:.3f} / {bound_tc(*cost['bwd'])[0]:.3f} ms "
                 f"(float32 {bound(*cost['fwd'])[0]:.3f} / {bound(*cost['bwd'])[0]:.3f})")
-        say(f"  kernel 5, stage {i + 1} ({len(dec.resblocks[i * nk:(i + 1) * nk])} chains): "
-            f"kernel_ms {stage['ms']:.3f}, previous_ms {stage['previous_ms']:.3f} (kernel below "
-            f"it: {stage['ms'] < stage['previous_ms']})")
+        f4, b5 = stage["fwd"], stage["bwd"]
+        n_ch = len(dec.resblocks[i * nk:(i + 1) * nk])
+        say(f"  kernel 4, stage {i + 1} ({n_ch} chains): kernel_ms {f4['ms']:.3f}, previous_ms "
+            f"{f4['previous_ms']:.3f}, mma_sync_ms {f4['mma_sync_ms']:.3f} (kernel below both: "
+            f"{f4['ms'] < min(f4['previous_ms'], f4['mma_sync_ms'])}), pack_ms "
+            f"{f4['pack_ms']:.3f}")
+        say(f"  kernel 5, stage {i + 1} ({n_ch} chains): kernel_ms {b5['ms']:.3f}, previous_ms "
+            f"{b5['previous_ms']:.3f} (kernel below it: {b5['ms'] < b5['previous_ms']}), "
+            f"pack_ms {b5['pack_ms']:.3f}")
     say(f"  kernel 5 over all chains: {kinks['explained']} elements of dx, dW and db beyond "
         f"{GRAD_TOL} of their largest magnitude, explained by fitting the cotangents at "
         f"{kinks['near_zero']} pre-activations near 0; the worst element left after the fit "
@@ -772,13 +908,14 @@ def check_resblock_train(trainer, gen) -> tuple[dict, dict]:
 
 
 def _train_results(tot) -> tuple[dict, dict]:
-    """The forward's and the backward's entries of the kernels line; the
-    backward's with previous_ms, its SIMT yardstick's time."""
+    """The forward's and the backward's entries of the kernels line, with
+    previous_ms (the SIMT yardstick), pack_ms and, where timed, mma_sync_ms."""
     return tuple(dict(max_abs_err=t["err"], ms=t["ms"], plain_ms=t["plain_ms"],
                       bound_ms=t["bound_ms"], bound_by=bound_tc(t["flops"], t["bytes"])[1],
                       bound_f32_ms=t["bound_f32_ms"], library_ms=None,
-                      **({"previous_ms": t["previous_ms"]} if key == "bwd" else {}))
-                 for key, t in tot.items())
+                      **{k: t[k] for k in ("previous_ms", "mma_sync_ms", "pack_ms")
+                         if t.get(k)})
+                 for t in tot.values())
 
 
 def check_wn_train(trainer, lengths, T: int, gen) -> tuple[dict, dict]:
@@ -797,7 +934,7 @@ def check_wn_train(trainer, lengths, T: int, gen) -> tuple[dict, dict]:
     B = len(lengths)
     mask = (torch.arange(T, device=dev)[None, :] < lens[:, None]).float()[:, None]
     tot = {key: dict(ms=0.0, plain_ms=0.0, flops=0.0, bytes=0.0, err=0.0, bound_ms=0.0,
-                     bound_f32_ms=0.0, previous_ms=0.0) for key in ("fwd", "bwd")}
+                     bound_f32_ms=0.0, previous_ms=0.0, pack_ms=0.0) for key in ("fwd", "bwd")}
     timed_for = {}
     for stack in stacks:
         C, L, k = stack.hidden_channels, stack.n_layers, stack.kernel_size
@@ -826,24 +963,31 @@ def check_wn_train(trainer, lengths, T: int, gen) -> tuple[dict, dict]:
         if L not in timed_for:  # stacks of one depth share shapes: time one of each
             ms6 = timed(lambda: wn._forward(x, *ws, lengths_t, k), reps=5)
             plain6 = timed(lambda: wn.fused_wn_plain(x, *ws, lengths_t, kernel_size=k), reps=5)
-            # kernel 7 and the SIMT backward it replaced, in turns
+            # kernel 7 on weights packed before the timed calls, and the SIMT
+            # backward it replaced, in turns; the packing (once a training
+            # step) timed apart
+            w_a, w_b, _, _, w_res, w_skip, _ = ws
+            packs7 = wn.pack_backward_weights(w_a, w_b, w_res, w_skip, k)
             run7 = lambda: wn.fused_wn_backward(x, xs, pre, gy, *ws, lengths_t,  # noqa: E731
-                                                kernel_size=k)
+                                                kernel_size=k, packs=packs7)
             run_prev = lambda: wn_backward_simt(x, xs, pre, gy, *ws, lengths_t,  # noqa: E731
                                                 kernel_size=k)
             prev7 = timed(run_prev, reps=5)
             ms7 = min(timed(run7, reps=5), timed(run7, reps=5))
             prev7 = min(prev7, timed(run_prev, reps=5))
+            pack7 = timed(lambda: wn.pack_backward_weights(w_a, w_b, w_res, w_skip, k), reps=5)
             plain7 = timed(lambda: wn.fused_wn_backward_plain(x, xs, pre, gy, *ws, lengths_t,
                                                               kernel_size=k), reps=5)
-            timed_for[L] = (ms6, plain6, ms7, plain7, prev7)
+            timed_for[L] = (ms6, plain6, ms7, plain7, prev7, pack7)
             say(f"  WN stack x ({B}, {T}, {C}), L {L}, lengths {lens.tolist()}: kernel 6 ms "
                 f"{ms6:.3f} (plain {plain6:.3f}, err {err:.3g}), kernel 7 ms {ms7:.3f} "
-                f"(previous_ms {prev7:.3f}, kernel below it: {ms7 < prev7}; plain "
+                f"(previous_ms {prev7:.3f}, kernel below it: {ms7 < prev7}; packing "
+                f"{pack7:.3f}; plain "
                 f"{plain7:.3f}, worst grad err {max(e / s_ for e, s_ in gerrs):.3g} "
                 f"of its largest magnitude)")
-        ms6, plain6, ms7, plain7, prev7 = timed_for[L]
+        ms6, plain6, ms7, plain7, prev7, pack7 = timed_for[L]
         tot["bwd"]["previous_ms"] += prev7
+        tot["bwd"]["pack_ms"] += pack7
         act, wts = B * T * C * 4, sum(w.numel() for w in ws) * 4
         rows = B * T
         cost = {"fwd": (L * rows * (4 * k * C * C + 4 * C * C), (3 * L + 1) * act + wts),
@@ -1024,7 +1168,8 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     gen = torch.Generator().manual_seed(3)
     with torch.no_grad():
         checks["resblock_bf16"], checks["chain_v2"] = check_resblock_bf16(vc, shapes, gen)
-        checks["attention_bf16"] = check_attention_bf16(vc, shapes, gen)
+        checks["attention_bf16"] = check_attention_bf16(
+            vc, {30: shapes, 10: path_shapes(vc, clips[10])}, gen)
         say("  kernel 8 at the seven stages of scripts/bench_resblock_v2.py (B 4, S 1):")
         bench_v2_stages()
     torch.cuda.empty_cache()
@@ -1160,9 +1305,13 @@ def main() -> int:
     say("ptxas: " + "; ".join(info["ptxas"]))
     sass = sass_counts()
     unit, attn = sass.get("resblock_unit_wgmma_kernel"), sass.get("banded_attention_tc_kernel")
-    say(f"sass: the bf16 unit kernel (kernels 1 and 8) {unit}, kernel 2 in float32 {attn}")
-    if not (unit and unit["HGMMA"] and unit["bulk copies"] and attn and attn["HMMA"]):
-        fail("the bf16 unit kernel lacks wgmma or bulk copies, or kernel 2 lacks mma.sync")
+    chain, attn16 = sass.get("chain_conv_kernel"), sass.get("attn_pv_kernel")
+    say(f"sass: the bf16 unit kernel (kernels 1 and 8) {unit}, kernel 4's conv kernel {chain}, "
+        f"kernel 2 in float32 {attn}, kernel 2 in bf16 (its P.V launch) {attn16} and its stats "
+        f"launch {sass.get('attn_stats_kernel')}")
+    if not (unit and unit["HGMMA"] and unit["bulk copies"] and chain and chain["HGMMA"]
+            and chain["bulk copies"] and attn and attn["HMMA"] and attn16 and attn16["HMMA"]):
+        fail("a unit kernel lacks wgmma or bulk copies, or kernel 2 lacks mma.sync")
 
     from rvc_tpu_torch.ops import attention, resblock, retrieval
     from rvc_tpu_torch.ops.filters import butter_highpass_host
@@ -1304,6 +1453,9 @@ def main() -> int:
             f"library_ms none, "
             + (f"previous_ms {c['previous_ms']:.3f} (kernel below it: "
                f"{c['ms'] < c['previous_ms']}), " if "previous_ms" in c else "")
+            + (f"mma_sync_ms {c['mma_sync_ms']:.3f} (kernel below it: "
+               f"{c['ms'] < c['mma_sync_ms']}), " if "mma_sync_ms" in c else "")
+            + (f"pack_ms {c['pack_ms']:.3f} per step (apart), " if "pack_ms" in c else "")
             + f"launches per step {per_step[key.split('_')[0]]}")
 
     # 7. the training path
@@ -1351,8 +1503,9 @@ def main() -> int:
                         "launches": launches[kname], "max_abs_err": c["max_abs_err"],
                         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                         "bound_by": c["bound_by"], "library_ms": c.get("library_ms"),
-                        **{k: c[k] for k in ("bound_f32_ms", "previous_ms", "pack_ms",
-                                             "float32_ms") if k in c}})
+                        **{k: c[k] for k in ("bound_f32_ms", "previous_ms", "mma_sync_ms",
+                                             "pack_ms", "float32_ms", "ms_10s",
+                                             "previous_ms_10s") if k in c}})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

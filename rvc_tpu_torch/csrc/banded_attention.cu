@@ -30,6 +30,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -249,9 +250,11 @@ int launch(const float* q, const float* k, const float* v, const float* ek,
   return (int)cudaGetLastError();
 }
 
-// ---- kernel 2 in bfloat16 ----
+// ---- kernel 2 in bfloat16, its first version: the yardstick ----
 //
-// The same function as banded_rel_attention computes it in bfloat16
+// rvc_banded_attention_bf16_sync, launched only by chip_smoke.py beside its
+// successor (namespace bfs below). The same function as
+// banded_rel_attention computes it in bfloat16
 // (pallas_attention.py:54-206, the JAX module's XLA path's rounding):
 //     qs = bf16(q * bf16(scale))
 //     s[t, j] = bf16(qs_t . k_j)                     (float32 sum, rounded)
@@ -506,6 +509,430 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* 
 }
 
 }  // namespace bfa
+
+// ---- kernel 2 in bfloat16, its keys split over blocks ----
+//
+// The function of the bf16 kernel above (its rounding unchanged), which is
+// kept as rvc_banded_attention_bf16_sync: chip_smoke.py times it beside this
+// one (previous_ms), and no path of the port launches it. That kernel ran at
+// 58 times its bound: 140 blocks of 4 warps at the 30 s conversion's shapes
+// (2, 2, 2178, 96), so a second wave and 4 warps an SM; K and V tiles loaded
+// synchronously between barriers; V transposed by 2-byte stores; p through
+// shared memory. What bounds it: operations, Q.K^T and P.V, 4 T^2 D flops per
+// (batch, head) in one bf16 pass, and the softmax's exponentials. p must be
+// rounded after normalisation, so every row's max and sum are needed before
+// P.V; given them, P.V over a split of the keys is a plain float32 sum, with
+// no rescaling. So three launches:
+// 1. stats: a block owns 64 query rows of one (batch, head) and one of S
+//    splits of the keys (S chosen so that a launch has about five blocks an
+//    SM with at least 4 tiles a split: 700 blocks at these shapes); its 4
+//    warps (16 rows each) walk the split's 64-key tiles, K copied by cp.async
+//    one tile ahead, and keep each row's running max and sum of e^(s - max);
+//    per split and row (m, l);
+// 2. P.V: the same grid; a block combines the S splits' (m, l) of its rows
+//    in split order (M = max m, L = sum of l e^(m - M)), computes the scores
+//    of its split again (the same bits), p = bf16(e^(s - M) / L) (expf and a
+//    true division, as the first version and the plain version), keeps the
+//    band's p, and adds P.V into float32, each 64-key tile's sum from zero
+//    (mma.sync truncates as it accumulates): K and V tiles by cp.async one
+//    tile ahead, the B fragments by ldmatrix (V's by ldmatrix.trans, so V is
+//    not transposed in memory), p from the score fragments straight into
+//    P.V's A fragments in registers. The split's float32 sum goes to scratch;
+// 3. combine: out = bf16(bf16(the splits' sums added in split order) +
+//    bf16(sum_m p_band[m] ev[m])).
+// Q.K^T runs in both of the first two launches: keeping the bf16 scores
+// instead would take T^2 x 2 bytes a (batch, head) (9.5 MB at these shapes),
+// or in shared memory limit T. The scores are computed as before: q scaled and
+// rounded, each product summed in float32 and rounded, the band added and
+// rounded, masked entries bf16(-1e4), keys past T no keys; a warp's tile that
+// meets no band, mask or key past T only rounds (most tiles), and a block
+// whose keys meet no band skips qs . ek. Every sum runs in a fixed order, so
+// two calls give the same bits. What holds it back now (chip_smoke, H100 SXM):
+// 0.23 ms a layer, 31 times the one-pass bound, at 32 TFLOP/s: 12 warps an
+// SM (the P.V launch's 160 registers a thread), and the rounding and the
+// expf of every score on the float32 pipes, twice, with a true division in
+// P.V (ex2.approx and a reciprocal took 0.20 ms, but round p otherwise).
+
+namespace bfs {
+
+constexpr int WARPS = 4;
+constexpr int BQ = 16 * WARPS;   // query rows a block
+constexpr int BK = 64;           // keys a tile
+constexpr int WP = 2 * WMAX + 1;
+constexpr int TARGET = 5 * 132;  // blocks a launch aims for
+constexpr int MIN_TILES = 4;     // key tiles a split takes at least, where T allows
+constexpr float NEG = -9984.f;   // bf16(-1e4)
+
+__device__ __forceinline__ float rb(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+// S, the key splits, chosen so that about TARGET blocks run with at least
+// MIN_TILES tiles a split, none empty; *per: the key tiles of a split
+inline int splits(int BH, int T, int* per) {
+  const int n_tiles = (T + BK - 1) / BK, rows = (T + BQ - 1) / BQ;
+  int S = (TARGET + rows * BH - 1) / (rows * BH);
+  S = S > n_tiles / MIN_TILES ? n_tiles / MIN_TILES : S;
+  S = S < 1 ? 1 : S;
+  *per = (n_tiles + S - 1) / S;
+  return (n_tiles + *per - 1) / *per;
+}
+
+// whether keys [k0, k1) meet the band of query rows [t0, t1)
+__device__ __forceinline__ bool near_band(int k0, int k1, int t0, int t1, int w) {
+  return k0 <= t1 - 1 + w && k1 - 1 >= t0 - w;
+}
+
+template <int D>
+struct Smem {
+  static constexpr int SD = D + 8;  // row pitch (bf16) of the q, k and v tiles: the 8 rows of
+                                    // an ldmatrix phase on distinct banks
+  static constexpr int TILE = BK * SD;
+  // q, qe, then two K tiles (and, for P.V, two V tiles)
+  static constexpr int bytes(bool with_v) {
+    return BQ * SD * 2 + BQ * WP * 4 + (with_v ? 4 : 2) * TILE * 2;
+  }
+};
+
+// The block's query rows: qs = bf16(q bf16(scale)) (zero past T) and, if
+// `band` (the block's keys meet the rows' band), qe[r][m] = bf16(qs_r . ek[m]);
+// by all threads, each followed by the block's barrier.
+template <int D>
+__device__ __forceinline__ void load_q(const __nv_bfloat16* __restrict__ q,
+                                       const __nv_bfloat16* __restrict__ ek, __nv_bfloat16* qs,
+                                       float* qe, size_t base, int t0, int T, int W, float scale,
+                                       bool band) {
+  constexpr int SD = Smem<D>::SD;
+  const int tid = threadIdx.x;
+  for (int e = tid; e < BQ * (D / 2); e += WARPS * 32) {
+    const int r = e / (D / 2), c = 2 * (e % (D / 2)), t = t0 + r;
+    __nv_bfloat162 x = __floats2bfloat162_rn(0.f, 0.f);
+    if (t < T) {
+      const __nv_bfloat162 qv =
+          *reinterpret_cast<const __nv_bfloat162*>(q + base + (size_t)t * D + c);
+      x = __floats2bfloat162_rn(__low2float(qv) * scale, __high2float(qv) * scale);
+    }
+    *reinterpret_cast<__nv_bfloat162*>(qs + r * SD + c) = x;
+  }
+  __syncthreads();
+  if (!band) return;
+  for (int e = tid; e < BQ * W; e += WARPS * 32) {
+    const int r = e / W, m = e % W;
+    float a = 0.f;
+    for (int d = 0; d < D; d += 2) {
+      const float2 x =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qs + r * SD + d));
+      const float2 y =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ek + m * D + d));
+      a = fmaf(x.x, y.x, a);
+      a = fmaf(x.y, y.y, a);
+    }
+    qe[r * WP + m] = rb(a);
+  }
+  __syncthreads();
+}
+
+// keys k0 .. k0 + BK - 1 of K or V into a tile by cp.async (rows past T zero);
+// the caller commits
+template <int D>
+__device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ src,
+                                          __nv_bfloat16* dst, size_t base, int k0, int T) {
+  constexpr int SD = Smem<D>::SD;
+  for (int e = threadIdx.x; e < BK * (D / 8); e += WARPS * 32) {
+    const int r = e / (D / 8), c8 = e % (D / 8), j = k0 + r;
+    mma::cp_async16(dst + r * SD + 8 * c8, src + base + (size_t)min(j, T - 1) * D + 8 * c8,
+                    j < T ? 16 : 0);
+  }
+}
+
+// The warp's 16 x BK scores of the key tile at ks (keys k0 ..), rounded, with
+// the band and the mask, in the C fragment layout: sc[nt][c] is row g + 8 (c /
+// 2), key k0 + 8 nt + 2 t + (c % 2). Keys past T are -inf. qw: the warp's 16
+// rows of qs; qew: their qe.
+template <int D>
+__device__ __forceinline__ void scores(const __nv_bfloat16* qw, const __nv_bfloat16* ks,
+                                       const float* qew, int k0, int tw, int T, int len, int w,
+                                       int lane, float (&sc)[BK / 8][4]) {
+  constexpr int SD = Smem<D>::SD;
+  const int g = lane / 4, t4 = lane % 4, W = 2 * w + 1;
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+#pragma unroll
+  for (int st = 0; st < D / 16; ++st) {
+    uint32_t a[4];
+    hop::ldmatrix_x4(a, qw + (lane % 16) * SD + st * 16 + (lane / 16) * 8);
+#pragma unroll
+    for (int np = 0; np < BK / 16; ++np) {
+      // keys 16 np + 8 (lane / 16) + lane % 8, d 16 st + 8 ((lane / 8) % 2):
+      // the B fragments of n8 tiles 2 np and 2 np + 1
+      uint32_t b[4];
+      hop::ldmatrix_x4(b, ks + (16 * np + 8 * (lane / 16) + lane % 8) * SD + st * 16 +
+                              8 * ((lane / 8) % 2));
+      mma::bf16_16816(sc[2 * np], a, b[0], b[1]);
+      mma::bf16_16816(sc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+  if (!near_band(k0, k0 + BK, tw, tw + 16, w) && tw + 16 <= len && k0 + BK <= min(len, T)) {
+    // no band, no mask, no key past T in this warp's tile
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sc[nt][c] = rb(sc[nt][c]);
+    return;
+  }
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int r = g + 8 * (c / 2), t = tw + r;
+      const int j = k0 + nt * 8 + 2 * t4 + (c % 2);
+      float x = rb(sc[nt][c]);
+      const int rel = j - t + w;
+      if (rel >= 0 && rel < W) x = rb(x + qew[r * WP + rel]);
+      if (t >= len || j >= len) x = NEG;
+      sc[nt][c] = j < T ? x : -INFINITY;
+    }
+}
+
+// 1. per split and row, (m, l): the max of the split's scores and the sum of
+// e^(s - m)
+template <int D>
+__global__ void __launch_bounds__(WARPS * 32, 4) attn_stats_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ ek, const int* __restrict__ lengths,
+    float2* __restrict__ stats, int H, int T, int w, float scale, int per) {
+  using SM = Smem<D>;
+  extern __shared__ uint4 smem_s[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_s);
+  float* qe = reinterpret_cast<float*>(qs + BQ * SM::SD);
+  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(qe + BQ * WP);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane / 4;
+  const int bh = blockIdx.z, sp = blockIdx.y, S = gridDim.y;
+  const int t0 = blockIdx.x * BQ, tw = t0 + 16 * warp;
+  const int len = lengths[bh / H];
+  const size_t base = (size_t)bh * T * D;
+  const int n_tiles = (T + BK - 1) / BK;
+  const int it0 = sp * per, it1 = min(n_tiles, it0 + per);
+  load_tile<D>(k, kt, base, it0 * BK, T);
+  mma::cp_async_commit();
+  load_q<D>(q, ek, qs, qe, base, t0, T, 2 * w + 1, scale,
+            near_band(it0 * BK, it1 * BK, t0, t0 + BQ, w));
+  float mx[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int it = it0; it < it1; ++it) {
+    const int buf = (it - it0) & 1;
+    if (it + 1 < it1) load_tile<D>(k, kt + (buf ^ 1) * SM::TILE, base, (it + 1) * BK, T);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();
+    __syncthreads();  // tile it landed for every warp
+    float sc[BK / 8][4];
+    scores<D>(qs + 16 * warp * SM::SD, kt + buf * SM::TILE, qe + 16 * warp * WP, it * BK, tw, T,
+              len, w, lane, sc);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float m = mx[h];
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) m = fmaxf(m, fmaxf(sc[nt][2 * h], sc[nt][2 * h + 1]));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt)
+        sum += expf(sc[nt][2 * h] - m) + expf(sc[nt][2 * h + 1] - m);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[h] = l[h] * expf(mx[h] - m) + sum;  // e^-inf = 0 on the first tile
+      mx[h] = m;
+    }
+    __syncthreads();  // every warp is done with tile it before its buffer is refilled
+  }
+  if (lane % 4 == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = tw + g + 8 * h;
+      if (t < T) stats[((size_t)bh * S + sp) * T + t] = make_float2(mx[h], l[h]);
+    }
+}
+
+// 2. the split's P.V in float32, and the band's p
+template <int D>
+__global__ void __launch_bounds__(WARPS * 32, 3) attn_pv_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ ek,
+    const int* __restrict__ lengths, const float2* __restrict__ stats, float* __restrict__ part,
+    float* __restrict__ pband, int H, int T, int w, float scale, int per) {
+  using SM = Smem<D>;
+  constexpr int SD = SM::SD;
+  extern __shared__ uint4 smem_p[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_p);
+  float* qe = reinterpret_cast<float*>(qs + BQ * SD);
+  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(qe + BQ * WP);
+  __nv_bfloat16* vt = kt + 2 * SM::TILE;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane / 4, t4 = lane % 4;
+  const int bh = blockIdx.z, sp = blockIdx.y, S = gridDim.y;
+  const int t0 = blockIdx.x * BQ, tw = t0 + 16 * warp;
+  const int len = lengths[bh / H], W = 2 * w + 1;
+  const size_t base = (size_t)bh * T * D;
+  const int n_tiles = (T + BK - 1) / BK;
+  const int it0 = sp * per, it1 = min(n_tiles, it0 + per);
+  load_tile<D>(k, kt, base, it0 * BK, T);
+  load_tile<D>(v, vt, base, it0 * BK, T);
+  mma::cp_async_commit();
+  load_q<D>(q, ek, qs, qe, base, t0, T, W, scale, near_band(it0 * BK, it1 * BK, t0, t0 + BQ, w));
+  // the rows' max and sum over all keys, the splits combined in order
+  float M[2], L[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float2* st = stats + (size_t)bh * S * T + min(tw + g + 8 * h, T - 1);
+    M[h] = -INFINITY;
+    for (int s = 0; s < S; ++s) M[h] = fmaxf(M[h], st[(size_t)s * T].x);
+    L[h] = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const float2 ml = st[(size_t)s * T];
+      L[h] += ml.y * expf(ml.x - M[h]);
+    }
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+  for (int it = it0; it < it1; ++it) {
+    const int buf = (it - it0) & 1, k0 = it * BK;
+    if (it + 1 < it1) {
+      load_tile<D>(k, kt + (buf ^ 1) * SM::TILE, base, k0 + BK, T);
+      load_tile<D>(v, vt + (buf ^ 1) * SM::TILE, base, k0 + BK, T);
+    }
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();
+    __syncthreads();  // tile it landed for every warp
+    float sc[BK / 8][4];
+    scores<D>(qs + 16 * warp * SD, kt + buf * SM::TILE, qe + 16 * warp * WP, k0, tw, T, len, w,
+              lane, sc);
+    // p = bf16(e^(s - M) / L) as P.V's A fragments: pa[kk] covers keys 16 kk ..
+    // 16 kk + 15 of the tile (a0a1, a2a3 from n8 tile 2 kk; a4a5, a6a7 from 2 kk + 1)
+    uint32_t pa[BK / 16][4];
+    const bool band = near_band(k0, k0 + BK, tw, tw + 16, w);
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const __nv_bfloat162 pp =
+            __floats2bfloat162_rn(expf(sc[nt][2 * h] - M[h]) / L[h],
+                                  expf(sc[nt][2 * h + 1] - M[h]) / L[h]);
+        pa[nt / 2][2 * (nt % 2) + h] = *reinterpret_cast<const uint32_t*>(&pp);
+        const int t = tw + g + 8 * h, j = k0 + nt * 8 + 2 * t4, rel = j - t + w;
+        if (band && t < T) {
+          float* pb = pband + ((size_t)bh * T + t) * WP;
+          if (rel >= 0 && rel < W && j < T) pb[rel] = __low2float(pp);
+          if (rel + 1 >= 0 && rel + 1 < W && j + 1 < T) pb[rel + 1] = __high2float(pp);
+        }
+      }
+    // P.V of the tile from zero, added into float32
+    float pv[D / 8][4];
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) pv[nd][0] = pv[nd][1] = pv[nd][2] = pv[nd][3] = 0.f;
+    const __nv_bfloat16* vb = vt + buf * SM::TILE;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        // keys 16 kk + 8 ((lane / 8) % 2) + lane % 8, d 16 np + 8 (lane / 16),
+        // transposed: the B fragments of n8 tiles 2 np and 2 np + 1
+        uint32_t b[4];
+        hop::ldmatrix_x4_trans(b, vb + (16 * kk + 8 * ((lane / 8) % 2) + lane % 8) * SD +
+                                      16 * np + 8 * (lane / 16));
+        mma::bf16_16816(pv[2 * np], pa[kk], b[0], b[1]);
+        mma::bf16_16816(pv[2 * np + 1], pa[kk], b[2], b[3]);
+      }
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[nd][c] += pv[nd][c];
+    __syncthreads();  // every warp is done with tile it before its buffers are refilled
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = tw + g + 8 * h;
+    if (t >= T) continue;
+    float* dst = part + (((size_t)bh * S + sp) * T + t) * D;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+      *reinterpret_cast<float2*>(dst + 8 * nd + 2 * t4) =
+          make_float2(acc[nd][2 * h], acc[nd][2 * h + 1]);
+  }
+}
+
+// 3. out = bf16(bf16(the splits' sums in order) + bf16(sum_m p_band[m] ev[m])),
+// a thread per two outputs
+template <int D>
+__global__ void __launch_bounds__(256) attn_combine_kernel(const float* __restrict__ part,
+                                                      const float* __restrict__ pband,
+                                                      const __nv_bfloat16* __restrict__ ev,
+                                                      __nv_bfloat16* __restrict__ out, int T,
+                                                      int w, int S) {
+  const int bh = blockIdx.y;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= T * (D / 2)) return;
+  const int t = e / (D / 2), c = 2 * (e % (D / 2)), W = 2 * w + 1;
+  float s0 = 0.f, s1 = 0.f;
+  for (int s = 0; s < S; ++s) {
+    const float2 x = __ldg(
+        reinterpret_cast<const float2*>(part + (((size_t)bh * S + s) * T + t) * D + c));
+    s0 += x.x;
+    s1 += x.y;
+  }
+  float b0 = 0.f, b1 = 0.f;
+  const float* pb = pband + ((size_t)bh * T + t) * WP;
+  for (int m = 0; m < W; ++m) {
+    const int j = t + m - w;
+    if (j < 0 || j >= T) continue;
+    const float p = __ldg(pb + m);
+    const float2 e2 =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ev + m * D + c));
+    b0 = fmaf(p, e2.x, b0);
+    b1 = fmaf(p, e2.y, b1);
+  }
+  *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)bh * T + t) * D + c) =
+      __floats2bfloat162_rn(rb(rb(s0) + rb(b0)), rb(rb(s1) + rb(b1)));
+}
+
+// floats of scratch a call takes: (m, l) and the P.V sums per split and row,
+// and the band's p per row
+inline long long workspace(int BH, int T, int D) {
+  int per;
+  const int S = splits(BH, T, &per);
+  return (long long)BH * T * (S * (2 + D) + WP);
+}
+
+template <int D>
+int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+           const __nv_bfloat16* ek, const __nv_bfloat16* ev, const int* lengths,
+           __nv_bfloat16* out, float* work, int B, int H, int T, int w, float scale,
+           cudaStream_t stream) {
+  if (T == 0 || B * H == 0) return 0;
+  int per;
+  const int BH = B * H, S = splits(BH, T, &per);
+  float2* stats = reinterpret_cast<float2*>(work);
+  float* part = work + (size_t)2 * BH * S * T;
+  float* pband = part + (size_t)BH * S * T * D;
+  constexpr int s_bytes = Smem<D>::bytes(false), p_bytes = Smem<D>::bytes(true);
+  cudaError_t err = cudaFuncSetAttribute(attn_stats_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, s_bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_pv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               p_bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_pv_kernel<D>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               100);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T + BQ - 1) / BQ, S, BH);
+  attn_stats_kernel<D><<<grid, WARPS * 32, s_bytes, stream>>>(q, k, ek, lengths, stats, H, T, w,
+                                                         scale, per);
+  attn_pv_kernel<D><<<grid, WARPS * 32, p_bytes, stream>>>(q, k, v, ek, lengths, stats, part, pband,
+                                                      H, T, w, scale, per);
+  const dim3 cgrid((T * (D / 2) + 255) / 256, BH);
+  attn_combine_kernel<D><<<cgrid, 256, 0, stream>>>(part, pband, ev, out, T, w, S);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bfs
+
 
 // ---- kernel 2 in float32 on the tensor cores (3xTF32) ----
 //
@@ -845,13 +1272,49 @@ int launch(const float* q, const float* k, const float* v, const float* ek, cons
 }  // namespace
 
 // Kernel 2 in bf16. q, k, v, out: (B, H, T, D) bf16; ek, ev: (2w+1, D) bf16;
-// lengths: (B,) int32; scale: bf16(scale). D must be 32, 64, 96 or 128 and w
-// at most 16 (the wrapper checks).
+// lengths: (B,) int32; scale: bf16(scale); work: the floats that
+// rvc_banded_attention_bf16_workspace gives. D must be 32, 64, 96 or 128 and
+// w at most 16 (the wrapper checks). Three launches on `stream`.
+extern "C" long long rvc_banded_attention_bf16_workspace(int B, int H, int T, int D) {
+  return bfs::workspace(B * H, T, D);
+}
+
 extern "C" int rvc_banded_attention_bf16(const void* q, const void* k, const void* v,
                                          const void* ek, const void* ev,
-                                         const void* lengths, void* out, int B,
-                                         int H, int T, int D, int w, float scale,
+                                         const void* lengths, void* out, void* work,
+                                         int B, int H, int T, int D, int w, float scale,
                                          void* stream) {
+  using bf = __nv_bfloat16;
+  const bf* qh = (const bf*)q;
+  const bf* kh = (const bf*)k;
+  const bf* vh = (const bf*)v;
+  const bf* ekh = (const bf*)ek;
+  const bf* evh = (const bf*)ev;
+  const int* lens = (const int*)lengths;
+  bf* o = (bf*)out;
+  float* wf = (float*)work;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (D) {
+    case 32:
+      return bfs::launch<32>(qh, kh, vh, ekh, evh, lens, o, wf, B, H, T, w, scale, s);
+    case 64:
+      return bfs::launch<64>(qh, kh, vh, ekh, evh, lens, o, wf, B, H, T, w, scale, s);
+    case 96:
+      return bfs::launch<96>(qh, kh, vh, ekh, evh, lens, o, wf, B, H, T, w, scale, s);
+    case 128:
+      return bfs::launch<128>(qh, kh, vh, ekh, evh, lens, o, wf, B, H, T, w, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Kernel 2 in bf16's first version (namespace bfa), the yardstick of the
+// kernel above; launched only by chip_smoke.py. Arguments as above, without
+// the scratch.
+extern "C" int rvc_banded_attention_bf16_sync(const void* q, const void* k, const void* v,
+                                              const void* ek, const void* ev,
+                                              const void* lengths, void* out, int B,
+                                              int H, int T, int D, int w, float scale,
+                                              void* stream) {
   using bf = __nv_bfloat16;
   const bf* qh = (const bf*)q;
   const bf* kh = (const bf*)k;

@@ -7,7 +7,9 @@
 //    operands), in three ways: "wgmma, one running sum" (every k16 step into
 //    the same registers), "wgmma, a sum per 64 of K" (each 64 of K from zero,
 //    scale-d = 0, added into float32 registers: the unit kernel's way) and
-//    "mma.sync, one running sum" (m16n8k16 fragments). Each D is held against
+//    "mma.sync, one running sum" (m16n8k16 fragments); and the same three in
+//    TF32 (m64n64k8 with A from registers in mma.m16n8k8's TF32 layout, a sum
+//    per 32 of K: kernel 4's way; mma.sync m16n8k8). Each D is held against
 //    the exact sum (float64 on the host): the largest error and the mean
 //    signed error, in units of the float32 spacing at the sum of the
 //    products' magnitudes (the exact sum itself for positive data). With all
@@ -19,7 +21,8 @@
 //    products into one sum), with 2 and 3 warpgroups a block; the unit
 //    kernel's pattern (2 warpgroups; a group of 4 m64n64k16 products from
 //    zero, waited for and added into float32 registers, 4 such a step); and
-//    TF32 m64nNk8 with A and B from shared memory for N = 64, 128.
+//    TF32 m64nNk8 with A and B from shared memory for N = 64, 128, and with A
+//    from registers for N = 32, 64 (kernel 4's products).
 //
 // Not part of the library (ops/_cuda.py builds only csrc/*.cu). From the
 // root of the repository, into the git-ignored build directory:
@@ -33,6 +36,7 @@
 
 #include <cmath>
 #include <cstdio>
+#include <cstring>
 #include <random>
 #include <vector>
 
@@ -223,6 +227,66 @@ __global__ void sum_test(const __nv_bfloat16* A, const __nv_bfloat16* B, float* 
   }
 }
 
+// The same in TF32: A, B (64 x K) float32 with TF32 values (low 13 bits 0).
+// MODE 0: wgmma with A from registers, one running sum; 1: a sum per 32 of K
+// (kernel 4's way); 2: mma.sync m16n8k8, one running sum
+template <int MODE>
+__global__ void sum_test_tf32(const float* A, const float* B, float* D, int K) {
+  extern __shared__ __align__(1024) uint8_t sm_sum32[];
+  uint8_t* bs = align1024(sm_sum32);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  float acc[32], part[32];
+  for (int i = 0; i < 32; ++i) acc[i] = part[i] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += 32) {
+    if (MODE < 2) {
+      __syncthreads();
+      // B's rows n, K k0 .. k0 + 31, into the swizzled image (4 floats a chunk)
+      for (int e = tid; e < 64 * 8; e += 128) {
+        const int n = e / 8, c = e % 8;
+        *reinterpret_cast<float4*>(bs + (n / 8) * 1024 + (n % 8) * 128 + (c ^ (n % 8)) * 16) =
+            *reinterpret_cast<const float4*>(B + (size_t)n * K + k0 + 4 * c);
+      }
+      fence_async_smem();
+      __syncthreads();
+      uint32_t a[4][4];
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* ar = A + (size_t)(16 * warp + g) * K + k0 + 8 * kk + t;
+        a[kk][0] = __float_as_uint(ar[0]);          // row g,     k t
+        a[kk][1] = __float_as_uint(ar[8 * K]);      // row g + 8, k t
+        a[kk][2] = __float_as_uint(ar[4]);          // row g,     k t + 4
+        a[kk][3] = __float_as_uint(ar[8 * K + 4]);  // row g + 8, k t + 4
+      }
+      const uint64_t desc = hop::desc_sw128(bs);
+      hop::wgmma_fence();
+      for (int kk = 0; kk < 4; ++kk) {
+        if (MODE == 0) hop::WgmmaTf32<64>::mma(acc, a[kk], desc + 2 * kk, k0 + kk > 0);
+        else hop::WgmmaTf32<64>::mma(part, a[kk], desc + 2 * kk, kk);
+      }
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc);
+      hop::fence_regs(part);
+      if (MODE == 1)
+        for (int i = 0; i < 32; ++i) acc[i] += part[i];
+    } else {
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* ar = A + (size_t)(16 * warp + g) * K + k0 + 8 * kk + t;
+        const uint32_t a[4] = {__float_as_uint(ar[0]), __float_as_uint(ar[8 * K]),
+                               __float_as_uint(ar[4]), __float_as_uint(ar[8 * K + 4])};
+        for (int nt = 0; nt < 8; ++nt) {
+          const float* br = B + (size_t)(8 * nt + g) * K + k0 + 8 * kk + t;
+          float(&d)[4] = *reinterpret_cast<float(*)[4]>(acc + 4 * nt);
+          mma::tf32_1688(d, a, __float_as_uint(br[0]), __float_as_uint(br[4]));
+        }
+      }
+    }
+  }
+  for (int i = 0; i < 32; ++i) {
+    const int row = 16 * warp + g + 8 * ((i % 4) / 2), col = 8 * (i / 4) + 2 * t + i % 2;
+    D[row * 64 + col] = acc[i];
+  }
+}
+
 // ---- 2. rates ----
 
 // bf16 B image of N rows, values 0.5 .. 0.875
@@ -305,6 +369,33 @@ __global__ void __launch_bounds__(256, 1) rate_tf32(float* sink, int iters) {
     hop::wgmma_fence();
 #pragma unroll
     for (int i = 0; i < 8; ++i) WgmmaTF32<N>::mma(d, da + 2 * (i % 4), db + 2 * (i % 4), 1);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+  }
+  hop::fence_regs(d);
+  float s = 0.f;
+  for (int i = 0; i < N / 2; ++i) s += d[i];
+  sink[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+// TF32 m64nNk8 with A from registers (kernel 4's products): groups of 8
+// products into one sum
+template <int N>
+__global__ void __launch_bounds__(256, 1) rate_tf32_rs(float* sink, int iters) {
+  extern __shared__ __align__(1024) uint8_t sm_tr[];
+  uint8_t* b = align1024(sm_tr);  // N rows x 32 tf32
+  for (int i = threadIdx.x; i < N * 32; i += blockDim.x)
+    reinterpret_cast<float*>(b)[i] = 0.5f + (i % 7) * 0.0625f;
+  __syncthreads();
+  fence_async_smem();
+  const uint64_t db = hop::desc_sw128(b);
+  const uint32_t a[4] = {0x3F000000u, 0x3F000000u, 0x3F000000u, 0x3F000000u};  // 0.5
+  float d[N / 2];
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  for (int it = 0; it < iters; ++it) {
+    hop::wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) hop::WgmmaTf32<N>::mma(d, a, db + 2 * (i % 4), 1);
     hop::wgmma_commit();
     hop::wgmma_wait<0>();
   }
@@ -400,6 +491,70 @@ int sums() {
     cudaFree(dB);
     cudaFree(dD);
   }
+  // TF32: values with 11 significant bits (low 13 bits zero)
+  for (int signed_data = 0; signed_data < 2; ++signed_data) {
+    std::uniform_real_distribution<float> u(signed_data ? -1.f : 0.5f, 1.f);
+    auto tf32 = [](float v) {
+      uint32_t b;
+      std::memcpy(&b, &v, 4);
+      b &= 0xFFFFE000u;
+      std::memcpy(&v, &b, 4);
+      return v;
+    };
+    std::vector<float> A(64 * K), B(64 * K);
+    for (int i = 0; i < 64 * K; ++i) {
+      A[i] = tf32(u(rng));
+      B[i] = tf32(u(rng));
+    }
+    std::vector<double> exact(64 * 64, 0.0), mag(64 * 64, 0.0);
+    for (int r = 0; r < 64; ++r)
+      for (int n = 0; n < 64; ++n) {
+        double sm = 0.0, m = 0.0;
+        for (int k = 0; k < K; ++k) {
+          const double pr = (double)A[(size_t)r * K + k] * B[(size_t)n * K + k];
+          sm += pr;
+          m += std::fabs(pr);
+        }
+        exact[r * 64 + n] = sm;
+        mag[r * 64 + n] = m;
+      }
+    float *dA, *dB, *dD;
+    CHECK(cudaMalloc(&dA, A.size() * 4));
+    CHECK(cudaMalloc(&dB, B.size() * 4));
+    CHECK(cudaMalloc(&dD, 64 * 64 * 4));
+    CHECK(cudaMemcpy(dA, A.data(), A.size() * 4, cudaMemcpyHostToDevice));
+    CHECK(cudaMemcpy(dB, B.data(), B.size() * 4, cudaMemcpyHostToDevice));
+    const char* names[3] = {"tf32 wgmma (A from registers), one running sum",
+                            "tf32 wgmma (A from registers), a sum per 32 of K",
+                            "tf32 mma.sync, one running sum"};
+    for (int mode = 0; mode < 3; ++mode) {
+      CHECK(cudaMemset(dD, 0, 64 * 64 * 4));
+      const int smem = 64 * 128 + 1024;
+      if (mode == 0) sum_test_tf32<0><<<1, 128, smem>>>(dA, dB, dD, K);
+      if (mode == 1) sum_test_tf32<1><<<1, 128, smem>>>(dA, dB, dD, K);
+      if (mode == 2) sum_test_tf32<2><<<1, 128, smem>>>(dA, dB, dD, K);
+      CHECK(cudaGetLastError());
+      CHECK(cudaDeviceSynchronize());
+      std::vector<float> D(64 * 64);
+      CHECK(cudaMemcpy(D.data(), dD, D.size() * 4, cudaMemcpyDeviceToHost));
+      double worst = 0.0, mean = 0.0, worst_rel = 0.0;
+      for (int i = 0; i < 64 * 64; ++i) {
+        const double e = exact[i];
+        const double ulp = std::ldexp(1.0, std::ilogb(mag[i]) - 23);
+        const double err = ((double)D[i] - e) / ulp * (e < 0 ? -1.0 : 1.0);  // + away from 0
+        worst = std::fmax(worst, std::fabs(err));
+        worst_rel = std::fmax(worst_rel, std::fabs((double)D[i] - e) / mag[i]);
+        mean += err / (64 * 64);
+      }
+      printf("sum K=%d, %s data, %s: largest error %.1f float32 ulps of the sum of the "
+             "products' magnitudes (relative %.3g), mean signed error %+.2f ulps (negative: "
+             "toward zero)\n",
+             K, signed_data ? "mixed-sign" : "positive", names[mode], worst, worst_rel, mean);
+    }
+    cudaFree(dA);
+    cudaFree(dB);
+    cudaFree(dD);
+  }
   return 0;
 }
 
@@ -443,6 +598,12 @@ int main() {
     ms = time_ms([&] { rate_tf32<128><<<grid, block, 192 * 128 + 1024>>>(sink, iters); });
     CHECK(cudaGetLastError());
     report("tf32 m64n128k8, A and B from shared memory", 2, ms, 8.0 * 64 * 128 * 8 * 2);
+    ms = time_ms([&] { rate_tf32_rs<32><<<grid, block, 32 * 128 + 1024>>>(sink, iters); });
+    CHECK(cudaGetLastError());
+    report("tf32 m64n32k8, A from registers", 2, ms, 8.0 * 64 * 32 * 8 * 2);
+    ms = time_ms([&] { rate_tf32_rs<64><<<grid, block, 64 * 128 + 1024>>>(sink, iters); });
+    CHECK(cudaGetLastError());
+    report("tf32 m64n64k8, A from registers", 2, ms, 8.0 * 64 * 64 * 8 * 2);
   }
   CHECK(cudaDeviceSynchronize());
   return 0;

@@ -1,7 +1,9 @@
 // Hopper-only building blocks (sm_90a) of the bf16 unit kernel
-// (resblock_group.cu) and of the wgmma probe (bench/wgmma_peak.cu):
+// (resblock_group.cu), kernel 4's TF32 chain (resblock_chain.cu), kernel 2 in
+// bf16 (banded_attention.cu) and the wgmma probe (bench/wgmma_peak.cu):
 // mbarriers, the 1-D bulk copy (cp.async.bulk, no tensor map), ldmatrix,
-// named barriers, and wgmma with A from registers and B from shared memory.
+// named barriers, and wgmma (bf16 and TF32) with A from registers and B from
+// shared memory.
 //
 // wgmma.mma_async m64nNk16 (PTX ISA, "Asynchronous Warpgroup Level Matrix
 // Multiply-Accumulate"): the four warps of a warpgroup compute a 64 x N tile
@@ -87,6 +89,14 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
 // four 8 x 8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// the same, each matrix transposed: lane 4g + t gets (row 2t, 2t + 1; column
+// g) of its matrices, mma's B fragment from a k-major (row = k) tile
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }
@@ -202,4 +212,63 @@ struct Wgmma<16> {
   }
 };
 
+// d (+)= a . b, m64nNk8, TF32 operands (float32 bit patterns whose low 13
+// bits the tensor cores ignore), float32 sums; a from registers, b through
+// its descriptor (K-major, 128-byte swizzle: 32 TF32 values of K a row, k8
+// step s at descriptor + 2 s); scale_d 0 ignores d's old value. Warp w of
+// the group holds rows 16w..16w+15 of A in mma.m16n8k8's TF32 A layout
+// (mma.cuh): a0 (row g, k t), a1 (row g + 8, k t), a2 (row g, k t + 4),
+// a3 (row g + 8, k t + 4); D as for bf16 above.
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32<32> {
+  __device__ __forceinline__ static void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32<16> {
+  __device__ __forceinline__ static void mma(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
 }  // namespace hop

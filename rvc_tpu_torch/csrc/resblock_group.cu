@@ -1,8 +1,10 @@
 // One residual unit of a HiFiGAN ResBlock1 chain, for sm_90a: in float32 a
 // tensor-core kernel (kernel 1, rvc_resblock_unit) and the SIMT kernel it
-// replaced (rvc_resblock_unit_simt), which kernel 4 still runs; in bfloat16
-// the wgmma kernel of kernels 1 and 8 (rvc_resblock_unit_bf16, at the end of
-// the file) and the mma.sync kernel it replaced (rvc_resblock_unit_bf16_sync).
+// replaced (rvc_resblock_unit_simt), which kernel 4's yardstick
+// (rvc_resblock1_fwd_simt) still runs; in bfloat16 the wgmma kernel of
+// kernels 1 and 8 (rvc_resblock_unit_bf16, at the end of the file) and the
+// mma.sync kernel it replaced (rvc_resblock_unit_bf16_sync). Kernel 4 itself,
+// on wgmma in 3xTF32, is in resblock_chain.cu.
 //
 // Kernel 1 replaces rvc_tpu/ops/pallas_resblock.py::_fused_group_call
 // (reached from fused_resblock_group), which runs a whole decoder stage - the
@@ -48,12 +50,14 @@
 //
 // The SIMT kernel (kernel 1's first version): the same unit in float32 FMAs, each
 // thread keeping a 16-row x 4-channel block of sums and reading the weights,
-// laid out [tap][in][out], from a 16-channel slice in shared memory. Kernel 4
-// (rvc_resblock1_fwd) still runs it: kernel 4 is not yet redesigned for the
-// tensor cores. Kernel 5 (resblock_bwd.cu) recomputes each unit's
-// pre-activations in 3xTF32, so they round differently from kernel 4's
-// float32 forward; its gradient check (ops/resblock.py::check_chain_grads)
-// allows for the leaky-ReLU slopes that this may flip.
+// laid out [tap][in][out], from a 16-channel slice in shared memory. Kernel
+// 4's first version ran it a launch per unit (rvc_resblock1_fwd_simt below):
+// only chip_smoke.py launches that now, as the yardstick (previous_ms) of
+// kernel 4's wgmma chain (resblock_chain.cu), which it ran at 11.7 times its
+// bound. Kernel 5 (resblock_bwd.cu) recomputes each unit's pre-activations in
+// 3xTF32 in another order than kernel 4's sums; its gradient check
+// (ops/resblock.py::check_chain_grads) allows for the leaky-ReLU slopes that
+// this may flip.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1121,15 +1125,15 @@ extern "C" int rvc_resblock_unit(const void* x, void* out, const void* pa,
 #undef RVC_UNIT
 }
 
-// Kernel 4: one ResBlock1 chain (the forward of fused_resblock1_train), which
-// replaces rvc_tpu/ops/pallas_resblock.py::_fused_call. Its n units run as
-// the SIMT unit kernel above (mode 0, no division), unit u writing its output to
-// hs[u] (kept for the backward, kernel 5) and the last unit to out.
+// Kernel 4's first version, kept as the yardstick of the wgmma chain
+// (resblock_chain.cu, rvc_resblock1_fwd) and launched only by chip_smoke.py:
+// one ResBlock1 chain as the SIMT unit kernel above a launch per unit (mode 0,
+// no division), unit u writing its output to hs[u] and the last unit to out.
 // w (2n, k, C, C) [conv][tap][in][out]; b (2n, C); dil[u] the dilation of
 // unit u's first conv (the second has dilation 1).
-extern "C" int rvc_resblock1_fwd(const void* x, void* hs, void* out, const void* w,
-                                 const void* b, int B, int T, int C, int k, int n_units,
-                                 const int* dil, void* stream) {
+extern "C" int rvc_resblock1_fwd_simt(const void* x, void* hs, void* out, const void* w,
+                                      const void* b, int B, int T, int C, int k, int n_units,
+                                      const int* dil, void* stream) {
   const size_t btc = (size_t)B * T * C, wsz = (size_t)k * C * C;
   const float* wf = (const float*)w;
   const float* bf = (const float*)b;
@@ -1137,8 +1141,8 @@ extern "C" int rvc_resblock1_fwd(const void* x, void* hs, void* out, const void*
   for (int u = 0; u < n_units; ++u) {
     float* dst = u == n_units - 1 ? (float*)out : (float*)hs + (size_t)u * btc;
     const int err = rvc_resblock_unit_simt(h, dst, wf + 2 * u * wsz, bf + 2 * u * C,
-                                      wf + (2 * u + 1) * wsz, bf + (2 * u + 1) * C, B, T, C,
-                                      k, dil[u], k, 1, 0, 1, stream);
+                                           wf + (2 * u + 1) * wsz, bf + (2 * u + 1) * C, B, T,
+                                           C, k, dil[u], k, 1, 0, 1, stream);
     if (err) return err;
     h = dst;
   }

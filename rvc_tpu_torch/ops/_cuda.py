@@ -23,8 +23,8 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("resblock_group.cu", "banded_attention.cu", "nearest_rows.cu", "resblock_bwd.cu",
-           "wavenet.cu")
+SOURCES = ("resblock_group.cu", "resblock_chain.cu", "banded_attention.cu", "nearest_rows.cu",
+           "resblock_bwd.cu", "wavenet.cu")
 HEADERS = ("rowconv.cuh", "tc_rowconv.cuh", "mma.cuh", "hopper.cuh")  # in the build hash with the sources
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -34,6 +34,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
+_PP = ctypes.POINTER(ctypes.c_void_p)
 # C entry points: name -> argtypes. Each returns a cudaError_t as int, but
 # the *_workspace functions, which return a size in floats (RESTYPES).
 SIGNATURES = {
@@ -49,10 +50,13 @@ SIGNATURES = {
                              _F, _P],
     "rvc_banded_attention_simt": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _F, _P],
-    "rvc_banded_attention_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _F, _P],
+    "rvc_banded_attention_bf16": [_P] * 8 + [_I] * 5 + [_F, _P],
+    "rvc_banded_attention_bf16_workspace": [_I] * 4,
+    "rvc_banded_attention_bf16_sync": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _F, _P],
     "rvc_nearest_rows": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "rvc_resblock1_fwd": [_P] * 5 + [_I] * 5 + [_IP, _P],
+    "rvc_resblock1_fwd": [_P, _P, _P, _P, _PP, _P] + [_I] * 5 + [_IP, _P],
+    "rvc_resblock1_fwd_simt": [_P] * 5 + [_I] * 5 + [_IP, _P],
     "rvc_resblock1_bwd": [_P] * 10 + [_L] + [_I] * 5 + [_IP, _P],
     "rvc_resblock1_bwd_workspace": [_I] * 4,
     "rvc_resblock1_bwd_simt": [_P] * 10 + [_L] + [_I] * 5 + [_IP, _P],

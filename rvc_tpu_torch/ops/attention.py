@@ -16,7 +16,12 @@ scaled by bf16(scale), each product summed in float32 and rounded, the band
 added to the rounded scores and rounded again, the softmax full-row float32
 with p rounded to bf16 before P.V; its launches count in
 ``banded_rel_attention.launches_bf16``. The plain version rounds at the same
-places.
+places. Since p is rounded after normalisation, every row's max and sum
+come first: the keys are split over blocks (about five blocks an SM), one
+launch takes each split's max and sum, a second combines them in split
+order and adds the split's P.V in float32 from the rounded p, and a third
+adds the splits' sums in order and the band's value term. Q.K^T runs in
+both of the first two, on ``mma.sync`` with K and V tiles copied one ahead.
 """
 from __future__ import annotations
 
@@ -110,8 +115,10 @@ def banded_rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), emb_rel_k.data_ptr(),
             emb_rel_v.data_ptr(), lens.data_ptr(), out.data_ptr(), B, H, T, D, window)
     if q.dtype == torch.bfloat16:
-        err = lib.rvc_banded_attention_bf16(*args, rounded(scale, q.dtype),
-                                            _cuda.stream_ptr(q))
+        work = q.new_empty(lib.rvc_banded_attention_bf16_workspace(B, H, T, D),
+                           dtype=torch.float32)
+        err = lib.rvc_banded_attention_bf16(*args[:7], work.data_ptr(), *args[7:],
+                                            rounded(scale, q.dtype), _cuda.stream_ptr(q))
         _cuda.check(err, "banded_attention_bf16 launch")
         banded_rel_attention.launches_bf16 += 1
         return out

@@ -12,14 +12,19 @@ float32-level error, on weights split and packed for it
 
 Kernels 4 and 5, ``fused_resblock1_train``: one chain, differentiable
 (training). Counterpart of ``pallas_resblock.py::fused_resblock1_train``:
-its forward is kernel 4 (``fused_resblock1``: the float32 SIMT unit
-kernel, each unit's output kept for the backward) and its backward kernel 5
+its forward is kernel 4 (``fused_resblock1``, ``csrc/resblock_chain.cu``:
+each conv a launch on ``wgmma`` in 3xTF32, a block owning 128 rows and a
+slice of the output channels so that the first stage's short rows still
+fill the card, each unit's output kept for the backward) on weights split
+and packed for it (``pack_tf32_wgmma_weights``, once per set of weights,
+``packed``: once a step in training); its backward is kernel 5
 (``fused_resblock1_backward``, ``csrc/resblock_bwd.cu``: dx, and dW and db
 of every conv, reduced on the card in a fixed order), all its products on
-the tensor cores in 3xTF32 (``csrc/tc_rowconv.cuh``). Kernel 5 recomputes
-each unit's first conv in 3xTF32, so it may take the other leaky-ReLU slope
-than kernel 4's float32 forward at a pre-activation within rounding of 0;
-``check_chain_grads`` allows for that.
+the tensor cores in 3xTF32 on ``mma.sync`` (``csrc/tc_rowconv.cuh``), on
+weights packed in its own layout (``pack_backward_weights``). Kernel 5
+recomputes each unit's first conv with its sums in another order, so it may
+take the other leaky-ReLU slope than kernel 4 at a pre-activation within
+rounding of 0; ``check_chain_grads`` allows for that.
 
 In bfloat16, kernel 1 and kernel 8 (``fused_resblock1_v2``, one chain:
 the counterpart of ``scripts/bench_resblock_v2.py::fused_resblock1_v2``)
@@ -161,6 +166,47 @@ def unpack_tf32_weights(packed: torch.Tensor, C: int, k: int) -> tuple[torch.Ten
     return out[0], out[1]
 
 
+TF32_SLICE_K = 32  # kernel 4's weight slice: 32 of K = (tap, input), 128 bytes a row
+
+
+def pack_tf32_wgmma_weights(w: torch.Tensor) -> torch.Tensor:
+    """A conv's (O, I, k) float32 weights (O and I multiples of 8), or a stack
+    of them (..., O, I, k), as kernel 4's B operand lies in shared memory:
+    K = (tap j, input i) flattened as j I + i, each 8 of K relabelled as
+    ``mma.cuh`` relabels k (position t holds input 2t, position t + 4 input
+    2t + 1), zero-padded to a multiple of 32; slice s is O rows, row o
+    holding K 32 s .. 32 s + 31 in float32 (128 bytes) with the 128-byte
+    swizzle (4-float chunk c of row o stored at chunk c ^ (o % 8)). Two
+    images, w_big = tf32_round(w) and w_small = tf32_round(w - w_big):
+    (..., 2, ceil(k I / 32), O, 8, 4) float32, each slice's rows of each
+    image one bulk copy."""
+    *lead, O, I, k = w.shape
+    v = w.transpose(-1, -2).reshape(*lead, O, k, I // 8, 4, 2).transpose(-1, -2)
+    v = F.pad(v.reshape(*lead, O, k * I), (0, -(k * I) % TF32_SLICE_K))
+    big = tf32_round(v)
+    parts = [u.reshape(*lead, O, -1, 8, 4).transpose(-4, -3)
+             for u in (big, tf32_round(v - big))]
+    return _swizzle(torch.stack(parts, dim=len(lead))).contiguous()
+
+
+def pack_chain_weights(ws: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Kernel 4's packing of a whole chain's conv weights in one batch:
+    (2n, 2, S, O, 8, 4), conv c's ``pack_tf32_wgmma_weights`` at [c]."""
+    return pack_tf32_wgmma_weights(torch.stack(list(ws)))
+
+
+def unpack_tf32_wgmma_weights(packed: torch.Tensor, I: int, k: int
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of ``pack_tf32_wgmma_weights``: (w_big, w_small), each (O, I, k)."""
+    O = packed.shape[2]
+    out = []
+    for v in _swizzle(packed):
+        v = v.transpose(0, 1).reshape(O, -1)[:, :k * I]
+        v = v.reshape(O, k, I // 8, 2, 4).transpose(-1, -2).reshape(O, k, I)
+        out.append(v.permute(0, 2, 1))
+    return out[0], out[1]
+
+
 SLICE_K = 64  # the bf16 unit kernel's weight slice: 64 of K = (tap, input)
 
 
@@ -185,35 +231,52 @@ def unpack_bf16_weights(packed: torch.Tensor, I: int, k: int) -> torch.Tensor:
     return v.reshape(O, k, I).permute(0, 2, 1)
 
 
+_SWIZZLE: dict = {}
+
+
 def _swizzle(v: torch.Tensor) -> torch.Tensor:
-    """(..., O, 8, 8): chunk p of row o takes chunk p ^ (o % 8), the
-    128-byte swizzle and its own inverse."""
-    rows = torch.arange(v.shape[-3], device=v.device) % 8
-    src = torch.arange(8, device=v.device)[None, :] ^ rows[:, None]  # (O, 8)
-    return torch.gather(v, -2, src[..., None].expand(v.shape))
+    """(..., O, 8, X), O a multiple of 8 (every kernel's): chunk p of row o
+    takes chunk p ^ (o % 8), the 128-byte swizzle and its own inverse; one
+    gather over each group of 8 rows."""
+    *lead, O, _, X = v.shape
+    if O % 8:
+        raise ValueError(f"the swizzle takes rows in groups of 8, got {O}")
+    src = _SWIZZLE.get(v.device)
+    if src is None:
+        r, p = torch.arange(8)[:, None], torch.arange(8)[None, :]
+        src = _SWIZZLE[v.device] = (8 * r + (p ^ r)).flatten().to(v.device)
+    flat = v.reshape(*lead, O // 8, 64, X).index_select(-2, src)
+    return flat.reshape(v.shape)
 
 
 PACK_CACHE_SIZE = 256
 _pack_cache: OrderedDict = OrderedDict()
 
 
-def packed(w: torch.Tensor, pack: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
-    """``pack(w)``, computed once per set of weights. The cache is keyed by
-    the packing and by w's device, storage pointer, shape, strides and dtype,
-    and an entry is used only while w's version counter is unchanged, so a
-    change in place repacks. An entry holds w itself: its storage stays
-    alive, so its pointer cannot be reused by other weights while the entry
-    lasts. The least recently used entries beyond ``PACK_CACHE_SIZE`` go.
-    Inference tensors have no version counter and are packed at every call."""
-    if w.is_inference():
+def packed(w, pack: Callable) -> torch.Tensor:
+    """``pack(w)``, computed once per set of weights; w a tensor or a tuple
+    of tensors (packed together). The cache is keyed by the packing and by
+    each tensor's device, storage pointer, shape, strides and dtype, and an
+    entry is used only while their version counters are unchanged, so a
+    change in place repacks. An entry holds the tensors' storage (detached,
+    sharing their version counters but not their autograd graph), so their
+    pointers cannot be reused by other weights while the entry lasts. The
+    least recently used entries beyond ``PACK_CACHE_SIZE`` go. Inference
+    tensors have no version counter, and tensors with autograd history (the
+    weights weight norm folds anew every training step) are not seen again:
+    both are packed at every call and not kept."""
+    ws = w if isinstance(w, tuple) else (w,)
+    if any(t.is_inference() or t.grad_fn is not None for t in ws):
         return pack(w)
-    key = (pack, w.device, w.data_ptr(), tuple(w.shape), w.stride(), w.dtype)
+    key = (pack,) + tuple((t.device, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                          for t in ws)
+    versions = tuple(t._version for t in ws)
     hit = _pack_cache.get(key)
-    if hit is not None and hit[1] == w._version:
+    if hit is not None and hit[1] == versions:
         _pack_cache.move_to_end(key)
         return hit[2]
     out = pack(w)
-    _pack_cache[key] = (w, w._version, out)
+    _pack_cache[key] = (tuple(t.detach() for t in ws), versions, out)
     _pack_cache.move_to_end(key)
     while len(_pack_cache) > PACK_CACHE_SIZE:
         _pack_cache.popitem(last=False)
@@ -304,19 +367,6 @@ def _device_only(x: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {x.device}")
 
 
-def _packed(convs: Sequence[Conv]):
-    """The chain's weights as the kernels take them: taps (2n, k, C, C)
-    [conv][tap][in][out], the flipped transposed taps of the backward
-    (WT[c][j][o][i] = W[c][k-1-j][i][o]), biases (2n, C), and the units'
-    dilations as a C array."""
-    w = torch.stack([cw for cw, _, _, _ in convs])  # (2n, O, I, k)
-    taps = w.permute(0, 3, 2, 1).contiguous()
-    taps_t = w.flip(3).permute(0, 3, 1, 2).contiguous()
-    bias = torch.stack([cb for _, cb, _, _ in convs]).contiguous()
-    dil = (ctypes.c_int * (len(convs) // 2))(*[d for _, _, _, d in convs[0::2]])
-    return taps, taps_t, bias, dil
-
-
 def _check_chain(x: torch.Tensor, convs: Sequence[Conv],
                  dtype: torch.dtype = torch.float32) -> None:
     _check(x, [convs])
@@ -330,16 +380,25 @@ def _check_chain(x: torch.Tensor, convs: Sequence[Conv],
 
 def _resblock1_forward(x: torch.Tensor, convs: Sequence[Conv]):
     """Kernel 4 on the card: (y, hs) with hs (n-1, B, T, C) the outputs of
-    units 0..n-2, i.e. the inputs of units 1..n-1."""
+    units 0..n-2, i.e. the inputs of units 1..n-1. The chain's weights are
+    split and packed in one batch (``pack_chain_weights``) once per set of
+    weights (``packed``); weights that carry autograd history, as in
+    training, are new every step and packed at every call."""
     _check_chain(x, convs)
-    taps, _, bias, dil = _packed(convs)
     B, T, C = x.shape
-    n = len(dil)
+    n = len(convs) // 2
     hs = x.new_empty((max(n - 1, 1), B, T, C))
     out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out, hs
+    ws = packed(tuple(w for w, _, _, _ in convs), pack_chain_weights)
+    bias = torch.stack([b for _, b, _, _ in convs]).contiguous()
+    dil = (ctypes.c_int * n)(*[d for _, _, _, d in convs[0::2]])
+    t = torch.empty_like(x)  # each unit's conv_a output
     err = _cuda.library().rvc_resblock1_fwd(
-        x.data_ptr(), hs.data_ptr(), out.data_ptr(), taps.data_ptr(), bias.data_ptr(),
-        B, T, C, convs[0][2], n, dil, _cuda.stream_ptr(x))
+        x.data_ptr(), hs.data_ptr(), out.data_ptr(), t.data_ptr(),
+        (ctypes.c_void_p * len(ws))(*[w.data_ptr() for w in ws]), bias.data_ptr(), B, T, C,
+        convs[0][2], n, dil, _cuda.stream_ptr(x))
     _cuda.check(err, "resblock1_fwd launch")
     fused_resblock1.launches += 1
     return out, hs
@@ -371,13 +430,22 @@ def fused_resblock1_backward_plain(x: torch.Tensor, hs: torch.Tensor, gy: torch.
     return g[0], torch.stack(g[1::2]), torch.stack(g[2::2])
 
 
+def pack_backward_weights(convs: Sequence[Conv]) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 5's weights, split and packed for its ``mma.sync`` B fragments
+    (``pack_tf32_weights``): each unit's conv_a, and every conv's flipped
+    transpose. Its layout is not kernel 4's (``pack_tf32_wgmma_weights``), so
+    the backward packs its own, once a call."""
+    w = torch.stack([cw for cw, _, _, _ in convs])  # (2n, O, I, k)
+    return pack_tf32_weights(w[0::2]), pack_tf32_weights(w.transpose(1, 2).flip(3))
+
+
 def fused_resblock1_backward(x: torch.Tensor, hs: torch.Tensor, gy: torch.Tensor,
-                             convs: Sequence[Conv]):
+                             convs: Sequence[Conv], packs=None):
     """Kernel 5: the chain's VJP at x, given the unit inputs ``hs`` that
     kernel 4 kept. Returns (dx (B, T, C), dW (2n, C, C, k) in the convs'
     (O, I, k) layout, db (2n, C)). On the card its convolutions run on the
-    tensor cores in 3xTF32; each call splits and packs the chain's weights
-    (each unit's conv_a, and every conv's flipped transpose)."""
+    tensor cores in 3xTF32, on ``packs`` = ``pack_backward_weights(convs)``
+    (packed here when not given)."""
     if x.device.type == "cpu":
         return fused_resblock1_backward_plain(x, hs, gy, convs)
     _device_only(x)
@@ -386,9 +454,7 @@ def fused_resblock1_backward(x: torch.Tensor, hs: torch.Tensor, gy: torch.Tensor
     k = convs[0][2]
     if k > MAX_TAPS:
         raise ValueError(f"kernel 5 takes k up to {MAX_TAPS}, got {k}")
-    w = torch.stack([cw for cw, _, _, _ in convs])  # (2n, O, I, k)
-    packed_a = pack_tf32_weights(w[0::2])
-    packed_t = pack_tf32_weights(w.transpose(1, 2).flip(3))
+    packed_a, packed_t = pack_backward_weights(convs) if packs is None else packs
     bias = torch.stack([cb for _, cb, _, _ in convs]).contiguous()
     dil = (ctypes.c_int * (len(convs) // 2))(*[d for _, _, _, d in convs[0::2]])
     gy = gy.contiguous()

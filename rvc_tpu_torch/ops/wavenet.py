@@ -119,15 +119,23 @@ def backward_convs(w_a, w_b, w_res, w_skip, k: int):
     return torch.cat(taps, dim=2), torch.cat([w_res, w_skip], dim=2)[..., None]
 
 
+def pack_backward_weights(w_a, w_b, w_res, w_skip, k: int):
+    """Kernel 7's weights: the backward's convs (``backward_convs``) split and
+    packed for its tensor-core B fragments (``pack_tf32_weights``)."""
+    wab, wrs = backward_convs(w_a, w_b, w_res, w_skip, k)
+    return pack_tf32_weights(wab), pack_tf32_weights(wrs)
+
+
 def fused_wn_backward(x, xs, pre, gy, w_a, w_b, b_ab, g_ab, w_res, w_skip, b_rs2, lengths, *,
-                      kernel_size: int):
+                      kernel_size: int, packs=None):
     """Kernel 7: the stack's VJP, given what kernel 6 kept (xs, pre) and the
     output cotangent gy (B, T, C). Returns (dx, dWa, dWb, dBab, dG, dWres,
     dWskip, dBrs) in the layouts of the forward's arguments. On the card its
-    products run on the tensor cores in 3xTF32, and each call splits and
-    packs the backward's convs (``backward_convs``). The kernel does not
-    read the biases and the conditioning (the kept pre-activations hold
-    them); the plain version does."""
+    products run on the tensor cores in 3xTF32, on ``packs`` =
+    ``pack_backward_weights(w_a, w_b, w_res, w_skip, kernel_size)`` (packed
+    here when not given: the weights change every training step). The kernel
+    does not read the biases and the conditioning (the kept pre-activations
+    hold them); the plain version does."""
     if x.device.type == "cpu":
         return fused_wn_backward_plain(x, xs, pre, gy, w_a, w_b, b_ab, g_ab, w_res, w_skip,
                                        b_rs2, lengths, kernel_size=kernel_size)
@@ -137,8 +145,7 @@ def fused_wn_backward(x, xs, pre, gy, w_a, w_b, b_ab, g_ab, w_res, w_skip, b_rs2
     L, k = w_res.shape[0], kernel_size
     if k > MAX_TAPS:
         raise ValueError(f"kernel 7 takes k up to {MAX_TAPS}, got {k}")
-    wab, wrs = backward_convs(w_a, w_b, w_res, w_skip, k)
-    wab_t, wrs_t = pack_tf32_weights(wab), pack_tf32_weights(wrs)
+    wab_t, wrs_t = pack_backward_weights(w_a, w_b, w_res, w_skip, k) if packs is None else packs
     lens = lengths.to(torch.int32).contiguous()
     lib = _cuda.library()
     work = x.new_empty(lib.rvc_wn_bwd_workspace(B, T, C, k))

@@ -321,17 +321,119 @@ def test_chain_grad_check_catches_wrong_gradients(rng, cuda, C, T, k, where):
 
 @pytest.mark.gpu
 def test_resblock1_forward_is_the_simt_unit_kernel(rng, cuda):
-    """Kernel 4 runs the SIMT unit kernel: bit for bit what a launch of
-    that kernel per unit gives."""
+    """Kernel 4 (the wgmma chain) computes what its first version, the SIMT
+    unit kernel a launch per unit (``rvc_resblock1_fwd_simt``, chip_smoke's
+    yardstick), computes: within 2e-5 of the largest magnitude (chip_smoke's
+    VALUE_TOL), both sums in float32 in other orders."""
     x, convs, _ = _train_chain(rng, cuda, 64, 7, (1, 3, 5), 777)
     with torch.no_grad():
         convs = [(w.detach(), b.detach(), k, d) for w, b, k, d in convs]
         got = resblock.fused_resblock1(x.detach(), convs)
-        simt = resblock._run_units(x.detach(), [convs], "rvc_resblock_unit_simt",
-                                   lambda w: w.permute(2, 1, 0).contiguous(),
-                                   types.SimpleNamespace(launches=0))
+        simt = _chip_smoke().previous_chain(x.detach(), convs)
     torch.cuda.synchronize()
-    assert torch.equal(got, simt)
+    _scaled_close(got, simt, 2e-5)
+
+
+# kernel 4's blocks own 128 rows: T one short of, at and one past a block;
+# every blocking it chooses (outputs a block / blocks an SM): 16/2 at C 16
+# and 48, 32/2 at 32, 64/1 at 64, 128 and 192, 32/1 at 256, 16/1 at 80 and 240
+K4_TILES = [(C, T) for C in (16, 48, 64, 128, 192, 256) for T in (1, 127, 128, 129)] + [
+    (256, 432), (32, 1000), (80, 129), (240, 129)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,T", K4_TILES)
+def test_resblock1_forward_tiles(rng, cuda, C, T):
+    """Kernel 4 at its tiles' edges, a chain of k = 11 and dilations 1, 3, 5
+    (the widest halo): every unit's kept output and the chain's within 2e-5
+    of the largest magnitude of the plain chain cut after that unit; a
+    launch counted a call."""
+    x, convs, _ = _train_chain(rng, cuda, C, 11, (1, 3, 5), T, B=3)
+    with torch.no_grad():
+        convs = [(w.detach(), b.detach(), k, d) for w, b, k, d in convs]
+        n = resblock.fused_resblock1.launches
+        y, hs = resblock._resblock1_forward(x.detach(), convs)
+        torch.cuda.synchronize()
+        assert resblock.fused_resblock1.launches == n + 1
+        for u, got in enumerate(list(hs) + [y]):
+            _scaled_close(got, resblock.fused_resblock1_plain(x.detach(), convs[:2 * u + 2]),
+                          2e-5)
+
+
+@pytest.mark.gpu
+def test_training_chain_keeps_no_packed_weights(rng, cuda):
+    """Weights that weight norm folds anew every training step carry
+    autograd history and are never seen again: differentiable chain calls
+    on such weights pack them at every call and leave the packing cache as
+    it was, and their gradients are those of weights given as they are."""
+    x, convs, cot = _train_chain(rng, cuda, 64, 3, (1, 3, 5), 200)
+    params = [t for w, b, _, _ in convs for t in (w, b)]
+    _, want = _grads(lambda: resblock.fused_resblock1_train(x, convs), x, params, cot)
+    kept = len(resblock._pack_cache)
+    for _ in range(3):
+        folded = [(w * 1.0, b, k, d) for w, b, k, d in convs]  # a new tensor a step
+        _, got = _grads(lambda: resblock.fused_resblock1_train(x, folded), x, params, cot)
+        assert len(resblock._pack_cache) == kept
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_new_kernels_give_the_same_bits_twice(rng, cuda):
+    """Kernel 4 and kernel 2 in bf16 sum in a fixed order (no atomics): two
+    calls give the same bits."""
+    x, convs, _ = _train_chain(rng, cuda, 256, 11, (1, 3, 5), 433, B=4)
+    with torch.no_grad():
+        convs = [(w.detach(), b.detach(), k, d) for w, b, k, d in convs]
+        a, b = (resblock._resblock1_forward(x.detach(), convs) for _ in range(2))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    args = _bf16_attention(rng, cuda, 2178, 96, [2178, 1221, 7])
+    a, b = (attention.banded_rel_attention(*args, window=10, scale=96 ** -0.5)
+            for _ in range(2))
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 129, 300, 513, 769, 1000, 2178])
+def test_attention_bf16_key_split_tiles(rng, cuda, T):
+    """Kernel 2 in bf16 at its tiles' edges (64 query rows a block, 64-key
+    tiles, the keys in splits of whole tiles), lengths T, 1 and 0; with 6
+    (batch, head) pairs the kernel takes one key split up to T = 300, and
+    2, 3 (the last one shorter), 4 and 4 at T = 513 (a last tile of one
+    key), 769, 1000 and 2178: within the bf16 bars of the plain version,
+    and of its first version (chip_smoke's yardstick); a call counted once."""
+    args = _bf16_attention(rng, cuda, T, 96, [T, 1, 0])
+    n = attention.banded_rel_attention.launches_bf16
+    with torch.no_grad():
+        got = attention.banded_rel_attention(*args, window=10, scale=96 ** -0.5)
+    prev = _chip_smoke().attention_bf16_sync(*args, window=10, scale=96 ** -0.5)
+    torch.cuda.synchronize()
+    assert attention.banded_rel_attention.launches_bf16 == n + 1
+    _bf16_close(got, attention.banded_rel_attention_plain(*args, window=10, scale=96 ** -0.5))
+    _bf16_close(got, prev)
+
+
+@pytest.mark.gpu
+def test_backward_packs_given_apart_give_the_same_bits(rng, cuda):
+    """Kernels 5 and 7 on weights packed before the call (as chip_smoke
+    times them) give what they give packing inside the call, bit for bit."""
+    x, convs, cot = _train_chain(rng, cuda, 128, 7, (1, 3, 5), 301, B=2)
+    with torch.no_grad():
+        convs = [(w.detach(), b.detach(), k, d) for w, b, k, d in convs]
+        _, hs = resblock._resblock1_forward(x.detach(), convs)
+        inside = resblock.fused_resblock1_backward(x.detach(), hs, cot, convs)
+        apart = resblock.fused_resblock1_backward(x.detach(), hs, cot, convs,
+                                                  resblock.pack_backward_weights(convs))
+    for a, b in zip(inside, apart):
+        assert torch.equal(a, b)
+    x, w, lens, cot = _wn_case(rng, cuda, 192, 100, 3, (100, 77))
+    with torch.no_grad():
+        _, xs, pre = wavenet._forward(x, *w, lens, 5)
+        inside = wavenet.fused_wn_backward(x, xs, pre, cot, *w, lens, kernel_size=5)
+        packs = wavenet.pack_backward_weights(w[0], w[1], w[4], w[5], 5)
+        apart = wavenet.fused_wn_backward(x, xs, pre, cot, *w, lens, kernel_size=5, packs=packs)
+    for a, b in zip(inside, apart):
+        assert torch.equal(a, b)
 
 
 def _nearest_within_ties(got, feats, bank_f):
@@ -438,15 +540,17 @@ def test_backward_weight_gradients_are_bit_identical(rng, cuda):
 def test_simt_yardsticks_are_on_no_path(rng, cuda, monkeypatch):
     """The entries that redesigned kernels replaced stay in the library only
     as chip_smoke.py's yardsticks: a differentiable chain and WN stack (the
-    float32 SIMT backward of kernels 5 and 7), a bf16 stage through both
-    decoder routes (the bf16 unit on mma.sync) and kernel 2 in float32 (its
-    SIMT kernel) on the card never call them."""
+    float32 SIMT chain forward and backward of kernels 4, 5 and 7), a bf16
+    stage through both decoder routes (the bf16 unit on mma.sync) and kernel
+    2 in float32 and in bf16 (its SIMT kernel, the first bf16 kernel) on the card
+    never call them."""
     from rvc_tpu_torch.ops import _cuda
 
     lib = _cuda.library()
     called = []
-    for name in ("rvc_resblock1_bwd_simt", "rvc_wn_bwd_simt", "rvc_resblock_unit_bf16_sync",
-                 "rvc_banded_attention_simt"):
+    for name in ("rvc_resblock1_fwd_simt", "rvc_resblock1_bwd_simt", "rvc_wn_bwd_simt",
+                 "rvc_resblock_unit_bf16_sync", "rvc_banded_attention_simt",
+                 "rvc_banded_attention_bf16_sync"):
         monkeypatch.setattr(lib, name, lambda *a, _n=name: called.append(_n) or 0)
     x, convs, cot = _train_chain(rng, cuda, 32, 3, (1, 3, 5), 100)
     params = [t for w, b, _, _ in convs for t in (w, b)]
@@ -459,6 +563,8 @@ def test_simt_yardsticks_are_on_no_path(rng, cuda, monkeypatch):
     resblock.fused_resblock1_v2(xb, chains[0])
     args = [torch.from_numpy(a).to(cuda) for a in _attention_inputs(rng, T=100, D=96)]
     attention.banded_rel_attention(*args, window=10, scale=96 ** -0.5)
+    attention.banded_rel_attention(*[a.bfloat16() for a in args[:5]], args[5], window=10,
+                                   scale=96 ** -0.5)
     torch.cuda.synchronize()
     assert called == []
 
@@ -478,9 +584,11 @@ def _chip_smoke():
 @pytest.mark.gpu
 def test_yardsticks_compute_the_same_function(rng, cuda):
     """chip_smoke.py's yardsticks for the redesigned kernels (the bf16
-    unit on mma.sync, the SIMT kernel 2) still compute their kernels' functions, so
-    their times are comparable: the bf16 stage within the bf16 bars of the
-    plain version, kernel 2 within 1e-5."""
+    unit on mma.sync, the SIMT kernel 2, the SIMT chain and the mma.sync
+    float32 unit beside kernel 4, the first bf16 kernel 2) still compute their
+    kernels' functions, so their times are comparable: the bf16 stage and
+    kernel 2 in bf16 within the bf16 bars of the plain version, kernel 2
+    within 1e-5, the chains within 2e-5 of the largest magnitude."""
     cs = _chip_smoke()
     x = torch.from_numpy(rng.standard_normal((2, 1237, 128)).astype(np.float32)).to(cuda)
     chains = _bf16_chains(rng, cuda, 128, ((11, (1, 3, 5)), (3, (1, 3, 5))))
@@ -493,6 +601,16 @@ def test_yardsticks_compute_the_same_function(rng, cuda):
     torch.testing.assert_close(
         got, attention.banded_rel_attention_plain(*args, window=10, scale=96 ** -0.5),
         atol=1e-5, rtol=1e-5)
+    args16 = [a.bfloat16() for a in args[:5]] + [args[5]]
+    got = cs.attention_bf16_sync(*args16, window=10, scale=96 ** -0.5)
+    torch.cuda.synchronize()
+    _bf16_close(got, attention.banded_rel_attention_plain(*args16, window=10, scale=96 ** -0.5))
+    x, convs, _ = _train_chain(rng, cuda, 128, 11, (1, 3, 5), 500)
+    with torch.no_grad():
+        convs = [(w.detach(), b.detach(), k, d) for w, b, k, d in convs]
+        ref = resblock.fused_resblock1_plain(x.detach(), convs)
+        for chain in (cs.previous_chain, cs.mma_sync_chain):
+            _scaled_close(chain(x.detach(), convs), ref, 2e-5)
 
 
 # ---- bfloat16: kernels 1 and 2 in bf16 and kernel 8 ----

@@ -41,12 +41,13 @@ def test_port_imports_no_jax(path):
 
 def test_simt_yardsticks_are_named_only_by_chip_smoke():
     """The entries that redesigned kernels replaced are on no path of the
-    port: the float32 SIMT backward of kernels 5 and 7, the bf16 unit on
-    mma.sync (kernels 1 and 8) and the SIMT kernel 2. No module names them
-    but the library's table of entry points, and chip_smoke.py times them as
-    its yardsticks."""
-    names = ("rvc_resblock1_bwd_simt", "rvc_wn_bwd_simt", "rvc_resblock_unit_bf16_sync",
-             "rvc_banded_attention_simt")
+    port: the float32 SIMT chain forward and backward of kernels 4, 5 and 7,
+    the bf16 unit on mma.sync (kernels 1 and 8), the SIMT kernel 2 and the first
+    bf16 kernel 2. No module names them but the library's table of entry
+    points, and chip_smoke.py times them as its yardsticks."""
+    names = ("rvc_resblock1_fwd_simt", "rvc_resblock1_bwd_simt", "rvc_wn_bwd_simt",
+             "rvc_resblock_unit_bf16_sync", "rvc_banded_attention_simt",
+             "rvc_banded_attention_bf16_sync")
     naming = {str(p.relative_to(REPO)) for p in _port_files()
               if any(n in p.read_text() for n in names)}
     assert naming == {"rvc_tpu_torch/ops/_cuda.py", "chip_smoke.py"}
@@ -215,4 +216,36 @@ def test_weights_are_packed_once_per_set_of_weights():
     assert len(calls) == 2 and torch.equal(again, w * 2)
     other = w.clone()
     assert resblock.packed(other, pack) is not again and len(calls) == 3
-    assert resblock.packed(other, resblock.pack_bf16_weights) is not resblock.packed(other, pack)
+    wide = torch.ones(16, 16, 3)  # a width the bf16 packing takes
+    assert resblock.packed(wide, resblock.pack_bf16_weights) is not resblock.packed(wide, pack)
+
+
+def test_weights_with_autograd_history_are_packed_and_not_kept():
+    """Weights that carry autograd history (weight norm folds them anew every
+    training step) are packed at every call and never enter the cache, which
+    would keep each step's weights alive; a leaf that wants gradients is
+    cached as any other tensor."""
+    calls = []
+
+    def pack(ws):
+        calls.append(1)
+        return torch.stack(ws).detach() * 2
+
+    leaf = torch.arange(24.0).reshape(2, 3, 4).requires_grad_()
+    kept = len(resblock._pack_cache)
+    for step in range(3):
+        folded = leaf * 1.0
+        assert torch.equal(resblock.packed((folded, leaf), pack)[0], leaf.detach() * 2)
+        assert len(calls) == step + 1 and len(resblock._pack_cache) == kept
+    first = resblock.packed((leaf,), pack)
+    assert resblock.packed((leaf,), pack) is first and len(resblock._pack_cache) == kept + 1
+
+
+def test_swizzle_refuses_rows_not_in_groups_of_8():
+    """The 128-byte swizzle permutes chunks within each group of 8 rows and is
+    its own inverse; a row count not a multiple of 8 is refused."""
+    v = torch.arange(16 * 8 * 3.0).reshape(16, 8, 3)
+    once = resblock._swizzle(v)
+    assert torch.equal(once[9, 2], v[9, 2 ^ 1]) and torch.equal(resblock._swizzle(once), v)
+    with pytest.raises(ValueError):
+        resblock._swizzle(v[:12])
