@@ -7,8 +7,10 @@ Phases, each announced on its own line:
   2. the build: nvcc compiles the CUDA kernels of rvc_tpu_torch/csrc into
      one shared library (seconds and the -Xptxas -v summary are printed);
      the library's SASS must hold wgmma (HGMMA) and bulk copies (UBLKCP)
-     in the bf16 unit kernel and in kernel 4's conv kernel, and mma.sync
-     (HMMA) in kernel 2 (float32) and in kernel 2's bf16 launches;
+     in the bf16 unit kernel, in kernel 4's conv kernel and in kernel 6's
+     two (its in-conv with the gate, its res/skip 1x1), and mma.sync
+     (HMMA) in kernel 2 (float32) and in kernel 2's bf16 launches; kernels
+     whose wgmma ptxas serialized (C7515) are named;
   3. each kernel against its plain PyTorch version at the shapes of the
      30 s conversion of phase 4, with its time, its plain version's time
      and two bounds (the least time the card could take): bound_ms for
@@ -31,15 +33,19 @@ Phases, each announced on its own line:
   5. a reference check: 3 s converted on the card and on the CPU (plain
      versions, same weights and draws) agree within a stated tolerance;
   6. the training kernels (4-7) against their plain versions at the shapes
-     of the training run of phase 7, values and every gradient, with their
-     times and bounds; previous_ms, per decoder stage or WN depth and in
-     all, the float32 SIMT kernels that their tensor-core versions replaced
-     (kernel 4: previous_chain; kernels 5 and 7: resblock1_backward_simt,
+     of the training run of phase 7, values and every gradient (kernel 7's
+     on kernel 6's saved values), with their times and bounds; previous_ms,
+     per decoder stage or WN depth and in all, the float32 SIMT kernels
+     that their tensor-core versions replaced (kernel 4: previous_chain;
+     kernel 6: wn_forward_simt; kernels 5 and 7: resblock1_backward_simt,
      wn_backward_simt), timed in turns with them in the same run; for
      kernel 4 also mma_sync_ms, the chain through kernel 1's float32 unit
-     on mma.sync (mma_sync_chain); the weights' packing of kernels 4, 5 and
-     7 (per training step, as the weights change every step) timed apart
-     as pack_ms and left out of every kernel time;
+     on mma.sync (mma_sync_chain); the weights' packing of kernels 4-7 (per
+     training step, as the weights change every step) timed apart as
+     pack_ms and left out of every kernel time; kernel 6's times (and its
+     yardstick's and plain version's) are the device's alone, the calls
+     queued behind a sleep on the card (short stacks are quicker on the
+     card than the host enqueues them), and its grids are printed;
   7. the training path: an RVCDataset of 8 clips cut from the speech fixture
      (48 kHz, seeded random features and f0), Trainer(preset("48k_v2")) at
      full width with random weights, one warm-up step and 5 timed steps from
@@ -124,13 +130,18 @@ def speech(seconds: float, offset_s: float) -> np.ndarray:
     return out
 
 
-def timed(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Milliseconds per call: CUDA events around ``reps`` calls after warm-up."""
+def timed(fn, reps: int = 10, warmup: int = 2, device_only: bool = False) -> float:
+    """Milliseconds per call: CUDA events around ``reps`` calls after warm-up.
+    With ``device_only`` the card first sleeps (about 2 ms a call) while the
+    host queues the calls, so that they run back to back and the events time
+    the device's work alone, not the host's enqueueing."""
     import torch
 
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if device_only:
+        torch.cuda._sleep(int(4e6 * reps))
     start.record()
     for _ in range(reps):
         fn()
@@ -742,6 +753,43 @@ def simt_backward_weights(convs):
     return taps, taps.flip(1).transpose(2, 3).contiguous(), bias, dil
 
 
+def wn_forward_simt(x, w_a, w_b, b_ab, g_ab, w_res, w_skip, b_rs2, lengths, *,
+                    kernel_size: int):
+    """Kernel 6 as first written, on the float32 SIMT pipes
+    (``rvc_wn_fwd_simt``, a launch per layer): on no path of the port, timed
+    here beside kernel 6 as its same-run yardstick. Returns what
+    ``wavenet._forward`` returns: (out, xs, pre)."""
+    import torch
+
+    from rvc_tpu_torch.ops import _cuda
+
+    B, T, C = x.shape
+    L = w_res.shape[0]
+    args = [t.contiguous() for t in (w_a, w_b, b_ab, g_ab, w_res, w_skip, b_rs2)]
+    lens = lengths.to(torch.int32).contiguous()
+    xs = x.new_empty((max(L - 1, 1), B, T, C))
+    pre = x.new_empty((2, L, B, T, C))
+    out = torch.empty_like(x)
+    err = _cuda.library().rvc_wn_fwd_simt(
+        x.data_ptr(), xs.data_ptr(), pre[0].data_ptr(), pre[1].data_ptr(), out.data_ptr(),
+        *[t.data_ptr() for t in args], lens.data_ptr(), B, T, C, kernel_size, L,
+        _cuda.stream_ptr(x))
+    _cuda.check(err, "wn_fwd_simt launch")
+    return out, xs, pre
+
+
+def wn_grids(B: int, T: int, C: int) -> str:
+    """Kernel 6's grids, as csrc/wavenet.cu's rvc_wn_fwd picks them: 128-row
+    blocks over the B T rows, outputs in blocks of 48 where they divide the
+    launch's N (2C; C in the last layer's 1x1), else 32, else 16."""
+    rows = -(-B * T // 128)
+    nb = lambda n: 48 if n % 48 == 0 else 32 if n % 32 == 0 else 16  # noqa: E731
+    return (f"in-conv and 1x1 {rows} x {2 * C // nb(2 * C)} = "
+            f"{rows * (2 * C // nb(2 * C))} blocks, the last 1x1 {rows} x {C // nb(C)} = "
+            f"{rows * (C // nb(C))}, for 132 SMs ({rows * 128 - B * T} of {rows * 128} rows "
+            f"past B T)")
+
+
 def wn_backward_simt(x, xs, pre, gy, w_a, w_b, b_ab, g_ab, w_res, w_skip, b_rs2, lengths, *,
                      kernel_size: int):
     """Kernel 7 as PR 5 wrote it, on the float32 SIMT pipes
@@ -922,7 +970,8 @@ def check_wn_train(trainer, lengths, T: int, gen) -> tuple[dict, dict]:
     """Kernels 6 (WN stack) and 7 (its VJP) on every WN stack of the
     generator (the posterior encoder's 16 layers, each flow's 3) at the
     training batch's shape and lengths: values, then dx and every weight
-    and conditioning gradient against autograd of the plain stack."""
+    and conditioning gradient on kernel 6's saved values against autograd
+    of the plain stack."""
     import torch
 
     from rvc_tpu_torch.ops import wavenet as wn
@@ -944,14 +993,24 @@ def check_wn_train(trainer, lengths, T: int, gen) -> tuple[dict, dict]:
         x = torch.randn(B, T, C, generator=gen).to(dev) * mask.transpose(1, 2)
         gy = torch.randn(B, T, C, generator=gen).to(dev)
         y, xs, pre = wn._forward(x, *ws, lengths_t, k)
+        again = wn._forward(x, *ws, lengths_t, k)
+        simt = wn_forward_simt(x, *ws, lengths_t, kernel_size=k)
         got = wn.fused_wn_backward(x, xs, pre, gy, *ws, lengths_t, kernel_size=k)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((y, xs, pre), again)):
+            fail(f"two calls of kernel 6 differ (L={L})")
         y_ref = wn.fused_wn_plain(x, *ws, lengths_t, kernel_size=k)
         g_ref = wn.fused_wn_backward_plain(x, xs, pre, gy, *ws, lengths_t, kernel_size=k)
         err, sc = scaled(y, y_ref)
         if not err <= VALUE_TOL * sc:
             fail(f"kernel 6 disagrees with its plain version (L={L}): {err:.3g} > "
                  f"{VALUE_TOL} x {sc:.3g}")
+        # the yardstick computes the same function and keeps the same values
+        kept = [(y, simt[0]), (pre, simt[2])] + ([(xs, simt[1])] if L > 1 else [])
+        vs_simt = max(e / s_ for e, s_ in (scaled(a, b) for a, b in kept))
+        if not vs_simt <= VALUE_TOL:
+            fail(f"kernel 6 and its yardstick differ (L={L}): {vs_simt:.3g} of the largest "
+                 f"magnitude > {VALUE_TOL}")
         gerrs = [scaled(a, r) for a, r in zip(got, g_ref)]
         names = ("dx", "dWa", "dWb", "dBab", "dG", "dWres", "dWskip", "dBrs")
         for name, (e, s_) in zip(names, gerrs):
@@ -960,13 +1019,28 @@ def check_wn_train(trainer, lengths, T: int, gen) -> tuple[dict, dict]:
                      f"{e:.3g} > {GRAD_TOL} x {s_:.3g}")
         tot["fwd"]["err"] = max(tot["fwd"]["err"], err)
         tot["bwd"]["err"] = max([tot["bwd"]["err"]] + [e for e, _ in gerrs])
+        act, wts = B * T * C * 4, sum(w.numel() for w in ws) * 4
+        rows = B * T
+        cost = {"fwd": (L * rows * (4 * k * C * C + 4 * C * C), (3 * L + 1) * act + wts),
+                "bwd": (L * rows * (8 * k * C * C + 8 * C * C), (3 * L + 2) * act + 2 * wts)}
         if L not in timed_for:  # stacks of one depth share shapes: time one of each
-            ms6 = timed(lambda: wn._forward(x, *ws, lengths_t, k), reps=5)
-            plain6 = timed(lambda: wn.fused_wn_plain(x, *ws, lengths_t, kernel_size=k), reps=5)
-            # kernel 7 on weights packed before the timed calls, and the SIMT
-            # backward it replaced, in turns; the packing (once a training
-            # step) timed apart
+            # kernel 6 on weights packed before the timed calls and the SIMT
+            # forward it replaced, in turns; the packing (once a training
+            # step) apart; device time alone for all of kernel 6's row
             w_a, w_b, _, _, w_res, w_skip, _ = ws
+            packs6 = wn.pack_forward_weights(w_a, w_b, w_res, w_skip, k)
+            run6 = lambda: wn._forward(x, *ws, lengths_t, k, packs6)  # noqa: E731
+            run_prev6 = lambda: wn_forward_simt(x, *ws, lengths_t, kernel_size=k)  # noqa: E731
+            prev6 = timed(run_prev6, reps=5, device_only=True)
+            ms6 = min(timed(run6, reps=10, device_only=True),
+                      timed(run6, reps=10, device_only=True))
+            prev6 = min(prev6, timed(run_prev6, reps=5, device_only=True))
+            pack6 = timed(lambda: wn.pack_forward_weights(w_a, w_b, w_res, w_skip, k), reps=5,
+                          device_only=True)
+            plain6 = timed(lambda: wn.fused_wn_plain(x, *ws, lengths_t, kernel_size=k), reps=5,
+                           device_only=True)
+            # kernel 7 on weights packed before the timed calls, and the SIMT
+            # backward it replaced, in turns; the packing apart
             packs7 = wn.pack_backward_weights(w_a, w_b, w_res, w_skip, k)
             run7 = lambda: wn.fused_wn_backward(x, xs, pre, gy, *ws, lengths_t,  # noqa: E731
                                                 kernel_size=k, packs=packs7)
@@ -978,20 +1052,21 @@ def check_wn_train(trainer, lengths, T: int, gen) -> tuple[dict, dict]:
             pack7 = timed(lambda: wn.pack_backward_weights(w_a, w_b, w_res, w_skip, k), reps=5)
             plain7 = timed(lambda: wn.fused_wn_backward_plain(x, xs, pre, gy, *ws, lengths_t,
                                                               kernel_size=k), reps=5)
-            timed_for[L] = (ms6, plain6, ms7, plain7, prev7, pack7)
+            timed_for[L] = (ms6, plain6, prev6, pack6, ms7, plain7, prev7, pack7)
             say(f"  WN stack x ({B}, {T}, {C}), L {L}, lengths {lens.tolist()}: kernel 6 ms "
-                f"{ms6:.3f} (plain {plain6:.3f}, err {err:.3g}), kernel 7 ms {ms7:.3f} "
+                f"{ms6:.4f} (previous_ms {prev6:.4f}, kernel below it: {ms6 < prev6}; plain "
+                f"{plain6:.4f}, kernel below it: {ms6 < plain6}; packing {pack6:.4f}; bound "
+                f"{bound_tc(*cost['fwd'])[0]:.4f}; err {err:.3g} of the largest, {vs_simt:.3g} "
+                f"against the yardstick in out, xs, pre; grids: {wn_grids(B, T, C)}), kernel 7 "
+                f"ms {ms7:.3f} "
                 f"(previous_ms {prev7:.3f}, kernel below it: {ms7 < prev7}; packing "
                 f"{pack7:.3f}; plain "
                 f"{plain7:.3f}, worst grad err {max(e / s_ for e, s_ in gerrs):.3g} "
                 f"of its largest magnitude)")
-        ms6, plain6, ms7, plain7, prev7, pack7 = timed_for[L]
-        tot["bwd"]["previous_ms"] += prev7
-        tot["bwd"]["pack_ms"] += pack7
-        act, wts = B * T * C * 4, sum(w.numel() for w in ws) * 4
-        rows = B * T
-        cost = {"fwd": (L * rows * (4 * k * C * C + 4 * C * C), (3 * L + 1) * act + wts),
-                "bwd": (L * rows * (8 * k * C * C + 8 * C * C), (3 * L + 2) * act + 2 * wts)}
+        ms6, plain6, prev6, pack6, ms7, plain7, prev7, pack7 = timed_for[L]
+        for key, prev, pack in (("fwd", prev6, pack6), ("bwd", prev7, pack7)):
+            tot[key]["previous_ms"] += prev
+            tot[key]["pack_ms"] += pack
         for key, ms, plain in (("fwd", ms6, plain6), ("bwd", ms7, plain7)):
             flops, nbytes = cost[key]
             t = tot[key]
@@ -1303,15 +1378,20 @@ def main() -> int:
     say(f"[2/12] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
         f"(load {time.perf_counter() - t0:.2f} s)")
     say("ptxas: " + "; ".join(info["ptxas"]))
+    say("ptxas C7515 (wgmma serialized): " + (", ".join(info["serialized"]) or "none"))
     sass = sass_counts()
     unit, attn = sass.get("resblock_unit_wgmma_kernel"), sass.get("banded_attention_tc_kernel")
     chain, attn16 = sass.get("chain_conv_kernel"), sass.get("attn_pv_kernel")
+    gate, res_skip = sass.get("wn_gate_kernel"), sass.get("wn_res_skip_kernel")
     say(f"sass: the bf16 unit kernel (kernels 1 and 8) {unit}, kernel 4's conv kernel {chain}, "
+        f"kernel 6's in-conv {gate} and res/skip 1x1 {res_skip}, "
         f"kernel 2 in float32 {attn}, kernel 2 in bf16 (its P.V launch) {attn16} and its stats "
         f"launch {sass.get('attn_stats_kernel')}")
-    if not (unit and unit["HGMMA"] and unit["bulk copies"] and chain and chain["HGMMA"]
-            and chain["bulk copies"] and attn and attn["HMMA"] and attn16 and attn16["HMMA"]):
-        fail("a unit kernel lacks wgmma or bulk copies, or kernel 2 lacks mma.sync")
+    if not all(kern and kern["HGMMA"] and kern["bulk copies"]
+               for kern in (unit, chain, gate, res_skip)):
+        fail("a unit or conv kernel lacks wgmma or bulk copies")
+    if not (attn and attn["HMMA"] and attn16 and attn16["HMMA"]):
+        fail("kernel 2 lacks mma.sync")
 
     from rvc_tpu_torch.ops import attention, resblock, retrieval
     from rvc_tpu_torch.ops.filters import butter_highpass_host
@@ -1482,7 +1562,7 @@ def main() -> int:
                       "rvc_tpu/ops/pallas_attention.py:156"),
         "nearest": ("nearest_rows_q", "rvc_tpu_torch/csrc/nearest_rows.cu",
                     "rvc_tpu/ops/pallas_retrieval.py:99"),
-        "chain": ("fused_resblock1", "rvc_tpu_torch/csrc/resblock_group.cu",
+        "chain": ("fused_resblock1", "rvc_tpu_torch/csrc/resblock_chain.cu",
                   "rvc_tpu/ops/pallas_resblock.py:86"),
         "chain_bwd": ("fused_resblock1_backward", "rvc_tpu_torch/csrc/resblock_bwd.cu",
                       "rvc_tpu/ops/pallas_resblock.py:223"),

@@ -1,9 +1,10 @@
 // Hopper-only building blocks (sm_90a) of the bf16 unit kernel
-// (resblock_group.cu), kernel 4's TF32 chain (resblock_chain.cu), kernel 2 in
-// bf16 (banded_attention.cu) and the wgmma probe (bench/wgmma_peak.cu):
+// (resblock_group.cu), the TF32 conv core of kernels 4 and 6 (tf32_conv.cuh),
+// kernel 2 in bf16 (banded_attention.cu) and the wgmma probe
+// (bench/wgmma_peak.cu):
 // mbarriers, the 1-D bulk copy (cp.async.bulk, no tensor map), ldmatrix,
-// named barriers, and wgmma (bf16 and TF32) with A from registers and B from
-// shared memory.
+// named barriers, programmatic dependent launch, and wgmma (bf16 and TF32)
+// with A from registers and B from shared memory.
 //
 // wgmma.mma_async m64nNk16 (PTX ISA, "Asynchronous Warpgroup Level Matrix
 // Multiply-Accumulate"): the four warps of a warpgroup compute a 64 x N tile
@@ -99,6 +100,19 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
+}
+
+// ---- programmatic dependent launch ----
+
+// waits until the kernels this grid depends on have completed and their
+// writes are visible (at once when it was not launched as a dependent)
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// lets the grid launched after this one as its dependent be scheduled
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // ---- wgmma ----
@@ -237,6 +251,24 @@ struct WgmmaTf32<64> {
           "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
           "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32<48> {
+  __device__ __forceinline__ static void mma(float (&d)[24], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23}, "
+        "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };

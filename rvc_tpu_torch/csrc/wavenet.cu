@@ -10,12 +10,25 @@
 //     skip += acts Wskip_i + bskip_i
 // and the stack returns skip * mask, mask = (t < lengths[b]).
 //
-// Forward: one launch per layer (a whole-stack tile would need an L (k-1)
-// row halo): a block loads its rows of x with the k-tap halo into shared
-// memory, computes a and b in registers (rowconv, both halves in one pass),
-// writes them out for the backward, puts the gate's output in shared memory
-// and applies the res/skip 1x1 products, the mask and the skip accumulation.
-// C = 192 needs no padding: the block has C/4 column threads.
+// Forward (kernel 6, rvc_wn_fwd): two launches a layer (a whole-stack tile
+// would need an L (k-1) row halo) on the TF32 wgmma conv core that kernel 4
+// shares (tf32_conv.cuh), in 3xTF32:
+// - the in-conv (K = k C, N = 2C) with w_a and w_b interleaved by groups of
+//   8 channels (outputs 16q..16q+7 are a of channels 8q..8q+7, the next 8
+//   their b), so that each thread's wgmma sums hold both halves of its
+//   channels and it writes them as float2 (a row's four threads: a 32-byte
+//   sector); its epilogue adds the bias and g, writes pre_a and pre_b for
+//   kernel 7 and acts = tanh(a) sigmoid(b) to a scratch buffer (1.2 MB at
+//   the training shapes, through L2);
+// - the res/skip 1x1 (K = C, N = 2C, res and skip interleaved alike) over
+//   acts; its epilogue writes x_{i+1} = (x_i + res + bres) mask to its own
+//   buffer (kernel 7 reads every layer's input) and adds into skip; the
+//   last layer computes only skip (N = C) and masks it.
+// The B T rows of the batch are one slab of the core, tiled by 128-row
+// blocks (1664 rows for the training batch's 1600, not 2048 when each
+// sample starts a block), with each tap kept within its row's sample. The
+// SIMT forward it replaced (rvc_wn_fwd_simt, one launch a layer on rowconv,
+// C/4 column threads) stays as chip_smoke.py's yardstick, on no path.
 //
 // Backward, per layer in reverse (the forward's x_i and a, b kept):
 //   gate: d_res = dx_{i+1} mask, d_acts = [d_res | ds] [Wres^T; Wskip^T]
@@ -32,17 +45,20 @@
 //
 // What bounds it: operations. A layer's in-conv does 2 k C^2 multiply-adds
 // per row for each half and the 1x1 products 2 C^2, about 1.1 GFLOP per
-// layer at (4, 400, 192), against ~4 MB of activations moved. The forward
-// runs on the float32 pipes (rowconv). The backward ran there too
-// (rvc_wn_bwd_simt, kept on no path of the port as the same-run yardstick),
-// at under a tenth of that pipe's bound: at (4, 400, 192) its gate and dx
-// launches had 40 blocks for 132 SMs. rvc_wn_bwd runs the gate's 1x1
+// layer at (4, 400, 192), against ~4 MB of activations moved: the forward's
+// three TF32 passes take 8.6 us a layer at the card's TF32 rate, so launch
+// tails count as much as the products. The forward ran on the float32
+// pipes (rvc_wn_fwd_simt) at 23.6 times its bound. The backward ran there
+// too (rvc_wn_bwd_simt, kept on no path of the port as the same-run
+// yardstick), at under a tenth of that pipe's bound: at (4, 400, 192) its
+// gate and dx launches had 40 blocks for 132 SMs. rvc_wn_bwd runs the gate's 1x1
 // product (K = 2C over [d_res | ds]), the dx conv (K = 2C k over
 // [d_a | d_b]) and the four weight gradients in 3xTF32 on mma.sync
 // (tc_rowconv.cuh), with grids sized to fill the card; the gate math and
 // the mask stay float32 in the epilogue.
 
 #include "tc_rowconv.cuh"
+#include "tf32_conv.cuh"
 
 namespace {
 
@@ -228,15 +244,17 @@ WgPlan plan_for(int B, int T, int C, int k) {
 
 }  // namespace
 
-// x (B, T, C); writes xs (L-1, B, T, C) (inputs of layers 1..L-1), pre_a,
-// pre_b (L, B, T, C) and out = skip * mask (B, T, C). Weights as the module
+// Kernel 6 as first written, on the float32 SIMT pipes (the yardstick of
+// rvc_wn_fwd, launched only by chip_smoke.py): one launch a layer. x (B, T,
+// C); writes xs (L-1, B, T, C) (inputs of layers 1..L-1), pre_a, pre_b (L,
+// B, T, C) and out = skip * mask (B, T, C). Weights as the module
 // docstring; g_ab (B, 2L, C); lengths (B,) int32. C a multiple of 16, at
-// most 256, k odd (the wrapper checks).
-extern "C" int rvc_wn_fwd(const void* x, void* xs, void* pre_a, void* pre_b, void* out,
-                          const void* w_a, const void* w_b, const void* b_ab, const void* g_ab,
-                          const void* w_res, const void* w_skip, const void* b_rs2,
-                          const void* lengths, int B, int T, int C, int k, int L,
-                          void* stream) {
+// most 256, k odd.
+extern "C" int rvc_wn_fwd_simt(const void* x, void* xs, void* pre_a, void* pre_b, void* out,
+                               const void* w_a, const void* w_b, const void* b_ab,
+                               const void* g_ab, const void* w_res, const void* w_skip,
+                               const void* b_rs2, const void* lengths, int B, int T, int C,
+                               int k, int L, void* stream) {
   const size_t btc = (size_t)B * T * C, wk = (size_t)k * C * C, cc = (size_t)C * C;
   const Layout l = layout(C);
   const int p = (k - 1) / 2, S = C + 4;
@@ -268,7 +286,7 @@ extern "C" long long rvc_wn_bwd_simt_workspace(int B, int T, int C, int k) {
   return (long long)(7 * (size_t)B * T * C + wgrad_floats(B, T, C, 4, ks));
 }
 
-// The VJP of rvc_wn_fwd on the float32 SIMT pipes (the yardstick of
+// The VJP of the stack on the float32 SIMT pipes (the yardstick of
 // rvc_wn_bwd). wabT (L, k, 2C, C): [d_a | d_b] -> dx taps;
 // wrsT (L, 2C, C): [Wres_i^T; Wskip_i^T]. Writes dx (B, T, C) and the
 // weight gradients dwa, dwb (L k, C, C), dbab (2L, C), dg (B, 2L, C),
@@ -433,8 +451,8 @@ extern "C" long long rvc_wn_bwd_workspace(int B, int T, int C, int k) {
   return (long long)(6 * (size_t)B * T * C + tck::tc_wgrad_floats(tc_plan(B, T, C, k)));
 }
 
-// Kernel 7: the VJP of rvc_wn_fwd on the tensor cores. pab (L packed convs):
-// each layer's [d_a | d_b] -> dx conv, a (C, 2C, k) conv with flipped,
+// Kernel 7: the VJP of kernel 6 (rvc_wn_fwd) on the tensor cores. pab (L
+// packed convs): each layer's [d_a | d_b] -> dx conv, a (C, 2C, k) conv with flipped,
 // transposed taps; prs (L packed convs): [Wres_i^T; Wskip_i^T] as a (C, 2C,
 // 1) conv; both as ops/resblock.py::pack_tf32_weights lays a conv out.
 // Writes dx (B, T, C) and the weight gradients dwa, dwb (L k, C, C), dbab
@@ -489,6 +507,177 @@ extern "C" int rvc_wn_bwd(const void* x, const void* xs, const void* pre_a, cons
     P.P.job[3] = rowk::WgJob{acts, ds, (float*)dwskip + i * cc,
                              (float*)dbrs + (size_t)(L + i) * C, nullptr, 1, 1, 0, 0, 0};
     if ((err = tck::tc_wgrad_launch(P, part, s)) != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// kernel 6 on the tensor cores
+
+namespace {
+
+__device__ __forceinline__ float2 ldg2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ void st2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+// The in-conv's epilogue. Its outputs are interleaved by groups of 8
+// channels: n8 tile 2m of the block holds a of 8 channels and tile 2m + 1 b
+// of the same 8, so that each thread holds both halves of its channels c,
+// c + 1. Writes the gate's pre-activations (bias and g included) for kernel
+// 7 and acts = tanh(a) sigmoid(b) for the 1x1 launch, a float2 a thread
+// (the four threads of a row: 32 bytes).
+struct Gate {
+  float* pre_a;
+  float* pre_b;
+  float* acts;
+  const float* ba;
+  const float* bb;
+  const float* ga;
+  const float* gb;
+  int gs, T, C;
+  template <int N2>
+  __device__ __forceinline__ void operator()(int r, int h, int n0, int t,
+                                             const float (&acc)[N2]) const {
+    const size_t gi = (size_t)(r / T) * gs;
+#pragma unroll
+    for (int m = 0; m < N2 / 8; ++m) {
+      const int c = n0 / 2 + 8 * m + 2 * t;
+      const float2 bA = ldg2(ba + c), bB = ldg2(bb + c);
+      const float2 gA = ldg2(ga + gi + c), gB = ldg2(gb + gi + c);
+      const float a0 = acc[8 * m + 2 * h] + (bA.x + gA.x);
+      const float a1 = acc[8 * m + 2 * h + 1] + (bA.y + gA.y);
+      const float b0 = acc[8 * m + 4 + 2 * h] + (bB.x + gB.x);
+      const float b1 = acc[8 * m + 4 + 2 * h + 1] + (bB.y + gB.y);
+      const size_t at = (size_t)r * C + c;
+      st2(pre_a + at, a0, a1);
+      st2(pre_b + at, b0, b1);
+      st2(acts + at, tanhf(a0) * rowk::sigmoidf_(b0), tanhf(a1) * rowk::sigmoidf_(b1));
+    }
+  }
+};
+
+// The 1x1's epilogue. Below the last layer its outputs are interleaved as
+// the in-conv's: tile 2m res of 8 channels, tile 2m + 1 their skip; x_out =
+// (x_in + res + bres) keep and skip (+)= skip_c + bskip. The last layer has
+// only skip outputs, in order (its res is zero and not computed), and masks
+// the sum.
+struct ResSkip {
+  const float* x_in;
+  float* x_out;
+  float* skip;
+  const float* bres;
+  const float* bskip;
+  const int* lengths;
+  int T, C, first, last;
+  template <int N2>
+  __device__ __forceinline__ void operator()(int r, int h, int n0, int t,
+                                             const float (&acc)[N2]) const {
+    const int b = r / T;
+    const float keep = r - b * T < __ldg(lengths + b) ? 1.f : 0.f;
+    if (!last) {
+#pragma unroll
+      for (int m = 0; m < N2 / 8; ++m) {
+        const int c = n0 / 2 + 8 * m + 2 * t;
+        const size_t at = (size_t)r * C + c;
+        const float2 xv = ldg2(x_in + at), bR = ldg2(bres + c), bS = ldg2(bskip + c);
+        st2(x_out + at, (xv.x + (acc[8 * m + 2 * h] + bR.x)) * keep,
+            (xv.y + (acc[8 * m + 2 * h + 1] + bR.y)) * keep);
+        float2 sk =
+            make_float2(acc[8 * m + 4 + 2 * h] + bS.x, acc[8 * m + 4 + 2 * h + 1] + bS.y);
+        if (!first) {
+          const float2 old = *reinterpret_cast<const float2*>(skip + at);
+          sk = make_float2(old.x + sk.x, old.y + sk.y);
+        }
+        st2(skip + at, sk.x, sk.y);
+      }
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < N2 / 4; ++j) {
+      const int c = n0 + 8 * j + 2 * t;
+      const size_t at = (size_t)r * C + c;
+      const float2 bS = ldg2(bskip + c);
+      float2 sk = make_float2(acc[4 * j + 2 * h] + bS.x, acc[4 * j + 2 * h + 1] + bS.y);
+      if (!first) {
+        const float2 old = *reinterpret_cast<const float2*>(skip + at);
+        sk = make_float2(old.x + sk.x, old.y + sk.y);
+      }
+      st2(skip + at, sk.x * keep, sk.y * keep);
+    }
+  }
+};
+
+// the in-conv over the stack's B T rows as one slab of the core, its taps
+// kept within each sample
+template <int NB>
+__global__ void __launch_bounds__(tfc::THREADS, 1) wn_gate_kernel(tfc::Conv cv, Gate epi) {
+  tfc::conv_core<NB, 1, true, tfc::Identity>(cv, epi);
+}
+
+template <int NB>
+__global__ void __launch_bounds__(tfc::THREADS, 1) wn_res_skip_kernel(tfc::Conv cv, ResSkip epi) {
+  tfc::conv_core<NB, 1, false, tfc::Identity>(cv, epi);
+}
+
+// A block's outputs (a multiple of 16: whole groups of 8 channels of both
+// halves): 48 where they divide N (8 blocks across 2C = 384 at C = 192: 13 x
+// 8 = 104 blocks over the 1600 rows of the training batch, one wave), else
+// 32, else 16.
+int gate(const tfc::Conv& cv, const Gate& e, int N, cudaStream_t s) {
+  return N % 48 == 0 ? tfc::launch<48, 1>(wn_gate_kernel<48>, cv, e, 1, N, s)
+                     : tfc::launch<32, 1>(wn_gate_kernel<32>, cv, e, 1, N, s);
+}
+
+int res_skip(const tfc::Conv& cv, const ResSkip& e, int N, cudaStream_t s) {
+  if (N % 48 == 0) return tfc::launch<48, 1>(wn_res_skip_kernel<48>, cv, e, 1, N, s);
+  if (N % 32 == 0) return tfc::launch<32, 1>(wn_res_skip_kernel<32>, cv, e, 1, N, s);
+  return tfc::launch<16, 1>(wn_res_skip_kernel<16>, cv, e, 1, N, s);
+}
+
+}  // namespace
+
+// Kernel 6. x (B, T, C); writes xs (L-1, B, T, C) (inputs of layers
+// 1..L-1), pre_a, pre_b (L, B, T, C) and out = skip * mask (B, T, C); acts:
+// (B, T, C) scratch. w_ab, w_rs: each layer's in-conv, a (2C, C, k) conv
+// with a and b interleaved by 8 channels, and its 1x1, a (2C, C, 1) conv
+// with res and skip interleaved alike (the last layer's: skip in rows
+// 0..C-1), each as
+// ops/resblock.py::pack_tf32_wgmma_weights lays a conv out (ops/wavenet.py::
+// pack_forward_weights). b_ab, g_ab, b_rs2, lengths as rvc_wn_fwd_simt. C a
+// multiple of 16, at most 256, k odd (the wrapper checks). Two launches a
+// layer on `stream`.
+extern "C" int rvc_wn_fwd(const void* x, void* xs, void* pre_a, void* pre_b, void* out,
+                          void* acts, const void* w_ab, const void* w_rs, const void* b_ab,
+                          const void* g_ab, const void* b_rs2, const void* lengths, int B, int T,
+                          int C, int k, int L, void* stream) {
+  const size_t btc = (size_t)B * T * C;
+  // floats of one layer's packed in-conv and 1x1: 2 images of ceil(K / 32) slices of 2C rows
+  const size_t s_ab = (size_t)2 * ((k * C + 31) / 32) * 2 * C * 32;
+  const size_t s_rs = (size_t)2 * ((C + 31) / 32) * 2 * C * 32;
+  const float* bab = (const float*)b_ab;
+  const float* gab = (const float*)g_ab;
+  const float* brs = (const float*)b_rs2;
+  float* a = (float*)acts;
+  cudaStream_t s = (cudaStream_t)stream;
+  for (int i = 0; i < L; ++i) {
+    const float* xi = i == 0 ? (const float*)x : (const float*)xs + (size_t)(i - 1) * btc;
+    const bool last = i == L - 1;
+    const tfc::Conv in_conv{xi, (const uint8_t*)((const float*)w_ab + i * s_ab), 2 * C, C, k,
+                            1, B * T, T, 0, 0};
+    const Gate ge{(float*)pre_a + i * btc, (float*)pre_b + i * btc, a, bab + (size_t)i * C,
+                  bab + (size_t)(L + i) * C, gab + (size_t)i * C, gab + (size_t)(L + i) * C,
+                  2 * L * C, T, C};
+    int err = gate(in_conv, ge, 2 * C, s);
+    if (err) return err;
+    const tfc::Conv one{a, (const uint8_t*)((const float*)w_rs + i * s_rs), 2 * C, C, 1, 1,
+                        B * T, T, 0, 0};
+    const ResSkip re{xi, last ? nullptr : (float*)xs + (size_t)i * btc, (float*)out,
+                     brs + (size_t)i * C, brs + (size_t)(L + i) * C, (const int*)lengths, T, C,
+                     i == 0, last};
+    if ((err = res_skip(one, re, last ? C : 2 * C, s))) return err;
   }
   return 0;
 }

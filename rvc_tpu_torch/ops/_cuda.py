@@ -25,7 +25,8 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 SOURCES = ("resblock_group.cu", "resblock_chain.cu", "banded_attention.cu", "nearest_rows.cu",
            "resblock_bwd.cu", "wavenet.cu")
-HEADERS = ("rowconv.cuh", "tc_rowconv.cuh", "mma.cuh", "hopper.cuh")  # in the build hash with the sources
+# in the build hash with the sources
+HEADERS = ("rowconv.cuh", "tc_rowconv.cuh", "mma.cuh", "hopper.cuh", "tf32_conv.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -61,7 +62,8 @@ SIGNATURES = {
     "rvc_resblock1_bwd_workspace": [_I] * 4,
     "rvc_resblock1_bwd_simt": [_P] * 10 + [_L] + [_I] * 5 + [_IP, _P],
     "rvc_resblock1_bwd_simt_workspace": [_I] * 4,
-    "rvc_wn_fwd": [_P] * 13 + [_I] * 5 + [_P],
+    "rvc_wn_fwd": [_P] * 12 + [_I] * 5 + [_P],
+    "rvc_wn_fwd_simt": [_P] * 13 + [_I] * 5 + [_P],
     "rvc_wn_bwd": [_P] * 17 + [_L] + [_I] * 5 + [_P],
     "rvc_wn_bwd_workspace": [_I] * 4,
     "rvc_wn_bwd_simt": [_P] * 17 + [_L] + [_I] * 5 + [_P],
@@ -125,6 +127,12 @@ def ptxas_summary(log: str) -> list[str]:
     return out
 
 
+def serialized(log: str) -> list[str]:
+    """The kernels in whose code ptxas serialized wgmma (its C7515 note)."""
+    return sorted({_kernel_name(m.group(1))
+                   for m in re.finditer(r"C7515[^\n]*?'(\w+)'", log)})
+
+
 def _build(target: Path) -> None:
     nvcc = _nvcc()
     work = Path(tempfile.mkdtemp(dir=target.parent))
@@ -168,10 +176,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = RESTYPES.get(name, ctypes.c_int)
+    log = (target / "ptxas.log").read_text()
     build_info.update(
         cached=cached, seconds=float((target / "seconds").read_text()),
-        ptxas=ptxas_summary((target / "ptxas.log").read_text()),
-        path=str(target))
+        ptxas=ptxas_summary(log), serialized=serialized(log), path=str(target))
     _lib = lib
     return lib
 

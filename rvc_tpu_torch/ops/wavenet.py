@@ -13,8 +13,11 @@ and the stack returns skip·mask; ``mask`` is ``t < lengths[b]``. The last
 layer's res weights are zero (its C-wide output is all skip).
 
 On a CUDA tensor ``fused_wn`` is a ``torch.autograd.Function``: its forward
-is kernel 6 (``csrc/wavenet.cu``, one launch per layer, each layer's input
-and gate pre-activations kept) and its backward kernel 7
+is kernel 6 (``csrc/wavenet.cu``: two launches a layer on ``wgmma`` in
+3xTF32, the in-conv with its a and b outputs interleaved by groups of 8
+channels and the res/skip 1x1 with res and skip interleaved alike, on
+weights split and packed at every call by ``pack_forward_weights``; each
+layer's input and gate pre-activations kept) and its backward kernel 7
 (``fused_wn_backward``: dx, dW{a,b}, db{a,b}, dG, dW{res,skip}, db{res,skip},
 the weight gradients reduced on the card in a fixed order). On a CPU tensor
 it runs ``fused_wn_plain``, the same function with ``F.conv1d`` under
@@ -30,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
-from .resblock import MAX_TAPS, pack_tf32_weights
+from .resblock import MAX_TAPS, pack_tf32_weights, pack_tf32_wgmma_weights
 
 
 def fused_wn_plain(x, w_a, w_b, b_ab, g_ab, w_res, w_skip, b_rs2, lengths, *,
@@ -76,21 +79,60 @@ def _check(x, w_a, w_b, b_ab, g_ab, w_res, w_skip, b_rs2, lengths, k: int) -> No
         raise ValueError("lengths must be (B,) on x's device")
 
 
-def _forward(x, w_a, w_b, b_ab, g_ab, w_res, w_skip, b_rs2, lengths, k):
+def interleave(first: torch.Tensor, second: torch.Tensor) -> torch.Tensor:
+    """Two (L, C, ...) stacks of outputs as one (L, 2C, ...), interleaved by
+    groups of 8: rows 16q..16q+7 are first's rows 8q..8q+7, the next 8
+    second's."""
+    L, C = first.shape[:2]
+    pair = torch.stack([first.reshape(L, C // 8, 8, *first.shape[2:]),
+                        second.reshape(L, C // 8, 8, *second.shape[2:])], dim=2)
+    return pair.reshape(L, 2 * C, *first.shape[2:])
+
+
+def forward_convs(w_a, w_b, w_res, w_skip, k: int):
+    """Kernel 6's convs in (O, I, k) layout, per layer, their outputs
+    interleaved by groups of 8 (``interleave``): the in-conv (L, 2C, C, k),
+    a and b; the 1x1 (L, 2C, C, 1), res and skip, but for the last layer,
+    whose res is zero and not computed: skip in rows 0..C-1, zeros after."""
+    L, C = w_res.shape[0], w_res.shape[1]
+    wab = interleave(*[w.reshape(L, k, C, C).permute(0, 3, 2, 1) for w in (w_a, w_b)])
+    wrs = interleave(w_res.transpose(1, 2), w_skip.transpose(1, 2))
+    last = torch.cat([w_skip[-1].t(), torch.zeros_like(w_skip[-1])])
+    return wab, torch.cat([wrs[:-1], last[None]])[..., None]
+
+
+def pack_forward_weights(w_a, w_b, w_res, w_skip, k: int):
+    """Kernel 6's weights: its convs (``forward_convs``) split into TF32
+    images for its ``wgmma`` B operand (``pack_tf32_wgmma_weights``)."""
+    wab, wrs = forward_convs(w_a, w_b, w_res, w_skip, k)
+    return pack_tf32_wgmma_weights(wab), pack_tf32_wgmma_weights(wrs)
+
+
+def _forward(x, w_a, w_b, b_ab, g_ab, w_res, w_skip, b_rs2, lengths, k, packs=None):
     """Kernel 6: (skip·mask, xs (L-1, B, T, C) the inputs of layers 1..L-1,
-    pre_a, pre_b (L, B, T, C) the gate pre-activations)."""
+    pre_a, pre_b (L, B, T, C) the gate pre-activations). Its products run on
+    ``packs`` = ``pack_forward_weights(w_a, w_b, w_res, w_skip, k)``, packed
+    here when not given: in training the weights change every step, so they
+    are packed at every call and never cached."""
     _check(x, w_a, w_b, b_ab, g_ab, w_res, w_skip, b_rs2, lengths, k)
+    if x.data_ptr() % 16:
+        raise ValueError("kernel 6 takes x on a 16-byte boundary")
     B, T, C = x.shape
     L = w_res.shape[0]
-    args = [t.contiguous() for t in (w_a, w_b, b_ab, g_ab, w_res, w_skip, b_rs2)]
-    lens = lengths.to(torch.int32).contiguous()
     xs = x.new_empty((max(L - 1, 1), B, T, C))
     pre = x.new_empty((2, L, B, T, C))
     out = torch.empty_like(x)
+    w_ab, w_rs = pack_forward_weights(w_a, w_b, w_res, w_skip, k) if packs is None else packs
+    shapes = ((L, 2, -(-k * C // 32), 2 * C, 8, 4), (L, 2, -(-C // 32), 2 * C, 8, 4))
+    if any(tuple(p.shape) != s_ or not p.is_contiguous() for p, s_ in zip((w_ab, w_rs), shapes)):
+        raise ValueError(f"kernel 6's packed weights must be contiguous {shapes}")
+    bias = [t.contiguous() for t in (b_ab, g_ab, b_rs2)]
+    lens = lengths.to(torch.int32).contiguous()
+    acts = torch.empty_like(x)
     err = _cuda.library().rvc_wn_fwd(
         x.data_ptr(), xs.data_ptr(), pre[0].data_ptr(), pre[1].data_ptr(), out.data_ptr(),
-        *[t.data_ptr() for t in args], lens.data_ptr(), B, T, C, k, L,
-        _cuda.stream_ptr(x))
+        acts.data_ptr(), w_ab.data_ptr(), w_rs.data_ptr(), *[t.data_ptr() for t in bias],
+        lens.data_ptr(), B, T, C, k, L, _cuda.stream_ptr(x))
     _cuda.check(err, "wn_fwd launch")
     fused_wn.launches += 1
     return out, xs, pre

@@ -18,6 +18,7 @@ then:
 Prints the card's name and power limit. Needs a CUDA card.
 """
 import argparse
+import itertools
 import os
 import subprocess
 import sys
@@ -36,7 +37,7 @@ from rvc_tpu_torch.train.data import BucketBatcher, RVCDataset  # noqa: E402
 from rvc_tpu_torch.train.step import Trainer  # noqa: E402
 
 # name fragments of the kernels of csrc/ that the training step launches
-OWN_KERNELS = ("resblock_unit_kernel", "rb_bwd_", "rb_tc_", "wgrad", "wn_")
+OWN_KERNELS = ("resblock_unit_kernel", "chain_conv_kernel", "rb_bwd_", "rb_tc_", "wgrad", "wn_")
 
 
 def main():
@@ -55,7 +56,7 @@ def main():
     batches = [b for e in range(8) for b in batcher.epoch(e)]
     trainer = Trainer(cfg, device="cuda")
     state = trainer.init_state(seed=0)
-    it = iter(batches)
+    it = itertools.cycle(batches)  # --steps may ask for more steps than there are batches
     for _ in range(2):
         state, _ = trainer.step(state, next(it))
     torch.cuda.synchronize()

@@ -224,12 +224,18 @@ def test_resblock1_train_kernels_match_plain(rng, cuda, C, T, k, dils):
     (192, 400, 16, (400, 377, 200, 1)), (192, 400, 3, (400, 400, 399, 250)),
     (32, 1000, 4, (1000, 613)), (64, 57, 2, (57, 0)), (128, 300, 1, (300,)),
     (256, 130, 3, (130, 129)),
+    # kernel 6's 128-row blocks over the B T rows: T one short of, at and
+    # one past a block, B T not a multiple of it (254, 256, 387, 129, 384)
+    (64, 127, 2, (127, 126)), (192, 128, 3, (128, 5)), (64, 129, 3, (129, 0, 64)),
+    (16, 129, 2, (129,)), (48, 128, 3, (128, 1, 127)),
 ])
 def test_wn_kernels_match_plain(rng, cuda, C, T, L, lengths):
     """Kernel 6 (forward) and kernel 7 (dx, dWa, dWb, dBab, dG, dWres,
     dWskip, dBrs) against autograd of the plain stack, lengths < T (one of
-    0), the input masked. Values within 2e-5 and gradients within 1e-4 of
-    the largest magnitude (sums over every row in another order)."""
+    0), the input masked; C = 16 and 48 (a block of 32 outputs, and the last
+    layer's 1x1 in blocks of 16 and 48). Values within 2e-5 and gradients
+    within 1e-4 of the largest magnitude (sums over every row in another
+    order)."""
     B, k = len(lengths), 5
     lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
     mask = (torch.arange(T, device=cuda)[None, :] < lens[:, None]).float()[..., None]
@@ -518,6 +524,43 @@ def test_wn_backward_tensor_core_tiles(rng, cuda, C, T, L, lengths):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("C,T,L,lengths", [
+    (192, 400, 16, (400, 377, 200, 1)), (48, 129, 3, (129, 0, 64)), (16, 127, 1, (127, 3)),
+])
+def test_wn_forward_is_the_simt_kernel(rng, cuda, C, T, L, lengths):
+    """Kernel 6 (on wgmma) computes what its first version, the SIMT forward
+    (``rvc_wn_fwd_simt``, chip_smoke's yardstick), computes, and keeps the
+    same values for kernel 7: out, xs, pre_a and pre_b each within 2e-5 of
+    their largest magnitude (chip_smoke's VALUE_TOL), both summed in float32
+    in other orders."""
+    cs = _chip_smoke()
+    x, w, lens, _ = _wn_case(rng, cuda, C, T, L, lengths)
+    with torch.no_grad():
+        args = [x.detach()] + [t.detach() for t in w] + [lens]
+        got = wavenet._forward(*args, 5)
+        ref = cs.wn_forward_simt(*args, kernel_size=5)
+    torch.cuda.synchronize()
+    _scaled_close(got[0], ref[0], 2e-5)
+    if L > 1:
+        _scaled_close(got[1], ref[1], 2e-5)
+    for half in range(2):
+        _scaled_close(got[2][half], ref[2][half], 2e-5)
+
+
+@pytest.mark.gpu
+def test_wn_forward_is_bit_identical(rng, cuda):
+    """Kernel 6 sums in a fixed order: two calls give the same bits in out,
+    xs, pre_a and pre_b, at the training shapes and at a ragged edge."""
+    for C, T, L, lengths in ((192, 400, 16, (400, 377, 200, 1)), (48, 129, 3, (129, 0, 64))):
+        x, w, lens, _ = _wn_case(rng, cuda, C, T, L, lengths)
+        with torch.no_grad():
+            args = [x.detach()] + [t.detach() for t in w] + [lens]
+            runs = [wavenet._forward(*args, 5) for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
 def test_backward_weight_gradients_are_bit_identical(rng, cuda):
     """The weight gradients are reduced in a fixed order (no atomics): two
     calls of kernels 5 and 7 give the same bits in every output."""
@@ -540,7 +583,7 @@ def test_backward_weight_gradients_are_bit_identical(rng, cuda):
 def test_simt_yardsticks_are_on_no_path(rng, cuda, monkeypatch):
     """The entries that redesigned kernels replaced stay in the library only
     as chip_smoke.py's yardsticks: a differentiable chain and WN stack (the
-    float32 SIMT chain forward and backward of kernels 4, 5 and 7), a bf16
+    float32 SIMT chain forward and backward of kernels 4, 5, 6 and 7), a bf16
     stage through both decoder routes (the bf16 unit on mma.sync) and kernel
     2 in float32 and in bf16 (its SIMT kernel, the first bf16 kernel) on the card
     never call them."""
@@ -548,7 +591,8 @@ def test_simt_yardsticks_are_on_no_path(rng, cuda, monkeypatch):
 
     lib = _cuda.library()
     called = []
-    for name in ("rvc_resblock1_fwd_simt", "rvc_resblock1_bwd_simt", "rvc_wn_bwd_simt",
+    for name in ("rvc_resblock1_fwd_simt", "rvc_resblock1_bwd_simt", "rvc_wn_fwd_simt",
+                 "rvc_wn_bwd_simt",
                  "rvc_resblock_unit_bf16_sync", "rvc_banded_attention_simt",
                  "rvc_banded_attention_bf16_sync"):
         monkeypatch.setattr(lib, name, lambda *a, _n=name: called.append(_n) or 0)

@@ -42,10 +42,12 @@ def test_port_imports_no_jax(path):
 def test_simt_yardsticks_are_named_only_by_chip_smoke():
     """The entries that redesigned kernels replaced are on no path of the
     port: the float32 SIMT chain forward and backward of kernels 4, 5 and 7,
-    the bf16 unit on mma.sync (kernels 1 and 8), the SIMT kernel 2 and the first
-    bf16 kernel 2. No module names them but the library's table of entry
-    points, and chip_smoke.py times them as its yardsticks."""
-    names = ("rvc_resblock1_fwd_simt", "rvc_resblock1_bwd_simt", "rvc_wn_bwd_simt",
+    the SIMT WN forward (kernel 6), the bf16 unit on mma.sync (kernels 1 and
+    8), the SIMT kernel 2 and the first bf16 kernel 2. No module names them
+    but the library's table of entry points, and chip_smoke.py times them as
+    its yardsticks."""
+    names = ("rvc_resblock1_fwd_simt", "rvc_resblock1_bwd_simt", "rvc_wn_fwd_simt",
+             "rvc_wn_bwd_simt",
              "rvc_resblock_unit_bf16_sync", "rvc_banded_attention_simt",
              "rvc_banded_attention_bf16_sync")
     naming = {str(p.relative_to(REPO)) for p in _port_files()

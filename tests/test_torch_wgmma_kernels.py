@@ -19,8 +19,17 @@ e^x from CUDA's ``expf`` (within 2 ulps) and p by a true division, as its
 first version did; the emulation takes ``torch.exp`` and the same division,
 and sums each tile's terms in torch's order, not the kernel's shuffles.
 
-Both are held against the plain versions and against the JAX package's
-Pallas kernels run in interpret mode on the same numpy inputs. The CUDA
+Kernel 6 (``csrc/wavenet.cu``, the WaveNet stack forward on the same
+``wgmma`` core as kernel 4) runs two such products a layer: the in-conv
+with its a and b outputs interleaved by groups of 8 channels
+(``wavenet.forward_convs``), whose
+epilogue adds the bias and g and takes acts = tanh(a) sigmoid(b), and the
+res/skip 1x1 over acts with res and skip interleaved (the last layer skip
+only), whose epilogue updates x and adds into skip. Its weights are packed
+at every call (``wavenet.pack_forward_weights``).
+
+All three are held against the plain versions and against the JAX
+package's Pallas kernels run in interpret mode on the same numpy inputs. The CUDA
 kernels themselves are held against the plain versions on the card
 (test_torch_gpu.py)."""
 import jax.numpy as jnp
@@ -32,8 +41,10 @@ import torch.nn.functional as F
 from _torch_port import no_compile_cache_writes  # noqa: F401
 from rvc_tpu.ops.pallas_attention import banded_rel_attention as jax_attention
 from rvc_tpu.ops.pallas_resblock import fused_resblock1 as jax_chain_forward
-from rvc_tpu_torch.ops import attention, resblock
+from rvc_tpu.ops.pallas_wavenet import fused_wn as jax_wn
+from rvc_tpu_torch.ops import attention, resblock, wavenet
 from test_torch_bf16_kernels import MAX_BEYOND, MAX_REL, agreement, to_bf16
+from test_torch_gpu import _wn_inputs
 from test_torch_split_products import _chains, _spread, split_tf32
 
 VALUE_TOL = 2e-5  # of the largest magnitude, as chip_smoke.py holds kernel 4 on the card
@@ -74,14 +85,20 @@ def test_kernel4_weight_packing_round_trips(rng, C, k):
 
 def conv_tf32_slices(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, d: int) -> torch.Tensor:
     """A conv as kernel 4 computes it, a (N, I, T) already through the leaky
-    ReLU, w (O, I, k): per slice of 32 of K = (tap, input), the three TF32
-    piece products summed in float32 from zero; the slices added in order
-    into float32 from zero; then the bias."""
-    O, I, k = w.shape
+    ReLU, w (O, I, k): ``slice_sums`` on w's TF32 pieces, then the bias."""
+    return slice_sums(a, *split_tf32(w), d) + b[None, :, None]
+
+
+def slice_sums(a: torch.Tensor, wb: torch.Tensor, ws: torch.Tensor, d: int) -> torch.Tensor:
+    """The conv core's sums (``csrc/tf32_conv.cuh``) over a (N, I, T), rows
+    outside [0, T) zero, with the weights' pieces wb = tf32(w) and ws =
+    tf32(w - wb), each (O, I, k): per slice of 32 of K = (tap, input), the
+    three TF32 piece products summed in float32 from zero; the slices added
+    in order into float32 from zero."""
+    O, I, k = wb.shape
     T = a.shape[-1]
     p = (k - 1) * d // 2
     ab, asm = split_tf32(F.pad(a, (p, p)))
-    wb, ws = split_tf32(w)
     # K = (tap j, input i) as j I + i
     Xb = torch.cat([ab[..., j * d:j * d + T] for j in range(k)], 1)  # (N, k I, T)
     Xs = torch.cat([asm[..., j * d:j * d + T] for j in range(k)], 1)
@@ -92,7 +109,7 @@ def conv_tf32_slices(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, d: int) 
         sl = slice(s0, s0 + resblock.TF32_SLICE_K)
         mm = lambda W, X: torch.einsum("ok,nkt->not", W[:, sl], X[:, sl])  # noqa: E731
         acc = acc + (mm(Ws, Xb) + mm(Wb, Xs) + mm(Wb, Xb))
-    return acc + b[None, :, None]
+    return acc
 
 
 def kernel4_emulated(x: torch.Tensor, convs) -> list[torch.Tensor]:
@@ -127,6 +144,143 @@ def test_kernel4_arithmetic_matches_plain_and_pallas(rng, C, T, k):
                                                         for w, b, kk, d in chain],
                                        S=1, interpret=True))
     assert np.abs(got[-1].numpy() - ref).max() <= VALUE_TOL * np.abs(ref).max()
+
+
+# ---- kernel 6 ----
+
+def _wn_torch(w: dict) -> dict:
+    return {n: torch.from_numpy(v) for n, v in w.items()}
+
+
+def halves(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 6's interleaved outputs (2C, ...) -> the two (C, ...) halves:
+    rows 16q..16q+7 are the first's 8q..8q+7, the next 8 the second's."""
+    g = v.reshape(v.shape[0] // 16, 2, 8, *v.shape[1:])
+    return tuple(g[:, i].reshape(v.shape[0] // 2, *v.shape[1:]) for i in range(2))
+
+
+@pytest.mark.parametrize("C,L,k", [(16, 3, 5), (48, 2, 3), (192, 1, 5)])
+def test_kernel6_weight_packing_round_trips(rng, C, L, k):
+    """Kernel 6's weights, interleaved by groups of 8 outputs and split into
+    two images a conv: unpacked, the in-conv's rows 16q..16q+7 hold a's taps
+    of channels 8q..8q+7 and the next 8 rows b's, the 1x1's res and skip
+    alike below the last layer and rows 0..C-1 skip in the last (zeros
+    after), each as big = tf32(w) and small = tf32(w - big); L = 1 is a last
+    layer only."""
+    w = _wn_torch(_wn_inputs(rng, 2, 10, C, L, k))
+    p_ab, p_rs = wavenet.pack_forward_weights(w["w_a"], w["w_b"], w["w_res"], w["w_skip"], k)
+    assert p_ab.shape == (L, 2, -(-k * C // 32), 2 * C, 8, 4)
+    assert p_rs.shape == (L, 2, -(-C // 32), 2 * C, 8, 4)
+
+    def pieces(v):
+        big = resblock.tf32_round(v)
+        return big, resblock.tf32_round(v - big)
+
+    for i in range(L):
+        got = resblock.unpack_tf32_wgmma_weights(p_ab[i], C, k)
+        for half, name in enumerate(("w_a", "w_b")):
+            want = pieces(w[name][i * k:(i + 1) * k].permute(2, 1, 0))
+            for g, e in zip(got, want):
+                assert torch.equal(halves(g)[half], e)
+        got = resblock.unpack_tf32_wgmma_weights(p_rs[i], C, 1)
+        res, skip = (pieces(w[n][i].t()[..., None]) for n in ("w_res", "w_skip"))
+        for g, r, s_ in zip(got, res, skip):
+            if i < L - 1:
+                assert torch.equal(halves(g)[0], r) and torch.equal(halves(g)[1], s_)
+            else:
+                assert torch.equal(g[:C], s_) and not torch.any(g[C:])
+
+
+def kernel6_emulated(x: torch.Tensor, w: dict, lengths: torch.Tensor, k: int) -> dict:
+    """Kernel 6's arithmetic on x (B, T, C), from its packed weights: per
+    layer the in-conv's slice sums over x (outputs interleaved, ``halves``),
+    a = s_a + (b_a + g_a), b = s_b + (b_b + g_b), acts = tanh(a) sigmoid(b);
+    the 1x1's slice sums over acts, x' = (x + (s_res + b_res)) keep and skip
+    += s_skip + b_skip (the last layer: skip only, then the mask). Returns
+    out, xs (L-1, B, T, C), pre_a and pre_b (L, B, T, C)."""
+    B, T, C = x.shape
+    L = w["w_res"].shape[0]
+    p_ab, p_rs = wavenet.pack_forward_weights(w["w_a"], w["w_b"], w["w_res"], w["w_skip"], k)
+    keep = (torch.arange(T)[None, :] < lengths[:, None]).float()[:, None]
+    g, b_ab, b_rs = w["g_ab"][..., None], w["b_ab"][..., None], w["b_rs2"][..., None]
+    h, skip = x.transpose(1, 2), None
+    xs, pre_a, pre_b = [], [], []
+    for i in range(L):
+        s = slice_sums(h, *resblock.unpack_tf32_wgmma_weights(p_ab[i], C, k), 1)
+        s_a, s_b = halves(s.transpose(0, 1))
+        a = s_a.transpose(0, 1) + (b_ab[i] + g[:, i])
+        b = s_b.transpose(0, 1) + (b_ab[L + i] + g[:, L + i])
+        pre_a.append(a)
+        pre_b.append(b)
+        acts = torch.tanh(a) * torch.sigmoid(b)
+        r = slice_sums(acts, *resblock.unpack_tf32_wgmma_weights(p_rs[i], C, 1), 1)
+        if i < L - 1:
+            s_res, s_skip = (v.transpose(0, 1) for v in halves(r.transpose(0, 1)))
+            h = (h + (s_res + b_rs[i])) * keep
+            xs.append(h)
+            sk = s_skip + b_rs[L + i]
+        else:
+            sk = r[:, :C] + b_rs[L + i]
+        skip = sk if skip is None else skip + sk
+    t = lambda vs: torch.stack(vs).transpose(-1, -2)  # noqa: E731
+    return dict(out=(skip * keep).transpose(1, 2), xs=t(xs) if xs else None, pre_a=t(pre_a),
+                pre_b=t(pre_b))
+
+
+def wn_exact(x: torch.Tensor, w: dict, lengths: torch.Tensor, k: int) -> dict:
+    """The plain stack in float64, layer by layer, with what kernel 6 keeps."""
+    B, T, C = x.shape
+    L = w["w_res"].shape[0]
+    w = {n: v.double() for n, v in w.items()}
+    keep = (torch.arange(T)[None, :] < lengths[:, None]).double()[:, None]
+    h, skip = x.double().transpose(1, 2), 0.0
+    xs, pre_a, pre_b = [], [], []
+    for i in range(L):
+        a, b = (F.conv1d(h, w[n][i * k:(i + 1) * k].permute(2, 1, 0), padding=(k - 1) // 2)
+                + w["b_ab"][j * L + i][:, None] + w["g_ab"][:, j * L + i, :, None]
+                for j, n in enumerate(("w_a", "w_b")))
+        pre_a.append(a)
+        pre_b.append(b)
+        acts = torch.tanh(a) * torch.sigmoid(b)
+        rs, sk = (torch.einsum("bct,cd->bdt", acts, w[n][i]) + w["b_rs2"][j * L + i][:, None]
+                  for j, n in enumerate(("w_res", "w_skip")))
+        h = (h + rs) * keep
+        if i < L - 1:
+            xs.append(h)
+        skip = skip + sk
+    t = lambda vs: torch.stack(vs).transpose(-1, -2)  # noqa: E731
+    return dict(out=(skip * keep).transpose(1, 2), xs=t(xs) if xs else None, pre_a=t(pre_a),
+                pre_b=t(pre_b))
+
+
+@pytest.mark.parametrize("C,L,T,lengths", [
+    (16, 9, 150, (150, 1, 0)),   # 9 layers: the JAX wrapper chains two groups
+    (48, 3, 133, (0, 133, 57)),  # C = 48: a 1x1 slice of 32 and one of 16 (zero-padded)
+])
+def test_kernel6_arithmetic_matches_plain_and_pallas(rng, C, L, T, lengths):
+    """Kernel 6's emulated arithmetic: out, xs, pre_a and pre_b each within
+    2e-5 of their largest magnitude of the plain stack in float64 (and its
+    out of ``fused_wn_plain`` in float64), and out of the Pallas stack
+    (interpret mode); B T (450, 399) and T not multiples of the kernel's 128
+    rows, lengths of 0, 1, below T and T, the input masked."""
+    k, B = 5, len(lengths)
+    lens = np.asarray(lengths, np.int32)
+    mask = (np.arange(T)[None, :] < lens[:, None]).astype(np.float32)[..., None]
+    x = rng.standard_normal((B, T, C)).astype(np.float32) * mask
+    w = _wn_inputs(rng, B, T, C, L, k)
+    tw, tx, tl = _wn_torch(w), torch.from_numpy(x), torch.from_numpy(lens)
+    got = kernel6_emulated(tx, tw, tl, k)
+    exact = wn_exact(tx, tw, tl, k)
+    plain = wavenet.fused_wn_plain(tx.double(), *[v.double() for v in tw.values()], tl,
+                                   kernel_size=k)
+    torch.testing.assert_close(exact["out"], plain, rtol=0, atol=1e-12)
+    for name, ref in exact.items():
+        scale = ref.abs().max().item()
+        assert (got[name].double() - ref).abs().max().item() <= VALUE_TOL * scale, name
+    ref = np.asarray(jax_wn(jnp.asarray(x), *[jnp.asarray(v) for v in w.values()],
+                            jnp.asarray(lens), kernel_size=k, interpret=True))
+    assert np.abs(got["out"].numpy() - ref).max() <= VALUE_TOL * np.abs(ref).max()
+    assert not got["out"][torch.arange(T)[None, :] >= tl[:, None]].any()
 
 
 # ---- kernel 2 in bf16 ----
