@@ -74,6 +74,25 @@ Phases, each announced on its own line:
      bit-identical to the default route's;
  12. a reference check: 3 s in bf16 on the card and on the CPU, both on the
      card's f0, within a stated relative L2.
+ 13. a user's files: a full-width 48k_v2 reference .pth (fp16, weight_g /
+     weight_v, conv_1 names), a HuBERT .safetensors in HF names (12 layers,
+     final_proj; written by write_safetensors here), an rmvpe.pt and a
+     float32 .npy bank of 131072 rows, written to a temporary directory;
+     the command line (rvc_tpu_torch.cli.main convert, in process) converts
+     30 s of stereo 44.1 kHz speech with --resample-sr 44100, its launches
+     counted (kernel 3 over the float32 bank: nearest_rows), and its wav
+     must equal a converter built by from_state_dicts from the same arrays
+     on the same 16 kHz audio within 1 LSB; kernel 3 held on that bank;
+ 14. a full-width 32k v1 model loaded from files (five decoder stages, the
+     last at C = 16; HuBERT layer 9 with final_proj, D = 256): kernel 1 per
+     stage in float32 and bf16, kernel 3 at D = 256 (int8 and float32
+     banks), against their plain versions; 10 s converted with exact
+     launches and RTF; 3 s card vs CPU within phase 5's 4 LSB;
+ 15. a full-width 40k v1 no-f0 model from files (Generator on kernel 1, no
+     pitch model): 10 s with exact launches and RTF; 3 s card vs CPU;
+ 16. convert_batch of 8 songs of 10 s in bf16 (the bench's throughput
+     configuration): aggregate RTF, the stats' shares, exact launches, and
+     each song against its own convert on its rows of the draws.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that.
 A kernel's time beside its yardsticks (previous_ms, mma_sync_ms) is
@@ -429,18 +448,24 @@ def check_attention(vc, shapes, gen) -> dict:
 def check_nearest(vc, shapes, gen) -> dict:
     """Holds the kernel's rows against the plain version's. A query whose two
     best plain distances lie within float32 rounding of each other (1e-5
-    relative) may pick either row; every other row must be identical."""
+    relative) may pick either row; every other row must be identical. An
+    int8 bank is searched as it is and dequantized; a float32 bank (the
+    command line's) as it is."""
     import torch
 
     from rvc_tpu_torch.ops import retrieval
 
-    bank_q, scales = vc.index_bank
-    NQ, D = shapes["N"] * shapes["T50"], bank_q.shape[1]
-    N = bank_q.shape[0]
+    if isinstance(vc.index_bank, tuple):
+        bank_q, scales = vc.index_bank
+        bank_f = bank_q.float() * scales
+        modes = ("int8", "float32")
+    else:
+        bank_f, modes = vc.index_bank, ("float32",)
+    N, D = bank_f.shape
+    NQ = shapes["N"] * shapes["T50"]
     feats = torch.randn(NQ, D, generator=gen).to(vc.device)
     results = {}
-    bank_f = bank_q.float() * scales
-    for mode in ("int8", "float32"):
+    for mode in modes:
         if mode == "int8":
             run = lambda: retrieval.nearest_rows_q(feats, bank_q, scales)  # noqa: E731
         else:
@@ -587,7 +612,8 @@ def check_resblock_bf16(vc, shapes, gen) -> tuple[dict, dict]:
                     f"{plain_ms:.3f}, bound_ms {b_ms:.3f}")
         del x, x32
     for name, t in tot.items():
-        what = "kernel 1 over the 4 stages" if name == "group" else "kernel 8 over the 12 chains"
+        what = (f"kernel 1 over the {len(dec.upsample_rates)} stages" if name == "group"
+                else f"kernel 8 over the {len(dec.resblocks)} chains")
         say(f"  bf16 {what}: "
             f"kernel_ms {t['ms']:.3f} ({t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s), previous_ms "
             f"{t['previous_ms']:.3f} ({t['ms'] / t['previous_ms']:.2f} of it), packing "
@@ -719,6 +745,131 @@ def launch_counters() -> dict:
 def scaled(got, ref) -> tuple[float, float]:
     """(max |got - ref|, max |ref|)."""
     return (got - ref).abs().max().item(), max(ref.abs().max().item(), 1e-6)
+
+
+# ---- a user's model files (phases 13-15): written here as the reference's
+# tools write them, read back through the port's loaders ----
+def write_safetensors(path: str, tensors: dict, metadata: dict) -> None:
+    """The safetensors format, F32 or F16: an 8-byte little-endian header
+    length, a JSON header (dtype, shape, data_offsets; __metadata__), the
+    raw buffers in order (the card's machine has no safetensors package)."""
+    import struct
+
+    header, blobs, off = {}, [], 0
+    for name in sorted(tensors):
+        a = np.ascontiguousarray(tensors[name])
+        b = a.tobytes()
+        header[name] = {"dtype": {"float32": "F32", "float16": "F16"}[a.dtype.name],
+                        "shape": list(a.shape), "data_offsets": [off, off + len(b)]}
+        blobs.append(b)
+        off += len(b)
+    header["__metadata__"] = metadata
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(h)))
+        f.write(h)
+        for b in blobs:
+            f.write(b)
+
+
+def fold(sd: dict) -> dict:
+    """{X.weight_g, X.weight_v} -> X.weight = g v / (|v| + 1e-12), the norm
+    over every axis but 0, in float32; every array float32."""
+    out = {}
+    for k, v in sd.items():
+        if k.endswith(".weight_g"):
+            continue
+        v = np.asarray(v, np.float32)
+        if k.endswith(".weight_v"):
+            g = np.asarray(sd[k[:-2] + "_g"], np.float32)
+            out[k[:-2]] = g * v / (np.sqrt(np.sum(v * v, axis=tuple(range(1, v.ndim)),
+                                                  keepdims=True)) + 1e-12)
+        else:
+            out[k] = v
+    return out
+
+
+def write_rvc_pth(path: str, kw: dict, version: str, seed: int) -> dict:
+    """A reference inference checkpoint of Synthesizer(**kw) with random
+    weights: fp16, every weight-normed layer as weight_g/weight_v (g drawn
+    around 1, so that the fold matters), the FFN convs as conv_1/conv_2,
+    the positional config with sr as "48k". Returns the file's fp16 values
+    folded in float32: what its loader must give."""
+    import torch
+
+    from rvc_tpu_torch.models.layers import init_random_, live_weight_norm_
+    from rvc_tpu_torch.models.synthesizer import Synthesizer
+
+    synth = init_random_(live_weight_norm_(Synthesizer(**kw)), seed)
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in synth.state_dict().items():
+        a = v.numpy()
+        if k.endswith(".weight_g"):
+            a = a * rng.uniform(0.5, 1.5, a.shape)
+        sd[k] = a.astype(np.float16)
+    sr = kw["sr"]
+    config = [kw["spec_channels"], kw["segment_size"], kw["inter_channels"],
+              kw["hidden_channels"], kw["filter_channels"], kw["n_heads"], kw["n_layers"],
+              kw["kernel_size"], kw["p_dropout"], kw["resblock"],
+              list(kw["resblock_kernel_sizes"]), [list(d) for d in kw["resblock_dilation_sizes"]],
+              list(kw["upsample_rates"]), kw["upsample_initial_channel"],
+              list(kw["upsample_kernel_sizes"]), 109, kw["gin_channels"],
+              f"{sr // 1000}k" if sr in (32000, 40000, 48000) else sr]
+    torch.save({"weight": {k: torch.from_numpy(v) for k, v in sd.items()}, "config": config,
+                "info": "random", "sr": config[-1], "f0": int(kw["use_f0"]),
+                "version": version}, path)
+    return fold(sd)
+
+
+def write_hubert_safetensors(path: str, cfg, seed: int) -> dict:
+    """A ContentVec/HuBERT file as HF writes it: 12 layers, final_proj, the
+    positional conv's weight norm over dim 2 as weight_g (1, 1, k) and
+    weight_v, the HF config in the metadata; random weights, F32. Returns
+    what its loader must give (the positional conv folded)."""
+    import dataclasses
+
+    from rvc_tpu_torch.models.hubert import HubertEncoder
+    from rvc_tpu_torch.models.layers import init_random_
+
+    sd = {k: v.numpy() for k, v in init_random_(HubertEncoder(cfg, "v2"), seed)
+          .state_dict().items()}
+    rng = np.random.default_rng(seed)
+    last = cfg.num_hidden_layers - 1
+    for k in [k for k in sd if k.startswith("encoder.layers.10.")]:
+        sd[k.replace("layers.10.", f"layers.{last}.")] = sd[k].copy()
+    sd["final_proj.weight"] = (0.02 * rng.standard_normal(
+        (cfg.classifier_proj_size, cfg.hidden_size))).astype(np.float32)
+    sd["final_proj.bias"] = np.zeros(cfg.classifier_proj_size, np.float32)
+    pc = "encoder.pos_conv_embed.conv."
+    v = sd.pop(pc + "weight") * rng.uniform(0.5, 1.5, (1, 1, cfg.num_conv_pos_embeddings))
+    v = v.astype(np.float32)
+    sd[pc + "weight_v"] = v
+    sd[pc + "weight_g"] = (np.sqrt(np.sum(v * v, axis=(0, 1), keepdims=True))
+                           * rng.uniform(0.5, 1.5, (1, 1, v.shape[2]))).astype(np.float32)
+    write_safetensors(path, sd, {"config": json.dumps(
+        {**dataclasses.asdict(cfg), "model_type": "hubert"})})
+    out = dict(sd)
+    g, v = out.pop(pc + "weight_g"), out.pop(pc + "weight_v")
+    out[pc + "weight"] = g * v / (np.sqrt(np.sum(v * v, axis=(0, 1), keepdims=True)) + 1e-12)
+    return out
+
+
+def write_rmvpe_pt(path: str, seed: int) -> dict:
+    """rmvpe.pt as the reference ships it: the bare E2E state_dict, batch
+    norms with num_batches_tracked; random weights. Returns its float32
+    arrays without num_batches_tracked."""
+    import torch
+
+    from rvc_tpu_torch.models.layers import init_random_
+    from rvc_tpu_torch.models.rmvpe import RMVPE
+
+    sd = dict(init_random_(RMVPE(), seed).model.state_dict())
+    for k in [k for k in sd if k.endswith("running_mean")]:
+        sd[k.replace("running_mean", "num_batches_tracked")] = torch.tensor(100)
+    torch.save(sd, path)
+    return {k: v.numpy() for k, v in sd.items() if not k.endswith("num_batches_tracked")}
 
 
 def resblock1_backward_simt(x, hs, gy, convs, packs=None):
@@ -1145,7 +1296,7 @@ def check_train_vs_cpu(cfg, batch: dict) -> None:
     norm_err = max(abs(mg[k] - mc[k]) / abs(mc[k]) for k in ("grad_norm_g", "grad_norm_d"))
     delta = torch.cat([(a - b).abs().flatten() for a, b in zip(pg, pc)])
     worst, share = delta.max().item(), (delta > 0.01 * lr).float().mean().item()
-    say(f"[8/12] one training step, batch 1, {F} frames, card vs CPU: losses within "
+    say(f"[8/16] one training step, batch 1, {F} frames, card vs CPU: losses within "
         f"{loss_err:.3g} (relative, of max(1, |loss|); tolerance 1e-3), gradient norms within "
         f"{norm_err:.3g} (tolerance 1e-2), updated parameters max |diff| {worst:.3g} "
         f"(tolerance 2.01 lr = {2.01 * lr:.3g}), share above 0.01 lr {share:.4%} (tolerance "
@@ -1210,7 +1361,7 @@ def run_training(trainer, batches: list, card: str) -> dict:
     cfg = trainer.config
     audio_s = TRAIN_BATCH * cfg.train.segment_size / cfg.data.sampling_rate
     total = sum(walls)
-    say(f"[7/12] training 48k_v2, batch {TRAIN_BATCH}, padded to "
+    say(f"[7/16] training 48k_v2, batch {TRAIN_BATCH}, padded to "
         f"{np.shape(batches[1]['spec'])[1]} frames: {steps} steps, wall s "
         f"{[round(w, 4) for w in walls]}, {steps / total:.3f} steps/s, "
         f"{audio_s * steps / total:.3f} s of audio (the sliced segments) trained per s, "
@@ -1238,7 +1389,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
                                device="cuda", dtype=bf16)
     say(f"bf16 converter built in {time.perf_counter() - t0:.1f} s")
     shapes = path_shapes(vc, clips[30])
-    say(f"[9/12] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
+    say(f"[9/16] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz")
     gen = torch.Generator().manual_seed(3)
     with torch.no_grad():
@@ -1277,7 +1428,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[10/12] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
+        say(f"[10/16] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
             f"{sr} Hz, peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x (float32 "
             f"in this run {rtf32[sec]:.2f}x), max_memory_allocated "
@@ -1302,7 +1453,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out, sr, launched, wall = counted_convert(vc, audio, settings, counters)
     vc.synth.dec.fuse_group = True
     same = bool(np.array_equal(out, outs[30]))
-    say(f"[11/12] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
+    say(f"[11/16] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
         f"(RTF {30 / wall:.2f}x), launches { {k: v for k, v in launched.items() if v} }, "
         f"bit-identical to the default route: {same} (the default route against itself: "
         f"{bool(np.array_equal(again, outs[30]))})")
@@ -1338,7 +1489,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     a, b = out_gpu.astype(np.float64), out_cpu.astype(np.float64)
     l2 = float(np.linalg.norm(a - b) / np.linalg.norm(b)) if a.shape == b.shape else math.inf
-    say(f"[12/12] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
+    say(f"[12/16] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
         f"differs on {differ:.2%} of frames between them): {len(out_gpu)} vs {len(out_cpu)} "
         f"samples, relative L2 {l2:.4g} (tolerance {BF16_CPU_L2}: bf16 roundings flip "
         f"between the card's sums and the CPU's and the flips travel through the decoder; "
@@ -1348,6 +1499,257 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     if not l2 <= BF16_CPU_L2:
         fail("the card's bf16 conversion disagrees with the CPU's")
     return main_launches
+
+
+def card_vs_cpu(label: str, vc, cpu, clip, settings) -> int:
+    """The same clip converted on the card and on the CPU (plain versions,
+    the same weights and draws); fails beyond phase 5's 4 LSB."""
+    out_gpu, _ = vc.convert(clip, settings=settings)
+    t0 = time.perf_counter()
+    out_cpu, _ = cpu.convert(clip, settings=settings)
+    tol = 4
+    if out_gpu.shape != out_cpu.shape:
+        fail(f"{label}: the card gave {out_gpu.shape}, the CPU {out_cpu.shape}")
+    diff = np.abs(out_gpu.astype(np.int32) - out_cpu.astype(np.int32))
+    say(f"  {label}: 3 s on the card vs the CPU: {len(out_gpu)} samples, max |diff| "
+        f"{diff.max()} LSB, share above {tol} LSB {np.mean(diff > tol):.4%} (tolerance "
+        f"{tol} LSB, as phase 5's); CPU run {time.perf_counter() - t0:.1f} s")
+    if diff.max() > tol:
+        fail(f"{label}: the card's conversion disagrees with the CPU's")
+    return int(diff.max())
+
+
+def timed_convert(label: str, vc, audio, seconds: float, settings, counters: dict,
+                  expected: dict, card: str) -> float:
+    """A set-up call, a counted and timed call whose launches must be
+    ``expected``, two more timed; the output checked as phase 4 checks it.
+    Returns the RTF of the median wall time."""
+    import torch
+
+    from rvc_tpu_torch.ops.filters import butter_highpass_host
+    from rvc_tpu_torch.pipelines.convert import WINDOW
+
+    vc.convert(audio, settings=settings)
+    torch.cuda.synchronize()
+    out, sr, launched, wall = counted_convert(vc, audio, settings, counters)
+    walls = [wall] + [counted_convert(vc, audio, settings, counters)[3] for _ in range(2)]
+    wall = float(np.median(walls))
+    spans = vc.spans(butter_highpass_host(audio))
+    Tp = path_shapes(vc, audio)["Tp"]
+    expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt for b, e in spans)
+    peak = int(np.abs(out.astype(np.int32)).max())
+    say(f"  {label}: convert {seconds:g} s: {len(spans)} chunks, {len(out)} samples at {sr} "
+        f"Hz, peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
+        f"{wall * 1e3:.2f}), RTF {seconds / wall:.2f}x, launches "
+        f"{ {k: v for k, v in launched.items() if v} }; {card}")
+    if sr != vc.tgt_sr or out.dtype != np.int16 or len(out) != expect or peak <= 0:
+        fail(f"{label}: output {out.dtype} at {sr} Hz, {len(out)} samples, peak {peak}; "
+             f"the spans give {expect} at {vc.tgt_sr} Hz")
+    if launched != expected:
+        fail(f"{label}: kernel launches {launched}, expected {expected}")
+    return seconds / wall
+
+
+def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
+    """Phases 13-15: models loaded from a user's files. 13: the command line
+    on a full-width 48k_v2 .pth, a HuBERT .safetensors, an rmvpe.pt and a
+    float32 bank, against a converter built in memory from the same arrays;
+    14: a 32k v1 model (five decoder stages, the last at C = 16; HuBERT
+    layer 9 with final_proj, D = 256) with its kernels held at its shapes;
+    15: a 40k v1 no-f0 model. Adds to ``checks``; returns the RTFs."""
+    import dataclasses
+
+    import torch
+
+    from rvc_tpu_torch.cli import main as cli
+    from rvc_tpu_torch.compat import torch_import as ti
+    from rvc_tpu_torch.config import preset
+    from rvc_tpu_torch.io.audio import load_input_audio, save_input_audio
+    from rvc_tpu_torch.models.hubert import HubertConfig
+    from rvc_tpu_torch.ops import retrieval
+    from rvc_tpu_torch.pipelines.convert import (ConvertSettings, VoiceConverter,
+                                                 synth_kwargs_from_config)
+    from scipy import signal
+    from scipy.io import wavfile
+
+    path = {k: os.path.join(tmp, n) for k, n in (
+        ("48k_v2", "48k_v2.pth"), ("32k", "32k.pth"), ("40k", "40k_nof0.pth"),
+        ("hubert", "hubert_base.safetensors"), ("rmvpe", "rmvpe.pt"), ("bank", "bank.npy"),
+        ("input", "in_44k1_stereo.wav"), ("out", "out.wav"), ("ref", "ref.wav"))}
+    t0 = time.perf_counter()
+    kw48 = synth_kwargs_from_config(preset("48k_v2"))
+    synth48 = write_rvc_pth(path["48k_v2"], kw48, "v2", seed=10)
+    hub_cfg = HubertConfig()
+    hub_state = write_hubert_safetensors(path["hubert"], hub_cfg, seed=11)
+    rmvpe_state = write_rmvpe_pt(path["rmvpe"], seed=12)
+    bank = np.random.default_rng(13).standard_normal((BANK_ROWS, 768)).astype(np.float32)
+    np.save(path["bank"], bank)
+    mono = signal.resample_poly(speech(30.0, 20.0), 441, 160)
+    wavfile.write(path["input"], 44100, (np.stack([mono, 0.7 * np.roll(mono, 441)], 1)
+                                         * 32000).astype(np.int16))
+    sizes = {k: round(os.path.getsize(p) / 2**20, 1) for k, p in path.items()
+             if os.path.exists(p)}
+    say(f"[13/16] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
+
+    # 13. the command line, in process, every count set to 0 just before
+    counters = {**launch_counters(), "nearest_rows": (retrieval.nearest_rows, "launches")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    argv = ["convert", path["input"], path["out"], "--model", path["48k_v2"], "--hubert",
+            path["hubert"], "--rmvpe", path["rmvpe"], "--index", path["bank"],
+            "--resample-sr", "44100"]
+    t0 = time.perf_counter()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    ref_vc = VoiceConverter.from_state_dicts(synth48, kw48, hub_state, hub_cfg, rmvpe_state,
+                                             index_bank=bank, device="cuda")
+    units = sum(len(rb.convs1) for rb in ref_vc.synth.dec.resblocks)
+    layers = len(ref_vc.synth.enc_p.encoder.attn_layers)
+    expected = {**dict.fromkeys(counters, 0), "fused_resblock_group": units,
+                "banded_rel_attention": layers, "nearest_rows": 1}
+    audio, sr = load_input_audio(path["input"], 16000)
+    ref, ref_sr = ref_vc.convert(audio, sr, ConvertSettings(resample_sr=44100))
+    save_input_audio(path["ref"], (ref, ref_sr))
+    got_sr, got = wavfile.read(path["out"])
+    want_sr, want = wavfile.read(path["ref"])
+    lsb = (float(np.abs(got.astype(np.float64) - want).max() * 32768)
+           if got.shape == want.shape else math.inf)
+    say(f"  the CLI: 30 s of 44.1 kHz stereo -> {len(got)} samples at {got_sr} Hz in "
+        f"{wall:.2f} s (loading the files, building, the first call's set-up, "
+        f"converting, writing), launches { {k: v for k, v in launched.items() if v} }; "
+        f"against from_state_dicts on the same arrays and the same 16 kHz audio: max |diff| "
+        f"{lsb:.3g} LSB of the written float wav (tolerance 1 LSB: the same weights, draws "
+        f"and kernels; identical is expected)")
+    if got_sr != want_sr or got_sr != 44100 or not lsb <= 1:
+        fail("the CLI's output differs from the in-memory converter's")
+    if launched != expected:
+        fail(f"the CLI's kernel launches {launched}, expected {expected}")
+    with torch.no_grad():
+        f32 = check_nearest(ref_vc, path_shapes(ref_vc, audio), torch.Generator().manual_seed(4))
+    checks["nearest"]["cli_float32_bank"] = {k: f32["float32"][k] for k in
+                                             ("max_abs_err", "ms", "plain_ms", "bound_ms")}
+    checks["nearest"]["cli_float32_bank"]["launches"] = launched["nearest_rows"]
+    del ref_vc
+    torch.cuda.empty_cache()
+
+    # 14. 32k v1 from files: five stages down to C = 16, D = 256
+    rtf = {}
+    bank256 = np.random.default_rng(14).standard_normal((BANK_ROWS, 256)).astype(np.float32)
+    clip10, clip3 = speech(10.0, 0.0), speech(3.0, 40.0)
+    hub_file = ti.load_hubert_safetensors(path["hubert"])
+    rm_file = ti.load_rmvpe(path["rmvpe"])
+    for key, version, f0, seed in (("32k", "v1", True, 15), ("40k", "v1", False, 16)):
+        kw = dict(synth_kwargs_from_config(preset(key)), use_f0=f0)
+        write_rvc_pth(path[key], kw, version, seed)
+        state, meta = ti.load_rvc_checkpoint(path[key])
+        kw_file = ti.synthesizer_kwargs_from_config(meta["config"], meta["version"], meta["f0"])
+        if kw_file != kw:
+            fail(f"{key}: the file's kwargs {kw_file} are not the preset's {kw}")
+        args = (state, kw_file, *hub_file, rm_file if f0 else None)
+        opts = dict(index_bank=bank256, index_int8=True, config=dataclasses.replace(
+            preset(key), **dict(zip(("x_pad", "x_query", "x_center", "x_max"), CHUNKING))))
+        vc = VoiceConverter.from_state_dicts(*args, **opts, device="cuda")
+        dec = vc.synth.dec
+        label = f"{key} {version}" + ("" if f0 else " no-f0")
+        phase = 14 if f0 else 15
+        say(f"[{phase}/16] {label} from files: decoder stages of "
+            f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
+            f"channels, HuBERT features D = {vc.hubert.cfg.classifier_proj_size}, "
+            f"{type(dec).__name__}")
+        if f0:
+            shapes = path_shapes(vc, clip10)
+            gen = torch.Generator().manual_seed(5)
+            with torch.no_grad():
+                c = check_resblock(vc, shapes, gen)
+                group, _ = check_resblock_bf16(vc, shapes, gen)
+                near = check_nearest(vc, shapes, gen)
+            checks["resblock"]["32k_v1"] = {k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                              "bound_ms")}
+            checks["resblock_bf16"]["32k_v1"] = {k: group[k] for k in ("max_abs_err", "ms",
+                                                                       "plain_ms", "bound_ms")}
+            checks["nearest"]["d256"] = {k: near["int8"][k] for k in ("max_abs_err", "ms",
+                                                                      "plain_ms", "bound_ms")}
+        counters = launch_counters()
+        expected = {**dict.fromkeys(counters, 0),
+                    "fused_resblock_group": sum(len(rb.convs1) for rb in dec.resblocks),
+                    "banded_rel_attention": len(vc.synth.enc_p.encoder.attn_layers),
+                    "nearest_rows_q": 1}
+        rtf[label] = timed_convert(label, vc, clip10, 10.0, settings, counters, expected, card)
+        cpu = VoiceConverter.from_state_dicts(*args, **opts, device="cpu")
+        card_vs_cpu(label, vc, cpu, clip3, settings)
+        del vc, cpu
+        torch.cuda.empty_cache()
+    return rtf
+
+
+BATCH_L2 = BF16_CPU_L2 + 1.5e-5
+
+
+def run_batch(settings, card: str) -> dict:
+    """Phase 16: convert_batch of 8 songs of 10 s in bf16 (the bench's
+    throughput configuration): aggregate RTF, the stats' shares, the
+    launches of one counted batch, and each song against its own convert on
+    its rows of the batch's draws at the batch's chunk length, both scaled
+    by their peaks."""
+    import torch
+
+    from rvc_tpu_torch.pipelines.convert import make_random_converter
+
+    vc = make_random_converter("48k_v2", seed=0, chunking=CHUNKING, index_rows=BANK_ROWS,
+                               device="cuda", dtype=torch.bfloat16)
+    songs = [speech(10.0, 3.0 * i) for i in range(8)]
+    stats: dict = {}
+    vc.convert_batch(songs, settings=settings, stats=stats)  # set-up
+    counters = launch_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    walls, shares = [], []
+    for i in range(4):
+        t0 = time.perf_counter()
+        got = vc.convert_batch(songs, settings=settings, stats=stats)
+        walls.append(time.perf_counter() - t0)
+        shares.append((stats["device_s"], stats["download_s"], stats["dispatch_s"]))
+        if i == 0:
+            launched = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    dec = vc.synth.dec
+    expected = {**dict.fromkeys(counters, 0),
+                "fused_resblock_group[bf16]": sum(len(rb.convs1) for rb in dec.resblocks),
+                "banded_rel_attention[bf16]": len(vc.synth.enc_p.encoder.attn_layers),
+                "nearest_rows_q": 1}
+    best, med = 80.0 / min(walls), 80.0 / float(np.median(walls))
+    dev_s, down_s, disp_s = shares[int(np.argmin(walls))]
+    say(f"[16/16] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
+        f"{stats['chunk_samples']} samples, wall ms {[round(w * 1e3, 2) for w in walls]}, "
+        f"aggregate RTF best {best:.2f}x, median {med:.2f}x; stats of the best: device_s "
+        f"{dev_s:.4f} ({dev_s / min(walls):.1%} of the wall), download_s {down_s:.4f} "
+        f"({down_s / min(walls):.1%}), dispatch_s {disp_s:.4f} ({disp_s / min(walls):.1%}), "
+        f"download {stats['download_bytes'] / 2**20:.1f} MiB; launches "
+        f"{ {k: v for k, v in launched.items() if v} }; {card}")
+    if launched != expected:
+        fail(f"convert_batch launches {launched}, expected {expected}")
+    L = stats["chunk_samples"]
+    Tp = path_shapes(vc, songs[0])["Tp"]
+    draws = vc.draws(len(songs), Tp)
+    worst = 0.0
+    for i, (song, (b16, sr)) in enumerate(zip(songs, got)):
+        one, sr1 = vc.convert(song, settings=settings, bucket_samples=L,
+                              draws={k: v[i:i + 1] for k, v in draws.items()})
+        if sr != sr1 or b16.shape != one.shape:
+            fail(f"song {i}: the batch gave {b16.shape} at {sr} Hz, convert {one.shape}")
+        a, b = b16 / np.abs(b16).max(), one / np.abs(one).max()
+        worst = max(worst, float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+    say(f"  each song of the batch against its own convert on its rows of the draws, both "
+        f"scaled by their peaks: worst relative L2 {worst:.4g} (tolerance {BATCH_L2:.4g}: the "
+        f"JAX package's own distance between the two on the CPU, 1.5e-5 in float32 on the "
+        f"same draws (tests/test_torch_convert_batch.py: the batch's int16 quantization), "
+        f"plus phase 12's bf16 bar, for bf16 roundings that flip between the batch's GEMM "
+        f"shapes and one song's)")
+    if not worst <= BATCH_L2:
+        fail("convert_batch disagrees with per-song convert")
+    return dict(agg_rtf_best=best, agg_rtf_median=med, device_s=dev_s, download_s=down_s,
+                dispatch_s=disp_s)
 
 
 def main() -> int:
@@ -1365,7 +1767,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi gave nothing"
-    say(f"[1/12] card: {name}, {count} device(s); torch {torch.__version__}, "
+    say(f"[1/16] card: {name}, {count} device(s); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     say(card)
 
@@ -1375,7 +1777,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library()
     info = _cuda.build_info
-    say(f"[2/12] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
+    say(f"[2/16] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
         f"(load {time.perf_counter() - t0:.2f} s)")
     say("ptxas: " + "; ".join(info["ptxas"]))
     say("ptxas C7515 (wgmma serialized): " + (", ".join(info["serialized"]) or "none"))
@@ -1405,7 +1807,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions at the 30 s conversion's shapes
     shapes = path_shapes(vc, clips[30])
-    say(f"[3/12] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
+    say(f"[3/16] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz, {shapes['T50']} HuBERT frames per chunk")
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -1460,7 +1862,7 @@ def main() -> int:
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[4/12] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
+        say(f"[4/16] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
             f"peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x, "
             f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -1483,7 +1885,7 @@ def main() -> int:
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     diff = np.abs(out_gpu.astype(np.int32) - out_cpu.astype(np.int32))
     tol = 4
-    say(f"[5/12] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
+    say(f"[5/16] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
         f"max |diff| {diff.max()} LSB, share above {tol} LSB {np.mean(diff > tol):.4%} "
         f"(tolerance {tol} LSB: the same float32 math summed in another order, "
         f"~1e-5 relative before the int16 scaling); CPU run "
@@ -1511,7 +1913,7 @@ def main() -> int:
     trainer.init_state(seed=0)
     say(f"dataset of {len(CLIP_SECONDS)} clips, {len(batches)} batches, trainer built in "
         f"{time.perf_counter() - t0:.1f} s")
-    say(f"[6/12] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
+    say(f"[6/16] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
         f"segment {cfg.train.segment_size} samples, WN over {np.shape(batches[0]['spec'])[1]} "
         f"frames")
     gen = torch.Generator().manual_seed(2)
@@ -1554,6 +1956,11 @@ def main() -> int:
     # 9-12. conversion in bfloat16 (the JAX package's bench configuration)
     launches.update(run_bf16(clips, settings, card, rtf32, checks))
 
+    # 13-15. models from a user's files; 16. convert_batch in bf16
+    with tempfile.TemporaryDirectory(prefix="rvc_files_") as files:
+        run_files(files, settings, card, checks)
+    run_batch(settings, card)
+
     kernels = []
     meta = {
         "resblock": ("fused_resblock_group", "rvc_tpu_torch/csrc/resblock_group.cu",
@@ -1585,7 +1992,8 @@ def main() -> int:
                         "bound_by": c["bound_by"], "library_ms": c.get("library_ms"),
                         **{k: c[k] for k in ("bound_f32_ms", "previous_ms", "mma_sync_ms",
                                              "pack_ms", "float32_ms", "ms_10s",
-                                             "previous_ms_10s") if k in c}})
+                                             "previous_ms_10s", "32k_v1", "d256",
+                                             "cli_float32_bank") if k in c}})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -11,6 +11,7 @@ softmax runs in float32 (rvc_tpu/models/hubert.py:63-103, :165).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Sequence
@@ -35,6 +36,13 @@ class HubertConfig:
     classifier_proj_size: int = 256
     layer_norm_eps: float = 1e-5
     feat_extract_norm: str = "group"
+
+    @classmethod
+    def from_hf_dict(cls, d: dict) -> "HubertConfig":
+        """From an HF ``HubertConfig`` dict; unknown keys are ignored."""
+        keys = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: tuple(v) if isinstance(v, list) else v
+                      for k, v in d.items() if k in keys})
 
 
 def conv_output_lengths(cfg: HubertConfig, lengths: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """NSF-HiFiGAN decoder: harmonic source + upsampling resblock stack.
 
 Counterpart of ``rvc_tpu/models/nsf.py`` (sine_source, SourceModuleHnNSF,
-ResBlock1/2, GeneratorNSF), activations (B, C, T). The sample-rate
+ResBlock1/2, GeneratorNSF, and Generator, the no-f0 variants' decoder
+without the source), activations (B, C, T). The sample-rate
 ResBlock1 stages run through ``ops.resblock``: at inference with
 ``fuse_group`` (the default) each stage is one kernel-1 call, as the JAX
 package's ``fuse_group`` path does; without it each ResBlock is one chain
@@ -152,6 +153,35 @@ def mean_of(ys: Sequence[torch.Tensor]) -> torch.Tensor:
     return acc / torch.full((), float(len(ys)), dtype=acc.dtype, device=acc.device)
 
 
+def resblock_stage(dec: nn.Module, i: int, x: torch.Tensor) -> torch.Tensor:
+    """Stage ``i``'s ResBlocks of a decoder (``dec.resblocks``,
+    ``num_kernels`` a stage, ``resblock`` "1" or "2", ``fuse_group``) on
+    x (B, C, T): the mean of the stage's blocks, by the route the module
+    docstring gives."""
+    nk = dec.num_kernels
+    blocks = dec.resblocks[i * nk:(i + 1) * nk]
+    if dec.resblock != "1":
+        xs = None
+        for rb in blocks:
+            r = rb(x)
+            xs = r if xs is None else xs + r
+        return xs / nk
+    xt = x.transpose(1, 2).contiguous()
+    chains = [rb.chain() for rb in blocks]
+    if wants_grad(xt, chains):
+        ys = None
+        for chain in chains:
+            r = fused_resblock1_train(xt, chain)
+            ys = r if ys is None else ys + r
+        y = ys / nk
+    elif dec.fuse_group:
+        y = fused_resblock_group(xt, chains)
+    else:
+        one = fused_resblock1_v2 if xt.dtype == torch.bfloat16 else fused_resblock1
+        y = mean_of([one(xt, chain) for chain in chains])
+    return y.transpose(1, 2)
+
+
 class GeneratorNSF(nn.Module):
     """NSF-HiFiGAN decoder (reference models.GeneratorNSF). ``fuse_group``
     picks the inference route of the ResBlock1 stages (module docstring)."""
@@ -197,31 +227,50 @@ class GeneratorNSF(nn.Module):
         x = self.conv_pre(x)
         if g is not None:
             x = x + self.cond(g)
-        nk = self.num_kernels
         for i, (up, noise_conv) in enumerate(zip(self.ups, self.noise_convs)):
             x = up(leaky_relu(x, LRELU_SLOPE))
             x = x + noise_conv(har)[..., :x.shape[-1]]
-            blocks = self.resblocks[i * nk:(i + 1) * nk]
-            if self.resblock == "1":
-                xt = x.transpose(1, 2).contiguous()
-                chains = [rb.chain() for rb in blocks]
-                if wants_grad(xt, chains):
-                    ys = None
-                    for chain in chains:
-                        r = fused_resblock1_train(xt, chain)
-                        ys = r if ys is None else ys + r
-                    y = ys / nk
-                elif self.fuse_group:
-                    y = fused_resblock_group(xt, chains)
-                else:
-                    one = fused_resblock1_v2 if xt.dtype == torch.bfloat16 else fused_resblock1
-                    y = mean_of([one(xt, chain) for chain in chains])
-                x = y.transpose(1, 2)
-            else:
-                xs = None
-                for rb in blocks:
-                    r = rb(x)
-                    xs = r if xs is None else xs + r
-                x = xs / nk
+            x = resblock_stage(self, i, x)
+        x = self.conv_post(leaky_relu(x, 0.01))
+        return torch.tanh(x)
+
+
+class Generator(nn.Module):
+    """HiFiGAN decoder of the no-f0 variants (reference models.Generator,
+    rvc_tpu/models/nsf.py:356): GeneratorNSF without the harmonic source and
+    its noise convs; the same stages, through the same kernels."""
+
+    def __init__(self, initial_channel: int, resblock: str,
+                 resblock_kernel_sizes: Sequence[int],
+                 resblock_dilation_sizes: Sequence[Sequence[int]],
+                 upsample_rates: Sequence[int], upsample_initial_channel: int,
+                 upsample_kernel_sizes: Sequence[int], gin_channels: int,
+                 fuse_group: bool = True):
+        super().__init__()
+        self.fuse_group = fuse_group
+        self.upp = int(np.prod(upsample_rates))
+        self.num_kernels = len(resblock_kernel_sizes)
+        self.resblock = resblock
+        self.conv_pre = Conv1d(initial_channel, upsample_initial_channel, 7, padding=3)
+        self.cond = Conv1d(gin_channels, upsample_initial_channel, 1)
+        self.ups = nn.ModuleList()
+        self.resblocks = nn.ModuleList()
+        rb_cls = ResBlock1 if resblock == "1" else ResBlock2
+        for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
+            c_in = upsample_initial_channel // (2 ** i)
+            c_cur = upsample_initial_channel // (2 ** (i + 1))
+            self.ups.append(ConvTranspose1d(c_in, c_cur, k, stride=u, padding=(k - u) // 2,
+                                            weight_norm=True))
+            for rk, rd in zip(resblock_kernel_sizes, resblock_dilation_sizes):
+                self.resblocks.append(rb_cls(c_cur, rk, tuple(rd)))
+        self.conv_post = Conv1d(c_cur, 1, 7, padding=3, bias=False)
+
+    def forward(self, x: torch.Tensor, g: torch.Tensor | None = None) -> torch.Tensor:
+        """x (B, C_in, T) latent; g (B, gin, 1) -> (B, 1, T*upp)."""
+        x = self.conv_pre(x)
+        if g is not None:
+            x = x + self.cond(g)
+        for i, up in enumerate(self.ups):
+            x = resblock_stage(self, i, up(leaky_relu(x, LRELU_SLOPE)))
         x = self.conv_post(leaky_relu(x, 0.01))
         return torch.tanh(x)

@@ -1,8 +1,10 @@
 """The RVC synthesizer: text encoder + posterior encoder + flow + NSF decoder.
 
 Counterpart of ``rvc_tpu/models/synthesizer.py`` (TextEncoder,
-PosteriorEncoder, Synthesizer.__call__ and .infer) for the f0 variants
-with a ResBlock1 or ResBlock2 decoder. Module names (enc_p, enc_q, flow,
+PosteriorEncoder, Synthesizer.__call__ and .infer) with a ResBlock1 or
+ResBlock2 decoder: the f0 variants (NSF decoder, pitch embedding) and, for
+inference, the no-f0 ones (``use_f0=False``: the plain HiFiGAN decoder and
+no pitch embedding). Module names (enc_p, enc_q, flow,
 dec, emb_g) are the reference state_dict prefixes. The posterior encoder
 is used only in training: it is built only with ``posterior=True``, so the
 inference state_dicts (without ``enc_q.*``) load as they are.
@@ -19,7 +21,7 @@ from .attention import Encoder
 from .flows import ResidualCouplingBlock
 from .layers import (Conv1d, Embedding, Linear, leaky_relu, rand_slice_segments, rounded,
                      sequence_mask, set_dtype_, slice_segments)
-from .nsf import GeneratorNSF
+from .nsf import Generator, GeneratorNSF
 from .wavenet import WN
 
 
@@ -81,7 +83,8 @@ class PosteriorEncoder(nn.Module):
 
 
 class Synthesizer(nn.Module):
-    """RVC v1/v2 synthesizer with f0 (SynthesizerTrnMs{256,768}NSFsid).
+    """RVC v1/v2 synthesizer, with f0 (SynthesizerTrnMs{256,768}NSFsid) or
+    without (``use_f0=False``, SynthesizerTrnMs{256,768}NSFsid_nono).
 
     ``dtype`` is the compute dtype (``layers.set_dtype_``); ``fuse_group``
     picks the decoder's inference route (``nsf.GeneratorNSF``)."""
@@ -98,14 +101,17 @@ class Synthesizer(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.segment_size = segment_size
-        if not use_f0:
-            raise NotImplementedError("the no-f0 synthesizer variants are not ported yet")
+        self.use_f0 = use_f0
         self.enc_p = TextEncoder(feature_dim, inter_channels, hidden_channels,
-                                 filter_channels, n_heads, n_layers, kernel_size)
-        self.dec = GeneratorNSF(inter_channels, resblock, resblock_kernel_sizes,
-                                resblock_dilation_sizes, upsample_rates,
-                                upsample_initial_channel, upsample_kernel_sizes,
-                                gin_channels=gin_channels, sr=sr, fuse_group=fuse_group)
+                                 filter_channels, n_heads, n_layers, kernel_size, f0=use_f0)
+        dec = (resblock, resblock_kernel_sizes, resblock_dilation_sizes, upsample_rates,
+               upsample_initial_channel, upsample_kernel_sizes)
+        if use_f0:
+            self.dec = GeneratorNSF(inter_channels, *dec, gin_channels=gin_channels, sr=sr,
+                                    fuse_group=fuse_group)
+        else:
+            self.dec = Generator(inter_channels, *dec, gin_channels=gin_channels,
+                                 fuse_group=fuse_group)
         self.flow = ResidualCouplingBlock(inter_channels, hidden_channels, 5, 1, 3,
                                           gin_channels=gin_channels)
         self.emb_g = Embedding(spk_embed_dim, gin_channels)
@@ -128,6 +134,8 @@ class Synthesizer(nn.Module):
         uniform, and the sine source's ``rand_ini`` and ``noise``.
         Returns (o (B, 1, segment·upp), ids_slice (B,), x_mask, y_mask,
         (z, z_p, m_p, logs_p, m_q, logs_q)), activations (B, C, T)."""
+        if not self.use_f0:
+            raise NotImplementedError("training the no-f0 variants is not ported yet")
         g = self.emb_g(sid)[:, :, None]
         m_p, logs_p, x_mask = self.enc_p(phone, pitch, phone_lengths)
         z, m_q, logs_q, y_mask = self.enc_q(spec.transpose(1, 2), spec_lengths, g=g,
@@ -140,15 +148,16 @@ class Synthesizer(nn.Module):
         return o, ids_slice, x_mask, y_mask, (z, z_p, m_p, logs_p, m_q, logs_q)
 
     def infer(self, phone: torch.Tensor, phone_lengths: torch.Tensor,
-              pitch: torch.Tensor, nsff0: torch.Tensor, sid: torch.Tensor,
+              pitch: torch.Tensor | None, nsff0: torch.Tensor | None, sid: torch.Tensor,
               noise_scale: float = 0.66666, *, eps: torch.Tensor | None = None,
               generator: torch.Generator | None = None, **draws):
         """Sample the prior, invert the flow, decode.
 
-        phone (B, T, feat); pitch (B, T) coarse bins; nsff0 (B, T) Hz; sid (B,).
-        ``eps`` (B, inter, T) is the prior's standard normal draw, used in
-        ``m_p``'s dtype, and ``draws`` the sine source's (``rand_ini``,
-        ``noise``); each is drawn from ``generator`` when absent. Returns
+        phone (B, T, feat); pitch (B, T) coarse bins and nsff0 (B, T) Hz, both
+        None without f0; sid (B,). ``eps`` (B, inter, T) is the prior's
+        standard normal draw, used in ``m_p``'s dtype, and ``draws`` the sine
+        source's (``rand_ini``, ``noise``; none without f0); each is drawn
+        from ``generator`` when absent. Returns
         (o (B, 1, T*upp), x_mask, (z, z_p, m_p, logs_p))."""
         g = self.emb_g(sid)[:, :, None]
         m_p, logs_p, x_mask = self.enc_p(phone, pitch, phone_lengths)
@@ -158,5 +167,8 @@ class Synthesizer(nn.Module):
         eps = eps.to(m_p.dtype)
         z_p = (m_p + torch.exp(logs_p) * eps * rounded(noise_scale, m_p.dtype)) * x_mask
         z = self.flow.reverse(z_p, x_mask, g=g)
-        o = self.dec(z * x_mask, nsff0, g=g, generator=generator, **draws)
+        if self.use_f0:
+            o = self.dec(z * x_mask, nsff0, g=g, generator=generator, **draws)
+        else:
+            o = self.dec(z * x_mask, g=g)
         return o, x_mask, (z, z_p, m_p, logs_p)

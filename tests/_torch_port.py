@@ -69,3 +69,19 @@ def replayed_draws(monkeypatch, draws) -> list:
     monkeypatch.setattr(jax.random, "normal", wrap(jax.random.normal))
     monkeypatch.setattr(jax.random, "uniform", wrap(jax.random.uniform))
     return pending
+
+
+NARROW_RMVPE = dict(n_blocks=1, en_out_channels=4)
+
+
+@contextlib.contextmanager
+def narrow_jax_rmvpe():
+    """While active, the JAX package's RMVPE builds its E2E net at reduced
+    widths (``NARROW_RMVPE``: a block a level, 4 base channels), as the
+    port's ``RMVPE(**NARROW_RMVPE)`` does: the same function as the full net
+    at a fraction of its CPU time. Traces made inside see it."""
+    from rvc_tpu.models import rmvpe
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(rmvpe, "E2E", functools.partial(rmvpe.E2E, **NARROW_RMVPE))
+        yield

@@ -1,0 +1,145 @@
+"""The no-f0 converter against the JAX package's, and the port's command
+line ``python -m rvc_tpu_torch.cli.main convert`` on a user's files, on
+the CPU. The files are written as the reference's tools write them
+(chip_smoke.py's writers: an fp16 ``.pth`` with weight_g/weight_v and
+``conv_1`` names, a HuBERT ``.safetensors`` in HF names, an ``rmvpe.pt``)."""
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy import signal
+from scipy.io import wavfile
+
+import chip_smoke
+from _torch_port import finit, no_compile_cache_writes, recorded_draws  # noqa: F401
+from rvc_tpu.config import RVCConfig
+from rvc_tpu.models.hubert import HubertConfig, HubertEncoder
+from rvc_tpu.models.synthesizer import Synthesizer
+from rvc_tpu.pipelines import convert as jconv
+from rvc_tpu_torch.cli import main as cli
+from rvc_tpu_torch.compat import weights
+from rvc_tpu_torch.io.audio import load_input_audio, save_input_audio
+from rvc_tpu_torch.models import hubert as thubert
+from rvc_tpu_torch.pipelines import convert as tconv
+from test_torch_convert import HUBERT, REPO, SYNTH, speech
+
+
+def test_nof0_convert_matches_jax(monkeypatch):
+    """A no-f0 model (the plain HiFiGAN decoder, no pitch embedding, no
+    pitch model, no protect blend) converts 4 s in two chunks with int8
+    retrieval and the RMS mix, on the JAX run's eps draw. Bar: 2 LSB."""
+    kw = dict(SYNTH, use_f0=False)
+    js = Synthesizer(**kw)
+    T = 16
+    sp = finit(lambda *a: js.init({"params": jax.random.PRNGKey(0),
+                                   "noise": jax.random.PRNGKey(1)}, *a, method=js.infer),
+               jnp.zeros((1, T, 32)), jnp.array([T]), None, None, jnp.array([0]), seed=21)
+    assert "m_source" not in sp["params"]["dec"] and "emb_pitch" not in sp["params"]["enc_p"]
+    hcfg = HubertConfig(**HUBERT)
+    hub = HubertEncoder(hcfg)
+    hp = finit(lambda x: hub.init(jax.random.PRNGKey(2), x, output_layer=12),
+               jnp.zeros((1, 3200)), seed=22)
+    bank = np.random.default_rng(27).standard_normal((300, 32)).astype(np.float32)
+    chunking = RVCConfig(x_pad=1, x_query=1, x_center=2, x_max=3)
+    jvc = jconv.VoiceConverter(sp, kw, hp, hcfg, index_bank=bank, config=chunking,
+                               index_int8=True)
+    tvc = tconv.VoiceConverter.from_state_dicts(
+        weights.synthesizer_state_dict(sp), kw, weights.hubert_state_dict(hp),
+        thubert.HubertConfig(**HUBERT), index_bank=bank, config=chunking, index_int8=True,
+        device="cpu")
+    assert tvc.pitch.rmvpe is None
+    audio = speech(4.0, 12.0)
+    s = dict(index_rate=0.75, protect=0.33, rms_mix_rate=0.25)
+    with recorded_draws(monkeypatch) as draws:
+        ref, ref_sr = jvc.convert(audio, settings=jconv.ConvertSettings(**s))
+    jax.effects_barrier()
+    (eps,) = draws
+    got, sr = tvc.convert(audio, settings=tconv.ConvertSettings(**s),
+                          draws=dict(eps=torch.from_numpy(eps).transpose(1, 2)))
+    assert sr == ref_sr == 16000 and eps.shape[0] == 2
+    assert got.dtype == ref.dtype == np.int16 and got.shape == ref.shape
+    assert np.abs(ref).max() > 1000
+    diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+    print(f"no-f0 convert: max |diff| {diff.max()} LSB")
+    assert diff.max() <= 2
+
+
+TINY48 = dict(SYNTH, upsample_rates=(10, 6, 4, 2), upsample_kernel_sizes=(16, 12, 8, 4),
+              sr=48000, feature_dim=256)
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    """A tiny v1 48 kHz model (HuBERT 12 layers of width 32, final_proj to
+    256), a full-size rmvpe.pt, a 256-wide float32 bank and 1.2 s of stereo
+    44.1 kHz int16 speech, with the arrays each loader must give; and a
+    no-f0 copy of the model."""
+    d = str(tmp_path_factory.mktemp("cli"))
+    path = {k: os.path.join(d, n) for k, n in (
+        ("model", "model.pth"), ("nof0", "nof0.pth"), ("hubert", "hubert.safetensors"),
+        ("rmvpe", "rmvpe.pt"),
+        ("index", "bank.npy"), ("input", "in.wav"))}
+    hcfg = thubert.HubertConfig(**dict(HUBERT, classifier_proj_size=256))
+    states = dict(synth=chip_smoke.write_rvc_pth(path["model"], TINY48, "v1", seed=1),
+                  hubert=chip_smoke.write_hubert_safetensors(path["hubert"], hcfg, seed=2),
+                  rmvpe=chip_smoke.write_rmvpe_pt(path["rmvpe"], seed=3), hubert_cfg=hcfg)
+    chip_smoke.write_rvc_pth(path["nof0"], dict(TINY48, use_f0=False), "v1", seed=5)
+    bank = np.random.default_rng(4).standard_normal((200, 256)).astype(np.float32)
+    np.save(path["index"], bank)
+    mono = signal.resample_poly(speech(1.2, 25.0), 441, 160)
+    stereo = np.stack([mono, 0.5 * np.roll(mono, 300)], 1)
+    wavfile.write(path["input"], 44100, (stereo * 30000).astype(np.int16))
+    return path, states, bank
+
+
+def argv(path, out, *extra):
+    return ["convert", path["input"], out, "--model", path["model"], "--hubert",
+            path["hubert"], "--rmvpe", path["rmvpe"], "--index", path["index"], *extra]
+
+
+def argv_nof0(path, out, *extra):
+    return ["convert", path["input"], out, "--model", path["nof0"], "--hubert",
+            path["hubert"], "--index", path["index"], *extra]
+
+
+def test_cli_convert_equals_convert_on_the_same_arrays(files, tmp_path):
+    """The CLI's output wav equals save_input_audio of the converter built by
+    from_state_dicts from the arrays written into the files, converting
+    the same 16 kHz audio: same weights, draws and math, so equal."""
+    path, states, bank = files
+    out = os.path.join(tmp_path, "out.wav")
+    cli.main(argv(path, out, "--resample-sr", "44100", "--device", "cpu"))
+    vc = tconv.VoiceConverter.from_state_dicts(states["synth"], TINY48, states["hubert"],
+                                               states["hubert_cfg"], states["rmvpe"],
+                                               index_bank=bank, device="cpu")
+    audio, sr = load_input_audio(path["input"], 16000)
+    ref, ref_sr = vc.convert(audio, sr, tconv.ConvertSettings(resample_sr=44100))
+    assert ref_sr == 44100 and ref.dtype == np.int16 and np.abs(ref).max() > 1000
+    save_input_audio(os.path.join(tmp_path, "ref.wav"), (ref, ref_sr))
+    got_sr, got = wavfile.read(out)
+    want_sr, want = wavfile.read(os.path.join(tmp_path, "ref.wav"))
+    assert got_sr == want_sr == 44100 and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_cli_imports_neither_jax_nor_the_file_libraries(files, tmp_path):
+    """``python -m rvc_tpu_torch.cli.main convert`` in its own process, on
+    the no-f0 model (no rmvpe.pt to read): it writes the wav and has
+    imported neither jax nor rvc_tpu, and neither safetensors nor
+    transformers."""
+    path, _, _ = files
+    out = os.path.join(tmp_path, "out.wav")
+    code = ("import runpy, sys; sys.argv = ['rvc_tpu_torch'] + sys.argv[1:]; "
+            "runpy.run_module('rvc_tpu_torch.cli.main', run_name='__main__'); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'rvc_tpu', 'safetensors', 'transformers')]; "
+            "assert not bad, bad")
+    res = subprocess.run([sys.executable, "-c", code, *argv_nof0(path, out, "--device", "cpu")],
+                         cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "wrote" in res.stdout and os.path.getsize(out) > 0

@@ -840,3 +840,67 @@ def test_packing_cache_follows_in_place_changes(rng, cuda):
             _bf16_close(got, ref)
         else:
             torch.testing.assert_close(got, ref, atol=5e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("src,dst", [(48000, 44100), (40000, 16000), (44100, 16000)])
+def test_resample_on_the_card_matches_scipy(cuda, src, dst):
+    """ops.resample on the card (cuDNN's conv1d in float32, TF32 off)
+    against scipy.signal.resample_poly in float64: 1e-5 absolute on 1 s of
+    unit-variance noise in two rows."""
+    import math
+
+    from scipy import signal
+
+    from rvc_tpu_torch.ops.resample import resample
+
+    x = np.random.default_rng(src + dst).standard_normal((2, src)).astype(np.float32)
+    g = math.gcd(src, dst)
+    ref = signal.resample_poly(x.astype(np.float64), dst // g, src // g, axis=-1)
+    got = resample(torch.from_numpy(x).to(cuda), src, dst).cpu().numpy()
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_cli_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The command line on a narrow v1 48 kHz model written as the
+    reference's files (chip_smoke.py's writers; full-size rmvpe.pt), 1 s of
+    stereo 44.1 kHz in, 44.1 kHz out, on the card and on the CPU: the wavs
+    within 4 LSB of int16 (phase 5's bar: float32 summed in another order).
+    The widths are the narrowest the kernels take: attention heads of 32,
+    decoder stages of 128 down to 16 channels."""
+    import os
+
+    from scipy.io import wavfile
+
+    import chip_smoke
+    from rvc_tpu_torch.cli import main as cli
+    from rvc_tpu_torch.models.hubert import HubertConfig
+
+    kw = dict(spec_channels=129, segment_size=16, inter_channels=16, hidden_channels=64,
+              filter_channels=128, n_heads=2, n_layers=2, kernel_size=3, p_dropout=0.0,
+              resblock="1", resblock_kernel_sizes=(3, 5),
+              resblock_dilation_sizes=((1, 3), (1, 2)), upsample_rates=(10, 6, 4, 2),
+              upsample_initial_channel=256, upsample_kernel_sizes=(16, 12, 8, 4),
+              spk_embed_dim=4, gin_channels=8, sr=48000, feature_dim=256, use_f0=True)
+    p = {k: os.path.join(tmp_path, n) for k, n in (
+        ("model", "m.pth"), ("hubert", "h.safetensors"), ("rmvpe", "r.pt"), ("input", "in.wav"))}
+    chip_smoke.write_rvc_pth(p["model"], kw, "v1", seed=1)
+    chip_smoke.write_hubert_safetensors(p["hubert"], HubertConfig(
+        hidden_size=32, intermediate_size=64, num_attention_heads=2, conv_dim=(16,) * 7,
+        num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4), seed=2)
+    chip_smoke.write_rmvpe_pt(p["rmvpe"], seed=3)
+    t = np.arange(44100) / 44100
+    mono = 0.5 * np.sin(2 * np.pi * 150 * t * (1 + 0.2 * t)) * (1 + np.sin(2 * np.pi * 3 * t))
+    wavfile.write(p["input"], 44100, (np.stack([mono, mono[::-1]], 1) * 20000).astype(np.int16))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(tmp_path, f"{dev}.wav")
+        cli.main(["convert", p["input"], out, "--model", p["model"], "--hubert", p["hubert"],
+                  "--rmvpe", p["rmvpe"], "--resample-sr", "44100", "--device", dev])
+        sr, outs[dev] = wavfile.read(out)
+        assert sr == 44100
+    assert outs["cuda"].shape == outs["cpu"].shape
+    assert np.all(np.isfinite(outs["cuda"])) and np.abs(outs["cuda"]).max() > 0.5
+    assert np.abs(outs["cuda"].astype(np.float64) - outs["cpu"]).max() * 32768 <= 4
