@@ -92,7 +92,24 @@ Phases, each announced on its own line:
      pitch model): 10 s with exact launches and RTF; 3 s card vs CPU;
  16. convert_batch of 8 songs of 10 s in bf16 (the bench's throughput
      configuration): aggregate RTF, the stats' shares, exact launches, and
-     each song against its own convert on its rows of the draws.
+     each song against its own convert on its rows of the draws;
+ 17. training from a dataset through the CLI (rvc_tpu_torch.cli.main, in
+     process) at 40k_v2, full width: a HuBERT .safetensors, an rmvpe.pt and a
+     pretrained G and D (one tensor each of another shape) written with
+     random weights; `preprocess` of assets/speech_65s.wav at 40 kHz (clip,
+     feature and f0 counts equal); `train` for 2 epochs at batch 4 from the
+     pretrained G and D, saving every epoch (steps/s, audio trained per s,
+     peak memory, one step's stages and each stage's median over the steps
+     on the card and on the host; losses finite; kernels 4-7 launched as
+     the structure says; state_N, losses.json, model_best.pth, model.pth);
+     the multi-tensor AdamW against the per-tensor loop on one step's
+     gradients (values, ms and launches of each); the epoch-1 checkpoint
+     restored into a fresh Trainer bit for bit and epoch 2 run again within
+     1e-3 of the uninterrupted run's losses; `index`, and k-means of 200001
+     x 768 seeded rows to 10000 centroids in 20 iterations (inertia never
+     rising, no NaN); `convert` of 10 s with the exported model and index
+     (kernels 1-3 launched as the structure says, 40 kHz of the expected
+     length), and 3 s card vs CPU within phase 5's 4 LSB.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that.
 A kernel's time beside its yardsticks (previous_ms, mma_sync_ms) is
@@ -1287,7 +1304,8 @@ def check_train_vs_cpu(cfg, batch: dict) -> None:
         st, m = tr.step(st, small, draws=tr.draws(small, seed=3))
         params = [p.detach().cpu() for p in list(tr.synth.parameters()) +
                   list(tr.disc.parameters())]
-        runs[dev] = ({k: float(v) for k, v in m.items()}, params, time.perf_counter() - t0)
+        runs[dev] = ({k: float(v) for k, v in m.items() if k != "viz"}, params,
+                     time.perf_counter() - t0)
         del tr, st
     (mg, pg, tg), (mc, pc, tc) = runs["cuda"], runs["cpu"]
     lr = cfg.train.learning_rate
@@ -1296,7 +1314,7 @@ def check_train_vs_cpu(cfg, batch: dict) -> None:
     norm_err = max(abs(mg[k] - mc[k]) / abs(mc[k]) for k in ("grad_norm_g", "grad_norm_d"))
     delta = torch.cat([(a - b).abs().flatten() for a, b in zip(pg, pc)])
     worst, share = delta.max().item(), (delta > 0.01 * lr).float().mean().item()
-    say(f"[8/16] one training step, batch 1, {F} frames, card vs CPU: losses within "
+    say(f"[8/17] one training step, batch 1, {F} frames, card vs CPU: losses within "
         f"{loss_err:.3g} (relative, of max(1, |loss|); tolerance 1e-3), gradient norms within "
         f"{norm_err:.3g} (tolerance 1e-2), updated parameters max |diff| {worst:.3g} "
         f"(tolerance 2.01 lr = {2.01 * lr:.3g}), share above 0.01 lr {share:.4%} (tolerance "
@@ -1347,7 +1365,7 @@ def run_training(trainer, batches: list, card: str) -> dict:
         state, m = trainer.step(state, batch)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        vals = {k: float(v) for k, v in m.items()}
+        vals = {k: float(v) for k, v in m.items() if k != "viz"}
         losses.append(vals)
         if not all(math.isfinite(v) for v in vals.values()):
             fail(f"a loss is not finite: {vals}")
@@ -1361,7 +1379,7 @@ def run_training(trainer, batches: list, card: str) -> dict:
     cfg = trainer.config
     audio_s = TRAIN_BATCH * cfg.train.segment_size / cfg.data.sampling_rate
     total = sum(walls)
-    say(f"[7/16] training 48k_v2, batch {TRAIN_BATCH}, padded to "
+    say(f"[7/17] training 48k_v2, batch {TRAIN_BATCH}, padded to "
         f"{np.shape(batches[1]['spec'])[1]} frames: {steps} steps, wall s "
         f"{[round(w, 4) for w in walls]}, {steps / total:.3f} steps/s, "
         f"{audio_s * steps / total:.3f} s of audio (the sliced segments) trained per s, "
@@ -1389,7 +1407,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
                                device="cuda", dtype=bf16)
     say(f"bf16 converter built in {time.perf_counter() - t0:.1f} s")
     shapes = path_shapes(vc, clips[30])
-    say(f"[9/16] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
+    say(f"[9/17] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz")
     gen = torch.Generator().manual_seed(3)
     with torch.no_grad():
@@ -1428,7 +1446,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[10/16] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
+        say(f"[10/17] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
             f"{sr} Hz, peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x (float32 "
             f"in this run {rtf32[sec]:.2f}x), max_memory_allocated "
@@ -1453,7 +1471,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out, sr, launched, wall = counted_convert(vc, audio, settings, counters)
     vc.synth.dec.fuse_group = True
     same = bool(np.array_equal(out, outs[30]))
-    say(f"[11/16] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
+    say(f"[11/17] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
         f"(RTF {30 / wall:.2f}x), launches { {k: v for k, v in launched.items() if v} }, "
         f"bit-identical to the default route: {same} (the default route against itself: "
         f"{bool(np.array_equal(again, outs[30]))})")
@@ -1489,7 +1507,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     a, b = out_gpu.astype(np.float64), out_cpu.astype(np.float64)
     l2 = float(np.linalg.norm(a - b) / np.linalg.norm(b)) if a.shape == b.shape else math.inf
-    say(f"[12/16] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
+    say(f"[12/17] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
         f"differs on {differ:.2%} of frames between them): {len(out_gpu)} vs {len(out_cpu)} "
         f"samples, relative L2 {l2:.4g} (tolerance {BF16_CPU_L2}: bf16 roundings flip "
         f"between the card's sums and the CPU's and the flips travel through the decoder; "
@@ -1589,7 +1607,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
                                          * 32000).astype(np.int16))
     sizes = {k: round(os.path.getsize(p) / 2**20, 1) for k, p in path.items()
              if os.path.exists(p)}
-    say(f"[13/16] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
+    say(f"[13/17] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
 
     # 13. the command line, in process, every count set to 0 just before
     counters = {**launch_counters(), "nearest_rows": (retrieval.nearest_rows, "launches")}
@@ -1654,7 +1672,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
         dec = vc.synth.dec
         label = f"{key} {version}" + ("" if f0 else " no-f0")
         phase = 14 if f0 else 15
-        say(f"[{phase}/16] {label} from files: decoder stages of "
+        say(f"[{phase}/17] {label} from files: decoder stages of "
             f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
             f"channels, HuBERT features D = {vc.hubert.cfg.classifier_proj_size}, "
             f"{type(dec).__name__}")
@@ -1720,7 +1738,7 @@ def run_batch(settings, card: str) -> dict:
                 "nearest_rows_q": 1}
     best, med = 80.0 / min(walls), 80.0 / float(np.median(walls))
     dev_s, down_s, disp_s = shares[int(np.argmin(walls))]
-    say(f"[16/16] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
+    say(f"[16/17] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
         f"{stats['chunk_samples']} samples, wall ms {[round(w * 1e3, 2) for w in walls]}, "
         f"aggregate RTF best {best:.2f}x, median {med:.2f}x; stats of the best: device_s "
         f"{dev_s:.4f} ({dev_s / min(walls):.1%} of the wall), download_s {down_s:.4f} "
@@ -1752,6 +1770,361 @@ def run_batch(settings, card: str) -> dict:
                 dispatch_s=disp_s)
 
 
+# ---- phase 17: training a 40k_v2 model from a dataset through the CLI ----
+TRAIN_PRESET = "40k_v2"
+ADAMW_TOL = dict(atol=1e-7, rtol=1e-6)  # tests/test_torch_optimizer.py's bar
+KMEANS_ROWS, KMEANS_DIM, KMEANS_CLUSTERS, KMEANS_ITERS = 200_001, 768, 10_000, 20
+
+
+def write_pretrained(path_g: str, path_d: str, cfg, seed: int) -> tuple[str, str]:
+    """A reference pretrained G (with its posterior encoder) and D of ``cfg``
+    with random weights, as training files ({"model": state_dict,
+    "iteration", "optimizer", "learning_rate"}), one tensor of each of
+    another shape than the model's. Returns the two mismatched names."""
+    import torch
+
+    from rvc_tpu_torch.models.discriminator import MultiPeriodDiscriminator
+    from rvc_tpu_torch.models.layers import init_random_, live_weight_norm_
+    from rvc_tpu_torch.models.synthesizer import Synthesizer
+    from rvc_tpu_torch.pipelines.convert import synth_kwargs_from_config
+
+    g = init_random_(live_weight_norm_(Synthesizer(**synth_kwargs_from_config(cfg),
+                                                   posterior=True)), seed)
+    d = init_random_(MultiPeriodDiscriminator(cfg.model.version), seed + 1)
+    odd = []
+    for module, path, key in ((g, path_g, "emb_g.weight"), (d, path_d, None)):
+        sd = {k: v.clone() for k, v in module.state_dict().items()}
+        key = key or next(reversed(sd))
+        sd[key] = torch.zeros((sd[key].shape[0] + 1,) + tuple(sd[key].shape[1:]))
+        torch.save({"model": sd, "iteration": 0, "optimizer": {}, "learning_rate": 1e-4}, path)
+        odd.append(key)
+    return odd[0], odd[1]
+
+
+def kernel_launches(fn) -> int | None:
+    """Kernels the card ran in one call of ``fn`` (torch.profiler); None when
+    the profiler saw no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type.name == "CUDA"
+            and not e.name.startswith(("Memcpy", "Memset")))
+    return n or None
+
+
+def check_adamw(trainer, state, batch, card: str) -> dict:
+    """The multi-tensor AdamW against the per-tensor loop (its plain version)
+    on one step's gradients of G and of D, each from a copy of the state
+    after that step: parameters, moments and the gradient norm, both
+    updates' ms (CUDA events) and launches an update (torch.profiler)."""
+    import torch
+
+    from rvc_tpu_torch.train.step import AdamW, MultiTensorAdamW
+
+    state, _ = trainer.step(state, batch, keep_grads=True)
+    out = {}
+    for key, opt in (("g", state.opt_g), ("d", state.opt_d)):
+        grads = trainer.grads[key]
+        runs = {}
+        for cls in (MultiTensorAdamW, AdamW):
+            o = cls([p.detach().clone() for p in opt.params], opt.schedule,
+                    (opt.b1, opt.b2), opt.eps, opt.wd)
+            o.m = [t.clone() for t in opt.m]
+            o.v = [t.clone() for t in opt.v]
+            o.count = opt.count
+            norm = float(o.step(grads))
+            result = (o.params, o.m, o.v)
+            # time further updates on other copies, from the same state
+            t = cls([p.detach().clone() for p in opt.params], opt.schedule)
+            t.m = [x.clone() for x in opt.m]
+            t.v = [x.clone() for x in opt.v]
+            runs[cls.__name__] = (result, norm, timed(lambda: t.step(grads), reps=5),
+                                  kernel_launches(lambda: t.step(grads)))
+        (multi, n_m, ms_m, l_m), (plain, n_p, ms_p, l_p) = runs.values()
+        worst, diff = -math.inf, 0.0
+        for xs, ys in zip(multi, plain):
+            for x, y in zip(xs, ys):
+                d = (x - y).abs()
+                worst = max(worst, (d - ADAMW_TOL["rtol"] * y.abs()).max().item())
+                diff = max(diff, d.max().item())
+        norm_err = abs(n_m - n_p) / max(n_p, 1e-30)
+        # the least bytes an update moves: p, g, m, v read once, p, m, v written
+        b_ms = 7 * 4 * sum(p.numel() for p in opt.params) / HBM * 1e3
+        out[key] = dict(tensors=len(opt.params), max_abs_err=diff, norm_rel_err=norm_err,
+                        ms=ms_m, plain_ms=ms_p, bound_ms=b_ms, launches=l_m, plain_launches=l_p)
+        say(f"  AdamW of {'G' if key == 'g' else 'D'} ({len(opt.params)} tensors): multi-tensor "
+            f"{ms_m:.3f} ms (bound {b_ms:.3f}, bytes), {l_m if l_m else 'not measured'} kernel "
+            f"launches an update; per "
+            f"tensor (plain) {ms_p:.3f} ms, {l_p if l_p else 'not measured'} launches; "
+            f"parameters and moments max |diff| {diff:.3g}, largest |diff| - "
+            f"{ADAMW_TOL['rtol']} |x| {worst:.3g} (tolerance {ADAMW_TOL['atol']}), gradient norm "
+            f"{n_m:.6g} vs {n_p:.6g} (relative {norm_err:.3g}, tolerance 1e-5); {card}")
+        if not (worst <= ADAMW_TOL["atol"] and norm_err <= 1e-5):
+            fail(f"the multi-tensor AdamW of {key.upper()} disagrees with the per-tensor loop")
+    trainer.grads = None
+    return out
+
+
+def run_train_from_dataset(tmp: str, settings, card: str, checks: dict) -> dict:
+    """Phase 17: preprocess the speech fixture at 40 kHz, train 40k_v2 from a
+    pretrained G and D for 2 epochs, resume epoch 2 from the epoch-1
+    checkpoint, index the features (and k-means at the reference's scale),
+    convert with the exported model: all through the port's CLI, on the
+    card, at full width. Returns the training kernels' launches."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from rvc_tpu_torch.cli import main as cli
+    from rvc_tpu_torch.compat import torch_import as ti
+    from rvc_tpu_torch.config import preset
+    from rvc_tpu_torch.models.hubert import HubertConfig
+    from rvc_tpu_torch.ops import resblock, retrieval, wavenet
+    from rvc_tpu_torch.ops.filters import butter_highpass_host
+    from rvc_tpu_torch.pipelines.convert import WINDOW, VoiceConverter
+    from rvc_tpu_torch.retrieval.index import _kmeans
+    from rvc_tpu_torch.train import step as step_mod
+    from rvc_tpu_torch.train.checkpoints import restore_train_state
+    from rvc_tpu_torch.train.data import BucketBatcher, RVCDataset
+    from scipy.io import wavfile
+
+    path = {k: os.path.join(tmp, n) for k, n in (
+        ("src", "src"), ("exp", "exp"), ("run", "run"), ("hubert", "hubert.safetensors"),
+        ("rmvpe", "rmvpe.pt"), ("G", "G_pretrained.pth"), ("D", "D_pretrained.pth"),
+        ("in", "in10.wav"), ("out", "out10.wav"))}
+    cfg = preset(TRAIN_PRESET)
+    t0 = time.perf_counter()
+    os.makedirs(path["src"])
+    shutil.copy(os.path.join(REPO, "assets", "speech_65s.wav"), path["src"])
+    hub_state = write_hubert_safetensors(path["hubert"], HubertConfig(), seed=21)
+    rmvpe_state = write_rmvpe_pt(path["rmvpe"], seed=22)
+    odd_g, odd_d = write_pretrained(path["G"], path["D"], cfg, seed=23)
+    say(f"[17/17] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
+        f"pretrained G and D ({odd_g} and {odd_d} of another shape) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # preprocess
+    t0 = time.perf_counter()
+    cli.main(["preprocess", path["src"], path["exp"], "--sr", "40k", "--hubert", path["hubert"],
+              "--rmvpe", path["rmvpe"]])
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    n_clips = sum(f.endswith(".wav") for f in os.listdir(os.path.join(path["exp"], "0_gt_wavs")))
+    n_files = {sub: len(os.listdir(os.path.join(path["exp"], sub)))
+               for sub in ("3_feature768", "2a_f0", "2b-f0nsf")}
+    say(f"  preprocess: assets/speech_65s.wav at 40 kHz -> {n_clips} clips, feature and f0 "
+        f"files {n_files}, {pre_s:.2f} s (slicing, writing, HuBERT and RMVPE on the card, the "
+        f"filelist)")
+    if n_clips < 10 or any(n != n_clips for n in n_files.values()):
+        fail("preprocess: the feature and f0 files do not match the clips")
+
+    # train, every step recorded: wall (synchronized), losses; from step 3 on
+    # each stage's ms on the card (CUDA events) and on the host (the clock
+    # read at the same marks)
+    rec = {"walls": [], "losses": [], "stages": [], "host": [], "marks": []}
+    original, mark = step_mod.Trainer.step, step_mod._mark
+
+    def marked(events, name):
+        mark(events, name)
+        if events is not None:
+            rec["marks"].append(time.perf_counter())
+
+    def recorded(self, state, batch, draws=None, keep_grads=False, events=None):
+        ev = [] if len(rec["walls"]) >= 2 else events
+        rec["marks"] = []
+        t = time.perf_counter()
+        out = original(self, state, batch, draws=draws, keep_grads=keep_grads, events=ev)
+        torch.cuda.synchronize()
+        rec["walls"].append(time.perf_counter() - t)
+        rec["losses"].append({k: float(v) for k, v in out[1].items() if k != "viz"})
+        if ev:
+            names = [name for name, _ in ev[1:]]
+            rec["stages"].append(dict(zip(names, (a.elapsed_time(b) for (_, a), (_, b)
+                                                  in zip(ev[:-1], ev[1:])))))
+            rec["host"].append(dict(zip(names, ((b - a) * 1e3 for a, b
+                                                in zip(rec["marks"][:-1], rec["marks"][1:])))))
+        return out
+
+    counters = {"fused_resblock1": resblock.fused_resblock1,
+                "fused_resblock1_backward": resblock.fused_resblock1_backward,
+                "fused_wn": wavenet.fused_wn, "fused_wn_backward": wavenet.fused_wn_backward}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step_mod.Trainer.step, step_mod._mark = recorded, marked
+    t0 = time.perf_counter()
+    try:
+        cli.main(["train", os.path.join(path["exp"], "filelist.txt"), path["run"], "--preset",
+                  TRAIN_PRESET, "--batch-size", str(TRAIN_BATCH), "--epochs", "2",
+                  "--save-every", "1", "--pretrained-g", path["G"], "--pretrained-d", path["D"]])
+    finally:
+        step_mod.Trainer.step, step_mod._mark = original, mark
+    train_s = time.perf_counter() - t0
+    launched = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = len(rec["walls"])
+    per_epoch = steps // 2
+    walls = rec["walls"][1:]
+    audio_s = TRAIN_BATCH * cfg.train.segment_size / cfg.data.sampling_rate
+    stages = {name: round(ms, 3) for name, ms in rec["stages"][0].items()}
+    median = {which: {name: round(float(np.median([r[name] for r in rec[which]])), 3)
+                      for name in stages} for which in ("stages", "host")}
+    trainer = step_mod.Trainer(dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, epochs=2, batch_size=TRAIN_BATCH)), device="cuda")
+    n_chains = len(trainer.synth.dec.resblocks)
+    n_wn = sum(1 for mod in trainer.synth.modules() if type(mod).__name__ == "WN")
+    expected = {"fused_resblock1": n_chains * steps, "fused_resblock1_backward": n_chains * steps,
+                "fused_wn": n_wn * steps, "fused_wn_backward": n_wn * steps}
+    run_files = sorted(os.listdir(path["run"]))
+    say(f"  train: {steps} steps ({per_epoch} an epoch, batch {TRAIN_BATCH}), {train_s:.2f} s in "
+        f"all (building, warm start, checkpoints, exports); steps after the first: wall s "
+        f"{[round(w, 4) for w in walls]}, {len(walls) / sum(walls):.3f} steps/s, "
+        f"{audio_s * len(walls) / sum(walls):.3f} s of audio trained per s; "
+        f"max_memory_allocated {peak:.2f} GiB; launches {launched} (decoder chains {n_chains}, "
+        f"WN stacks {n_wn} a step); files {run_files}; {card}")
+    say(f"  stages of step 3 (CUDA events, ms): {stages}")
+    say(f"  stages, median of steps 3-{steps} (ms): CUDA events {median['stages']}; host clock "
+        f"at the same marks {median['host']}")
+    for i, vals in enumerate(rec["losses"]):
+        if not all(math.isfinite(v) for v in vals.values()):
+            fail(f"step {i}: a loss is not finite: {vals}")
+    say("  losses (loss_gen_all, loss_mel) by step: "
+        f"{[(round(v['loss_gen_all'], 4), round(v['loss_mel'], 4)) for v in rec['losses']]}")
+    if launched != expected:
+        fail(f"training kernel launches {launched}, expected {expected}")
+    ckpts = sorted((int(f.split("_")[1]), f) for f in run_files if f.startswith("state_"))
+    if [s for s, _ in ckpts] != [per_epoch, 2 * per_epoch] or not all(
+            f in run_files for f in ("losses.json", "model_best.pth", "model.pth")):
+        fail(f"the run wrote {run_files}")
+
+    # the optimizer on the card, on a fresh trainer's step
+    filelist = os.path.join(path["exp"], "filelist.txt")
+    batcher = BucketBatcher(RVCDataset(filelist, cfg.data), TRAIN_BATCH, seed=cfg.train.seed)
+    adamw = check_adamw(trainer, trainer.init_state(seed=3, steps_per_epoch=per_epoch),
+                        next(iter(batcher.epoch(0))), card)
+
+    # resume epoch 2 from the epoch-1 checkpoint in a fresh trainer
+    del trainer
+    torch.cuda.empty_cache()
+    trainer = step_mod.Trainer(dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, epochs=2, batch_size=TRAIN_BATCH)), device="cuda")
+    state = trainer.init_state(seed=5, steps_per_epoch=per_epoch)
+    ckpt = os.path.join(path["run"], ckpts[0][1])
+    state = restore_train_state(ckpt, trainer, state)
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+    live = {**{f"synth.{k}": v for k, v in trainer.synth.state_dict().items()},
+            **{f"disc.{k}": v for k, v in trainer.disc.state_dict().items()}}
+    want = {**{f"synth.{k}": v for k, v in saved["synth"].items()},
+            **{f"disc.{k}": v for k, v in saved["disc"].items()}}
+    for name, opt in (("opt_g", state.opt_g), ("opt_d", state.opt_d)):
+        for which in ("m", "v"):
+            live.update({f"{name}.{which}{i}": t for i, t in enumerate(getattr(opt, which))})
+            want.update({f"{name}.{which}{i}": t for i, t in enumerate(saved[name][which])})
+    for name in ("balancer_g", "balancer_d"):
+        live.update({f"{name}{i}": t for i, t in enumerate(getattr(state, name))})
+        want.update({f"{name}{i}": t for i, t in enumerate(saved[name])})
+    unequal = [k for k in want if not torch.equal(live[k].cpu(), want[k])]
+    if unequal or live.keys() != want.keys() or state.step != per_epoch:
+        fail(f"the restored state differs from the checkpoint: {unequal[:8]}")
+    resumed = []
+    for batch in batcher.epoch(1):
+        state, m = trainer.step(state, batch, draws=trainer.draws(batch, state.step))
+        resumed.append({k: float(v) for k, v in m.items() if k != "viz"})
+    straight = rec["losses"][per_epoch:]
+    err = max(abs(a[k] - b[k]) / max(1.0, abs(b[k])) for a, b in zip(resumed, straight)
+              for k in b if not k.startswith("grad_norm"))
+    say(f"  resume: {len(want)} tensors of {ckpts[0][1]} restored bit for bit; epoch 2 again "
+        f"({len(resumed)} steps): losses within {err:.3g} of the uninterrupted run's (relative, "
+        f"of max(1, |loss|); tolerance 1e-3, as phase 8's: cuDNN's weight gradients may sum "
+        f"in another order from run to run)")
+    if len(resumed) != len(straight) or not err <= 1e-3:
+        fail("the resumed epoch disagrees with the uninterrupted run")
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    # index, then k-means at the reference's scale
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cli.main(["index", path["exp"]])
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    bank = np.load(os.path.join(path["exp"], "index.npy"))
+    feats = np.random.default_rng(24).standard_normal((KMEANS_ROWS, KMEANS_DIM), np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    data = torch.from_numpy(feats).cuda()
+    # from the initial rows train_index draws above max_rows (its seed, 0)
+    init_idx = np.random.default_rng(0).choice(KMEANS_ROWS, KMEANS_CLUSTERS, replace=False)
+    inertia = []
+    centroids = _kmeans(data, data[torch.from_numpy(init_idx).cuda()], KMEANS_CLUSTERS,
+                        KMEANS_ITERS, inertia=inertia)
+    torch.cuda.synchronize()
+    km_s = time.perf_counter() - t0
+    km_peak = torch.cuda.max_memory_allocated() / 2**30
+    rises = [i for i in range(1, len(inertia)) if inertia[i] > inertia[i - 1] * (1 + 1e-6)]
+    nan = bool(torch.isnan(centroids).any().item())
+    say(f"  index: {bank.shape[0]} x {bank.shape[1]} bank from the features in {index_s:.2f} s; "
+        f"k-means of {KMEANS_ROWS} x {KMEANS_DIM} seeded rows (train_index's branch above "
+        f"max_rows) to {KMEANS_CLUSTERS} centroids, {KMEANS_ITERS} iterations: {km_s:.2f} s "
+        f"(upload and inertia trace included), max_memory_allocated {km_peak:.2f} GiB; inertia "
+        f"{[round(x, 1) for x in inertia]}, rises beyond 1e-6 relative {rises}, NaN "
+        f"centroids {nan}; {card}")
+    if (bank.shape[1] != 768 or rises or nan or len(inertia) != KMEANS_ITERS
+            or tuple(centroids.shape) != (KMEANS_CLUSTERS, KMEANS_DIM)):
+        fail("the index or k-means failed its checks")
+    del data, centroids
+    torch.cuda.empty_cache()
+
+    # convert 10 s with the exported model and the index through the CLI
+    clip10, clip3 = speech(10.0, 30.0), speech(3.0, 50.0)
+    wavfile.write(path["in"], 16000, (clip10 * 32768).astype(np.int16))
+    conv = {**launch_counters(), "nearest_rows": (retrieval.nearest_rows, "launches")}
+    for fn, attr in conv.values():
+        setattr(fn, attr, 0)
+    model = os.path.join(path["run"], "model.pth")
+    t0 = time.perf_counter()
+    cli.main(["convert", path["in"], path["out"], "--model", model, "--hubert", path["hubert"],
+              "--rmvpe", path["rmvpe"], "--index", os.path.join(path["exp"], "index.npy")])
+    torch.cuda.synchronize()
+    conv_s = time.perf_counter() - t0
+    launched_c = {k: getattr(fn, attr) for k, (fn, attr) in conv.items()}
+    state_c, meta = ti.load_rvc_checkpoint(model)
+    kw = ti.synthesizer_kwargs_from_config(meta["config"], meta["version"], meta["f0"])
+    args = (state_c, kw, hub_state, HubertConfig(), rmvpe_state)
+    vc = VoiceConverter.from_state_dicts(*args, index_bank=bank, device="cuda")
+    dec = vc.synth.dec
+    expected_c = {**dict.fromkeys(conv, 0),
+                  "fused_resblock_group": sum(len(rb.convs1) for rb in dec.resblocks),
+                  "banded_rel_attention": len(vc.synth.enc_p.encoder.attn_layers),
+                  "nearest_rows": 1}
+    out, sr = vc.convert(clip10, settings=settings)
+    spans = vc.spans(butter_highpass_host(clip10))
+    Tp = path_shapes(vc, clip10)["Tp"]
+    expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt for b, e in spans)
+    got_sr, got = wavfile.read(path["out"])
+    say(f"  convert 10 s with the exported model.pth and index.npy through the CLI: {len(got)} "
+        f"samples at {got_sr} Hz written in {conv_s:.2f} s (files read, converter built, "
+        f"set-up, converting); the same files in memory: {out.dtype} at {sr} Hz, {len(out)} "
+        f"samples (the spans give {expect}), peak {int(np.abs(out.astype(np.int32)).max())}; "
+        f"launches {launched_c} (expected {expected_c})")
+    if (got_sr != sr or sr != cfg.data.sampling_rate or out.dtype != np.int16
+            or not len(got) == len(out) == expect or np.abs(out).max() <= 0):
+        fail("the trained model's conversion failed its checks")
+    if launched_c != expected_c:
+        fail(f"the CLI's kernel launches {launched_c}, expected {expected_c}")
+    cpu = VoiceConverter.from_state_dicts(*args, index_bank=bank, device="cpu")
+    lsb = card_vs_cpu(f"{TRAIN_PRESET} trained", vc, cpu, clip3, settings)
+    del vc, cpu
+    torch.cuda.empty_cache()
+    checks["train_40k_v2"] = dict(clips=n_clips, steps=steps, adamw=adamw, lsb=lsb)
+    return launched
+
+
 def main() -> int:
     try:
         import torch
@@ -1767,7 +2140,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi gave nothing"
-    say(f"[1/16] card: {name}, {count} device(s); torch {torch.__version__}, "
+    say(f"[1/17] card: {name}, {count} device(s); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     say(card)
 
@@ -1777,7 +2150,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library()
     info = _cuda.build_info
-    say(f"[2/16] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
+    say(f"[2/17] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
         f"(load {time.perf_counter() - t0:.2f} s)")
     say("ptxas: " + "; ".join(info["ptxas"]))
     say("ptxas C7515 (wgmma serialized): " + (", ".join(info["serialized"]) or "none"))
@@ -1807,7 +2180,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions at the 30 s conversion's shapes
     shapes = path_shapes(vc, clips[30])
-    say(f"[3/16] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
+    say(f"[3/17] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz, {shapes['T50']} HuBERT frames per chunk")
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -1862,7 +2235,7 @@ def main() -> int:
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[4/16] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
+        say(f"[4/17] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
             f"peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x, "
             f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -1885,7 +2258,7 @@ def main() -> int:
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     diff = np.abs(out_gpu.astype(np.int32) - out_cpu.astype(np.int32))
     tol = 4
-    say(f"[5/16] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
+    say(f"[5/17] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
         f"max |diff| {diff.max()} LSB, share above {tol} LSB {np.mean(diff > tol):.4%} "
         f"(tolerance {tol} LSB: the same float32 math summed in another order, "
         f"~1e-5 relative before the int16 scaling); CPU run "
@@ -1913,7 +2286,7 @@ def main() -> int:
     trainer.init_state(seed=0)
     say(f"dataset of {len(CLIP_SECONDS)} clips, {len(batches)} batches, trainer built in "
         f"{time.perf_counter() - t0:.1f} s")
-    say(f"[6/16] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
+    say(f"[6/17] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
         f"segment {cfg.train.segment_size} samples, WN over {np.shape(batches[0]['spec'])[1]} "
         f"frames")
     gen = torch.Generator().manual_seed(2)
@@ -1961,6 +2334,13 @@ def main() -> int:
         run_files(files, settings, card, checks)
     run_batch(settings, card)
 
+    # 17. training 40k_v2 from a dataset through the CLI, then convert with it
+    with tempfile.TemporaryDirectory(prefix="rvc_train_") as work:
+        trained40 = run_train_from_dataset(work, settings, card, checks)
+    for key, kname in (("chain", "fused_resblock1"), ("chain_bwd", "fused_resblock1_backward"),
+                       ("wn", "fused_wn"), ("wn_bwd", "fused_wn_backward")):
+        checks[key]["launches_40k_v2"] = trained40[kname]
+
     kernels = []
     meta = {
         "resblock": ("fused_resblock_group", "rvc_tpu_torch/csrc/resblock_group.cu",
@@ -1993,7 +2373,7 @@ def main() -> int:
                         **{k: c[k] for k in ("bound_f32_ms", "previous_ms", "mma_sync_ms",
                                              "pack_ms", "float32_ms", "ms_10s",
                                              "previous_ms_10s", "32k_v1", "d256",
-                                             "cli_float32_bank") if k in c}})
+                                             "cli_float32_bank", "launches_40k_v2") if k in c}})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

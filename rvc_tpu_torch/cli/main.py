@@ -1,16 +1,22 @@
-"""Command line of the port: ``convert`` a file with a user's model files.
+"""Command line of the port: build a dataset, train, index, convert.
 
-    python -m rvc_tpu_torch.cli.main convert in.wav out.wav --model model.pth \
-        --hubert content-vec-best.safetensors --rmvpe rmvpe.pt [--index bank.npy] \
+    python -m rvc_tpu_torch.cli.main preprocess clips/ exp/ --sr 40k \
+        --hubert content-vec-best.safetensors --rmvpe rmvpe.pt [--device cpu]
+    python -m rvc_tpu_torch.cli.main train exp/filelist.txt run/ --preset 40k_v2 \
+        [--pretrained-g G.pth --pretrained-d D.pth] [--device cpu]
+    python -m rvc_tpu_torch.cli.main index exp/ [--device cpu]
+    python -m rvc_tpu_torch.cli.main convert in.wav out.wav --model run/model.pth \
+        --hubert content-vec-best.safetensors --rmvpe rmvpe.pt --index exp/index.npy \
         [--resample-sr 44100] [--device cpu]
 
-The arguments and steps of ``rvc_tpu/cli/main.py``'s ``convert``, plus
-``--device`` (the card unless ``cpu`` is asked for). The JAX package's other
-subcommands (separate, preprocess, train, index) wait for their modules.
+The arguments, defaults and steps of ``rvc_tpu/cli/main.py``'s subcommands,
+plus ``--device`` (the card unless ``cpu`` is asked for). The JAX package's
+``separate`` waits for the separation models.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def _add_convert(sub) -> None:
@@ -55,12 +61,109 @@ def cmd_convert(args) -> None:
     print(f"wrote {args.output} ({out_sr} Hz)")
 
 
+def _add_preprocess(sub) -> None:
+    p = sub.add_parser("preprocess", help="build a training dataset")
+    p.add_argument("input_dir")
+    p.add_argument("exp_dir")
+    p.add_argument("--sr", default="40k", choices=["32k", "40k", "48k"])
+    p.add_argument("--hubert", required=True)
+    p.add_argument("--rmvpe", default="")
+    p.add_argument("--f0-method", default="rmvpe")
+    p.add_argument("--version", default="v2", choices=["v1", "v2"])
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+
+def cmd_preprocess(args) -> None:
+    from ..compat.torch_import import load_hubert_safetensors, load_rmvpe
+    from ..config import SR_MAP
+    from ..models import rmvpe
+    from ..models.layers import load_numpy_state_dict
+    from ..pipelines.preprocess import (Preprocess, build_filelist, extract_features,
+                                        generate_mute_fixtures, hubert_from_state)
+    from ..pitch.extractor import PitchExtractor
+
+    sr = SR_MAP[args.sr]
+    hubert_state, hubert_cfg = load_hubert_safetensors(args.hubert)
+    hubert = hubert_from_state(hubert_state, hubert_cfg, args.version, args.device)
+    model = None
+    if args.rmvpe:
+        model = rmvpe.RMVPE()
+        load_numpy_state_dict(model.model, load_rmvpe(args.rmvpe))
+    n = Preprocess(sr, args.exp_dir).run_dir(args.input_dir)
+    print(f"sliced {n} clips")
+    extract_features(args.exp_dir, hubert, PitchExtractor(model), f0_method=args.f0_method,
+                     version=args.version, device=args.device)
+    mute = os.path.join(args.exp_dir, "mute")
+    generate_mute_fixtures(mute, sr, args.version)
+    filelist = build_filelist(args.exp_dir, sr, version=args.version, mute_dir=mute)
+    print(f"filelist: {filelist}")
+
+
+def _add_train(sub) -> None:
+    p = sub.add_parser("train", help="train an RVC model")
+    p.add_argument("filelist")
+    p.add_argument("model_dir")
+    p.add_argument("--preset", default="40k_v2")
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--batch-size", type=int, default=4)
+    p.add_argument("--save-every", type=int, default=10)
+    p.add_argument("--pretrained-g", default="")
+    p.add_argument("--pretrained-d", default="")
+    p.add_argument("--name", default="model")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+
+def cmd_train(args) -> None:
+    import dataclasses
+
+    from .. import config
+    from ..pipelines.train import TrainRunConfig, train_model
+
+    cfg = config.preset(args.preset)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, epochs=args.epochs, batch_size=args.batch_size))
+    run = TrainRunConfig(
+        model_dir=args.model_dir, filelist=args.filelist, total_epochs=args.epochs,
+        save_every_epoch=args.save_every, export_name=args.name,
+        pretrained_g=args.pretrained_g or None, pretrained_d=args.pretrained_d or None,
+        device=args.device)
+    print("exported:", train_model(cfg, run))
+
+
+def _add_index(sub) -> None:
+    p = sub.add_parser("index", help="build a retrieval bank from features")
+    p.add_argument("exp_dir")
+    p.add_argument("--version", default="v2")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+
+def cmd_index(args) -> None:
+    import numpy as np
+
+    from ..retrieval.index import train_index
+
+    feat_dir = os.path.join(
+        args.exp_dir, "3_feature256" if args.version == "v1" else "3_feature768")
+    feats = np.concatenate(
+        [np.load(os.path.join(feat_dir, f)) for f in sorted(os.listdir(feat_dir))])
+    index = train_index(feats, device=args.device)
+    out = os.path.join(args.exp_dir, "index.npy")
+    index.save(out)
+    print(f"wrote {out} ({index.ntotal} rows)")
+
+
+COMMANDS = {"convert": (_add_convert, cmd_convert),
+            "preprocess": (_add_preprocess, cmd_preprocess),
+            "train": (_add_train, cmd_train), "index": (_add_index, cmd_index)}
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser("rvc_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
-    _add_convert(sub)
+    for add, _ in COMMANDS.values():
+        add(sub)
     args = parser.parse_args(argv)
-    {"convert": cmd_convert}[args.cmd](args)
+    COMMANDS[args.cmd][1](args)
 
 
 if __name__ == "__main__":

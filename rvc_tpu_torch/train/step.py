@@ -14,6 +14,10 @@ training_cli.py:374-602. One step:
   4. both updates are AdamW with optax's semantics: betas (0.8, 0.99),
      eps 1e-9, decoupled weight decay 0.01 on every parameter, the learning
      rate ``lr_schedule`` indexed by the update count before its increment.
+     ``MultiTensorAdamW`` (the JAX ``GroupedAdamW``'s role) runs each update
+     and the global gradient norm as a handful of multi-tensor operations
+     over all of a model's tensors; ``AdamW``, a tensor at a time, is its
+     plain version.
 
 PyTorch keeps parameters in the modules, so a step updates the trainer's
 generator and discriminator in place; ``TrainState`` carries what else the
@@ -21,9 +25,11 @@ JAX state carries (optimizer moments, step, balancer states). On the card,
 the decoder's ResBlock1 chains run kernels 4 and 5 and the WN stacks of the
 posterior encoder and the flow kernels 6 and 7; the text encoder's
 attention trains through its plain version, as the JAX ``Trainer``'s does.
-Everything is float32 with TF32 off. The JAX package's GroupedAdamW and
-FlatAdamW (the same math, laid out to cut TPU kernel counts) and the
-gradient penalty (``c_gp > 0``) are not ported.
+Everything is float32 with TF32 off. ``Trainer.eval_loss`` is the JAX
+``Trainer.eval_fn``: the generator forward without gradients and the
+sliced mel L1. The JAX package's FlatAdamW and its TPU-layout split of the
+small tensors (``GroupedAdamW``'s ``small_threshold``), and the gradient
+penalty (``c_gp > 0``), are not ported.
 """
 from __future__ import annotations
 
@@ -55,7 +61,9 @@ def lr_schedule(base_lr: float, lr_decay: float, steps_per_epoch: int):
 
 
 class AdamW:
-    """optax.adamw over a list of parameters, updated in place."""
+    """optax.adamw over a list of parameters, updated in place a tensor at a
+    time: the plain version of ``MultiTensorAdamW``, with the same state
+    (``m``, ``v``, ``count``) and interface."""
 
     def __init__(self, params, schedule, betas=(0.8, 0.99), eps=1e-9, weight_decay=0.01):
         self.params = list(params)
@@ -67,17 +75,53 @@ class AdamW:
         self.m = [torch.zeros_like(p) for p in self.params]
         self.v = [torch.zeros_like(p) for p in self.params]
 
-    @torch.no_grad()
-    def step(self, grads) -> None:
+    def _advance(self) -> tuple[float, float, float]:
+        """The learning rate from the count before its increment, the bias
+        corrections from the count after it (optax's order)."""
         lr = self.schedule(self.count)
         self.count += 1
-        bc1 = 1.0 - self.b1 ** self.count
-        bc2 = 1.0 - self.b2 ** self.count
+        return lr, 1.0 - self.b1 ** self.count, 1.0 - self.b2 ** self.count
+
+    @torch.no_grad()
+    def step(self, grads) -> torch.Tensor:
+        """One update; returns the global norm of ``grads``."""
+        norm = _global_norm(grads)
+        lr, bc1, bc2 = self._advance()
         for p, g, m, v in zip(self.params, grads, self.m, self.v):
             m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
             v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
             update = (m / bc1) / (torch.sqrt(v / bc2) + self.eps) + self.wd * p
             p.sub_(lr * update)
+        return norm
+
+
+class MultiTensorAdamW(AdamW):
+    """The same update over all tensors at once, through ``torch._foreach_*``
+    (on the card a few launches an operation, each over many tensors, where
+    ``AdamW`` launches a few per tensor), and the global gradient norm from
+    the per-tensor norms of one multi-tensor reduction, as the JAX
+    ``GroupedAdamW.apply_with_norm`` takes it from the buffers the update
+    touches (rvc_tpu/train/step.py:117-236)."""
+
+    @torch.no_grad()
+    def step(self, grads) -> torch.Tensor:
+        grads = list(grads)
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        lr, bc1, bc2 = self._advance()
+        torch._foreach_mul_(self.m, self.b1)
+        torch._foreach_add_(self.m, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(self.v, self.b2)
+        torch._foreach_addcmul_(self.v, grads, grads, value=1.0 - self.b2)
+        denom = torch._foreach_div(self.v, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        update = torch._foreach_div(self.m, bc1)
+        torch._foreach_div_(update, denom)
+        del denom
+        torch._foreach_add_(update, self.params, alpha=self.wd)
+        torch._foreach_mul_(update, lr)
+        torch._foreach_sub_(self.params, update)
+        return norm
 
 
 class TrainState(NamedTuple):
@@ -145,10 +189,10 @@ class Trainer:
             else:
                 load_numpy_state_dict(module, state)
         t = self.config.train
-        sched = lr_schedule(t.learning_rate, t.lr_decay, steps_per_epoch)
+        sched = self.schedule = lr_schedule(t.learning_rate, t.lr_decay, steps_per_epoch)
         return TrainState(
-            opt_g=AdamW(self.synth.parameters(), sched, tuple(t.betas), t.eps),
-            opt_d=AdamW(self.disc.parameters(), sched, tuple(t.betas), t.eps),
+            opt_g=MultiTensorAdamW(self.synth.parameters(), sched, tuple(t.betas), t.eps),
+            opt_d=MultiTensorAdamW(self.disc.parameters(), sched, tuple(t.betas), t.eps),
             step=0,
             balancer_g=bal.init_state(len(G_LOSS_KEYS), self.device),
             balancer_d=bal.init_state(len(D_LOSS_KEYS), self.device))
@@ -175,12 +219,39 @@ class Trainer:
             out[k] = t.long() if k in ("pitch", "sid") or k.endswith("lengths") else t.float()
         return out
 
+    def _mels(self, b: dict, y_hat: torch.Tensor, ids_slice: torch.Tensor):
+        """(the target mel at the generated slice, the generated slice's mel),
+        each (B, n_mels, frames)."""
+        d = self.config.data
+        mel = spec_to_mel(b["spec"], d.filter_length, d.n_mel_channels, d.sampling_rate,
+                          d.mel_fmin, d.mel_fmax)
+        y_mel = slice_segments(mel.transpose(1, 2), ids_slice, self.seg_frames)
+        y_hat_mel = mel_spectrogram(y_hat[:, 0], d.filter_length, d.n_mel_channels,
+                                    d.sampling_rate, d.hop_length, d.win_length, d.mel_fmin,
+                                    d.mel_fmax).transpose(1, 2)
+        return y_mel, y_hat_mel
+
+    @torch.no_grad()
+    def eval_loss(self, batch: dict, draws: dict | None = None) -> torch.Tensor:
+        """Held-out evaluation (the JAX ``Trainer.eval_fn``): the generator's
+        training forward without gradients, then the mel L1 on its slice.
+        ``draws`` as ``step`` takes them (seeded with 0 when absent)."""
+        b = self._tensors(batch)
+        if draws is None:
+            draws = self.draws(batch, 0)
+        y_hat, ids_slice, *_ = self.synth(b["phone"], b["phone_lengths"], b["pitch"],
+                                          b["pitchf"], b["spec"], b["spec_lengths"],
+                                          b["sid"], **draws)
+        return L.mel_l1(*self._mels(b, y_hat, ids_slice))
+
     def step(self, state: TrainState, batch: dict, draws: dict | None = None,
              keep_grads: bool = False, events: list | None = None):
         """One GAN step on a batch of ``train.data.BucketBatcher`` (numpy,
         the JAX keys and layouts). ``draws`` as ``Trainer.draws`` gives them
         (seeded with the step number when absent). Updates ``synth`` and
-        ``disc`` in place; returns (new state, metrics as 0-d tensors). With
+        ``disc`` in place; returns (new state, metrics as 0-d tensors, and
+        under ``"viz"`` the first sample's target and generated mel and
+        waveform slices). With
         ``keep_grads`` the step's gradients stay in ``self.grads`` ({"g": ...,
         "d": ...}, in the order of ``named_parameters``). On the card, a list
         given as ``events`` gets (stage, CUDA event) pairs: the first marks
@@ -195,12 +266,7 @@ class Trainer:
             b["phone"], b["phone_lengths"], b["pitch"], b["pitchf"], b["spec"],
             b["spec_lengths"], b["sid"], **draws)
         wave_seg = slice_segments(b["wave"][:, None], ids_slice * d.hop_length, t.segment_size)
-        mel = spec_to_mel(b["spec"], d.filter_length, d.n_mel_channels, d.sampling_rate,
-                          d.mel_fmin, d.mel_fmax)
-        y_mel = slice_segments(mel.transpose(1, 2), ids_slice, self.seg_frames)
-        y_hat_mel = mel_spectrogram(y_hat[:, 0], d.filter_length, d.n_mel_channels,
-                                    d.sampling_rate, d.hop_length, d.win_length, d.mel_fmin,
-                                    d.mel_fmax).transpose(1, 2)
+        y_mel, y_hat_mel = self._mels(b, y_hat, ids_slice)
         _mark(events, "generator forward")
 
         # the discriminator's update, the generated slice detached
@@ -211,9 +277,8 @@ class Trainer:
             state.balancer_d, torch.stack([loss_disc, torch.zeros_like(loss_disc)]),
             self.d_initial, active=self.balancer_active)
         d_grads = _grads(loss_d_all, d_params)
-        grad_norm_d = _global_norm(d_grads)
         _mark(events, "discriminator forward and backward")
-        state.opt_d.step(d_grads)
+        grad_norm_d = state.opt_d.step(d_grads)
         _mark(events, "discriminator update")
 
         # the generator's losses through the updated discriminator
@@ -230,9 +295,8 @@ class Trainer:
             self.g_initial, active=self.balancer_active)
         _mark(events, "generator losses")
         g_grads = _grads(loss_g_all, state.opt_g.params)
-        grad_norm_g = _global_norm(g_grads)
         _mark(events, "generator backward")
-        state.opt_g.step(g_grads)
+        grad_norm_g = state.opt_g.step(g_grads)
         _mark(events, "generator update")
 
         if keep_grads:
@@ -243,4 +307,8 @@ class Trainer:
                    "loss_kl": loss_kl, "harmonic_loss": harmonic, "tsi_loss": tsi,
                    "tefs_loss": tefs, "loss_gen_all": loss_g_all}
         metrics = {k: v.detach() for k, v in metrics.items()}
+        # the first sample's slices, for the logged images and audio: device
+        # tensors, downloaded only on a log step
+        metrics["viz"] = {"y_mel": y_mel[0].detach(), "y_hat_mel": y_hat_mel[0].detach(),
+                          "wave_org": wave_seg[0, 0], "wave_gen": y_hat[0, 0].detach()}
         return state._replace(step=state.step + 1, balancer_g=new_bg, balancer_d=new_bd), metrics

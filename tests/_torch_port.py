@@ -6,6 +6,7 @@ import functools
 import jax
 import numpy as np
 import pytest
+import torch
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -18,6 +19,18 @@ def no_compile_cache_writes():
     jax.config.update(key, 1e9)
     yield
     jax.config.update(key, old)
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """Torch on one CPU thread for the module, restored after it. The tiny
+    training runs are many small ops; with the suite's parallel workers each
+    also running a thread per core, their threads wait on each other and a
+    step takes many times as long."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def np_tree(tree):

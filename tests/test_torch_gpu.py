@@ -904,3 +904,47 @@ def test_cli_on_the_card_matches_the_cpu(cuda, tmp_path):
     assert outs["cuda"].shape == outs["cpu"].shape
     assert np.all(np.isfinite(outs["cuda"])) and np.abs(outs["cuda"]).max() > 0.5
     assert np.abs(outs["cuda"].astype(np.float64) - outs["cpu"]).max() * 32768 <= 4
+
+
+@pytest.mark.gpu
+def test_multi_tensor_adamw_matches_per_tensor_on_card(rng, cuda):
+    """The training update (``torch._foreach_*`` over all tensors at once)
+    against its plain version, a tensor at a time, over 3 updates with the
+    schedule crossing an epoch: parameters, moments and the gradient norm
+    within tests/test_torch_optimizer.py's bar."""
+    from rvc_tpu_torch.train.step import AdamW, MultiTensorAdamW, lr_schedule
+
+    shapes = [(5, 3), (256, 256, 7), (7,), (192, 768), (1, 1, 16), (109, 256)]
+    params = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+              for s in shapes] for _ in range(3)]
+    sched = lr_schedule(1e-2, 0.5, 2)
+    runs = []
+    for cls in (MultiTensorAdamW, AdamW):
+        opt = cls([torch.from_numpy(p).to(cuda) for p in params], sched, (0.8, 0.99), 1e-9)
+        norms = [float(opt.step(g)) for g in grads]
+        runs.append((opt, norms))
+    (multi, n_m), (plain, n_p) = runs
+    for xs, ys in ((multi.params, plain.params), (multi.m, plain.m), (multi.v, plain.v)):
+        for x, y in zip(xs, ys):
+            np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), atol=1e-7, rtol=1e-6)
+    np.testing.assert_allclose(n_m, n_p, rtol=1e-6)
+
+
+@pytest.mark.gpu
+def test_kmeans_chunked_matches_whole_on_card(rng, cuda):
+    """``_kmeans`` in chunks of 4096 rows against one chunk of all 20000 rows
+    (seeded clusters 10 apart, spread 0.5, 64 of them, each centroid started
+    near its own cluster's centre, so that no row lies near a boundary), 5
+    iterations: the same centroids within float32 sums in another order
+    (index_add_ adds with atomics)."""
+    from rvc_tpu_torch.retrieval.index import _kmeans
+
+    centres = 10.0 * rng.standard_normal((64, 32))
+    data = (centres[rng.integers(0, 64, 20000)] + 0.5 * rng.standard_normal((20000, 32)))
+    data = torch.from_numpy(data.astype(np.float32)).to(cuda)
+    init = torch.from_numpy((centres + 0.5 * rng.standard_normal((64, 32))).astype(np.float32))
+    init = init.to(cuda)
+    chunked = _kmeans(data, init, 64, 5, chunk_rows=4096)
+    whole = _kmeans(data, init, 64, 5, chunk_rows=20000)
+    np.testing.assert_allclose(chunked.cpu().numpy(), whole.cpu().numpy(), atol=1e-5, rtol=1e-5)

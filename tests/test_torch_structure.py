@@ -57,7 +57,12 @@ def test_simt_yardsticks_are_named_only_by_chip_smoke():
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, rvc_tpu_torch.pipelines.convert, rvc_tpu_torch.train.step, "
-            "rvc_tpu_torch.train.data, chip_smoke; "
+            "rvc_tpu_torch.train.data, rvc_tpu_torch.train.checkpoints, "
+            "rvc_tpu_torch.train.summaries, rvc_tpu_torch.pipelines.train, "
+            "rvc_tpu_torch.pipelines.preprocess, rvc_tpu_torch.ops.slicer, "
+            "rvc_tpu_torch.retrieval.index, rvc_tpu_torch.compat.optimizer_import, "
+            "rvc_tpu_torch.compat.torch_export, rvc_tpu_torch.compat.process_ckpt, "
+            "rvc_tpu_torch.cli.main, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'rvc_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
@@ -85,6 +90,24 @@ def test_trainer_defaults_to_the_card():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(preset("48k_v2"))
+
+
+def test_training_workflow_defaults_to_the_card(tmp_path):
+    """The dataset build, the training run and the index take the card
+    unless the CPU is asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from rvc_tpu_torch.pipelines.preprocess import extract_features
+    from rvc_tpu_torch.pipelines.train import TrainRunConfig
+    from rvc_tpu_torch.retrieval.index import FeatureIndex, train_index
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FeatureIndex(np.zeros((2, 4), np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_index(np.zeros((2, 4), np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        extract_features(str(tmp_path), None)
+    assert TrainRunConfig("run", "list.txt").device is None  # Trainer(device=None): the card
 
 
 def test_wrappers_count_only_kernel_launches(rng):
