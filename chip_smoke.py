@@ -109,7 +109,21 @@ Phases, each announced on its own line:
      x 768 seeded rows to 10000 centroids in 20 iterations (inertia never
      rising, no NaN); `convert` of 10 s with the exported model and index
      (kernels 1-3 launched as the structure says, 40 kHz of the expected
-     length), and 3 s card vs CPU within phase 5's 4 LSB.
+     length), and 3 s card vs CPU within phase 5's 4 LSB;
+ 18. every f0 method and the host library: the port's rvc_host.cpp built by
+     g++ and held against its numpy versions (the int16 quantization and
+     the slicer's tags equal, the frame RMS within 5e-6); phase 4's
+     converter with random CREPE nets (full and tiny, from seeds) converts
+     10 s with each of pm, dio, harvest, crepe, crepe-tiny, mangio-crepe
+     (hop 64), mangio-crepe-tiny, rmvpe+ and the median of rmvpe, harvest and
+     crepe-tiny (kernels 1-3 launched as in phase 4, the output checked as
+     there, RTF); each method's f0 of 30 s timed alone (CUDA events) with
+     the kernels one call runs (torch.profiler); each method's f0 on the card
+     against the CPU's on 3 s of speech and of a harmonic glide (CREPE full
+     on 0.5 s of each): the same voicing and f0
+     within the CPU tests' bars on 99% of the frames; the hybrid conversion
+     of 3 s card vs CPU within phase 5's 4 LSB; infer_mix with one-hot
+     weights against infer at that speaker.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that.
 A kernel's time beside its yardsticks (previous_ms, mma_sync_ms) is
@@ -1314,7 +1328,7 @@ def check_train_vs_cpu(cfg, batch: dict) -> None:
     norm_err = max(abs(mg[k] - mc[k]) / abs(mc[k]) for k in ("grad_norm_g", "grad_norm_d"))
     delta = torch.cat([(a - b).abs().flatten() for a, b in zip(pg, pc)])
     worst, share = delta.max().item(), (delta > 0.01 * lr).float().mean().item()
-    say(f"[8/17] one training step, batch 1, {F} frames, card vs CPU: losses within "
+    say(f"[8/18] one training step, batch 1, {F} frames, card vs CPU: losses within "
         f"{loss_err:.3g} (relative, of max(1, |loss|); tolerance 1e-3), gradient norms within "
         f"{norm_err:.3g} (tolerance 1e-2), updated parameters max |diff| {worst:.3g} "
         f"(tolerance 2.01 lr = {2.01 * lr:.3g}), share above 0.01 lr {share:.4%} (tolerance "
@@ -1379,7 +1393,7 @@ def run_training(trainer, batches: list, card: str) -> dict:
     cfg = trainer.config
     audio_s = TRAIN_BATCH * cfg.train.segment_size / cfg.data.sampling_rate
     total = sum(walls)
-    say(f"[7/17] training 48k_v2, batch {TRAIN_BATCH}, padded to "
+    say(f"[7/18] training 48k_v2, batch {TRAIN_BATCH}, padded to "
         f"{np.shape(batches[1]['spec'])[1]} frames: {steps} steps, wall s "
         f"{[round(w, 4) for w in walls]}, {steps / total:.3f} steps/s, "
         f"{audio_s * steps / total:.3f} s of audio (the sliced segments) trained per s, "
@@ -1407,7 +1421,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
                                device="cuda", dtype=bf16)
     say(f"bf16 converter built in {time.perf_counter() - t0:.1f} s")
     shapes = path_shapes(vc, clips[30])
-    say(f"[9/17] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
+    say(f"[9/18] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz")
     gen = torch.Generator().manual_seed(3)
     with torch.no_grad():
@@ -1446,7 +1460,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[10/17] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
+        say(f"[10/18] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
             f"{sr} Hz, peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x (float32 "
             f"in this run {rtf32[sec]:.2f}x), max_memory_allocated "
@@ -1471,7 +1485,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out, sr, launched, wall = counted_convert(vc, audio, settings, counters)
     vc.synth.dec.fuse_group = True
     same = bool(np.array_equal(out, outs[30]))
-    say(f"[11/17] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
+    say(f"[11/18] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
         f"(RTF {30 / wall:.2f}x), launches { {k: v for k, v in launched.items() if v} }, "
         f"bit-identical to the default route: {same} (the default route against itself: "
         f"{bool(np.array_equal(again, outs[30]))})")
@@ -1507,7 +1521,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     a, b = out_gpu.astype(np.float64), out_cpu.astype(np.float64)
     l2 = float(np.linalg.norm(a - b) / np.linalg.norm(b)) if a.shape == b.shape else math.inf
-    say(f"[12/17] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
+    say(f"[12/18] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
         f"differs on {differ:.2%} of frames between them): {len(out_gpu)} vs {len(out_cpu)} "
         f"samples, relative L2 {l2:.4g} (tolerance {BF16_CPU_L2}: bf16 roundings flip "
         f"between the card's sums and the CPU's and the flips travel through the decoder; "
@@ -1607,7 +1621,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
                                          * 32000).astype(np.int16))
     sizes = {k: round(os.path.getsize(p) / 2**20, 1) for k, p in path.items()
              if os.path.exists(p)}
-    say(f"[13/17] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
+    say(f"[13/18] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
 
     # 13. the command line, in process, every count set to 0 just before
     counters = {**launch_counters(), "nearest_rows": (retrieval.nearest_rows, "launches")}
@@ -1672,7 +1686,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
         dec = vc.synth.dec
         label = f"{key} {version}" + ("" if f0 else " no-f0")
         phase = 14 if f0 else 15
-        say(f"[{phase}/17] {label} from files: decoder stages of "
+        say(f"[{phase}/18] {label} from files: decoder stages of "
             f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
             f"channels, HuBERT features D = {vc.hubert.cfg.classifier_proj_size}, "
             f"{type(dec).__name__}")
@@ -1738,7 +1752,7 @@ def run_batch(settings, card: str) -> dict:
                 "nearest_rows_q": 1}
     best, med = 80.0 / min(walls), 80.0 / float(np.median(walls))
     dev_s, down_s, disp_s = shares[int(np.argmin(walls))]
-    say(f"[16/17] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
+    say(f"[16/18] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
         f"{stats['chunk_samples']} samples, wall ms {[round(w * 1e3, 2) for w in walls]}, "
         f"aggregate RTF best {best:.2f}x, median {med:.2f}x; stats of the best: device_s "
         f"{dev_s:.4f} ({dev_s / min(walls):.1%} of the wall), download_s {down_s:.4f} "
@@ -1904,7 +1918,7 @@ def run_train_from_dataset(tmp: str, settings, card: str, checks: dict) -> dict:
     hub_state = write_hubert_safetensors(path["hubert"], HubertConfig(), seed=21)
     rmvpe_state = write_rmvpe_pt(path["rmvpe"], seed=22)
     odd_g, odd_d = write_pretrained(path["G"], path["D"], cfg, seed=23)
-    say(f"[17/17] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
+    say(f"[17/18] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
         f"pretrained G and D ({odd_g} and {odd_d} of another shape) written in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -2125,6 +2139,178 @@ def run_train_from_dataset(tmp: str, settings, card: str, checks: dict) -> dict:
     return launched
 
 
+# ---- phase 18: every f0 method, infer_mix and the host library ----
+F0_METHODS = ("pm", "dio", "harvest", "crepe", "crepe-tiny", "mangio-crepe",
+              "mangio-crepe-tiny", "rmvpe+", ("rmvpe", "harvest", "crepe-tiny"))
+MANGIO_HOP = 64
+# f0 card vs CPU, as the CPU tests hold the port against JAX: the same voicing
+# and within the method's relative bar on at least F0_SHARE of the frames
+# (tests/test_torch_pitch_methods.py: 1e-4 for the classical methods and
+# the merge; tests/test_torch_crepe.py: 1e-5 for crepe; tests/
+# test_torch_hubert_rmvpe.py: 1e-5 for rmvpe)
+F0_SHARE = 0.99
+RMS_REL = 5e-6  # the host library's double sums against numpy's float32 ones
+
+
+def f0_label(method) -> str:
+    return method if isinstance(method, str) else "+".join(method)
+
+
+def f0_rel(method) -> float:
+    return 1e-5 if isinstance(method, str) and ("crepe" in method or "rmvpe" in method) else 1e-4
+
+
+def f0_agreement(got: np.ndarray, ref: np.ndarray, rel: float) -> tuple[int, int]:
+    """(frames with the same voicing and f0 within ``rel``, frames)."""
+    same = (got > 0) == (ref > 0)
+    close = np.abs(got - ref) <= rel * np.maximum(np.abs(ref), 1e-6)
+    return int(np.sum(same & (close | (ref <= 0)))), ref.size
+
+
+def glide(seconds: float) -> np.ndarray:
+    """Six harmonics of a pitch gliding from 120 to 300 Hz, at 16 kHz."""
+    t = np.arange(int(seconds * 16000)) / 16000
+    phase = 2 * np.pi * np.cumsum(120.0 + 180.0 * t / t[-1]) / 16000
+    x = sum(0.7 ** (h - 1) * np.sin(h * phase) for h in range(1, 7))
+    return (0.3 * x / np.abs(x).max()).astype(np.float32)
+
+
+def check_host_library() -> dict:
+    """The port's host library, built here with g++, against its numpy plain
+    versions on the speech fixture."""
+    from rvc_tpu_torch import native
+    from rvc_tpu_torch.ops import filters, slicer
+
+    t0 = time.perf_counter()
+    lib = native.library()
+    build_s = time.perf_counter() - t0
+    x = speech(30.0, 10.0)
+    q, peak = filters.peak_quantize_i16(x)
+    nq, npeak = filters.peak_quantize_i16_numpy(x)
+    sl = slicer.Slicer(sr=16000, threshold=-50, min_length=1500, min_interval=400,
+                       hop_size=15, max_sil_kept=500)
+    rms = slicer.frame_rms(x, sl.win_size, sl.hop_size)
+    nrms = slicer.frame_rms_numpy(x, sl.win_size, sl.hop_size)
+    rms_err = float(np.max(np.abs(rms - nrms) / np.maximum(nrms, 1e-9)))
+    tags, ntags = sl._silence_tags(rms), sl._silence_tags_numpy(rms)
+    say(f"[18/18] host library {os.path.relpath(lib._name, REPO)} built and loaded in "
+        f"{build_s:.2f} s: peak_quantize_i16 on 30 s equal to numpy's {np.array_equal(q, nq)} "
+        f"(peak {peak} / {npeak}); frame_rms of {len(rms)} frames within {rms_err:.3g} "
+        f"relative of numpy's float32 sums (tolerance {RMS_REL}); the slicer's {len(tags)} "
+        f"silence tags equal to the Python loop's {tags == ntags}")
+    if not (np.array_equal(q, nq) and peak == npeak and rms_err <= RMS_REL and tags == ntags
+            and len(tags) > 0):
+        fail("the host library disagrees with its numpy versions")
+    return dict(build_s=build_s, rms_rel=rms_err, tags=len(tags))
+
+
+def with_crepe(vc, device: str):
+    """Random CREPE nets (full and tiny, from seeds, positive running
+    variances) on ``vc``'s pitch extractor."""
+    from rvc_tpu_torch.models import crepe
+    from rvc_tpu_torch.models.layers import load_numpy_state_dict
+
+    for attr, capacity, seed in (("crepe", "full", 5), ("crepe_tiny", "tiny", 6)):
+        net = load_numpy_state_dict(crepe.CrepeNet(capacity), crepe.random_state_dict(capacity, seed))
+        setattr(vc.pitch, attr, net.to(device).eval())
+    return vc
+
+
+def run_f0_methods(card: str) -> dict:
+    """Phase 18: the host library; each f0 method converting 10 s on phase
+    4's converter (kernels 1-3 launched as there), its f0 of 30 s timed
+    alone with its kernel count; each method's f0 card vs CPU; a 3 s hybrid
+    conversion card vs CPU; infer_mix with one-hot weights against infer."""
+    import copy
+
+    import torch
+
+    from rvc_tpu_torch.pipelines.convert import ConvertSettings, make_random_converter
+    from rvc_tpu_torch.pitch.extractor import PitchExtractor, coarse_f0
+
+    out = {"host": check_host_library()}
+    t0 = time.perf_counter()
+    vc = with_crepe(make_random_converter("48k_v2", seed=0, chunking=CHUNKING,
+                                          index_rows=BANK_ROWS, device="cuda"), "cuda")
+    say(f"  converter with CREPE full and tiny built in {time.perf_counter() - t0:.1f} s")
+    counters = launch_counters()
+    dec = vc.synth.dec
+    expected = {**dict.fromkeys(counters, 0),
+                "fused_resblock_group": sum(len(rb.convs1) for rb in dec.resblocks),
+                "banded_rel_attention": len(vc.synth.enc_p.encoder.attn_layers),
+                "nearest_rows_q": 1}
+    clip10 = speech(10.0, 0.0)
+    a30 = torch.from_numpy(speech(30.0, 10.0))[None].cuda()
+    cpu_pitch = PitchExtractor(**{k: copy.deepcopy(getattr(vc.pitch, k)).cpu()
+                                  for k in ("rmvpe", "crepe", "crepe_tiny")}).to("cpu")
+    a3 = torch.from_numpy(np.stack([speech(3.0, 40.0), glide(3.0)]))
+    for method in F0_METHODS:
+        label = f0_label(method)
+        settings = ConvertSettings(**dict(SETTINGS, f0_method=method,
+                                          crepe_hop_length=MANGIO_HOP))
+        rtf = timed_convert(label, vc, clip10, 10.0, settings, counters, expected, card)
+
+        def f0_of(audio, pitch=vc.pitch, method=method):
+            return pitch.compute(audio, method, "median", 50.0, 1100.0, 3, MANGIO_HOP)
+
+        ms = timed(lambda: f0_of(a30), reps=3, warmup=1)
+        n_kernels = kernel_launches(lambda: f0_of(a30))
+        clip = a3[:, :8000] if method == "crepe" else a3  # CREPE full: 0.5 s on the CPU
+        got = f0_of(clip.cuda()).cpu().numpy()
+        t1 = time.perf_counter()
+        ref = f0_of(clip, cpu_pitch).numpy()
+        n_ok, n = f0_agreement(got, ref, f0_rel(method))
+        say(f"    f0 of 30 s alone: {ms:.2f} ms (CUDA events, median of 3 after a warm-up), "
+            f"{n_kernels} kernels in one call (torch.profiler); card vs CPU on "
+            f"{clip.shape[1] / 16000:g} s: {n_ok} of {n} frames agree (voicing, and f0 within "
+            f"{f0_rel(method):g} relative; bar {F0_SHARE:.0%}), {int((ref > 0).sum())} voiced "
+            f"(speech and a harmonic glide); "
+            f"CPU {time.perf_counter() - t1:.1f} s")
+        if got.shape != ref.shape or n_ok < F0_SHARE * n or not (ref > 0).any():
+            fail(f"{label}: the card's f0 disagrees with the CPU's")
+        out[label] = dict(rtf_10s=rtf, f0_ms_30s=ms, kernels=n_kernels, agree=n_ok, frames=n)
+
+    walls = {k: 10.0 / v["rtf_10s"] for k, v in out.items() if "rtf_10s" in v}
+    say("  f0's share of the 10 s conversion's wall (the wall beyond pm's, whose f0 is the "
+        "cheapest): " + ", ".join(f"{k} {(w - walls['pm']) / w:.1%}" for k, w in walls.items()
+                                  if k != "pm"))
+
+    # the hybrid conversion of 3 s, card vs CPU
+    hybrid = ConvertSettings(**dict(SETTINGS, f0_method=list(F0_METHODS[-1])))
+    t0 = time.perf_counter()
+    cpu = with_crepe(make_random_converter("48k_v2", seed=0, chunking=CHUNKING,
+                                           index_rows=BANK_ROWS, device="cpu"), "cpu")
+    say(f"  CPU converter built in {time.perf_counter() - t0:.1f} s")
+    out["hybrid_lsb"] = card_vs_cpu(f0_label(F0_METHODS[-1]), vc, cpu, speech(3.0, 40.0), hybrid)
+    del cpu
+
+    # infer_mix with one-hot weights against infer at that sid
+    gen = torch.Generator().manual_seed(8)
+    T, sid = 300, 5 % vc.synth.emb_g.num_embeddings
+    feats = torch.randn(1, T, vc.synth.enc_p.emb_phone.in_features, generator=gen).cuda()
+    lens = torch.tensor([T]).cuda()
+    f0 = (150 + 50 * torch.rand(1, T, generator=gen)).cuda()
+    draws = {k: v.cuda() for k, v in dict(
+        eps=torch.randn(1, vc.synth.enc_p.out_channels, T, generator=gen),
+        rand_ini=torch.rand(1, 1, generator=gen),
+        noise=torch.randn(1, T * dec.upp, 1, generator=gen)).items()}
+    mix = torch.zeros(1, vc.synth.emb_g.num_embeddings).cuda()
+    mix[0, sid] = 1.0
+    with torch.no_grad():
+        a = vc.synth.infer_mix(feats, lens, coarse_f0(f0), f0, mix, **draws)[0]
+        b = vc.synth.infer(feats, lens, coarse_f0(f0), f0, torch.tensor([sid]).cuda(), **draws)[0]
+    err, scale = scaled(a, b)
+    say(f"  infer_mix with one-hot weights at sid {sid} against infer: {tuple(a.shape)}, max "
+        f"|diff| {err:.3g} of {scale:.3g} (bit for bit: {torch.equal(a, b)}; tolerance "
+        f"{VALUE_TOL} of the largest)")
+    if not err <= VALUE_TOL * scale:
+        fail("infer_mix with one-hot weights disagrees with infer")
+    out["infer_mix_err"] = err
+    del vc
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2140,7 +2326,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi gave nothing"
-    say(f"[1/17] card: {name}, {count} device(s); torch {torch.__version__}, "
+    say(f"[1/18] card: {name}, {count} device(s); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     say(card)
 
@@ -2150,7 +2336,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library()
     info = _cuda.build_info
-    say(f"[2/17] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
+    say(f"[2/18] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
         f"(load {time.perf_counter() - t0:.2f} s)")
     say("ptxas: " + "; ".join(info["ptxas"]))
     say("ptxas C7515 (wgmma serialized): " + (", ".join(info["serialized"]) or "none"))
@@ -2180,7 +2366,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions at the 30 s conversion's shapes
     shapes = path_shapes(vc, clips[30])
-    say(f"[3/17] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
+    say(f"[3/18] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz, {shapes['T50']} HuBERT frames per chunk")
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -2235,7 +2421,7 @@ def main() -> int:
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[4/17] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
+        say(f"[4/18] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
             f"peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x, "
             f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -2258,7 +2444,7 @@ def main() -> int:
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     diff = np.abs(out_gpu.astype(np.int32) - out_cpu.astype(np.int32))
     tol = 4
-    say(f"[5/17] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
+    say(f"[5/18] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
         f"max |diff| {diff.max()} LSB, share above {tol} LSB {np.mean(diff > tol):.4%} "
         f"(tolerance {tol} LSB: the same float32 math summed in another order, "
         f"~1e-5 relative before the int16 scaling); CPU run "
@@ -2286,7 +2472,7 @@ def main() -> int:
     trainer.init_state(seed=0)
     say(f"dataset of {len(CLIP_SECONDS)} clips, {len(batches)} batches, trainer built in "
         f"{time.perf_counter() - t0:.1f} s")
-    say(f"[6/17] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
+    say(f"[6/18] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
         f"segment {cfg.train.segment_size} samples, WN over {np.shape(batches[0]['spec'])[1]} "
         f"frames")
     gen = torch.Generator().manual_seed(2)
@@ -2340,6 +2526,9 @@ def main() -> int:
     for key, kname in (("chain", "fused_resblock1"), ("chain_bwd", "fused_resblock1_backward"),
                        ("wn", "fused_wn"), ("wn_bwd", "fused_wn_backward")):
         checks[key]["launches_40k_v2"] = trained40[kname]
+
+    # 18. every f0 method, infer_mix and the host library
+    run_f0_methods(card)
 
     kernels = []
     meta = {

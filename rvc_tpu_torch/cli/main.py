@@ -10,7 +10,10 @@
         [--resample-sr 44100] [--device cpu]
 
 The arguments, defaults and steps of ``rvc_tpu/cli/main.py``'s subcommands,
-plus ``--device`` (the card unless ``cpu`` is asked for). The JAX package's
+plus ``--device`` (the card unless ``cpu`` is asked for). ``--f0-method``
+takes each of JAX's methods (pitch.extractor.METHODS): pm, dio and harvest
+need no weights, rmvpe and rmvpe+ need ``--rmvpe``; crepe has no weights
+flag here, as in JAX, so its methods raise KeyError. The JAX package's
 ``separate`` waits for the separation models.
 """
 from __future__ import annotations

@@ -7,7 +7,9 @@ conversion path reads:
     ``weight_g``/``weight_v`` pairs, and a positional ``config`` list),
   * a ContentVec/HuBERT ``.safetensors`` in HF ``HubertModel`` names, with
     its HF config in the metadata,
-  * an RMVPE ``.pt`` (the ``E2E`` state_dict, bare or under ``"model"``).
+  * an RMVPE ``.pt`` (the ``E2E`` state_dict, bare or under ``"model"``),
+  * a torchcrepe state_dict (``conv1..conv6``, ``conv{i}_BN``,
+    ``classifier``), full or tiny.
 
 Each returns ``{name: float32 numpy array}`` under the names the port's
 modules use, which ``pipelines.convert.VoiceConverter.from_state_dicts``
@@ -187,4 +189,15 @@ def load_rmvpe(path: str) -> dict[str, np.ndarray]:
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "model" in sd and hasattr(sd["model"], "keys"):
         sd = sd["model"]
+    return {k: _np32(v) for k, v in sd.items() if not k.endswith("num_batches_tracked")}
+
+
+# ---------------------------------------------------------------------------
+# CREPE
+# ---------------------------------------------------------------------------
+
+def load_crepe(path: str) -> dict[str, np.ndarray]:
+    """A torchcrepe state_dict file (``full.pth`` / ``tiny.pth``), its names
+    as they are, ``num_batches_tracked`` left out."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
     return {k: _np32(v) for k, v in sd.items() if not k.endswith("num_batches_tracked")}

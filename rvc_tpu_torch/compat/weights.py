@@ -5,8 +5,8 @@ the reference's state_dict names (``a/b_0/c`` for ``a.b.0.c``). Given such
 a tree as nested dicts of numpy arrays (``jax.tree.map(np.asarray, p)``),
 these functions fold weight norm into plain weights (the reference's
 ``remove_weight_norm``) and rename the keys to the reference's torch names:
-the RVC synthesizer, HuBERT/ContentVec (HF ``HubertModel`` names) and
-RMVPE (``E2E`` names). For inference a ``weight_g``/``weight_v`` pair
+the RVC synthesizer, HuBERT/ContentVec (HF ``HubertModel`` names),
+RMVPE (``E2E`` names) and CREPE (torchcrepe's names). For inference a ``weight_g``/``weight_v`` pair
 becomes one ``weight``; for training (``fold=False``) the pair is kept under
 the names of the reference's ``G_*.pth`` / ``D_*.pth`` checkpoints, which
 the port's layers take after ``models.layers.live_weight_norm_``.
@@ -130,3 +130,9 @@ def rmvpe_state_dict(params: Mapping) -> dict[str, np.ndarray]:
     ``E2E`` names."""
     tree = params.get("params", params)
     return _state_dict(tree.get("model", tree), _regex_rename(_RMVPE_KEYS))
+
+
+def crepe_state_dict(params: Mapping) -> dict[str, np.ndarray]:
+    """CREPE: the JAX tree's paths are torchcrepe's names (``conv1``,
+    ``conv1_BN``, ``classifier``)."""
+    return _state_dict(params, ".".join, fold=False)

@@ -147,6 +147,22 @@ class Synthesizer(nn.Module):
         o = self.dec(z_slice, pitchf_slice, g=g, generator=generator, **draws)
         return o, ids_slice, x_mask, y_mask, (z, z_p, m_p, logs_p, m_q, logs_q)
 
+    def infer_mix(self, phone: torch.Tensor, phone_lengths: torch.Tensor,
+                  pitch: torch.Tensor | None, nsff0: torch.Tensor | None,
+                  spk_mix: torch.Tensor, noise_scale: float = 0.66666, *,
+                  eps: torch.Tensor | None = None,
+                  generator: torch.Generator | None = None, **draws):
+        """``infer`` with a mixture of speakers (rvc_tpu/models/synthesizer.py:
+        273-291, the reference's ONNX SynthesizerTrnMsNSFsidM): ``spk_mix``
+        (B, n_spk) weights, normalized to sum 1, blend the rows of ``emb_g``'s
+        table into the conditioning. The other arguments and the result are
+        ``infer``'s."""
+        weights = spk_mix / torch.clamp(torch.sum(spk_mix, -1, keepdim=True), min=1e-9)
+        table = self.emb_g(torch.arange(self.emb_g.num_embeddings, device=spk_mix.device))
+        g = torch.matmul(weights.to(table.dtype), table)[:, :, None]
+        return self._infer(g, phone, phone_lengths, pitch, nsff0, noise_scale, eps, generator,
+                           draws)
+
     def infer(self, phone: torch.Tensor, phone_lengths: torch.Tensor,
               pitch: torch.Tensor | None, nsff0: torch.Tensor | None, sid: torch.Tensor,
               noise_scale: float = 0.66666, *, eps: torch.Tensor | None = None,
@@ -159,7 +175,11 @@ class Synthesizer(nn.Module):
         source's (``rand_ini``, ``noise``; none without f0); each is drawn
         from ``generator`` when absent. Returns
         (o (B, 1, T*upp), x_mask, (z, z_p, m_p, logs_p))."""
-        g = self.emb_g(sid)[:, :, None]
+        return self._infer(self.emb_g(sid)[:, :, None], phone, phone_lengths, pitch, nsff0,
+                           noise_scale, eps, generator, draws)
+
+    def _infer(self, g, phone, phone_lengths, pitch, nsff0, noise_scale, eps, generator,
+               draws):
         m_p, logs_p, x_mask = self.enc_p(phone, pitch, phone_lengths)
         if eps is None:
             eps = torch.randn(m_p.shape, generator=generator, device=m_p.device,

@@ -1,8 +1,9 @@
 """Envelopes and filters of the conversion path.
 
 Counterpart of ``rvc_tpu/ops/filters.py`` (``rms_envelope``,
-``change_rms``, ``median_filter_1d``, ``butter_highpass_host``) and of the
-numpy branch of ``rvc_tpu/native.peak_quantize_i16``.
+``change_rms``, ``median_filter_1d``, ``butter_highpass_host``) and of
+``rvc_tpu/native.peak_quantize_i16``, through the port's host library
+(``native.py``); ``peak_quantize_i16_numpy`` is its plain version.
 """
 from __future__ import annotations
 
@@ -10,6 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from scipy import signal as _ss
+
+from .. import native
 
 
 def rms_envelope(x: torch.Tensor, frame_length: int, hop_length: int) -> torch.Tensor:
@@ -64,7 +67,13 @@ def butter_highpass_host(x: np.ndarray, cutoff_hz: float = 48.0, fs: int = 16000
 
 
 def peak_quantize_i16(x: np.ndarray) -> tuple[np.ndarray, float]:
-    """|x|.max() and rint(x * 32766 / peak) as int16 -> (int16 array, peak)."""
+    """|x|.max() and rint(x * 32766 / peak) as int16 -> (int16 array, peak),
+    in the host library."""
+    return native.peak_quantize_i16(x)
+
+
+def peak_quantize_i16_numpy(x: np.ndarray) -> tuple[np.ndarray, float]:
+    """The plain version of ``peak_quantize_i16``, in numpy."""
     x = np.ascontiguousarray(x, np.float32)
     peak = float(np.abs(x).max()) if x.size else 0.0
     scale = 32766.0 / max(peak, 1e-9)

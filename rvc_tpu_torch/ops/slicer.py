@@ -6,21 +6,31 @@ machine, lib/slicer2.py:38-183): an IIR high-pass (``lfilter``, causal, not
 frames long enough to matter are cut at their minimum-RMS position, with up
 to ``max_sil_kept`` frames of silence kept on each side.
 
-Host work in numpy, as the JAX package's fallbacks do it: the frame RMS of
-``rvc_tpu/native/__init__.py::frame_rms``'s numpy branch (in the input's
-dtype) and the Python scan of ``Slicer._silence_tags``. The JAX package's
-native host library (a float32 RMS summed in double, the same scan in C++)
-is not ported.
+Host work in the port's host library (``native.py``), as the JAX package
+runs it: the frame RMS of float32 input summed in double, and the scan of
+``Slicer._silence_tags``. The plain versions are numpy's
+``frame_rms_numpy`` (in the input's dtype; float64 input takes it, as in
+JAX) and the Python scan ``Slicer._silence_tags_numpy``.
 """
 from __future__ import annotations
 
 import numpy as np
 from scipy import signal as _ss
 
+from .. import native
+
 
 def frame_rms(y: np.ndarray, frame_length: int, hop_length: int) -> np.ndarray:
-    """Center-padded frame RMS (librosa.feature.rms semantics), in the
-    input's dtype."""
+    """Center-padded frame RMS (librosa.feature.rms semantics): float32
+    input in the host library, other dtypes in numpy in their own dtype."""
+    y = np.asarray(y)
+    if y.dtype == np.float32:
+        return native.frame_rms(y, frame_length, hop_length)
+    return frame_rms_numpy(y, frame_length, hop_length)
+
+
+def frame_rms_numpy(y: np.ndarray, frame_length: int, hop_length: int) -> np.ndarray:
+    """The plain version of ``frame_rms``, in the input's dtype."""
     y = np.asarray(y)
     pad = frame_length // 2
     yp = np.pad(y, (pad, pad), mode="constant")
@@ -61,7 +71,13 @@ class Slicer:
         return waveform[..., lo:hi]
 
     def _silence_tags(self, rms: np.ndarray) -> list[tuple[int, int]]:
-        """Scan the RMS track and emit (start, end) frame ranges to delete."""
+        """Scan the RMS track and emit (start, end) frame ranges to delete, in
+        the host library."""
+        return native.slicer_silence_tags(rms, self.threshold, self.min_interval,
+                                          self.min_length, self.max_sil_kept)
+
+    def _silence_tags_numpy(self, rms: np.ndarray) -> list[tuple[int, int]]:
+        """The plain version of ``_silence_tags``, a Python loop."""
         tags: list[tuple[int, int]] = []
         sil_start: int | None = None
         clip_start = 0

@@ -6,7 +6,7 @@ the same order:
 
   host:   48 Hz high-pass (scipy filtfilt) -> silence-seek split points ->
           reflect pad -> length bucket -> int16 peak quantization
-  device: chunk slicing -> RMVPE f0 per chunk -> shift, coarse bins ->
+  device: chunk slicing -> f0 per chunk -> shift, coarse bins ->
           HuBERT (masked) -> retrieval blend (kernel 3) -> 2x frame repeat
           -> protect blend -> synthesizer (text encoder with kernel 2, flow,
           NSF decoder with kernel 1) -> per-chunk RMS mix -> pad trim,
@@ -18,8 +18,15 @@ are left out; outputs are kept. Input at another rate than 16 kHz is
 resampled on the host (``io.audio.remix_audio``); ``resample_sr``
 resamples the int16 result on the device (``ops.resample``). ``convert_batch``
 converts many songs in one chunk batch. A no-f0 model runs without the
-pitch model and the protect blend. Multi-method f0 is not ported yet and
-raises.
+pitch model and the protect blend.
+
+f0: one method (``pitch.extractor.METHODS``) runs per chunk, the chunk
+batch its batch. A list of methods (the hybrid merge) runs as the JAX
+package runs it (rvc_tpu/pipelines/convert.py:420-445, :250-256): on the
+whole padded song at batch 1, the same int16-quantized samples the chunks
+are cut from, and each chunk's frames are sliced from it at
+``start // 160``, clamped as ``jax.lax.dynamic_slice`` clamps.
+``convert_batch`` takes one method only, as in JAX.
 
 ``dtype`` is the compute dtype of HuBERT and the synthesizer (and of the
 pitch model built by ``from_state_dicts`` / ``make_random_converter``), as
@@ -125,9 +132,7 @@ class VoiceConverter:
         self.synth = set_dtype_(synth.to(self.device).eval(), dtype)
         self.synth.dec.fuse_group = synth_kwargs.get("fuse_group", True)
         self.hubert = set_dtype_(hubert.to(self.device).eval(), dtype)
-        self.pitch = pitch or PitchExtractor(dtype=dtype)
-        if self.pitch.rmvpe is not None:
-            self.pitch.rmvpe = self.pitch.rmvpe.to(self.device).eval()
+        self.pitch = (pitch or PitchExtractor(dtype=dtype)).to(self.device)
         self.tgt_sr = synth_kwargs["sr"]
         self.index_bank = None
         if index_bank is not None:
@@ -194,10 +199,6 @@ class VoiceConverter:
                        noise=torch.randn(n_chunks, frames * upp, 1, generator=gen))
         return {k: v.to(self.device) for k, v in out.items()}
 
-    def _check(self, s: ConvertSettings) -> None:
-        if self.use_f0 and not isinstance(s.f0_method, str):
-            raise NotImplementedError("multi-method f0 merging is not ported yet")
-
     def convert(self, audio: np.ndarray, input_sr: int = SR,
                 settings: ConvertSettings | None = None, bucket_samples: int = 1600,
                 draws: dict | None = None) -> tuple[np.ndarray, int]:
@@ -210,12 +211,14 @@ class VoiceConverter:
         ``draws`` optionally replaces the synthesizer's random draws (``eps``,
         ``rand_ini``, ``noise``; see ``draws``)."""
         s = settings or ConvertSettings()
-        self._check(s)
         if input_sr != SR:
             audio, _ = remix_audio((audio, input_sr), target_sr=SR)
         with torch.no_grad():
-            chunks, lengths = self.chunks(audio, bucket_samples)
-            o = self._grid(chunks, lengths, s, draws)
+            wave_dev, starts, lengths, _, L = self._upload([self.padded(audio)], bucket_samples)
+            f0 = None
+            if self.use_f0 and not isinstance(s.f0_method, str):
+                f0 = self._hybrid_f0(wave_dev, starts, L, s)
+            o = self._grid(self._slices(wave_dev, starts, L), lengths, s, draws, f0)
             # pad trim + concat, then int16 peak normalization
             ratio = self.tgt_sr // 100
             p_lens = np.minimum(lengths // WINDOW, o.shape[1] // ratio)
@@ -272,6 +275,19 @@ class VoiceConverter:
         return torch.stack([wave_dev[st: st + L]
                             for st in np.clip(starts, 0, len(wave_dev) - L)])
 
+    def _hybrid_f0(self, wave_dev: torch.Tensor, starts: np.ndarray, L: int,
+                  s: ConvertSettings) -> torch.Tensor:
+        """f0 of a list of methods, merged, autotuned and shifted, on the
+        whole padded song ``wave_dev`` at batch 1, then each chunk's
+        ``L // 160`` frames from ``start // 160`` (clamped to fit): (N, L //
+        160)."""
+        _, f0 = self.pitch.get_f0(
+            wave_dev[None], s.f0_up_key, s.f0_method, s.merge_type, s.filter_radius,
+            s.crepe_hop_length, s.f0_autotune, s.f0_min, s.f0_max)
+        n = L // WINDOW
+        return torch.stack([f0[0, st: st + n]
+                            for st in np.clip(starts // WINDOW, 0, f0.shape[-1] - n)])
+
     def chunks(self, audio: np.ndarray, bucket_samples: int = 1600
                ) -> tuple[torch.Tensor, np.ndarray]:
         """Host side of ``convert``: high-pass, reflect pad, bucket, int16
@@ -306,7 +322,9 @@ class VoiceConverter:
         ``download_bytes``, ``n_chunks`` and ``chunk_samples``; the JAX
         package's ``flops``, XLA's cost analysis, has no counterpart here."""
         s = settings or ConvertSettings()
-        self._check(s)
+        if self.use_f0 and not isinstance(s.f0_method, str):
+            raise ValueError("convert_batch requires a single f0 method (hybrid multi-method "
+                             "merging is per-song: use convert())")
         songs = []
         for audio in audios:
             if input_sr != SR:
@@ -360,19 +378,21 @@ class VoiceConverter:
         return results
 
     def _grid(self, chunks: torch.Tensor, lengths: np.ndarray, s: ConvertSettings,
-              draws) -> torch.Tensor:
+              draws, f0: torch.Tensor | None = None) -> torch.Tensor:
         """The device core: the chunk batch (N, L) -> the synthesizer's
-        float32 output (N, T_out) after the per-chunk RMS mix."""
+        float32 output (N, T_out) after the per-chunk RMS mix. ``f0`` (N, L //
+        160), shifted, replaces the per-chunk f0 (the hybrid merge's)."""
         dev = self.device
         N, L = chunks.shape
         F = L // WINDOW
         lengths_t = torch.as_tensor(lengths, device=dev)
-        f0 = None
-        if self.use_f0:  # f0 per chunk (the chunk batch is the f0 batch)
-            f0 = self.pitch.method_fn(s.f0_method, s.f0_min, s.f0_max)(chunks)[:, :F]
+        if self.use_f0 and f0 is None:  # f0 per chunk (the chunk batch is the f0 batch)
+            f0 = self.pitch.method_fn(s.f0_method, s.f0_min, s.f0_max, s.filter_radius,
+                                      s.crepe_hop_length)(chunks)[:, :F]
             if s.f0_autotune:
                 f0 = autotune(f0)
             f0 = shift_semitones(f0, np.float32(s.f0_up_key))
+        if self.use_f0:
             pitch = coarse_f0(f0, s.f0_min, s.f0_max)
         feats = self.hubert.extract_features(chunks, lengths_t)
         feats0 = feats

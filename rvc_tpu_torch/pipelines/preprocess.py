@@ -16,7 +16,8 @@ Feature and f0 extraction batches the clips sorted by length, each batch
 zero-padded to whole seconds as the JAX code pads it: HuBERT masks the pad
 through ``lengths``, but the pitch model runs on the padded batch (its
 BiGRU reads the pad backwards), so the same pad gives the same last frames.
-Only the rmvpe pitch methods are ported.
+f0 comes from ``PitchExtractor.get_f0`` with any method (or a list), as in
+JAX; only the methods that need weights ask for them.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from ..io.audio import load_input_audio, remix_audio
 from ..models.hubert import HubertConfig, HubertEncoder
 from ..models.layers import load_numpy_state_dict
 from ..ops.slicer import Slicer
-from ..pitch.extractor import PitchExtractor, coarse_f0, shift_semitones
+from ..pitch.extractor import PitchExtractor
 
 
 class Preprocess:
@@ -103,16 +104,12 @@ def extract_features(exp_dir: str, hubert: HubertEncoder, pitch: PitchExtractor 
     """HuBERT features and f0 of every 16 kHz clip not done yet (reference
     FeatureInput.go, preprocessing_utils.py:155-193), a batch at a time on
     ``device`` (the card unless "cpu"), with ``hubert`` and ``pitch`` moved
-    there. Returns the number of clips done."""
+    there; ``pitch`` None: a ``PitchExtractor`` without weights, which runs
+    pm, dio and harvest. Returns the number of clips done."""
     dev = resolve_device(device)
     set_float32_math()
     hubert = hubert.to(dev).eval()
-    f0_fn = None
-    if if_f0:
-        if pitch is None or pitch.rmvpe is None:
-            raise KeyError("rmvpe weights are not loaded")
-        pitch.rmvpe = pitch.rmvpe.to(dev).eval()
-        f0_fn = pitch.method_fn(f0_method, 50.0, 1100.0)
+    pitch = (pitch or PitchExtractor()).to(dev)
     inp_root = os.path.join(exp_dir, "1_16k_wavs")
     f0_dir = os.path.join(exp_dir, "2a_f0")
     f0nsf_dir = os.path.join(exp_dir, "2b-f0nsf")
@@ -144,14 +141,14 @@ def extract_features(exp_dir: str, hubert: HubertEncoder, pitch: PitchExtractor 
         audio = torch.from_numpy(batch).to(dev)
         feats = hubert.extract_features(audio, torch.from_numpy(lens).to(dev)).float()
         feats = feats.cpu().numpy()
-        if f0_fn is not None:
-            f0 = shift_semitones(f0_fn(audio), 0.0)
-            coarse = coarse_f0(f0, 50.0, 1100.0).to(torch.int32).cpu().numpy()
+        if if_f0:
+            coarse, f0 = pitch.get_f0(audio, method=f0_method)
+            coarse = coarse.to(torch.int32).cpu().numpy()
             f0 = f0.float().cpu().numpy()
         for j, (name, _) in enumerate(group):
             n_frames = (lens[j] - 400) // 320 + 1
             np.save(os.path.join(feat_dir, f"{f0_method},{name}"), feats[j, :n_frames])
-            if f0_fn is not None:
+            if if_f0:
                 nf0 = lens[j] // 160
                 np.save(os.path.join(f0_dir, f"{f0_method},{name}"), coarse[j, :nf0])
                 np.save(os.path.join(f0nsf_dir, f"{f0_method},{name}"), f0[j, :nf0])

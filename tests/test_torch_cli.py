@@ -16,7 +16,7 @@ from scipy import signal
 from scipy.io import wavfile
 
 import chip_smoke
-from _torch_port import finit, no_compile_cache_writes, recorded_draws  # noqa: F401
+from _torch_port import finit, no_compile_cache_writes, one_thread, recorded_draws  # noqa: F401
 from rvc_tpu.config import RVCConfig
 from rvc_tpu.models.hubert import HubertConfig, HubertEncoder
 from rvc_tpu.models.synthesizer import Synthesizer
@@ -27,6 +27,8 @@ from rvc_tpu_torch.io.audio import load_input_audio, save_input_audio
 from rvc_tpu_torch.models import hubert as thubert
 from rvc_tpu_torch.pipelines import convert as tconv
 from test_torch_convert import HUBERT, REPO, SYNTH, speech
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def test_nof0_convert_matches_jax(monkeypatch):
@@ -143,3 +145,28 @@ def test_cli_imports_neither_jax_nor_the_file_libraries(files, tmp_path):
                          cwd=REPO, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
     assert "wrote" in res.stdout and os.path.getsize(out) > 0
+
+
+@pytest.mark.parametrize("method", ["pm", "dio"])
+def test_cli_convert_with_a_method_that_needs_no_weights(files, tmp_path, method):
+    """``--f0-method`` pm or dio without ``--rmvpe``: the CLI's wav equals the
+    converter's without a pitch model, on the same arrays. A method whose
+    weights are absent raises KeyError, as in JAX."""
+    path, states, bank = files
+    out = os.path.join(tmp_path, "out.wav")
+    cli.main(["convert", path["input"], out, "--model", path["model"], "--hubert",
+              path["hubert"], "--index", path["index"], "--f0-method", method,
+              "--device", "cpu"])
+    vc = tconv.VoiceConverter.from_state_dicts(states["synth"], TINY48, states["hubert"],
+                                               states["hubert_cfg"], index_bank=bank,
+                                               device="cpu")
+    audio, sr = load_input_audio(path["input"], 16000)
+    ref, ref_sr = vc.convert(audio, sr, tconv.ConvertSettings(f0_method=method))
+    save_input_audio(os.path.join(tmp_path, "ref.wav"), (ref, ref_sr))
+    got_sr, got = wavfile.read(out)
+    want_sr, want = wavfile.read(os.path.join(tmp_path, "ref.wav"))
+    assert got_sr == want_sr == 48000 and np.abs(ref).max() > 1000
+    np.testing.assert_array_equal(got, want)
+    for missing in ("rmvpe", "crepe", "mangio-crepe-tiny"):
+        with pytest.raises(KeyError):
+            vc.convert(audio, sr, tconv.ConvertSettings(f0_method=missing))

@@ -212,3 +212,42 @@ def test_synthesizer_infer_matches_jax(rng, monkeypatch):
     close(m2, m_p, 1e-5, transpose=True)
     close(z2, z, 1e-5, transpose=True)
     close(o2, o, 1e-5, transpose=True)
+
+
+def test_synthesizer_infer_mix_matches_jax(rng, monkeypatch):
+    """Synthesizer.infer_mix (a speaker mixture over emb_g's table) with the
+    JAX run's draws, within BAR; with one-hot weights the port's infer_mix is
+    its infer at that sid, bit for bit."""
+    kw = dict(spec_channels=129, segment_size=16, inter_channels=16, hidden_channels=16,
+              filter_channels=32, n_heads=2, n_layers=2, kernel_size=3, p_dropout=0.0,
+              resblock="1", resblock_kernel_sizes=(3, 5),
+              resblock_dilation_sizes=((1, 3), (1, 2)), upsample_rates=(10, 4, 2, 2),
+              upsample_initial_channel=32, upsample_kernel_sizes=(16, 8, 4, 4),
+              spk_embed_dim=4, gin_channels=8, sr=16000, feature_dim=32, use_f0=True)
+    B, T = 2, 20
+    feat = rng.standard_normal((B, T, 32)).astype(np.float32)
+    lens = np.array([T, T - 4])
+    pitch = rng.integers(1, 255, (B, T))
+    pitchf = (rng.uniform(0, 300, (B, T)) * (rng.uniform(size=(B, T)) > 0.3)).astype(np.float32)
+    mix = rng.uniform(0.1, 1.0, (B, 4)).astype(np.float32)
+    args = tuple(map(jnp.asarray, (feat, lens, pitch, pitchf, mix)))
+    j = jsyn.Synthesizer(**kw)
+    p = finit(lambda *a: j.init({"params": jax.random.PRNGKey(0),
+                                 "noise": jax.random.PRNGKey(1)}, *a, method=j.infer_mix),
+              *args, seed=4)
+    fn = jax.jit(lambda p, *a: j.apply(p, *a, method=j.infer_mix,
+                                       rngs={"noise": jax.random.PRNGKey(6)}))
+    with recorded_draws(monkeypatch) as draws:
+        o, _, (z, _, _, _) = fn(p, *args)
+    jax.effects_barrier()
+    eps, rand_ini, noise = draws
+    t = load(tsyn.Synthesizer(**kw), p)
+    draws = dict(eps=T_(eps).transpose(1, 2), rand_ini=T_(rand_ini), noise=T_(noise))
+    inputs = tuple(map(T_, (feat, lens, pitch, pitchf)))
+    with torch.no_grad():
+        o2, _, (z2, _, _, _) = t.infer_mix(*inputs, T_(mix), **draws)
+        one = t.infer_mix(*inputs, torch.eye(4)[[3, 1]], **draws)[0]
+        by_sid = t.infer(*inputs, torch.tensor([3, 1]), **draws)[0]
+    close(z2, z, BAR, transpose=True)
+    close(o2, o, BAR, transpose=True)
+    assert torch.equal(one, by_sid)

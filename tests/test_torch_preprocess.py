@@ -184,3 +184,45 @@ def test_filelist_and_mute_fixtures_match_jax(dirs, extracted, tmp_path):
         assert texts["port"] == texts["jax"].replace(dirs["jax"], dirs["port"])
         assert texts["port"].count("mute") >= 2 * (4 if if_f0 else 2)
     shutil.rmtree(os.path.join(dirs["port"], "mute"))
+
+
+def test_extract_features_with_pm_matches_jax(dirs, tmp_path):
+    """A method that needs no weights (pm) with no pitch model given on
+    either side (JAX: its default PitchExtractor; the port: one without
+    weights), on the port's 16 kHz clips: the same coarse bins and voicing,
+    and at least 99% of the voiced frames within 1e-4 relative
+    (tests/test_torch_pitch_methods.py's bars for pm on speech: its parabolic
+    step divides by the ACF's curvature, which amplifies float32 rounding
+    where the peak is flat)."""
+    hcfg = HubertConfig(**HUBERT)
+    hub = HubertEncoder(hcfg)
+    hp = finit(lambda x: hub.init(jax.random.PRNGKey(2), x, output_layer=12),
+               jnp.zeros((1, 3200)), seed=33)
+    exp = {k: str(tmp_path / k) for k in ("jax", "port")}
+    for d in exp.values():
+        shutil.copytree(os.path.join(dirs["port"], "1_16k_wavs"), os.path.join(d, "1_16k_wavs"))
+    n_jax = jpre.extract_features(exp["jax"], hp, hcfg, f0_method="pm", version="v2",
+                                  batch_size=4)
+    hubert = tpre.hubert_from_state(weights.hubert_state_dict(hp), thubert.HubertConfig(**HUBERT),
+                                    "v2", device="cpu")
+    n_port = tpre.extract_features(exp["port"], hubert, f0_method="pm", version="v2",
+                                   batch_size=4, device="cpu")
+    assert n_port == n_jax >= 6
+    voiced = close = 0
+    for sub in ("2a_f0", "2b-f0nsf"):
+        names = sorted(os.listdir(os.path.join(exp["jax"], sub)))
+        assert names == sorted(os.listdir(os.path.join(exp["port"], sub)))
+        assert all(n.startswith("pm,") for n in names)
+        for n in names:
+            ref = np.load(os.path.join(exp["jax"], sub, n))
+            got = np.load(os.path.join(exp["port"], sub, n))
+            assert got.shape == ref.shape and got.dtype == ref.dtype, (sub, n)
+            if sub == "2a_f0":
+                np.testing.assert_array_equal(got, ref, err_msg=n)
+            else:
+                np.testing.assert_array_equal(got > 0, ref > 0, err_msg=n)
+                v = ref > 0
+                voiced += int(v.sum())
+                close += int(np.sum(np.abs(got[v] - ref[v]) <= 1e-4 * ref[v]))
+    print(f"pm: {close} of {voiced} voiced frames within 1e-4")
+    assert voiced > 100 and close >= 0.99 * voiced

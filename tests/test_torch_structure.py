@@ -62,7 +62,8 @@ def test_import_leaves_jax_unloaded():
             "rvc_tpu_torch.pipelines.preprocess, rvc_tpu_torch.ops.slicer, "
             "rvc_tpu_torch.retrieval.index, rvc_tpu_torch.compat.optimizer_import, "
             "rvc_tpu_torch.compat.torch_export, rvc_tpu_torch.compat.process_ckpt, "
-            "rvc_tpu_torch.cli.main, chip_smoke; "
+            "rvc_tpu_torch.cli.main, rvc_tpu_torch.pitch.world, rvc_tpu_torch.models.crepe, "
+            "rvc_tpu_torch.native, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'rvc_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
