@@ -34,7 +34,9 @@ Phases, each announced on its own line:
      versions, same weights and draws) agree within a stated tolerance;
   6. the training kernels (4-7) against their plain versions at the shapes
      of the training run of phase 7, values and every gradient (kernel 7's
-     on kernel 6's saved values), with their times and bounds; previous_ms,
+     on kernel 6's saved values; kernels 6 and 7 by groups of 8 layers as
+     training runs them, the posterior's first group also giving its last x
+     and taking that x's cotangent), with their times and bounds; previous_ms,
      per decoder stage or WN depth and in all, the float32 SIMT kernels
      that their tensor-core versions replaced (kernel 4: previous_chain;
      kernel 6: wn_forward_simt; kernels 5 and 7: resblock1_backward_simt,
@@ -52,7 +54,8 @@ Phases, each announced on its own line:
      BucketBatcher(batch_size=4); losses finite, every parameter of G and D
      with a nonzero gradient after the first step, and in the timed steps
      every training kernel launched as often as the model's structure says
-     (a launch per ResBlock1 chain and per WN stack, each direction);
+     (a launch per ResBlock1 chain and per group of 8 WN layers, each
+     direction), each stage's median CUDA-event ms;
   8. a reference check: one training step on the card and on the CPU
      (plain versions, same weights, batch and draws) at batch 1, 48 frames:
      losses, gradient norms and updated parameters within stated tolerances;
@@ -123,7 +126,24 @@ Phases, each announced on its own line:
      on 0.5 s of each): the same voicing and f0
      within the CPU tests' bars on 99% of the frames; the hybrid conversion
      of 3 s card vs CPU within phase 5's 4 LSB; infer_mix with one-hot
-     weights against infer at that speaker.
+     weights against infer at that speaker;
+ 19. training in bfloat16 (the JAX trainer's dtype on its accelerator):
+     kernels 4-7 in their bf16 form at phase 7's shapes against their plain
+     versions (the bf16 unit kernel forward of every decoder chain; its
+     backward, kernel 4 in float32 at bf16(0.1) and kernel 5 at bf16(0.1),
+     by check_chain_grads at that slope; kernels 6 and 7 on every WN group
+     through the group's bf16 route: the skip, the group's last x, dx and
+     every weight gradient for both cotangents), each with its ms, packing
+     ms apart and bound (one bf16 pass for the forward, three TF32 passes
+     for the float32 work of the others); Trainer(preset("48k_v2"),
+     dtype=bfloat16) on phase 7's batches: one warm-up step and 5 timed
+     (steps/s beside phase 7's float32 rate, peak memory, each stage's
+     CUDA-event ms, losses finite, every parameter with a gradient, the
+     launches exact: a bf16 unit launch per residual unit, a kernel 4 and a
+     kernel 5 launch per chain, a kernel 6 and a kernel 7 launch per WN
+     group); one bf16 step card vs CPU on phase 8's batch, within bars from
+     the CPU's own bf16-to-float32 distance (run_train_bf16); and
+     scripts/bench_torch_train.py's line, in bf16.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that.
 A kernel's time beside its yardsticks (previous_ms, mma_sync_ms) is
@@ -1148,116 +1168,148 @@ def _train_results(tot) -> tuple[dict, dict]:
                  for t in tot.values())
 
 
+def wn_launches_per_step(synth) -> int:
+    """Kernel 6's (and kernel 7's) launches in a training step: each WN
+    stack runs as groups of at most GROUP_SIZE layers, a launch a group."""
+    from rvc_tpu_torch.ops.wavenet import GROUP_SIZE
+
+    return sum(-(-m.n_layers // GROUP_SIZE) for m in synth.modules()
+               if type(m).__name__ == "WN")
+
+
+def wn_stacks(trainer, lengths, T: int, gen):
+    """Each WN stack of the generator (the posterior encoder's 16 layers,
+    each flow's 3) with random conditioning at the training batch's lengths:
+    (C, k, its fused_wn weights, lengths on the card, the mask (B, 1, T))."""
+    import torch
+
+    dev = trainer.device
+    synth = trainer.synth
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    mask = (torch.arange(T, device=dev)[None, :] < lens[:, None]).float()[:, None]
+    for stack in [synth.enc_q.enc] + [f.enc for f in synth.flow.flows if hasattr(f, "enc")]:
+        g = torch.randn(len(lengths), stack.cond_layer.in_channels, 1, generator=gen).to(dev)
+        with torch.no_grad():
+            *ws, lengths_t = [a.detach().clone() for a in stack.fused_args(mask, g)]
+        yield stack.hidden_channels, stack.kernel_size, ws, lengths_t, mask
+
+
 def check_wn_train(trainer, lengths, T: int, gen) -> tuple[dict, dict]:
-    """Kernels 6 (WN stack) and 7 (its VJP) on every WN stack of the
-    generator (the posterior encoder's 16 layers, each flow's 3) at the
-    training batch's shape and lengths: values, then dx and every weight
-    and conditioning gradient on kernel 6's saved values against autograd
-    of the plain stack."""
+    """Kernels 6 (a group of WN layers) and 7 (its VJP) on every group of
+    every WN stack of the generator, as training runs them (the posterior
+    encoder's 16 layers as two groups of 8, the first also giving its last
+    x to the second; each flow's 3 as one) at the training batch's shape
+    and lengths: values and that x, then dx and every weight and
+    conditioning gradient for the cotangents of the skip and of that x, on
+    kernel 6's saved values, against autograd of the plain group."""
     import torch
 
     from rvc_tpu_torch.ops import wavenet as wn
 
     dev = trainer.device
-    synth = trainer.synth
-    stacks = [synth.enc_q.enc] + [f.enc for f in synth.flow.flows if hasattr(f, "enc")]
-    lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
     B = len(lengths)
-    mask = (torch.arange(T, device=dev)[None, :] < lens[:, None]).float()[:, None]
     tot = {key: dict(ms=0.0, plain_ms=0.0, flops=0.0, bytes=0.0, err=0.0, bound_ms=0.0,
                      bound_f32_ms=0.0, previous_ms=0.0, pack_ms=0.0) for key in ("fwd", "bwd")}
     timed_for = {}
-    for stack in stacks:
-        C, L, k = stack.hidden_channels, stack.n_layers, stack.kernel_size
-        g = torch.randn(B, stack.cond_layer.in_channels, 1, generator=gen).to(dev)
-        with torch.no_grad():
-            *ws, lengths_t = [a.detach().clone() for a in stack.fused_args(mask, g)]
-        x = torch.randn(B, T, C, generator=gen).to(dev) * mask.transpose(1, 2)
-        gy = torch.randn(B, T, C, generator=gen).to(dev)
-        y, xs, pre = wn._forward(x, *ws, lengths_t, k)
-        again = wn._forward(x, *ws, lengths_t, k)
-        simt = wn_forward_simt(x, *ws, lengths_t, kernel_size=k)
-        got = wn.fused_wn_backward(x, xs, pre, gy, *ws, lengths_t, kernel_size=k)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip((y, xs, pre), again)):
-            fail(f"two calls of kernel 6 differ (L={L})")
-        y_ref = wn.fused_wn_plain(x, *ws, lengths_t, kernel_size=k)
-        g_ref = wn.fused_wn_backward_plain(x, xs, pre, gy, *ws, lengths_t, kernel_size=k)
-        err, sc = scaled(y, y_ref)
-        if not err <= VALUE_TOL * sc:
-            fail(f"kernel 6 disagrees with its plain version (L={L}): {err:.3g} > "
-                 f"{VALUE_TOL} x {sc:.3g}")
-        # the yardstick computes the same function and keeps the same values
-        kept = [(y, simt[0]), (pre, simt[2])] + ([(xs, simt[1])] if L > 1 else [])
-        vs_simt = max(e / s_ for e, s_ in (scaled(a, b) for a, b in kept))
-        if not vs_simt <= VALUE_TOL:
-            fail(f"kernel 6 and its yardstick differ (L={L}): {vs_simt:.3g} of the largest "
-                 f"magnitude > {VALUE_TOL}")
-        gerrs = [scaled(a, r) for a, r in zip(got, g_ref)]
-        names = ("dx", "dWa", "dWb", "dBab", "dG", "dWres", "dWskip", "dBrs")
-        for name, (e, s_) in zip(names, gerrs):
-            if not e <= GRAD_TOL * s_:
-                fail(f"kernel 7 disagrees with autograd of the plain stack (L={L}) in {name}: "
-                     f"{e:.3g} > {GRAD_TOL} x {s_:.3g}")
-        tot["fwd"]["err"] = max(tot["fwd"]["err"], err)
-        tot["bwd"]["err"] = max([tot["bwd"]["err"]] + [e for e, _ in gerrs])
-        act, wts = B * T * C * 4, sum(w.numel() for w in ws) * 4
-        rows = B * T
-        cost = {"fwd": (L * rows * (4 * k * C * C + 4 * C * C), (3 * L + 1) * act + wts),
-                "bwd": (L * rows * (8 * k * C * C + 8 * C * C), (3 * L + 2) * act + 2 * wts)}
-        if L not in timed_for:  # stacks of one depth share shapes: time one of each
-            # kernel 6 on weights packed before the timed calls and the SIMT
-            # forward it replaced, in turns; the packing (once a training
-            # step) apart; device time alone for all of kernel 6's row
-            w_a, w_b, _, _, w_res, w_skip, _ = ws
-            packs6 = wn.pack_forward_weights(w_a, w_b, w_res, w_skip, k)
-            run6 = lambda: wn._forward(x, *ws, lengths_t, k, packs6)  # noqa: E731
-            run_prev6 = lambda: wn_forward_simt(x, *ws, lengths_t, kernel_size=k)  # noqa: E731
-            prev6 = timed(run_prev6, reps=5, device_only=True)
-            ms6 = min(timed(run6, reps=10, device_only=True),
-                      timed(run6, reps=10, device_only=True))
-            prev6 = min(prev6, timed(run_prev6, reps=5, device_only=True))
-            pack6 = timed(lambda: wn.pack_forward_weights(w_a, w_b, w_res, w_skip, k), reps=5,
-                          device_only=True)
-            plain6 = timed(lambda: wn.fused_wn_plain(x, *ws, lengths_t, kernel_size=k), reps=5,
-                           device_only=True)
-            # kernel 7 on weights packed before the timed calls, and the SIMT
-            # backward it replaced, in turns; the packing apart
-            packs7 = wn.pack_backward_weights(w_a, w_b, w_res, w_skip, k)
-            run7 = lambda: wn.fused_wn_backward(x, xs, pre, gy, *ws, lengths_t,  # noqa: E731
-                                                kernel_size=k, packs=packs7)
-            run_prev = lambda: wn_backward_simt(x, xs, pre, gy, *ws, lengths_t,  # noqa: E731
-                                                kernel_size=k)
-            prev7 = timed(run_prev, reps=5)
-            ms7 = min(timed(run7, reps=5), timed(run7, reps=5))
-            prev7 = min(prev7, timed(run_prev, reps=5))
-            pack7 = timed(lambda: wn.pack_backward_weights(w_a, w_b, w_res, w_skip, k), reps=5)
-            plain7 = timed(lambda: wn.fused_wn_backward_plain(x, xs, pre, gy, *ws, lengths_t,
-                                                              kernel_size=k), reps=5)
-            timed_for[L] = (ms6, plain6, prev6, pack6, ms7, plain7, prev7, pack7)
-            say(f"  WN stack x ({B}, {T}, {C}), L {L}, lengths {lens.tolist()}: kernel 6 ms "
-                f"{ms6:.4f} (previous_ms {prev6:.4f}, kernel below it: {ms6 < prev6}; plain "
-                f"{plain6:.4f}, kernel below it: {ms6 < plain6}; packing {pack6:.4f}; bound "
-                f"{bound_tc(*cost['fwd'])[0]:.4f}; err {err:.3g} of the largest, {vs_simt:.3g} "
-                f"against the yardstick in out, xs, pre; grids: {wn_grids(B, T, C)}), kernel 7 "
-                f"ms {ms7:.3f} "
-                f"(previous_ms {prev7:.3f}, kernel below it: {ms7 < prev7}; packing "
-                f"{pack7:.3f}; plain "
-                f"{plain7:.3f}, worst grad err {max(e / s_ for e, s_ in gerrs):.3g} "
-                f"of its largest magnitude)")
-        ms6, plain6, prev6, pack6, ms7, plain7, prev7, pack7 = timed_for[L]
-        for key, prev, pack in (("fwd", prev6, pack6), ("bwd", prev7, pack7)):
-            tot[key]["previous_ms"] += prev
-            tot[key]["pack_ms"] += pack
-        for key, ms, plain in (("fwd", ms6, plain6), ("bwd", ms7, plain7)):
-            flops, nbytes = cost[key]
-            t = tot[key]
-            t["ms"] += ms
-            t["plain_ms"] += plain
-            t["flops"] += flops
-            t["bytes"] += nbytes
-            t["bound_ms"] += bound_tc(flops, nbytes)[0]
-            t["bound_f32_ms"] += bound(flops, nbytes)[0]
+    for C, k, ws_all, lengths_t, mask in wn_stacks(trainer, lengths, T, gen):
+        lens = lengths_t
+        for ws, final in wn.groups(*ws_all, k):
+            L = ws[4].shape[0]
+            x = torch.randn(B, T, C, generator=gen).to(dev) * mask.transpose(1, 2)
+            gy = torch.randn(B, T, C, generator=gen).to(dev)
+            gyx = torch.randn(B, T, C, generator=gen).to(dev) if final else None
+            y, xs, pre, *xf = wn._forward(x, *ws, lengths_t, k, final=final)
+            again = wn._forward(x, *ws, lengths_t, k, final=final)
+            simt = wn_forward_simt(x, *ws, lengths_t, kernel_size=k)
+            got = wn.fused_wn_backward(x, xs, pre, gy, *ws, lengths_t, kernel_size=k, gyx=gyx)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip([y, xs, pre, *xf], again)):
+                fail(f"two calls of kernel 6 differ (L={L})")
+            y_ref, xf_ref = wn._layers_plain(x, *ws, lengths_t, k)
+            g_ref = wn.fused_wn_backward_plain(x, xs, pre, gy, *ws, lengths_t, kernel_size=k,
+                                               gyx=gyx)
+            err, sc = scaled(y, y_ref)
+            if final:
+                err_x, sc_x = scaled(xf[0], xf_ref)
+                if not err_x <= VALUE_TOL * sc_x:
+                    fail(f"kernel 6's last x disagrees with its plain version (L={L}): "
+                         f"{err_x:.3g} > {VALUE_TOL} x {sc_x:.3g}")
+            if not err <= VALUE_TOL * sc:
+                fail(f"kernel 6 disagrees with its plain version (L={L}): {err:.3g} > "
+                     f"{VALUE_TOL} x {sc:.3g}")
+            # the yardstick computes the same function and keeps the same values
+            kept = [(y, simt[0]), (pre, simt[2])] + ([(xs, simt[1])] if L > 1 else [])
+            vs_simt = max(e / s_ for e, s_ in (scaled(a, b) for a, b in kept))
+            if not vs_simt <= VALUE_TOL:
+                fail(f"kernel 6 and its yardstick differ (L={L}): {vs_simt:.3g} of the largest "
+                     f"magnitude > {VALUE_TOL}")
+            gerrs = [scaled(a, r) for a, r in zip(got, g_ref)]
+            names = ("dx", "dWa", "dWb", "dBab", "dG", "dWres", "dWskip", "dBrs")
+            for name, (e, s_) in zip(names, gerrs):
+                if not e <= GRAD_TOL * s_:
+                    fail(f"kernel 7 disagrees with autograd of the plain group (L={L}) in "
+                         f"{name}: {e:.3g} > {GRAD_TOL} x {s_:.3g}")
+            tot["fwd"]["err"] = max(tot["fwd"]["err"], err)
+            tot["bwd"]["err"] = max([tot["bwd"]["err"]] + [e for e, _ in gerrs])
+            act, wts = B * T * C * 4, sum(w.numel() for w in ws) * 4
+            rows = B * T
+            cost = {"fwd": (L * rows * (4 * k * C * C + 4 * C * C),
+                            (3 * L + 1 + final) * act + wts),
+                    "bwd": (L * rows * (8 * k * C * C + 8 * C * C),
+                            (3 * L + 2 + final) * act + 2 * wts)}
+            if (L, final) not in timed_for:  # groups of one depth share shapes: time one
+                # kernel 6 on weights packed before the timed calls and the SIMT
+                # forward it replaced, in turns; the packing (once a training
+                # step) apart; device time alone for all of kernel 6's row
+                w_a, w_b, _, _, w_res, w_skip, _ = ws
+                packs6 = wn.pack_forward_weights(w_a, w_b, w_res, w_skip, k, final)
+                run6 = lambda: wn._forward(x, *ws, lengths_t, k, packs6, final)  # noqa: E731
+                run_prev6 = lambda: wn_forward_simt(x, *ws, lengths_t, kernel_size=k)  # noqa: E731
+                prev6 = timed(run_prev6, reps=5, device_only=True)
+                ms6 = min(timed(run6, reps=10, device_only=True),
+                          timed(run6, reps=10, device_only=True))
+                prev6 = min(prev6, timed(run_prev6, reps=5, device_only=True))
+                pack6 = timed(lambda: wn.pack_forward_weights(w_a, w_b, w_res, w_skip, k, final),
+                              reps=5, device_only=True)
+                plain6 = timed(lambda: wn._layers_plain(x, *ws, lengths_t, k), reps=5,
+                               device_only=True)
+                # kernel 7 on weights packed before the timed calls, and the SIMT
+                # backward it replaced, in turns; the packing apart
+                packs7 = wn.pack_backward_weights(w_a, w_b, w_res, w_skip, k)
+                run7 = lambda: wn.fused_wn_backward(x, xs, pre, gy, *ws, lengths_t,  # noqa: E731
+                                                    kernel_size=k, packs=packs7, gyx=gyx)
+                run_prev = lambda: wn_backward_simt(x, xs, pre, gy, *ws, lengths_t,  # noqa: E731
+                                                    kernel_size=k)
+                prev7 = timed(run_prev, reps=5)
+                ms7 = min(timed(run7, reps=5), timed(run7, reps=5))
+                prev7 = min(prev7, timed(run_prev, reps=5))
+                pack7 = timed(lambda: wn.pack_backward_weights(w_a, w_b, w_res, w_skip, k),
+                              reps=5)
+                plain7 = timed(lambda: wn.fused_wn_backward_plain(
+                    x, xs, pre, gy, *ws, lengths_t, kernel_size=k, gyx=gyx), reps=5)
+                timed_for[L, final] = (ms6, plain6, prev6, pack6, ms7, plain7, prev7, pack7)
+                say(f"  WN group x ({B}, {T}, {C}), L {L}{', its last x wanted' if final else ''}, "
+                    f"lengths {lens.tolist()}: kernel 6 ms {ms6:.4f} (previous_ms {prev6:.4f}, "
+                    f"kernel below it: {ms6 < prev6}; plain {plain6:.4f}, kernel below it: "
+                    f"{ms6 < plain6}; packing {pack6:.4f}; bound {bound_tc(*cost['fwd'])[0]:.4f}; "
+                    f"err {err:.3g} of the largest, {vs_simt:.3g} against the yardstick in out, "
+                    f"xs, pre; grids: {wn_grids(B, T, C)}), kernel 7 ms {ms7:.3f} (previous_ms "
+                    f"{prev7:.3f}, kernel below it: {ms7 < prev7}; packing {pack7:.3f}; plain "
+                    f"{plain7:.3f}, worst grad err {max(e / s_ for e, s_ in gerrs):.3g} of its "
+                    f"largest magnitude)")
+            ms6, plain6, prev6, pack6, ms7, plain7, prev7, pack7 = timed_for[L, final]
+            for key, prev, pack in (("fwd", prev6, pack6), ("bwd", prev7, pack7)):
+                tot[key]["previous_ms"] += prev
+                tot[key]["pack_ms"] += pack
+            for key, ms, plain in (("fwd", ms6, plain6), ("bwd", ms7, plain7)):
+                flops, nbytes = cost[key]
+                t = tot[key]
+                t["ms"] += ms
+                t["plain_ms"] += plain
+                t["flops"] += flops
+                t["bytes"] += nbytes
+                t["bound_ms"] += bound_tc(flops, nbytes)[0]
+                t["bound_f32_ms"] += bound(flops, nbytes)[0]
     return _train_results(tot)
 
 
@@ -1291,44 +1343,63 @@ def make_dataset(root: str, data) -> str:
     return filelist
 
 
-def check_train_vs_cpu(cfg, batch: dict) -> None:
-    """One training step on the card and on the CPU (plain versions) from the
-    same weights, batch and draws, at batch 1 and 48 frames."""
-    import torch
-
+def train_step_run(cfg, small: dict, dev: str, dtype) -> tuple[dict, list, float]:
+    """One training step from seed 7's weights on ``small`` with seed 3's
+    draws: (metrics, the updated parameters of G and D on the CPU, seconds)."""
     from rvc_tpu_torch.train.step import Trainer
 
-    F = 48
-    hop = cfg.data.hop_length
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, dtype=dtype, device=dev)
+    st = tr.init_state(seed=7)
+    st, m = tr.step(st, small, draws=tr.draws(small, seed=3))
+    params = [p.detach().cpu() for p in list(tr.synth.parameters()) +
+              list(tr.disc.parameters())]
+    return {k: float(v) for k, v in m.items() if k != "viz"}, params, time.perf_counter() - t0
+
+
+def step_distance(a, b, lr: float) -> tuple[float, float, float, float]:
+    """Two training steps' runs (metrics, parameters): (the losses' largest
+    difference relative to max(1, |loss|), the gradient norms' largest
+    relative difference, the parameters' largest difference, the share of
+    parameter elements more than 0.01 lr apart)."""
+    import torch
+
+    (ma, pa), (mb, pb) = a, b
+    loss = max(abs(ma[k] - mb[k]) / max(1.0, abs(mb[k])) for k in mb
+               if not k.startswith("grad_norm"))
+    norm = max(abs(ma[k] - mb[k]) / abs(mb[k]) for k in ("grad_norm_g", "grad_norm_d"))
+    delta = torch.cat([(x - y).abs().flatten() for x, y in zip(pa, pb)])
+    return loss, norm, delta.max().item(), (delta > 0.01 * lr).float().mean().item()
+
+
+def small_batch(batch: dict, frames: int = 48, hop: int = 480) -> dict:
+    """The first sample of a training batch cut to ``frames`` frames."""
     small = {}
     for key, v in batch.items():
         v = np.asarray(v)[:1]
         if key in ("phone", "pitch", "pitchf", "spec"):
-            v = v[:, :F]
+            v = v[:, :frames]
         elif key == "wave":
-            v = v[:, :F * hop]
+            v = v[:, :frames * hop]
         elif key.endswith("lengths"):
-            v = np.minimum(v, F * (hop if key == "wave_lengths" else 1))
+            v = np.minimum(v, frames * (hop if key == "wave_lengths" else 1))
         small[key] = v
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        tr = Trainer(cfg, device=dev)
-        st = tr.init_state(seed=7)
-        st, m = tr.step(st, small, draws=tr.draws(small, seed=3))
-        params = [p.detach().cpu() for p in list(tr.synth.parameters()) +
-                  list(tr.disc.parameters())]
-        runs[dev] = ({k: float(v) for k, v in m.items() if k != "viz"}, params,
-                     time.perf_counter() - t0)
-        del tr, st
-    (mg, pg, tg), (mc, pc, tc) = runs["cuda"], runs["cpu"]
+    return small
+
+
+def check_train_vs_cpu(cfg, batch: dict) -> tuple:
+    """One training step on the card and on the CPU (plain versions) from the
+    same weights, batch and draws, at batch 1 and 48 frames. Returns the CPU
+    run (phase 19's bf16 bars are taken from its distance to the CPU's bf16
+    run)."""
+    import torch
+
+    small = small_batch(batch, hop=cfg.data.hop_length)
+    (mg, pg, tg), (mc, pc, tc) = (train_step_run(cfg, small, dev, torch.float32)
+                                  for dev in ("cuda", "cpu"))
     lr = cfg.train.learning_rate
-    loss_err = max(abs(mg[k] - mc[k]) / max(1.0, abs(mc[k])) for k in mg
-                   if not k.startswith("grad_norm"))
-    norm_err = max(abs(mg[k] - mc[k]) / abs(mc[k]) for k in ("grad_norm_g", "grad_norm_d"))
-    delta = torch.cat([(a - b).abs().flatten() for a, b in zip(pg, pc)])
-    worst, share = delta.max().item(), (delta > 0.01 * lr).float().mean().item()
-    say(f"[8/18] one training step, batch 1, {F} frames, card vs CPU: losses within "
+    loss_err, norm_err, worst, share = step_distance((mg, pg), (mc, pc), lr)
+    say(f"[8/19] one training step, batch 1, 48 frames, card vs CPU: losses within "
         f"{loss_err:.3g} (relative, of max(1, |loss|); tolerance 1e-3), gradient norms within "
         f"{norm_err:.3g} (tolerance 1e-2), updated parameters max |diff| {worst:.3g} "
         f"(tolerance 2.01 lr = {2.01 * lr:.3g}), share above 0.01 lr {share:.4%} (tolerance "
@@ -1341,14 +1412,47 @@ def check_train_vs_cpu(cfg, batch: dict) -> None:
     # differs, which only gradients within rounding of 0 do (1% of elements).
     if not (loss_err <= 1e-3 and norm_err <= 1e-2 and worst <= 2.01 * lr and share <= 0.01):
         fail("the card's training step disagrees with the CPU's")
+    return small, (mc, pc)
 
 
-def run_training(trainer, batches: list, card: str) -> dict:
-    """One warm-up step and TRAIN_STEPS timed steps; returns the launches of
-    the timed steps."""
+def training_counters() -> dict:
+    """The launch counters a training step may move (the decoder chains'
+    forward in bf16, kernel 4 (the forward in float32, the recompute in
+    bf16), kernel 5, kernels 6 and 7) beside those it must not (the
+    inference kernels')."""
+    from rvc_tpu_torch.ops import resblock, wavenet
+
+    return {**launch_counters(),
+            "fused_resblock1_train[bf16]": (resblock.fused_resblock1_train, "launches_bf16"),
+            "fused_resblock1_backward": (resblock.fused_resblock1_backward, "launches"),
+            "fused_wn": (wavenet.fused_wn, "launches"),
+            "fused_wn_backward": (wavenet.fused_wn_backward, "launches")}
+
+
+def expected_training_launches(trainer, steps: int) -> dict:
+    """What ``steps`` training steps must launch, from the model's structure:
+    in float32 a kernel 4 and a kernel 5 launch per ResBlock1 chain; in bf16
+    a bf16 unit launch per residual unit, and per chain a kernel 4 launch
+    (the float32 recompute) and a kernel 5 launch; a kernel 6 and a kernel 7
+    launch per WN group; nothing else."""
     import torch
 
-    from rvc_tpu_torch.ops import attention, resblock, retrieval, wavenet
+    dec = trainer.synth.dec
+    n_chains, n_units = len(dec.resblocks), sum(len(rb.convs1) for rb in dec.resblocks)
+    n_wn = wn_launches_per_step(trainer.synth)
+    out = dict.fromkeys(training_counters(), 0)
+    out.update({"fused_resblock1": n_chains * steps, "fused_resblock1_backward": n_chains * steps,
+                "fused_wn": n_wn * steps, "fused_wn_backward": n_wn * steps})
+    if trainer.dtype == torch.bfloat16:
+        out["fused_resblock1_train[bf16]"] = n_units * steps
+    return out
+
+
+def run_training(trainer, batches: list, card: str, label: str) -> tuple[dict, float]:
+    """One warm-up step and TRAIN_STEPS timed steps; returns the launches of
+    the timed steps and their steps/s. Prints each stage's median CUDA-event
+    ms over the timed steps."""
+    import torch
 
     state = trainer.init_state(seed=0, steps_per_epoch=len(batches))
     t0 = time.perf_counter()
@@ -1364,46 +1468,337 @@ def run_training(trainer, batches: list, card: str) -> dict:
     say(f"  warm-up step {first:.2f} s; every parameter of G "
         f"({sum(1 for _ in trainer.synth.parameters())}) and D "
         f"({sum(1 for _ in trainer.disc.parameters())}) has a nonzero gradient")
-    counters = {"fused_resblock1": resblock.fused_resblock1,
-                "fused_resblock1_backward": resblock.fused_resblock1_backward,
-                "fused_wn": wavenet.fused_wn, "fused_wn_backward": wavenet.fused_wn_backward,
-                "fused_resblock_group": resblock.fused_resblock_group,
-                "banded_rel_attention": attention.banded_rel_attention,
-                "nearest_rows_q": retrieval.nearest_rows_q}
-    for fn in counters.values():
-        fn.launches = 0
+    counters = training_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     torch.cuda.reset_peak_memory_stats()
-    walls, losses = [], []
+    walls, losses, stages = [], [], []
     for batch in batches[1:]:
+        events = []
         t0 = time.perf_counter()
-        state, m = trainer.step(state, batch)
+        state, m = trainer.step(state, batch, events=events)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        stages.append({name: a.elapsed_time(b) for (_, a), (name, b)
+                       in zip(events[:-1], events[1:])})
         vals = {k: float(v) for k, v in m.items() if k != "viz"}
         losses.append(vals)
         if not all(math.isfinite(v) for v in vals.values()):
             fail(f"a loss is not finite: {vals}")
-    launches = {k: fn.launches for k, fn in counters.items()}
-    n_chains = len(trainer.synth.dec.resblocks)
-    n_wn = sum(1 for mod in trainer.synth.modules() if type(mod).__name__ == "WN")
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
     steps = len(walls)
-    expected = {"fused_resblock1": n_chains * steps, "fused_resblock1_backward": n_chains * steps,
-                "fused_wn": n_wn * steps, "fused_wn_backward": n_wn * steps,
-                "fused_resblock_group": 0, "banded_rel_attention": 0, "nearest_rows_q": 0}
+    expected = expected_training_launches(trainer, steps)
     cfg = trainer.config
     audio_s = TRAIN_BATCH * cfg.train.segment_size / cfg.data.sampling_rate
     total = sum(walls)
-    say(f"[7/18] training 48k_v2, batch {TRAIN_BATCH}, padded to "
-        f"{np.shape(batches[1]['spec'])[1]} frames: {steps} steps, wall s "
+    say(f"[{label}] training 48k_v2 in {str(trainer.dtype).split('.')[-1]}, batch {TRAIN_BATCH}, "
+        f"padded to {np.shape(batches[1]['spec'])[1]} frames: {steps} steps, wall s "
         f"{[round(w, 4) for w in walls]}, {steps / total:.3f} steps/s, "
         f"{audio_s * steps / total:.3f} s of audio (the sliced segments) trained per s, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-        f"launches {launches}; {card}")
+        f"launches { {k: v for k, v in launches.items() if v} }; {card}")
+    say("  stages, median over the timed steps (CUDA events, ms): "
+        + str({name: round(float(np.median([st[name] for st in stages])), 3)
+               for name in stages[0]}))
     for i, vals in enumerate(losses):
         say(f"  step {i + 1}: " + ", ".join(f"{k} {v:.5g}" for k, v in vals.items()))
     if launches != expected:
         fail(f"training kernel launches {launches}, expected {expected}")
-    return launches
+    return launches, steps / total
+
+
+# ---- phase 19: training in bfloat16 ----
+
+
+def check_chain_train_bf16(trainer, gen) -> tuple[dict, dict]:
+    """Kernel 4 in bf16 (the bf16 unit kernel, a launch a unit) and its
+    backward (kernel 4 in float32 at bf16(0.1) recomputing the unit inputs,
+    then kernel 5 at bf16(0.1), on x and the cotangent upcast, dx cast to
+    bf16) on every ResBlock1 chain of the decoder at phase 7's shapes, each
+    against its plain version: the value within phase 9's bf16 bars, the
+    gradients by check_chain_grads at bf16(0.1). Times per training step,
+    the weights' packing (every step in training) apart."""
+    import torch
+
+    from rvc_tpu_torch.ops import resblock as rb
+
+    bf16, dev = torch.bfloat16, trainer.device
+    dec = trainer.synth.dec
+    nk = dec.num_kernels
+    B, T = TRAIN_BATCH, trainer.seg_frames
+    tot = {key: dict(ms=0.0, plain_ms=0.0, pack_ms=0.0, flops=0.0, bytes=0.0, bound_ms=0.0,
+                     err=0.0) for key in ("fwd", "bwd")}
+    kinks = dict(near_zero=0, worst=0.0)
+    for i, rate in enumerate(dec.upsample_rates):
+        T *= rate
+        for blk in dec.resblocks[i * nk:(i + 1) * nk]:
+            with torch.no_grad():
+                convs = [(w.detach().clone(), b.detach().clone(), k, d)
+                         for w, b, k, d in blk.chain()]
+            C, k, n = convs[0][0].shape[0], convs[0][2], len(convs) // 2
+            x = torch.randn(B, T, C, generator=gen).to(dev).to(bf16)
+            gy = torch.randn(B, T, C, generator=gen).to(dev).to(bf16)
+            x32, gy32 = x.float(), gy.float()
+            with torch.no_grad():
+                y = rb.fused_resblock1_train(x, convs)
+            y_ref = rb.fused_resblock1_plain(x, convs)
+            rel, l2, beyond = bf16_agreement(y, y_ref)
+            if not (l2 <= BF16_L2 and rel <= BF16_MAX):
+                fail(f"kernel 4 in bf16 disagrees with its plain version at C={C}, k={k}: max "
+                     f"{rel:.3g}, relative L2 {l2:.3g}")
+
+            def backward(packs=None, cast=True):  # the route's backward, as in training
+                _, hs = rb._resblock1_forward(x.float(), convs, rb.BF16_SLOPE)
+                dx, dw, db = rb.fused_resblock1_backward(x.float(), hs, gy.float(), convs,
+                                                         packs, slope=rb.BF16_SLOPE)
+                return dx.to(bf16) if cast else dx, dw, db
+
+            # dx before its cast to bf16: the cast rounds both versions alike
+            got = backward(cast=False)
+            ref = rb.fused_resblock1_backward_plain(x32, None, gy32, convs, rb.BF16_SLOPE)
+            msg, counts = rb.check_chain_grads(x32, convs, got, ref, GRAD_TOL,
+                                               slope=rb.BF16_SLOPE)
+            if msg:
+                fail(f"the bf16 chain's backward disagrees with its plain version at C={C}, "
+                     f"k={k}: {msg} ({counts})")
+            kinks["near_zero"] += counts["near_zero"]
+            kinks["worst"] = max(kinks["worst"], counts["worst"])
+            weights = [w for w, _, _, _ in convs]
+            run4 = lambda: rb._run_units(x, [convs], "rvc_resblock_unit_bf16",  # noqa: E731
+                                         rb.pack_bf16_weights, UNCOUNTED)
+            ms4 = min(timed(run4, reps=3), timed(run4, reps=3))
+            pack4 = timed(lambda: [rb.pack_bf16_weights(w) for w in weights], reps=3)
+            plain4 = timed(lambda: rb.fused_resblock1_plain(x, convs), reps=3)
+            packs5 = rb.pack_backward_weights(convs)
+            ms5 = min(timed(lambda: backward(packs5), reps=3),
+                      timed(lambda: backward(packs5), reps=3))
+            pack5 = timed(lambda: (rb.pack_chain_weights(weights),
+                                   rb.pack_backward_weights(convs)), reps=3)
+            plain5 = timed(lambda: rb.fused_resblock1_backward_plain(
+                x.float(), None, gy.float(), convs, rb.BF16_SLOPE), reps=3)
+            act16 = B * T * C * 2
+            wts = sum(w.numel() + b.numel() for w, b, _, _ in convs) * 4
+            conv = 2 * k * C * C * B * T  # flops of one conv
+            # the forward one bf16 pass; the backward's float32 work (the
+            # recompute, 2n convs, and kernel 5's 5n) three TF32 passes
+            b4 = bound_bf16(2 * n * conv, 2 * act16 + wts)
+            b5 = bound_tc(7 * n * conv, 3 * act16 + 2 * wts)
+            err4 = (y.float() - y_ref.float()).abs().max().item()
+            err5 = max(scaled(a, r)[0] for a, r in zip(got, ref))
+            for key, ms, plain, pack, flops, nbytes, bnd, err in (
+                    ("fwd", ms4, plain4, pack4, 2 * n * conv, 2 * act16 + wts, b4[0], err4),
+                    ("bwd", ms5, plain5, pack5, 7 * n * conv, 3 * act16 + 2 * wts, b5[0],
+                     err5)):
+                t = tot[key]
+                for name, v in (("ms", ms), ("plain_ms", plain), ("pack_ms", pack),
+                                ("flops", flops), ("bytes", nbytes), ("bound_ms", bnd)):
+                    t[name] += v
+                t["err"] = max(t["err"], err)
+            say(f"  bf16 chain x ({B}, {T}, {C}), k {k}: forward (bf16 unit kernel) ms {ms4:.3f} "
+                f"(max {rel:.3g} of the largest, relative L2 {l2:.3g}, beyond one ulp "
+                f"{beyond:.3%}; packing {pack4:.3f}, plain {plain4:.3f}, bound {b4[0]:.3f}), "
+                f"backward (kernel 4 and kernel 5 at bf16(0.1)) ms {ms5:.3f} (pre-activations "
+                f"near 0 {counts['near_zero']}, left after the fit {counts['worst']:.3g}; "
+                f"packing {pack5:.3f}, plain {plain5:.3f}, bound {b5[0]:.3f})")
+            del x, gy, x32, gy32
+    say(f"  the bf16 chains' backward: the worst element left after fitting "
+        f"{kinks['near_zero']} pre-activations near 0: {kinks['worst']:.3g} of its largest "
+        f"magnitude (tolerance {GRAD_TOL})")
+    return tuple(dict(max_abs_err=t["err"], ms=t["ms"], plain_ms=t["plain_ms"],
+                      pack_ms=t["pack_ms"], bound_ms=t["bound_ms"],
+                      bound_by=(bound_bf16 if key == "fwd" else bound_tc)(t["flops"],
+                                                                          t["bytes"])[1],
+                      library_ms=None)
+                 for key, t in tot.items())
+
+
+def check_wn_train_bf16(trainer, lengths, T: int, gen) -> tuple[dict, dict]:
+    """Kernels 6 and 7 in bf16 on every group of every WN stack (the
+    posterior encoder's 16 layers in two groups, each flow's 3 in one) at
+    phase 7's shapes, through the group's autograd route: x in bf16, upcast,
+    kernel 6, the skip and the group's last x rounded to bf16; kernel 7 on
+    both cotangents upcast, dx rounded. Against autograd of the plain group
+    in bf16: the skip, the last x and dx within phase 9's bf16 bars, the
+    float32 weight and conditioning gradients within GRAD_TOL. A group's
+    input is the kernel's last x of the group before it. Times (device time
+    alone for kernel 6, as in phase 6) with the weights' packing apart."""
+    import torch
+
+    from rvc_tpu_torch.ops import wavenet as wn
+
+    bf16 = torch.bfloat16
+    dev = trainer.device
+    B = len(lengths)
+    tot = {key: dict(ms=0.0, plain_ms=0.0, pack_ms=0.0, flops=0.0, bytes=0.0, bound_ms=0.0,
+                     err=0.0) for key in ("fwd", "bwd")}
+    timed_for = {}
+    for C, k, ws_all, lens, mask in wn_stacks(trainer, lengths, T, gen):
+        x = (torch.randn(B, T, C, generator=gen).to(dev) * mask.transpose(1, 2)).to(bf16)
+        for ws, final in wn.groups(*ws_all, k):
+            L = ws[4].shape[0]
+            gy = torch.randn(B, T, C, generator=gen).to(dev).to(bf16)
+            gyx = torch.randn(B, T, C, generator=gen).to(dev).to(bf16) if final else None
+            runs = []
+            for group in (wn._group_card, wn._group_plain):
+                xg = x.clone().requires_grad_()
+                wg = [t.clone().requires_grad_() for t in ws]
+                skip, x_out = group(xg, *wg, lens, k, final)
+                outs, cots = ([skip, x_out], [gy, gyx]) if final else ([skip], [gy])
+                grads = torch.autograd.grad(outs, [xg] + wg, cots, allow_unused=True)
+                runs.append(([o.detach() for o in outs],
+                             [torch.zeros_like(t) if g is None else g
+                              for t, g in zip([xg] + wg, grads)]))
+            torch.cuda.synchronize()
+            (outs, grads), (outs_ref, grads_ref) = runs
+            worst = 0.0
+            for name, a, r in zip(("skip", "last x", "dx"), outs + grads[:1],
+                                  outs_ref + grads_ref[:1]):
+                rel, l2, beyond = bf16_agreement(a, r)
+                worst = max(worst, rel)
+                if not (l2 <= BF16_L2 and rel <= BF16_MAX):
+                    fail(f"kernels 6/7 in bf16 disagree with their plain version (L={L}) in "
+                         f"{name}: max {rel:.3g}, relative L2 {l2:.3g}")
+            names = ("dWa", "dWb", "dBab", "dG", "dWres", "dWskip", "dBrs")
+            gerrs = [scaled(a, r) for a, r in zip(grads[1:], grads_ref[1:])]
+            for name, (e, s_) in zip(names, gerrs):
+                if not e <= GRAD_TOL * s_:
+                    fail(f"kernel 7 in bf16 disagrees with its plain version (L={L}) in "
+                         f"{name}: {e:.3g} > {GRAD_TOL} x {s_:.3g}")
+            gworst = max(e / s_ for e, s_ in gerrs)
+            err6 = max((a.float() - r.float()).abs().max().item()
+                       for a, r in zip(outs, outs_ref))
+            err7 = max([(grads[0].float() - grads_ref[0].float()).abs().max().item()]
+                       + [e for e, _ in gerrs])
+            act16, act, wts = B * T * C * 2, B * T * C * 4, sum(w.numel() for w in ws) * 4
+            rows = B * T
+            cost = {"fwd": (L * rows * (4 * k * C * C + 4 * C * C), (2 + final) * act16 + wts),
+                    "bwd": (L * rows * (8 * k * C * C + 8 * C * C),
+                            (3 + final) * act16 + 2 * wts)}
+            if (L, final) not in timed_for:
+                w_a, w_b, _, _, w_res, w_skip, _ = ws
+                packs6 = wn.pack_forward_weights(w_a, w_b, w_res, w_skip, k, final)
+                packs7 = wn.pack_backward_weights(w_a, w_b, w_res, w_skip, k)
+
+                def fwd6():  # the group's forward in bf16, its weights packed
+                    out = wn._forward(x.float(), *ws, lens, k, packs6, final)
+                    return [t.to(bf16) for t in (out[0], *out[3:])], out
+
+                kept = fwd6()[1]
+
+                def bwd7():
+                    g = wn.fused_wn_backward(
+                        x.float(), kept[1], kept[2], gy.float(), *ws, lens, kernel_size=k,
+                        packs=packs7, gyx=None if gyx is None else gyx.float())
+                    return g[0].to(bf16), g[1:]
+
+                ms6 = min(timed(fwd6, reps=5, device_only=True),
+                          timed(fwd6, reps=5, device_only=True))
+                pack6 = timed(lambda: wn.pack_forward_weights(w_a, w_b, w_res, w_skip, k, final),
+                              reps=3, device_only=True)
+                plain6 = timed(lambda: wn._group_plain(x, *ws, lens, k, final), reps=3,
+                               device_only=True)
+                ms7 = min(timed(bwd7, reps=3), timed(bwd7, reps=3))
+                pack7 = timed(lambda: wn.pack_backward_weights(w_a, w_b, w_res, w_skip, k),
+                              reps=3)
+                plain7 = timed(lambda: wn.fused_wn_backward_plain(
+                    x.float(), None, None, gy.float(), *ws, lens, kernel_size=k,
+                    gyx=None if gyx is None else gyx.float()), reps=3)
+                timed_for[L, final] = (ms6, plain6, pack6, ms7, plain7, pack7)
+                say(f"  bf16 WN group x ({B}, {T}, {C}), L {L}"
+                    f"{', its last x wanted' if final else ''}: kernel 6 ms {ms6:.4f} (plain "
+                    f"{plain6:.4f}, packing {pack6:.4f}, bound {bound_tc(*cost['fwd'])[0]:.4f}), "
+                    f"kernel 7 ms {ms7:.3f} (plain {plain7:.3f}, packing {pack7:.3f}, bound "
+                    f"{bound_tc(*cost['bwd'])[0]:.4f}); worst of skip, last x, dx {worst:.3g} "
+                    f"of the largest, of the weight gradients {gworst:.3g}")
+            ms6, plain6, pack6, ms7, plain7, pack7 = timed_for[L, final]
+            for key, ms, plain, pack, err in (("fwd", ms6, plain6, pack6, err6),
+                                              ("bwd", ms7, plain7, pack7, err7)):
+                t = tot[key]
+                flops, nbytes = cost[key]
+                for name, v in (("ms", ms), ("plain_ms", plain), ("pack_ms", pack),
+                                ("flops", flops), ("bytes", nbytes),
+                                ("bound_ms", bound_tc(flops, nbytes)[0])):
+                    t[name] += v
+                t["err"] = max(t["err"], err)
+            if final:
+                x = outs[1]  # the next group's input: this group's last x, from the kernel
+    return tuple(dict(max_abs_err=t["err"], ms=t["ms"], plain_ms=t["plain_ms"],
+                      pack_ms=t["pack_ms"], bound_ms=t["bound_ms"],
+                      bound_by=bound_tc(t["flops"], t["bytes"])[1], library_ms=None)
+                 for t in tot.values())
+
+
+def run_bench_train(card: str) -> None:
+    """scripts/bench_torch_train.py in this process, in bf16: its JSON line."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_torch_train", os.path.join(REPO, "scripts", "bench_torch_train.py"))
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    t0 = time.perf_counter()
+    line = bench.run(TRAIN_BATCH, "bfloat16")
+    say(f"  scripts/bench_torch_train.py (bf16, batch {TRAIN_BATCH}) in "
+        f"{time.perf_counter() - t0:.1f} s; {card}:")
+    say(json.dumps(line))
+
+
+def run_train_bf16(cfg, batches: list, small: dict, cpu32, card: str, checks: dict,
+                   rate32: float) -> dict:
+    """Phase 19: training in bfloat16. The bf16 forms of kernels 4-7 at phase
+    7's shapes against their plain versions; Trainer(preset("48k_v2"),
+    dtype=bfloat16) on phase 7's batches (one warm-up step, TRAIN_STEPS
+    timed, exact launches, every parameter with a gradient, losses finite,
+    each stage's CUDA-event ms); one step card vs CPU in bf16 on phase 8's
+    batch, weights and draws; the training bench's line. Returns the bf16
+    kernels' launches in the timed steps.
+
+    The card-vs-CPU bars, fixed before the first card run from the CPU run's
+    own distance between its bf16 and its float32 step (phase 8's CPU run):
+    losses within max(1e-3, that distance) relative to max(1, |loss|);
+    gradient norms within max(1e-2, that distance) relative; parameters
+    within 2.01 lr (Adam's first update moves each by about lr, so a flipped
+    gradient sign moves two runs 2 lr apart) with at most max(1%, that
+    share) of elements more than 0.01 lr apart. So the card's bf16 step must
+    agree with the CPU's bf16 step at least as closely as phase 8's float32
+    bars ask, or as the CPU's own bf16 step agrees with its float32 one."""
+    import torch
+
+    from rvc_tpu_torch.train.step import Trainer
+
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, dtype=bf16, device="cuda")
+    trainer.init_state(seed=0)
+    gen = torch.Generator().manual_seed(19)
+    say(f"[19/19] training in bf16: kernels 4-7 in their bf16 form at phase 7's shapes "
+        f"(trainer built in {time.perf_counter() - t0:.1f} s)")
+    checks["chain_bf16"], checks["chain_bwd_bf16"] = check_chain_train_bf16(trainer, gen)
+    checks["wn_bf16"], checks["wn_bwd_bf16"] = check_wn_train_bf16(
+        trainer, batches[0]["spec_lengths"], np.shape(batches[0]["spec"])[1], gen)
+    torch.cuda.empty_cache()
+    launched, rate = run_training(trainer, batches, card, "19/19")
+    say(f"  bf16 {rate:.3f} steps/s against float32 {rate32:.3f} (phase 7, this run); {card}")
+    del trainer
+    torch.cuda.empty_cache()
+    lr = cfg.train.learning_rate
+    (mg, pg, tg), (mc, pc, tc) = (train_step_run(cfg, small, dev, bf16)
+                                  for dev in ("cuda", "cpu"))
+    own = step_distance((mc, pc), cpu32, lr)
+    bars = (max(1e-3, own[0]), max(1e-2, own[1]), 2.01 * lr, max(0.01, own[3]))
+    got = step_distance((mg, pg), (mc, pc), lr)
+    say(f"  one bf16 training step, batch 1, 48 frames, card vs CPU: losses within {got[0]:.3g} "
+        f"(bar {bars[0]:.3g}), gradient norms within {got[1]:.3g} (bar {bars[1]:.3g}), "
+        f"parameters max |diff| {got[2]:.3g} (bar {bars[2]:.3g}), share above 0.01 lr "
+        f"{got[3]:.4%} (bar {bars[3]:.4%}); the CPU's own bf16 against float32: losses "
+        f"{own[0]:.3g}, norms {own[1]:.3g}, share {own[3]:.4%}; card run {tg:.1f} s, CPU run "
+        f"{tc:.1f} s")
+    if not all(g <= b for g, b in zip(got, bars)):
+        fail("the card's bf16 training step disagrees with the CPU's")
+    run_bench_train(card)
+    return {k: launched[k] for k in ("fused_resblock1_train[bf16]", "fused_resblock1",
+                                     "fused_resblock1_backward", "fused_wn",
+                                     "fused_wn_backward")}
 
 
 def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dict:
@@ -1421,7 +1816,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
                                device="cuda", dtype=bf16)
     say(f"bf16 converter built in {time.perf_counter() - t0:.1f} s")
     shapes = path_shapes(vc, clips[30])
-    say(f"[9/18] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
+    say(f"[9/19] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz")
     gen = torch.Generator().manual_seed(3)
     with torch.no_grad():
@@ -1460,7 +1855,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[10/18] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
+        say(f"[10/19] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
             f"{sr} Hz, peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x (float32 "
             f"in this run {rtf32[sec]:.2f}x), max_memory_allocated "
@@ -1485,7 +1880,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out, sr, launched, wall = counted_convert(vc, audio, settings, counters)
     vc.synth.dec.fuse_group = True
     same = bool(np.array_equal(out, outs[30]))
-    say(f"[11/18] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
+    say(f"[11/19] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
         f"(RTF {30 / wall:.2f}x), launches { {k: v for k, v in launched.items() if v} }, "
         f"bit-identical to the default route: {same} (the default route against itself: "
         f"{bool(np.array_equal(again, outs[30]))})")
@@ -1521,7 +1916,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     a, b = out_gpu.astype(np.float64), out_cpu.astype(np.float64)
     l2 = float(np.linalg.norm(a - b) / np.linalg.norm(b)) if a.shape == b.shape else math.inf
-    say(f"[12/18] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
+    say(f"[12/19] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
         f"differs on {differ:.2%} of frames between them): {len(out_gpu)} vs {len(out_cpu)} "
         f"samples, relative L2 {l2:.4g} (tolerance {BF16_CPU_L2}: bf16 roundings flip "
         f"between the card's sums and the CPU's and the flips travel through the decoder; "
@@ -1621,7 +2016,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
                                          * 32000).astype(np.int16))
     sizes = {k: round(os.path.getsize(p) / 2**20, 1) for k, p in path.items()
              if os.path.exists(p)}
-    say(f"[13/18] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
+    say(f"[13/19] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
 
     # 13. the command line, in process, every count set to 0 just before
     counters = {**launch_counters(), "nearest_rows": (retrieval.nearest_rows, "launches")}
@@ -1686,7 +2081,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
         dec = vc.synth.dec
         label = f"{key} {version}" + ("" if f0 else " no-f0")
         phase = 14 if f0 else 15
-        say(f"[{phase}/18] {label} from files: decoder stages of "
+        say(f"[{phase}/19] {label} from files: decoder stages of "
             f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
             f"channels, HuBERT features D = {vc.hubert.cfg.classifier_proj_size}, "
             f"{type(dec).__name__}")
@@ -1752,7 +2147,7 @@ def run_batch(settings, card: str) -> dict:
                 "nearest_rows_q": 1}
     best, med = 80.0 / min(walls), 80.0 / float(np.median(walls))
     dev_s, down_s, disp_s = shares[int(np.argmin(walls))]
-    say(f"[16/18] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
+    say(f"[16/19] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
         f"{stats['chunk_samples']} samples, wall ms {[round(w * 1e3, 2) for w in walls]}, "
         f"aggregate RTF best {best:.2f}x, median {med:.2f}x; stats of the best: device_s "
         f"{dev_s:.4f} ({dev_s / min(walls):.1%} of the wall), download_s {down_s:.4f} "
@@ -1918,7 +2313,7 @@ def run_train_from_dataset(tmp: str, settings, card: str, checks: dict) -> dict:
     hub_state = write_hubert_safetensors(path["hubert"], HubertConfig(), seed=21)
     rmvpe_state = write_rmvpe_pt(path["rmvpe"], seed=22)
     odd_g, odd_d = write_pretrained(path["G"], path["D"], cfg, seed=23)
-    say(f"[17/18] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
+    say(f"[17/19] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
         f"pretrained G and D ({odd_g} and {odd_d} of another shape) written in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -1991,16 +2386,15 @@ def run_train_from_dataset(tmp: str, settings, card: str, checks: dict) -> dict:
     trainer = step_mod.Trainer(dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, epochs=2, batch_size=TRAIN_BATCH)), device="cuda")
     n_chains = len(trainer.synth.dec.resblocks)
-    n_wn = sum(1 for mod in trainer.synth.modules() if type(mod).__name__ == "WN")
-    expected = {"fused_resblock1": n_chains * steps, "fused_resblock1_backward": n_chains * steps,
-                "fused_wn": n_wn * steps, "fused_wn_backward": n_wn * steps}
+    n_wn = wn_launches_per_step(trainer.synth)
+    expected = {k: expected_training_launches(trainer, steps)[k] for k in counters}
     run_files = sorted(os.listdir(path["run"]))
     say(f"  train: {steps} steps ({per_epoch} an epoch, batch {TRAIN_BATCH}), {train_s:.2f} s in "
         f"all (building, warm start, checkpoints, exports); steps after the first: wall s "
         f"{[round(w, 4) for w in walls]}, {len(walls) / sum(walls):.3f} steps/s, "
         f"{audio_s * len(walls) / sum(walls):.3f} s of audio trained per s; "
         f"max_memory_allocated {peak:.2f} GiB; launches {launched} (decoder chains {n_chains}, "
-        f"WN stacks {n_wn} a step); files {run_files}; {card}")
+        f"WN groups {n_wn} a step); files {run_files}; {card}")
     say(f"  stages of step 3 (CUDA events, ms): {stages}")
     say(f"  stages, median of steps 3-{steps} (ms): CUDA events {median['stages']}; host clock "
         f"at the same marks {median['host']}")
@@ -2193,7 +2587,7 @@ def check_host_library() -> dict:
     nrms = slicer.frame_rms_numpy(x, sl.win_size, sl.hop_size)
     rms_err = float(np.max(np.abs(rms - nrms) / np.maximum(nrms, 1e-9)))
     tags, ntags = sl._silence_tags(rms), sl._silence_tags_numpy(rms)
-    say(f"[18/18] host library {os.path.relpath(lib._name, REPO)} built and loaded in "
+    say(f"[18/19] host library {os.path.relpath(lib._name, REPO)} built and loaded in "
         f"{build_s:.2f} s: peak_quantize_i16 on 30 s equal to numpy's {np.array_equal(q, nq)} "
         f"(peak {peak} / {npeak}); frame_rms of {len(rms)} frames within {rms_err:.3g} "
         f"relative of numpy's float32 sums (tolerance {RMS_REL}); the slicer's {len(tags)} "
@@ -2326,7 +2720,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi gave nothing"
-    say(f"[1/18] card: {name}, {count} device(s); torch {torch.__version__}, "
+    say(f"[1/19] card: {name}, {count} device(s); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     say(card)
 
@@ -2336,7 +2730,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library()
     info = _cuda.build_info
-    say(f"[2/18] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
+    say(f"[2/19] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
         f"(load {time.perf_counter() - t0:.2f} s)")
     say("ptxas: " + "; ".join(info["ptxas"]))
     say("ptxas C7515 (wgmma serialized): " + (", ".join(info["serialized"]) or "none"))
@@ -2366,7 +2760,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions at the 30 s conversion's shapes
     shapes = path_shapes(vc, clips[30])
-    say(f"[3/18] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
+    say(f"[3/19] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz, {shapes['T50']} HuBERT frames per chunk")
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -2421,7 +2815,7 @@ def main() -> int:
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[4/18] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
+        say(f"[4/19] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
             f"peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x, "
             f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -2444,7 +2838,7 @@ def main() -> int:
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     diff = np.abs(out_gpu.astype(np.int32) - out_cpu.astype(np.int32))
     tol = 4
-    say(f"[5/18] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
+    say(f"[5/19] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
         f"max |diff| {diff.max()} LSB, share above {tol} LSB {np.mean(diff > tol):.4%} "
         f"(tolerance {tol} LSB: the same float32 math summed in another order, "
         f"~1e-5 relative before the int16 scaling); CPU run "
@@ -2472,7 +2866,7 @@ def main() -> int:
     trainer.init_state(seed=0)
     say(f"dataset of {len(CLIP_SECONDS)} clips, {len(batches)} batches, trainer built in "
         f"{time.perf_counter() - t0:.1f} s")
-    say(f"[6/18] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
+    say(f"[6/19] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
         f"segment {cfg.train.segment_size} samples, WN over {np.shape(batches[0]['spec'])[1]} "
         f"frames")
     gen = torch.Generator().manual_seed(2)
@@ -2480,7 +2874,7 @@ def main() -> int:
     checks["wn"], checks["wn_bwd"] = check_wn_train(
         trainer, batches[0]["spec_lengths"], np.shape(batches[0]["spec"])[1], gen)
     per_step = {"chain": len(trainer.synth.dec.resblocks),
-                "wn": sum(1 for m in trainer.synth.modules() if type(m).__name__ == "WN")}
+                "wn": wn_launches_per_step(trainer.synth)}
     for key, kname, held in (
             ("chain", "kernel 4", f"values within {VALUE_TOL} of the largest"),
             ("chain_bwd", "kernel 5", f"gradients within {GRAD_TOL} of the largest once the "
@@ -2500,7 +2894,7 @@ def main() -> int:
             + f"launches per step {per_step[key.split('_')[0]]}")
 
     # 7. the training path
-    trained = run_training(trainer, batches, card)
+    trained, rate32 = run_training(trainer, batches, card, "7/19")
     launches = {"fused_resblock_group": launches["resblock"],
                 "banded_rel_attention": launches["attention"],
                 "nearest_rows_q": launches["nearest"],
@@ -2510,7 +2904,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 8. the card's training step against the CPU's
-    check_train_vs_cpu(cfg, batches[0])
+    small, cpu32 = check_train_vs_cpu(cfg, batches[0])
 
     # 9-12. conversion in bfloat16 (the JAX package's bench configuration)
     launches.update(run_bf16(clips, settings, card, rtf32, checks))
@@ -2529,6 +2923,12 @@ def main() -> int:
 
     # 18. every f0 method, infer_mix and the host library
     run_f0_methods(card)
+
+    # 19. training in bfloat16
+    t19 = time.perf_counter()
+    launches.update({f"{k}[bf16]" if not k.endswith("]") else k: v for k, v in run_train_bf16(
+        cfg, batches, small, cpu32, card, checks, rate32).items()})
+    say(f"  phase 19 took {time.perf_counter() - t19:.1f} s")
 
     kernels = []
     meta = {
@@ -2552,7 +2952,16 @@ def main() -> int:
                            "rvc_tpu/ops/pallas_attention.py:156"),
         "chain_v2": ("fused_resblock1_v2", "rvc_tpu_torch/csrc/resblock_group.cu",
                      "scripts/bench_resblock_v2.py:36"),
+        "chain_bf16": ("fused_resblock1_train[bf16]", "rvc_tpu_torch/csrc/resblock_group.cu",
+                       "rvc_tpu/ops/pallas_resblock.py:86"),
+        "chain_bwd_bf16": ("fused_resblock1_backward[bf16]", "rvc_tpu_torch/csrc/resblock_bwd.cu",
+                           "rvc_tpu/ops/pallas_resblock.py:223"),
+        "wn_bf16": ("fused_wn[bf16]", "rvc_tpu_torch/csrc/wavenet.cu",
+                    "rvc_tpu/ops/pallas_wavenet.py:56"),
+        "wn_bwd_bf16": ("fused_wn_backward[bf16]", "rvc_tpu_torch/csrc/wavenet.cu",
+                        "rvc_tpu/ops/pallas_wavenet.py:152"),
     }
+    checks["chain_bwd_bf16"]["recompute_launches"] = launches["fused_resblock1[bf16]"]
     for key, (kname, src, replaces) in meta.items():
         c = checks[key]
         kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
@@ -2562,7 +2971,8 @@ def main() -> int:
                         **{k: c[k] for k in ("bound_f32_ms", "previous_ms", "mma_sync_ms",
                                              "pack_ms", "float32_ms", "ms_10s",
                                              "previous_ms_10s", "32k_v1", "d256",
-                                             "cli_float32_bank", "launches_40k_v2") if k in c}})
+                                             "cli_float32_bank", "launches_40k_v2",
+                                             "recompute_launches") if k in c}})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

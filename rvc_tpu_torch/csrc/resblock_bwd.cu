@@ -177,7 +177,7 @@ extern "C" int rvc_resblock1_bwd_simt(const void* x, const void* hs, const void*
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     WgPlan P = plan_for(B, T, C, k);
     P.job[0] = WgJob{h, dtb, (float*)dw + 2 * u * wsz, (float*)db + 2 * u * C, nullptr,
-                     k, da, pa, 1, 0};
+                     k, da, pa, 1, 0, SLOPE};
     P.job[1] = WgJob{a2b, g, (float*)dw + (2 * u + 1) * wsz, (float*)db + (2 * u + 1) * C,
                      nullptr, k, 1, pb, 0, 0};
     if ((err = wgrad_launch(P, part, s)) != cudaSuccess) return (int)err;
@@ -196,7 +196,7 @@ template <int NT>
 __global__ void __launch_bounds__(32 * tck::MAX_WARPS, 2) rb_tc_dt_kernel(
     const float* __restrict__ h, const float* __restrict__ gy, const float4* __restrict__ pa,
     const float* __restrict__ ba, const float4* __restrict__ pbT, float* __restrict__ dt,
-    float* __restrict__ a2, int T, int C, int k, int da) {
+    float* __restrict__ a2, int T, int C, int k, int da, float slope) {
   extern __shared__ float4 smem4[];
   float* tile = reinterpret_cast<float*>(smem4);
   const tck::Warp W = tck::warp_of<NT>(C);
@@ -222,7 +222,7 @@ __global__ void __launch_bounds__(32 * tck::MAX_WARPS, 2) rb_tc_dt_kernel(
   tck::conv<NT, true>(tile, ring, pa, C, C, k, da, acc, W,
                       [&](float* tl, int S, int c0, int cw) {
                         tck::stage_rows(tl, S, hb, nullptr, C, c0, cw, t0 - pa_, M + 2 * pa_, T);
-                      });
+                      }, slope);
   // t > 0 per sum, one bit each (MT * NT * 4 <= 64)
   unsigned long long pos = 0;
   const size_t base = (size_t)b * T * C + (size_t)t0 * C;
@@ -232,7 +232,7 @@ __global__ void __launch_bounds__(32 * tck::MAX_WARPS, 2) rb_tc_dt_kernel(
     pos |= (v0 > 0.f ? 1ull : 0ull) << bit;
     pos |= (v1 > 0.f ? 1ull : 0ull) << (bit + 1);
     *reinterpret_cast<float2*>(a2 + base + (size_t)r * C + n) =
-        make_float2(rowk::lrelu(v0), rowk::lrelu(v1));
+        make_float2(rowk::lrelu(v0, slope), rowk::lrelu(v1, slope));
   });
   tck::zero<NT>(acc);
   tck::conv<NT>(tile, ring, pbT, C, C, k, 1, acc, W,
@@ -242,8 +242,8 @@ __global__ void __launch_bounds__(32 * tck::MAX_WARPS, 2) rb_tc_dt_kernel(
   tck::for_outputs<NT>(acc, rows, C, W, [&](int mt, int hh, int nt, int r, int n, float v0,
                                            float v1) {
     const int bit = ((mt * NT + nt) * 2 + hh) * 2;
-    const float s0 = (pos >> bit) & 1ull ? 1.f : rowk::SLOPE;
-    const float s1 = (pos >> (bit + 1)) & 1ull ? 1.f : rowk::SLOPE;
+    const float s0 = (pos >> bit) & 1ull ? 1.f : slope;
+    const float s1 = (pos >> (bit + 1)) & 1ull ? 1.f : slope;
     *reinterpret_cast<float2*>(dt + base + (size_t)r * C + n) = make_float2(v0 * s0, v1 * s1);
   });
 }
@@ -253,7 +253,8 @@ __global__ void __launch_bounds__(32 * tck::MAX_WARPS, 2) rb_tc_dt_kernel(
 template <int NT>
 __global__ void __launch_bounds__(32 * tck::MAX_WARPS) rb_tc_dx_kernel(
     const float* __restrict__ h, const float* __restrict__ gy, const float* __restrict__ dt,
-    const float4* __restrict__ paT, float* __restrict__ dh, int T, int C, int k, int da) {
+    const float4* __restrict__ paT, float* __restrict__ dh, int T, int C, int k, int da,
+    float slope) {
   extern __shared__ float4 smem4[];
   float* tile = reinterpret_cast<float*>(smem4);
   const tck::Warp W = tck::warp_of<NT>(C);
@@ -275,7 +276,8 @@ __global__ void __launch_bounds__(32 * tck::MAX_WARPS) rb_tc_dx_kernel(
     const float2 hv = __ldg(reinterpret_cast<const float2*>(h + at));
     const float2 g = __ldg(reinterpret_cast<const float2*>(gy + at));
     *reinterpret_cast<float2*>(dh + at) =
-        make_float2(g.x + v0 * rowk::lrelu_grad(hv.x), g.y + v1 * rowk::lrelu_grad(hv.y));
+        make_float2(g.x + v0 * rowk::lrelu_grad(hv.x, slope),
+                    g.y + v1 * rowk::lrelu_grad(hv.y, slope));
   });
 }
 
@@ -287,15 +289,16 @@ tck::TcWgPlan tc_plan(int B, int T, int C, int k, int da) {
 template <int NT>
 cudaError_t launch_unit(const tck::Geo& G, const float* h, const float* g, const float4* pa,
                         const float* ba, const float4* pbT, const float4* paT, float* dtb,
-                        float* a2b, float* dh, int T, int C, int k, int da, cudaStream_t s) {
+                        float* a2b, float* dh, int T, int C, int k, int da, float slope,
+                        cudaStream_t s) {
   const int smem = G.smem(C, k, da);  // conv_a's halo, at least conv_b^T's
   cudaError_t err = rowk::allow_smem((const void*)rb_tc_dt_kernel<NT>, smem);
   if (err == cudaSuccess) err = rowk::allow_smem((const void*)rb_tc_dx_kernel<NT>, smem);
   if (err != cudaSuccess) return err;
   rb_tc_dt_kernel<NT><<<G.grid, G.threads, smem, s>>>(h, g, pa, ba, pbT, dtb, a2b, T, C, k,
-                                                         da);
+                                                         da, slope);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  rb_tc_dx_kernel<NT><<<G.grid, G.threads, smem, s>>>(h, g, dtb, paT, dh, T, C, k, da);
+  rb_tc_dx_kernel<NT><<<G.grid, G.threads, smem, s>>>(h, g, dtb, paT, dh, T, C, k, da, slope);
   return cudaGetLastError();
 }
 
@@ -312,12 +315,14 @@ extern "C" long long rvc_resblock1_bwd_workspace(int B, int T, int C, int k) {
 // each unit's conv_a; pT (2n packed convs): every conv's flipped transpose,
 // both as ops/resblock.py::pack_tf32_weights lays a (C, C, k) conv out
 // (k C/8 k8 steps x C/8 n8 tiles x 32 lanes of float4); b (2n, C). Writes
-// dx (B, T, C), dw (2n, k, C, C) [tap][in][out], db (2n, C). C a multiple
+// dx (B, T, C), dw (2n, k, C, C) [tap][in][out], db (2n, C). slope: the
+// leaky ReLUs' (0.1; bf16(0.1) for the bf16 training route, whose backward
+// is this float32 one on x upcast, as the JAX package's is). C a multiple
 // of 16, at most 256, k odd, at most 15 (the wrapper checks).
 extern "C" int rvc_resblock1_bwd(const void* x, const void* hs, const void* gy, const void* pa,
                                  const void* pT, const void* b, void* dx, void* dw, void* db,
                                  void* work, long long work_floats, int B, int T, int C, int k,
-                                 int n_units, const int* dil, void* stream) {
+                                 int n_units, const int* dil, float slope, void* stream) {
   const size_t btc = act_floats(B, T, C), wsz = (size_t)k * C * C;
   if (work_floats < rvc_resblock1_bwd_workspace(B, T, C, k) || k > tck::WG_MAX_TAPS)
     return (int)cudaErrorInvalidValue;
@@ -341,12 +346,14 @@ extern "C" int rvc_resblock1_bwd(const void* x, const void* hs, const void* gy, 
     const float4* waT = pT4 + 2 * u * psz;
     const float4* wbT = pT4 + (2 * u + 1) * psz;
     cudaError_t err = G.NT == 4
-        ? launch_unit<4>(G, h, g, wa, bf + 2 * u * C, wbT, waT, dtb, a2b, dh, T, C, k, da, s)
-        : launch_unit<2>(G, h, g, wa, bf + 2 * u * C, wbT, waT, dtb, a2b, dh, T, C, k, da, s);
+        ? launch_unit<4>(G, h, g, wa, bf + 2 * u * C, wbT, waT, dtb, a2b, dh, T, C, k, da,
+                         slope, s)
+        : launch_unit<2>(G, h, g, wa, bf + 2 * u * C, wbT, waT, dtb, a2b, dh, T, C, k, da,
+                         slope, s);
     if (err != cudaSuccess) return (int)err;
     tck::TcWgPlan P = tc_plan(B, T, C, k, da);
     P.P.job[0] = rowk::WgJob{h, dtb, (float*)dw + 2 * u * wsz, (float*)db + 2 * u * C,
-                             nullptr, k, da, pa_, 1, 0};
+                             nullptr, k, da, pa_, 1, 0, slope};
     P.P.job[1] = rowk::WgJob{a2b, g, (float*)dw + (2 * u + 1) * wsz,
                              (float*)db + (2 * u + 1) * C, nullptr, k, 1, pb, 0, 0};
     if ((err = tck::tc_wgrad_launch(P, part, s)) != cudaSuccess) return (int)err;

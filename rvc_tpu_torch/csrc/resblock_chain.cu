@@ -79,8 +79,8 @@ __global__ void __launch_bounds__(tfc::THREADS, MINB)
 
 template <int NB, int MINB>
 int launch_conv(const float* in, const float* res, float* out, const void* w, const float* bias,
-                int B, int T, int C, int k, int d, cudaStream_t stream) {
-  const tfc::Conv cv{in, (const uint8_t*)w, C, C, k, d, T, T, 0, 0};
+                int B, int T, int C, int k, int d, float slope, cudaStream_t stream) {
+  const tfc::Conv cv{in, (const uint8_t*)w, C, C, k, d, T, T, 0, 0, slope};
   return tfc::launch<NB, MINB>(chain_conv_kernel<NB, MINB>, cv, BiasResidual{out, res, bias, C},
                                B, C, stream);
 }
@@ -91,14 +91,14 @@ int launch_conv(const float* in, const float* res, float* out, const void* w, co
 // fit in half the registers), so that one block's tile load and epilogue run
 // under the other's products; one where the tile is wider.
 int conv(const float* in, const float* res, float* out, const void* w, const float* bias, int B,
-         int T, int C, int k, int d, cudaStream_t stream) {
+         int T, int C, int k, int d, float slope, cudaStream_t stream) {
   if (C % 64 == 0 && C != 256)
-    return launch_conv<64, 1>(in, res, out, w, bias, B, T, C, k, d, stream);
+    return launch_conv<64, 1>(in, res, out, w, bias, B, T, C, k, d, slope, stream);
   if (C % 32 == 0)
-    return C <= 64 ? launch_conv<32, 2>(in, res, out, w, bias, B, T, C, k, d, stream)
-                   : launch_conv<32, 1>(in, res, out, w, bias, B, T, C, k, d, stream);
-  return C <= 64 ? launch_conv<16, 2>(in, res, out, w, bias, B, T, C, k, d, stream)
-                 : launch_conv<16, 1>(in, res, out, w, bias, B, T, C, k, d, stream);
+    return C <= 64 ? launch_conv<32, 2>(in, res, out, w, bias, B, T, C, k, d, slope, stream)
+                   : launch_conv<32, 1>(in, res, out, w, bias, B, T, C, k, d, slope, stream);
+  return C <= 64 ? launch_conv<16, 2>(in, res, out, w, bias, B, T, C, k, d, slope, stream)
+                 : launch_conv<16, 1>(in, res, out, w, bias, B, T, C, k, d, slope, stream);
 }
 
 }  // namespace
@@ -107,11 +107,14 @@ int conv(const float* in, const float* res, float* out, const void* w, const flo
 // output for u < n_units - 1 (the input of unit u + 1, kept for kernel 5);
 // t: (B, T, C) scratch; w[c]: conv c's weights as pack_tf32_wgmma_weights lays
 // them out (2n convs in chain order); bias: (2n, C); dil[u]: the dilation of
-// unit u's first conv (the second has dilation 1). C a multiple of 16 up to
-// 256 (the wrapper checks). Two launches a unit on `stream`.
+// unit u's first conv (the second has dilation 1); slope: the leaky ReLU's
+// (0.1; bf16(0.1) where the bf16 training route recomputes the chain in
+// float32, as the JAX backward does). C a multiple of 16 up to 256 (the
+// wrapper checks). Two launches a unit on `stream`.
 extern "C" int rvc_resblock1_fwd(const void* x, void* hs, void* out, void* t,
                                  const void* const* w, const void* bias, int B, int T, int C,
-                                 int k, int n_units, const int* dil, void* stream) {
+                                 int k, int n_units, const int* dil, float slope,
+                                 void* stream) {
   const size_t btc = (size_t)B * T * C;
   const float* bf = (const float*)bias;
   const float* h = (const float*)x;
@@ -119,9 +122,9 @@ extern "C" int rvc_resblock1_fwd(const void* x, void* hs, void* out, void* t,
   cudaStream_t s = (cudaStream_t)stream;
   for (int u = 0; u < n_units; ++u) {
     float* dst = u == n_units - 1 ? (float*)out : (float*)hs + (size_t)u * btc;
-    int err = conv(h, nullptr, tf, w[2 * u], bf + 2 * u * C, B, T, C, k, dil[u], s);
+    int err = conv(h, nullptr, tf, w[2 * u], bf + 2 * u * C, B, T, C, k, dil[u], slope, s);
     if (!err)
-      err = conv(tf, h, dst, w[2 * u + 1], bf + (2 * u + 1) * C, B, T, C, k, 1, s);
+      err = conv(tf, h, dst, w[2 * u + 1], bf + (2 * u + 1) * C, B, T, C, k, 1, slope, s);
     if (err) return err;
     h = dst;
   }

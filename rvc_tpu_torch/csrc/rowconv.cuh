@@ -58,8 +58,10 @@ inline __host__ __device__ Layout layout(int Cout) {
   return l;
 }
 
-__device__ __forceinline__ float lrelu(float v) { return v >= 0.f ? v : v * SLOPE; }
-__device__ __forceinline__ float lrelu_grad(float v) { return v > 0.f ? 1.f : SLOPE; }
+// the leaky ReLU and its derivative, at SLOPE unless a slope is given (the
+// bf16 training route's backward runs at bf16(0.1))
+__device__ __forceinline__ float lrelu(float v, float s = SLOPE) { return v >= 0.f ? v : v * s; }
+__device__ __forceinline__ float lrelu_grad(float v, float s = SLOPE) { return v > 0.f ? 1.f : s; }
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + __expf(-v)); }
 
 __device__ __forceinline__ float4 f4(const float* p) {
@@ -157,6 +159,7 @@ struct WgJob {
   float* db;       // (C,) sum of G, or null
   float* dgb;      // per-sample sums of G at dgb + b * dgb_stride, or null
   int k, d, p, lrelu, dgb_stride;
+  float slope;  // of the leaky ReLU applied to X, where lrelu
 };
 
 struct WgPlan {
@@ -234,7 +237,9 @@ __global__ void __launch_bounds__((TS / 4) * (TS / 4)) wgrad_kernel(WgPlan P) {
         const int rx = r + shift;
         if (rx >= 0 && rx < T) {
           x = ldg4(Xb + (size_t)rx * C + i0 + 4 * c4);
-          if (J.lrelu) x = make_float4(lrelu(x.x), lrelu(x.y), lrelu(x.z), lrelu(x.w));
+          if (J.lrelu)
+            x = make_float4(lrelu(x.x, J.slope), lrelu(x.y, J.slope), lrelu(x.z, J.slope),
+                            lrelu(x.w, J.slope));
         }
       }
       xs[rr][c4] = x;

@@ -171,7 +171,8 @@ __device__ __forceinline__ void issue(float4* ring, int q, const Slice& sl,
 // acc[mt][nt] += sum over taps j < k and inputs c < Cin of
 //   in(r + j d, c) * W[j][c][n]
 // for the warp's rows r = (wm MT + mt) 16 + {g, g + 8} and columns
-// n = 8 (n0 + nt) + {2t, 2t + 1}, leaky_relu'd as they are read if LRELU.
+// n = 8 (n0 + nt) + {2t, 2t + 1}, leaky_relu'd (at `slope`) as they are read
+// if LRELU.
 // stage(tile, S, c0, cw) issues the cp.async copies of the block's input
 // rows (M + (k - 1) d of them) for channels [c0, c0 + cw) to
 // tile[r * S + c - c0]. w: packed (k Cin/8 k8 steps) x (Cout/8 n8 tiles) x
@@ -185,7 +186,7 @@ __device__ __forceinline__ void issue(float4* ring, int q, const Slice& sl,
 template <int NT, bool LRELU = false, class Stage>
 __device__ __forceinline__ void conv(float* tile, float4* ring, const float4* __restrict__ w,
                                      int Cin, int Cout, int k, int d, float (&acc)[MT][NT][4],
-                                     const Warp& W, Stage stage) {
+                                     const Warp& W, Stage stage, float slope = rowk::SLOPE) {
   const int ntiles = Cout / 8, steps_per_tap = Cin / 8, S = pitch(Cin);
   bool n_on[NT];
 #pragma unroll
@@ -220,8 +221,8 @@ __device__ __forceinline__ void conv(float* tile, float4* ring, const float4* __
         float2 lo = *reinterpret_cast<const float2*>(a);
         float2 hi = *reinterpret_cast<const float2*>(a + 8 * S);
         if (LRELU) {
-          lo = make_float2(rowk::lrelu(lo.x), rowk::lrelu(lo.y));
-          hi = make_float2(rowk::lrelu(hi.x), rowk::lrelu(hi.y));
+          lo = make_float2(rowk::lrelu(lo.x, slope), rowk::lrelu(lo.y, slope));
+          hi = make_float2(rowk::lrelu(hi.x, slope), rowk::lrelu(hi.y, slope));
         }
         mma::split_tf32(lo.x, ab[mt][0], as[mt][0]);  // (row g,   k t)
         mma::split_tf32(hi.x, ab[mt][1], as[mt][1]);  // (row g+8, k t)
@@ -383,11 +384,13 @@ __device__ __forceinline__ float2 split_pair(float x) {
 
 // Stage rows [r_lo, r_lo + nrows) (zero outside [valid_lo, valid_hi)) of
 // channels [c0, c0 + ncols) of src (T, C), transposed and split: dst[c * P2 +
-// r] = split_pair(src[r_lo + r][c0 + c]). A half-warp takes 16 rows of one
+// r] = split_pair(src[r_lo + r][c0 + c]), leaky_relu'd at `slope` first if
+// lrelu_on. A half-warp takes 16 rows of one
 // group of 4 channels, so its stores are 16 consecutive pairs.
 __device__ __forceinline__ void stage_t(float2* dst, int P2, const float* __restrict__ src,
                                         int C, int c0, int ncols, int r_lo, int nrows,
-                                        int valid_lo, int valid_hi, bool lrelu_on) {
+                                        int valid_lo, int valid_hi, bool lrelu_on,
+                                        float slope = rowk::SLOPE) {
   constexpr int U = 4;  // loads in flight per thread
   const int cg_n = ncols / 4;
   const int total = (nrows + 15) / 16 * 16 * cg_n;
@@ -408,7 +411,8 @@ __device__ __forceinline__ void stage_t(float2* dst, int P2, const float* __rest
       if (at[u] < 0) continue;
       float4 x = v[u];
       if (lrelu_on)
-        x = make_float4(rowk::lrelu(x.x), rowk::lrelu(x.y), rowk::lrelu(x.z), rowk::lrelu(x.w));
+        x = make_float4(rowk::lrelu(x.x, slope), rowk::lrelu(x.y, slope),
+                        rowk::lrelu(x.z, slope), rowk::lrelu(x.w, slope));
       float2* o = dst + at[u];
       o[0] = split_pair(x.x);
       o[P2] = split_pair(x.y);
@@ -460,7 +464,8 @@ __global__ void __launch_bounds__(32 * WG_MAX_WARPS) tc_wgrad_kernel(TcWgPlan W)
   const float2* gcol = gs + (size_t)(sub * TM + lane) * WG_P2G;
   for (int rs = r0; rs < r1; rs += WG_RS) {
     __syncthreads();  // the previous stage is no longer read
-    stage_t(xs, P2x, Xb, C, i0, TM, rs - J.p + grp * tg * J.d, rows_w, 0, T, J.lrelu);
+    stage_t(xs, P2x, Xb, C, i0, TM, rs - J.p + grp * tg * J.d, rows_w, 0, T, J.lrelu,
+            J.slope);
     stage_t(gs, WG_P2G, Gb, C, ocol0, tpb * TM, rs, WG_RS, 0, r1, false);
     __syncthreads();
     if (!active) continue;

@@ -62,22 +62,27 @@ constexpr int SMEM_SM = 233472;           // shared memory of an SM
 constexpr int SMEM_MAX = 232448;          // of it, what one block may use
 
 struct Identity {
-  __device__ __forceinline__ static float apply(float v) { return v; }
+  __device__ __forceinline__ static float apply(float v, float) { return v; }
 };
+// slope: Conv::slope (0.1, or bf16(0.1) for the bf16 training route's recompute)
 struct LeakyRelu {
-  __device__ __forceinline__ static float apply(float v) { return fmaxf(v, v * 0.1f); }
+  __device__ __forceinline__ static float apply(float v, float slope) {
+    return fmaxf(v, v * slope);
+  }
 };
 
 // One conv launch. in: rows of C floats; w: the packed images (2, n_slices,
 // O, 32) float32, big then small, O the conv's outputs; rows r + j d - p for
 // p = (k - 1) d / 2; blockIdx.z * span + blockIdx.x * M is a block's first
 // row; stages: ring slots, div_c8: ceil(2^32 / (C / 8)), u / (C / 8) as
-// __umulhi(u, div_c8) for the k8 steps u < 2^21 (both set by launch).
+// __umulhi(u, div_c8) for the k8 steps u < 2^21 (both set by launch);
+// slope: the leaky ReLU's, where the transform is one.
 struct Conv {
   const float* in;
   const uint8_t* w;
   int O, C, k, d, span, seg, stages;
   unsigned div_c8;
+  float slope;
 };
 
 // The body of a conv kernel (the __global__ wrappers carry the launch
@@ -87,6 +92,7 @@ __device__ __forceinline__ void conv_core(const Conv& cv, const Epi& epi) {
   constexpr int SLOT = 2 * NB * ROW_BYTES;  // a slice's NB rows of both images
   extern __shared__ __align__(1024) uint8_t smem_tc[];
   const int stages = cv.stages, C = cv.C, k = cv.k, d = cv.d;
+  const float slope = cv.slope;
   // the ring's slots on 1024-byte boundaries (the swizzle's atoms), then the
   // barriers, then the input tile
   uint8_t* ring = smem_tc + ((1024 - (hop::smem_addr(smem_tc) & 1023)) & 1023);
@@ -162,10 +168,10 @@ __device__ __forceinline__ void conv_core(const Conv& cv, const Epi& epi) {
         if ((unsigned)(s_lo + o) >= (unsigned)cv.seg) lo = make_float2(0.f, 0.f);
         if ((unsigned)(s_hi + o) >= (unsigned)cv.seg) hi = make_float2(0.f, 0.f);
       }
-      mma::split_tf32(Xf::apply(lo.x), ab[kk][0], as[kk][0]);  // (row g,     k t)
-      mma::split_tf32(Xf::apply(hi.x), ab[kk][1], as[kk][1]);  // (row g + 8, k t)
-      mma::split_tf32(Xf::apply(lo.y), ab[kk][2], as[kk][2]);  // (row g,     k t + 4)
-      mma::split_tf32(Xf::apply(hi.y), ab[kk][3], as[kk][3]);  // (row g + 8, k t + 4)
+      mma::split_tf32(Xf::apply(lo.x, slope), ab[kk][0], as[kk][0]);  // (row g,     k t)
+      mma::split_tf32(Xf::apply(hi.x, slope), ab[kk][1], as[kk][1]);  // (row g + 8, k t)
+      mma::split_tf32(Xf::apply(lo.y, slope), ab[kk][2], as[kk][2]);  // (row g,     k t + 4)
+      mma::split_tf32(Xf::apply(hi.y, slope), ab[kk][3], as[kk][3]);  // (row g + 8, k t + 4)
     }
   };
   float acc[NB / 2], part[NB / 2];

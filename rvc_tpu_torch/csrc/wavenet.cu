@@ -23,7 +23,13 @@
 // - the res/skip 1x1 (K = C, N = 2C, res and skip interleaved alike) over
 //   acts; its epilogue writes x_{i+1} = (x_i + res + bres) mask to its own
 //   buffer (kernel 7 reads every layer's input) and adds into skip; the
-//   last layer computes only skip (N = C) and masks it.
+//   last layer masks the skip sum and computes only skip (N = C), unless
+//   the caller wants the final x (x_final: a group of layers that is not
+//   the stack's last, whose last layer has res weights, as the Pallas
+//   kernel's xout_ref).
+// A stack deeper than 8 layers runs as groups of 8 (ops/wavenet.py, as
+// the JAX wrapper's group_size): each group's x_final is the next group's
+// input, and its backward takes that x's cotangent (gyx) with the skip's.
 // The B T rows of the batch are one slab of the core, tiled by 128-row
 // blocks (1664 rows for the training batch's 1600, not 2048 when each
 // sample starts a block), with each tap kept within its row's sample. The
@@ -455,13 +461,16 @@ extern "C" long long rvc_wn_bwd_workspace(int B, int T, int C, int k) {
 // packed convs): each layer's [d_a | d_b] -> dx conv, a (C, 2C, k) conv with flipped,
 // transposed taps; prs (L packed convs): [Wres_i^T; Wskip_i^T] as a (C, 2C,
 // 1) conv; both as ops/resblock.py::pack_tf32_weights lays a conv out.
-// Writes dx (B, T, C) and the weight gradients dwa, dwb (L k, C, C), dbab
-// (2L, C), dg (B, 2L, C), dwres, dwskip (L, C, C), dbrs (2L, C). C a
-// multiple of 16, at most 256, k odd, at most 15 (the wrapper checks).
-// Per layer: the gate, dx (which writes the next layer's d_res = dx_i
-// masked) and the two passes of the weight gradients; first, ds = gy mask.
+// gy: the cotangent of out; gyx: of x_final, or null where kernel 6 wrote
+// none (the Pallas kernel's dyxp). Writes dx (B, T, C) and the weight
+// gradients dwa, dwb (L k, C, C), dbab (2L, C), dg (B, 2L, C), dwres,
+// dwskip (L, C, C), dbrs (2L, C). C a multiple of 16, at most 256, k odd, at
+// most 15 (the wrapper checks). Per layer: the gate, dx (which writes the
+// next layer's d_res = dx_i masked) and the two passes of the weight
+// gradients; first, ds = gy mask and the last layer's d_res = gyx mask (0
+// without gyx).
 extern "C" int rvc_wn_bwd(const void* x, const void* xs, const void* pre_a, const void* pre_b,
-                          const void* gy, const void* pab, const void* prs,
+                          const void* gy, const void* gyx, const void* pab, const void* prs,
                           const void* lengths, void* dx, void* dwa, void* dwb, void* dbab,
                           void* dg, void* dwres, void* dwskip, void* dbrs, void* work,
                           long long work_floats, int B, int T, int C, int k, int L,
@@ -479,7 +488,14 @@ extern "C" int rvc_wn_bwd(const void* x, const void* xs, const void* pre_a, cons
   const float4* prs4 = (const float4*)prs;
   wn_mask_kernel<<<264, 256, 0, s>>>((const float*)gy, ds, lens, B, T, C);
   cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) err = cudaMemsetAsync(dres[(L - 1) % 2], 0, btc * sizeof(float), s);
+  if (err == cudaSuccess) {
+    if (gyx) {
+      wn_mask_kernel<<<264, 256, 0, s>>>((const float*)gyx, dres[(L - 1) % 2], lens, B, T, C);
+      err = cudaGetLastError();
+    } else {
+      err = cudaMemsetAsync(dres[(L - 1) % 2], 0, btc * sizeof(float), s);
+    }
+  }
   if (err != cudaSuccess) return (int)err;
   const int p = (k - 1) / 2;
   const tck::Geo G = tck::geo(B, T, C);
@@ -559,11 +575,12 @@ struct Gate {
   }
 };
 
-// The 1x1's epilogue. Below the last layer its outputs are interleaved as
-// the in-conv's: tile 2m res of 8 channels, tile 2m + 1 their skip; x_out =
-// (x_in + res + bres) keep and skip (+)= skip_c + bskip. The last layer has
-// only skip outputs, in order (its res is zero and not computed), and masks
-// the sum.
+// The 1x1's epilogue. Where x_out is wanted (below the last layer, and at
+// the last when the caller wants the final x) its outputs are interleaved
+// as the in-conv's: tile 2m res of 8 channels, tile 2m + 1 their skip; x_out
+// = (x_in + res + bres) keep and skip (+)= skip_c + bskip. Otherwise (the
+// stack's last layer, whose res is zero and not computed) it has only skip
+// outputs, in order. The last layer masks the skip sum.
 struct ResSkip {
   const float* x_in;
   float* x_out;
@@ -577,7 +594,7 @@ struct ResSkip {
                                              const float (&acc)[N2]) const {
     const int b = r / T;
     const float keep = r - b * T < __ldg(lengths + b) ? 1.f : 0.f;
-    if (!last) {
+    if (x_out) {
 #pragma unroll
       for (int m = 0; m < N2 / 8; ++m) {
         const int c = n0 / 2 + 8 * m + 2 * t;
@@ -591,6 +608,7 @@ struct ResSkip {
           const float2 old = *reinterpret_cast<const float2*>(skip + at);
           sk = make_float2(old.x + sk.x, old.y + sk.y);
         }
+        if (last) sk = make_float2(sk.x * keep, sk.y * keep);
         st2(skip + at, sk.x, sk.y);
       }
       return;
@@ -640,19 +658,21 @@ int res_skip(const tfc::Conv& cv, const ResSkip& e, int N, cudaStream_t s) {
 }  // namespace
 
 // Kernel 6. x (B, T, C); writes xs (L-1, B, T, C) (inputs of layers
-// 1..L-1), pre_a, pre_b (L, B, T, C) and out = skip * mask (B, T, C); acts:
-// (B, T, C) scratch. w_ab, w_rs: each layer's in-conv, a (2C, C, k) conv
-// with a and b interleaved by 8 channels, and its 1x1, a (2C, C, 1) conv
-// with res and skip interleaved alike (the last layer's: skip in rows
-// 0..C-1), each as
+// 1..L-1), pre_a, pre_b (L, B, T, C), out = skip * mask (B, T, C) and, when
+// x_final is not null, the last layer's output x_L = (x + res + bres) mask
+// there (B, T, C); acts: (B, T, C) scratch. w_ab, w_rs: each layer's
+// in-conv, a (2C, C, k) conv with a and b interleaved by 8 channels, and its
+// 1x1, a (2C, C, 1) conv with res and skip interleaved alike (the last
+// layer's without x_final: skip in rows 0..C-1), each as
 // ops/resblock.py::pack_tf32_wgmma_weights lays a conv out (ops/wavenet.py::
 // pack_forward_weights). b_ab, g_ab, b_rs2, lengths as rvc_wn_fwd_simt. C a
 // multiple of 16, at most 256, k odd (the wrapper checks). Two launches a
 // layer on `stream`.
 extern "C" int rvc_wn_fwd(const void* x, void* xs, void* pre_a, void* pre_b, void* out,
-                          void* acts, const void* w_ab, const void* w_rs, const void* b_ab,
-                          const void* g_ab, const void* b_rs2, const void* lengths, int B, int T,
-                          int C, int k, int L, void* stream) {
+                          void* x_final, void* acts, const void* w_ab, const void* w_rs,
+                          const void* b_ab, const void* g_ab, const void* b_rs2,
+                          const void* lengths, int B, int T, int C, int k, int L,
+                          void* stream) {
   const size_t btc = (size_t)B * T * C;
   // floats of one layer's packed in-conv and 1x1: 2 images of ceil(K / 32) slices of 2C rows
   const size_t s_ab = (size_t)2 * ((k * C + 31) / 32) * 2 * C * 32;
@@ -674,10 +694,10 @@ extern "C" int rvc_wn_fwd(const void* x, void* xs, void* pre_a, void* pre_b, voi
     if (err) return err;
     const tfc::Conv one{a, (const uint8_t*)((const float*)w_rs + i * s_rs), 2 * C, C, 1, 1,
                         B * T, T, 0, 0};
-    const ResSkip re{xi, last ? nullptr : (float*)xs + (size_t)i * btc, (float*)out,
-                     brs + (size_t)i * C, brs + (size_t)(L + i) * C, (const int*)lengths, T, C,
-                     i == 0, last};
-    if ((err = res_skip(one, re, last ? C : 2 * C, s))) return err;
+    float* x_next = last ? (float*)x_final : (float*)xs + (size_t)i * btc;
+    const ResSkip re{xi, x_next, (float*)out, brs + (size_t)i * C, brs + (size_t)(L + i) * C,
+                     (const int*)lengths, T, C, i == 0, last};
+    if ((err = res_skip(one, re, x_next ? 2 * C : C, s))) return err;
   }
   return 0;
 }

@@ -165,9 +165,17 @@ class ConvTranspose1d(_WeightNorm, nn.ConvTranspose1d):
                                       self.padding, self.output_padding, self.groups,
                                       self.dilation)
         dt = self.dtype
+        x, w = x.to(dt), self.folded_weight().to(dt)
+        if x.device.type == "cpu":
+            # the same sums over bf16 operands, taken in float32: ATen's CPU
+            # bf16 transposed conv gives wrong input gradients at a few
+            # shapes (8 or 4 outputs, stride 8 or 6: off by their own size)
+            return self._affine(F.conv_transpose1d(
+                x.float(), w.float(), None, self.stride, self.padding, self.output_padding,
+                self.groups, self.dilation).to(dt))
         return self._affine(F.conv_transpose1d(
-            x.to(dt), self.folded_weight().to(dt), None, self.stride, self.padding,
-            self.output_padding, self.groups, self.dilation))
+            x, w, None, self.stride, self.padding, self.output_padding, self.groups,
+            self.dilation))
 
 
 class Conv2d(_WeightNorm, nn.Conv2d):

@@ -10,7 +10,8 @@ call (kernel 8 in bfloat16, kernel 4 in float32) and the chains are added
 in order and divided in the compute dtype, as the JAX package's
 ``fuse_resblocks`` path does (rvc_tpu/models/nsf.py:337-342). When
 gradients are wanted each chain is a ``fused_resblock1_train`` call
-(kernels 4 and 5) and the chains are averaged outside, as the JAX
+(kernels 4 and 5 in float32; in bfloat16 the bf16 unit kernel, then kernels
+4 and 5 at bf16(0.1)) and the chains are averaged the same way, as the JAX
 package's training path does (rvc_tpu/models/nsf.py:162-190). ResBlock2
 presets stay plain, as there. The source's sine runs in float32 and is
 cast at ``l_linear`` (rvc_tpu/models/nsf.py:110-120).
@@ -169,11 +170,7 @@ def resblock_stage(dec: nn.Module, i: int, x: torch.Tensor) -> torch.Tensor:
     xt = x.transpose(1, 2).contiguous()
     chains = [rb.chain() for rb in blocks]
     if wants_grad(xt, chains):
-        ys = None
-        for chain in chains:
-            r = fused_resblock1_train(xt, chain)
-            ys = r if ys is None else ys + r
-        y = ys / nk
+        y = mean_of([fused_resblock1_train(xt, chain) for chain in chains])
     elif dec.fuse_group:
         y = fused_resblock_group(xt, chains)
     else:

@@ -1,11 +1,15 @@
 """Gated dilated-conv WaveNet block (the VITS "WN").
 
 Counterpart of ``rvc_tpu/models/wavenet.py::WN``; activations (B, C, T).
-When gradients are wanted (training; the JAX ``Trainer`` sets ``fuse_wn``
-there) and under the JAX module's conditions (dilation rate 1, a
-conditioning of length 1), the stack runs as ``ops.wavenet.fused_wn``
-(kernels 6 and 7 on the card); otherwise layer by layer, as inference does
-(the JAX package leaves ``fuse_wn`` off at inference).
+When gradients are wanted, or ``fuse`` is set (the JAX ``Trainer`` builds
+its synthesizer with ``fuse_wn``, so its evaluation runs the fused stack
+too; the port's ``Trainer`` sets ``fuse``), and under the JAX module's
+conditions (dilation rate 1, a conditioning of length 1), the stack runs
+as ``ops.wavenet.fused_wn``
+(kernels 6 and 7 on the card, in groups of 8 layers): the conditioning
+layer in the compute dtype, its output and the weights float32, the output
+in x's dtype (rvc_tpu/models/wavenet.py:95-158); otherwise layer by layer,
+as inference does (the JAX package leaves ``fuse_wn`` off at inference).
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ from .layers import Conv1d, sigmoid
 
 
 class WN(nn.Module):
+    fuse = False  # run the fused stack without gradients too (the trainer's)
+
     def __init__(self, hidden_channels: int, kernel_size: int, dilation_rate: int,
                  n_layers: int, gin_channels: int = 0):
         super().__init__()
@@ -43,7 +49,7 @@ class WN(nn.Module):
         or None."""
         train = torch.is_grad_enabled() and (
             x.requires_grad or any(p.requires_grad for p in self.parameters()))
-        if train and self.dilation_rate == 1 and (g is None or g.shape[-1] == 1):
+        if (train or self.fuse) and self.dilation_rate == 1 and (g is None or g.shape[-1] == 1):
             return self._fused(x, x_mask, g)
         H = self.hidden_channels
         output = torch.zeros_like(x)
@@ -68,10 +74,10 @@ class WN(nn.Module):
         C, L = self.hidden_channels, self.n_layers
         B = x_mask.shape[0]
         if g is not None:
-            g_lc = self.cond_layer(g)[:, :, 0].reshape(B, L, 2 * C)
+            g_lc = self.cond_layer(g)[:, :, 0].float().reshape(B, L, 2 * C)
             g_ab = torch.cat([g_lc[:, :, :C], g_lc[:, :, C:]], dim=1)
         else:
-            g_ab = x_mask.new_zeros((B, 2 * L, C))
+            g_ab = x_mask.new_zeros((B, 2 * L, C), dtype=torch.float32)
         w_a, w_b, b_a, b_b, w_res, w_skip, b_res, b_skip = ([] for _ in range(8))
         for i, (in_layer, rs_layer) in enumerate(zip(self.in_layers, self.res_skip_layers)):
             taps = in_layer.folded_weight().permute(2, 1, 0)  # (k, C, 2C)
@@ -99,4 +105,4 @@ class WN(nn.Module):
                ) -> torch.Tensor:
         out = fused_wn(x.transpose(1, 2).contiguous(), *self.fused_args(x_mask, g),
                        kernel_size=self.kernel_size)
-        return out.transpose(1, 2)
+        return out.transpose(1, 2).to(x.dtype)

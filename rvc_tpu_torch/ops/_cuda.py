@@ -56,15 +56,15 @@ SIGNATURES = {
     "rvc_banded_attention_bf16_sync": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                        _F, _P],
     "rvc_nearest_rows": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "rvc_resblock1_fwd": [_P, _P, _P, _P, _PP, _P] + [_I] * 5 + [_IP, _P],
+    "rvc_resblock1_fwd": [_P, _P, _P, _P, _PP, _P] + [_I] * 5 + [_IP, _F, _P],
     "rvc_resblock1_fwd_simt": [_P] * 5 + [_I] * 5 + [_IP, _P],
-    "rvc_resblock1_bwd": [_P] * 10 + [_L] + [_I] * 5 + [_IP, _P],
+    "rvc_resblock1_bwd": [_P] * 10 + [_L] + [_I] * 5 + [_IP, _F, _P],
     "rvc_resblock1_bwd_workspace": [_I] * 4,
     "rvc_resblock1_bwd_simt": [_P] * 10 + [_L] + [_I] * 5 + [_IP, _P],
     "rvc_resblock1_bwd_simt_workspace": [_I] * 4,
-    "rvc_wn_fwd": [_P] * 12 + [_I] * 5 + [_P],
+    "rvc_wn_fwd": [_P] * 13 + [_I] * 5 + [_P],
     "rvc_wn_fwd_simt": [_P] * 13 + [_I] * 5 + [_P],
-    "rvc_wn_bwd": [_P] * 17 + [_L] + [_I] * 5 + [_P],
+    "rvc_wn_bwd": [_P] * 18 + [_L] + [_I] * 5 + [_P],
     "rvc_wn_bwd_workspace": [_I] * 4,
     "rvc_wn_bwd_simt": [_P] * 17 + [_L] + [_I] * 5 + [_P],
     "rvc_wn_bwd_simt_workspace": [_I] * 4,

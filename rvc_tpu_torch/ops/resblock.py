@@ -26,6 +26,17 @@ recomputes each unit's first conv with its sums in another order, so it may
 take the other leaky-ReLU slope than kernel 4 at a pre-activation within
 rounding of 0; ``check_chain_grads`` allows for that.
 
+``fused_resblock1_train`` in bfloat16 is the JAX package's function at bf16
+(rvc_tpu/ops/pallas_resblock.py:395-516): its forward is the bf16 unit
+kernel's function (the Pallas chain kernel at bf16: bf16 activations and
+weights, float32 sums and bias, each conv and residual output rounded once,
+slope bf16(0.1)), one ``rvc_resblock_unit_bf16`` launch a unit, counted in
+``fused_resblock1_train.launches_bf16``; its backward is the float32
+backward at slope bf16(0.1) on x and the cotangent upcast, with the float32
+weights and nothing rounded inside, dx cast to bf16: kernel 4 in float32 at
+that slope recomputes the unit inputs, then kernel 5 at that slope. It
+differentiates the float32 chain, not the rounded forward. Only x is saved.
+
 In bfloat16, kernel 1 and kernel 8 (``fused_resblock1_v2``, one chain:
 the counterpart of ``scripts/bench_resblock_v2.py::fused_resblock1_v2``)
 run one bf16 unit kernel on ``wgmma`` (``rvc_resblock_unit_bf16``):
@@ -61,36 +72,40 @@ Conv = tuple[torch.Tensor, torch.Tensor, int, int]
 BF16_SLOPE = 0.10009765625  # bf16(0.1), the leaky ReLU's slope in bfloat16
 
 
-def _lrelu_conv(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int, d: int
-                ) -> torch.Tensor:
-    """conv(leaky_relu(h)) with same padding, (B, C, T). In bf16: the
-    product of the bf16 slope rounded, the conv of bf16 operands summed in
-    float32 with the float32 bias, then rounded once to bf16."""
+def _lrelu_conv(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int, d: int,
+                slope: float = 0.1) -> torch.Tensor:
+    """conv(leaky_relu(h)) with same padding, (B, C, T), in float32 at
+    ``slope``. In bf16: the product of the bf16 slope rounded, the conv of
+    bf16 operands summed in float32 with the float32 bias, then rounded once
+    to bf16."""
     pad = (k * d - d) // 2
     if h.dtype != torch.bfloat16:
-        return F.conv1d(F.leaky_relu(h, 0.1), w, b, padding=pad, dilation=d)
+        return F.conv1d(F.leaky_relu(h, slope), w, b, padding=pad, dilation=d)
     a = F.leaky_relu(h, BF16_SLOPE).float()
     return F.conv1d(a, w.to(h.dtype).float(), b.float(), padding=pad,
                     dilation=d).to(h.dtype)
 
 
-def resblock_group_plain(x: torch.Tensor, chains: Sequence[Sequence[Conv]]) -> torch.Tensor:
+def resblock_group_plain(x: torch.Tensor, chains: Sequence[Sequence[Conv]],
+                         slope: float = 0.1) -> torch.Tensor:
     """x (B, T, C) -> mean over chains of the chain applied to x; in x's
-    dtype (float32 or bfloat16), rounding where kernel 1 rounds."""
+    dtype (float32 at ``slope``, or bfloat16), rounding where kernel 1
+    rounds."""
     xc = x.transpose(1, 2)
     acc = None
     for chain in chains:
         h = xc
         for (wa, ba, ka, da), (wb, bb, kb, db) in zip(chain[0::2], chain[1::2]):
-            t = _lrelu_conv(h, wa, ba, ka, da)
-            h = h + _lrelu_conv(t, wb, bb, kb, db)
+            t = _lrelu_conv(h, wa, ba, ka, da, slope)
+            h = h + _lrelu_conv(t, wb, bb, kb, db, slope)
         acc = h if acc is None else acc + h
     return (acc / len(chains)).transpose(1, 2)
 
 
-def fused_resblock1_plain(x: torch.Tensor, convs: Sequence[Conv]) -> torch.Tensor:
+def fused_resblock1_plain(x: torch.Tensor, convs: Sequence[Conv],
+                          slope: float = 0.1) -> torch.Tensor:
     """x (B, T, C) -> one ResBlock1 chain applied to x (no averaging)."""
-    return resblock_group_plain(x, [convs])
+    return resblock_group_plain(x, [convs], slope)
 
 
 def wants_grad(x: torch.Tensor, chains) -> bool:
@@ -378,12 +393,13 @@ def _check_chain(x: torch.Tensor, convs: Sequence[Conv],
                          "in the second conv of each unit")
 
 
-def _resblock1_forward(x: torch.Tensor, convs: Sequence[Conv]):
-    """Kernel 4 on the card: (y, hs) with hs (n-1, B, T, C) the outputs of
-    units 0..n-2, i.e. the inputs of units 1..n-1. The chain's weights are
-    split and packed in one batch (``pack_chain_weights``) once per set of
-    weights (``packed``); weights that carry autograd history, as in
-    training, are new every step and packed at every call."""
+def _resblock1_forward(x: torch.Tensor, convs: Sequence[Conv], slope: float = 0.1):
+    """Kernel 4 on the card at the leaky ReLU's ``slope``: (y, hs) with hs
+    (n-1, B, T, C) the outputs of units 0..n-2, i.e. the inputs of units
+    1..n-1. The chain's weights are split and packed in one batch
+    (``pack_chain_weights``) once per set of weights (``packed``); weights
+    that carry autograd history, as in training, are new every step and
+    packed at every call."""
     _check_chain(x, convs)
     B, T, C = x.shape
     n = len(convs) // 2
@@ -398,7 +414,7 @@ def _resblock1_forward(x: torch.Tensor, convs: Sequence[Conv]):
     err = _cuda.library().rvc_resblock1_fwd(
         x.data_ptr(), hs.data_ptr(), out.data_ptr(), t.data_ptr(),
         (ctypes.c_void_p * len(ws))(*[w.data_ptr() for w in ws]), bias.data_ptr(), B, T, C,
-        convs[0][2], n, dil, _cuda.stream_ptr(x))
+        convs[0][2], n, dil, slope, _cuda.stream_ptr(x))
     _cuda.check(err, "resblock1_fwd launch")
     fused_resblock1.launches += 1
     return out, hs
@@ -418,14 +434,14 @@ fused_resblock1.launches = 0
 
 
 def fused_resblock1_backward_plain(x: torch.Tensor, hs: torch.Tensor, gy: torch.Tensor,
-                                   convs: Sequence[Conv]):
-    """Kernel 5's plain version: autograd of the plain chain at x (which
-    recomputes the chain, so ``hs`` is not read)."""
+                                   convs: Sequence[Conv], slope: float = 0.1):
+    """Kernel 5's plain version: autograd of the plain float32 chain at x
+    and ``slope`` (which recomputes the chain, so ``hs`` is not read)."""
     with torch.enable_grad():
         xg = x.detach().requires_grad_()
         ps = [(w.detach().requires_grad_(), b.detach().requires_grad_(), k, d)
               for w, b, k, d in convs]
-        g = torch.autograd.grad(fused_resblock1_plain(xg, ps),
+        g = torch.autograd.grad(fused_resblock1_plain(xg, ps, slope),
                                 [xg] + [t for w, b, _, _ in ps for t in (w, b)], gy)
     return g[0], torch.stack(g[1::2]), torch.stack(g[2::2])
 
@@ -440,14 +456,15 @@ def pack_backward_weights(convs: Sequence[Conv]) -> tuple[torch.Tensor, torch.Te
 
 
 def fused_resblock1_backward(x: torch.Tensor, hs: torch.Tensor, gy: torch.Tensor,
-                             convs: Sequence[Conv], packs=None):
-    """Kernel 5: the chain's VJP at x, given the unit inputs ``hs`` that
-    kernel 4 kept. Returns (dx (B, T, C), dW (2n, C, C, k) in the convs'
-    (O, I, k) layout, db (2n, C)). On the card its convolutions run on the
-    tensor cores in 3xTF32, on ``packs`` = ``pack_backward_weights(convs)``
-    (packed here when not given)."""
+                             convs: Sequence[Conv], packs=None, slope: float = 0.1):
+    """Kernel 5: the chain's VJP at x (float32, leaky ReLU ``slope``),
+    given the unit inputs ``hs`` that kernel 4 kept at that slope. Returns
+    (dx (B, T, C), dW (2n, C, C, k) in the convs' (O, I, k) layout, db (2n,
+    C)). On the card its convolutions run on the tensor cores in 3xTF32, on
+    ``packs`` = ``pack_backward_weights(convs)`` (packed here when not
+    given)."""
     if x.device.type == "cpu":
-        return fused_resblock1_backward_plain(x, hs, gy, convs)
+        return fused_resblock1_backward_plain(x, hs, gy, convs, slope)
     _device_only(x)
     _check_chain(x, convs)
     B, T, C = x.shape
@@ -466,7 +483,7 @@ def fused_resblock1_backward(x: torch.Tensor, hs: torch.Tensor, gy: torch.Tensor
     err = lib.rvc_resblock1_bwd(
         x.data_ptr(), hs.data_ptr(), gy.data_ptr(), packed_a.data_ptr(), packed_t.data_ptr(),
         bias.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(), work.data_ptr(),
-        work.numel(), B, T, C, k, len(dil), dil, _cuda.stream_ptr(x))
+        work.numel(), B, T, C, k, len(dil), dil, slope, _cuda.stream_ptr(x))
     _cuda.check(err, "resblock1_bwd launch")
     fused_resblock1_backward.launches += 1
     return dx, dw.permute(0, 3, 2, 1), db
@@ -475,16 +492,17 @@ def fused_resblock1_backward(x: torch.Tensor, hs: torch.Tensor, gy: torch.Tensor
 fused_resblock1_backward.launches = 0
 
 
-def _preactivations(x: torch.Tensor, convs: Sequence[Conv]) -> list[torch.Tensor]:
+def _preactivations(x: torch.Tensor, convs: Sequence[Conv], slope: float = 0.1
+                    ) -> list[torch.Tensor]:
     """The inputs of the chain's leaky ReLUs in forward order, each (B, C, T):
     site 2u is unit u's input h, site 2u + 1 its first conv's output t
     (site c is the input of conv c)."""
     h = x.transpose(1, 2)
     sites = []
     for (wa, ba, ka, da), (wb, bb, kb, db) in zip(convs[0::2], convs[1::2]):
-        t = F.conv1d(F.leaky_relu(h, 0.1), wa, ba, padding=(ka * da - da) // 2, dilation=da)
+        t = F.conv1d(F.leaky_relu(h, slope), wa, ba, padding=(ka * da - da) // 2, dilation=da)
         sites += [h, t]
-        h = h + F.conv1d(F.leaky_relu(t, 0.1), wb, bb, padding=(kb * db - db) // 2,
+        h = h + F.conv1d(F.leaky_relu(t, slope), wb, bb, padding=(kb * db - db) // 2,
                          dilation=db)
     return sites
 
@@ -521,11 +539,13 @@ MAX_NEAR_ZERO = 4096  # pre-activations near 0 that check_chain_grads will fit
 
 
 def check_chain_grads(x: torch.Tensor, convs: Sequence[Conv], got, ref,
-                      tol: float = 1e-4) -> tuple[str | None, dict]:
+                      tol: float = 1e-4, slope: float = 0.1) -> tuple[str | None, dict]:
     """Kernel 5's gradients ``got`` = (dx (B, T, C), dW (2n, O, I, k), db
-    (2n, C)) against ``ref`` (autograd of the plain chain), every element.
+    (2n, C)) against ``ref`` (autograd of the plain chain), every element,
+    for the chain at x (float32) with leaky ReLUs of ``slope`` (0.1, or
+    bf16(0.1) for the bf16 training route's backward).
 
-    A leaky ReLU's slope (1 or 0.1) follows its input's sign, so where a
+    A leaky ReLU's slope (1 or ``slope``) follows its input's sign, so where a
     pre-activation lies within float32 rounding of 0 the two versions may
     take different slopes, and their gradients then differ by that site's
     change of cotangent carried back through the chain. Such sites are found
@@ -545,8 +565,8 @@ def check_chain_grads(x: torch.Tensor, convs: Sequence[Conv], got, ref,
     c32 = [(w.detach(), b.detach(), k, d) for w, b, k, d in convs]
     c64 = [(w.double(), b.double(), k, d) for w, b, k, d in c32]
     with torch.no_grad():
-        s32 = _preactivations(x.detach(), c32)
-        s64 = _preactivations(x.detach().double(), c64)
+        s32 = _preactivations(x.detach(), c32, slope)
+        s64 = _preactivations(x.detach().double(), c64, slope)
         near = [v.abs() <= 8.0 * (a.double() - v).abs().max() for a, v in zip(s32, s64)]
         at = torch.cat([torch.cat([torch.full_like(i[:, :1], s), i], 1)
                         for s, m in enumerate(near) for i in [m.nonzero()]])
@@ -561,7 +581,7 @@ def check_chain_grads(x: torch.Tensor, convs: Sequence[Conv], got, ref,
         if n_e > MAX_NEAR_ZERO:
             return f"{n_e} pre-activations near 0, more than {MAX_NEAR_ZERO} to fit", counts
         if n_e:
-            A = _site_columns(s64, near, c64, at, T)
+            A = _site_columns(s64, near, c64, at, T, slope)
             for a, v in zip(A, scales):
                 a.div_(v)
             b_of = at[:, 1]
@@ -591,7 +611,7 @@ def check_chain_grads(x: torch.Tensor, convs: Sequence[Conv], got, ref,
     return None, counts
 
 
-def _site_columns(s64, near, c64, at, T: int):
+def _site_columns(s64, near, c64, at, T: int, slope: float):
     """For each site e = (site, sample, channel, row) in ``at``: the float64
     gradients (dx (T, C) of its sample, dW (2n, O, I, k), db (2n, C)) that a
     unit cotangent at e gives, every slope near 0 set to 0."""
@@ -602,8 +622,8 @@ def _site_columns(s64, near, c64, at, T: int):
 
     def window(v):  # (B, C, T) -> (n_e, C, L): rows t - 2 reach .. t + 2 reach, zeros outside
         return F.pad(v, (2 * reach, 2 * reach)).unfold(-1, L, 1)[b_i, :, t_i]
-    acts = [window(F.leaky_relu(v, 0.1)) for v in s64]
-    slopes = [window(v.new_full(v.shape, 0.1).masked_fill_(v > 0, 1.0).masked_fill_(m, 0.0))
+    acts = [window(F.leaky_relu(v, slope)) for v in s64]
+    slopes = [window(v.new_full(v.shape, slope).masked_fill_(v > 0, 1.0).masked_fill_(m, 0.0))
               for v, m in zip(s64, near)]
     inject = []
     for s in range(len(s64)):
@@ -641,13 +661,54 @@ class _Resblock1Train(torch.autograd.Function):
         return (dx, None, *dw.unbind(0), *db.unbind(0))
 
 
+class _Resblock1TrainBf16(torch.autograd.Function):
+    """The chain in bfloat16 (module docstring): the bf16 unit kernel
+    forward (the plain bf16 chain on the CPU); the float32 backward at
+    bf16(0.1) on x upcast, dx cast to bf16."""
+
+    @staticmethod
+    def forward(ctx, x, spec, *params):
+        n = len(spec)
+        convs = [(w, b, k, d) for w, b, (k, d) in zip(params[:n], params[n:], spec)]
+        if x.device.type == "cpu":
+            y = fused_resblock1_plain(x, convs)
+        else:
+            _check_chain(x, convs, torch.bfloat16)
+            _check_tc(x, [convs])
+            y = _run_units(x, [convs], "rvc_resblock_unit_bf16", pack_bf16_weights,
+                           fused_resblock1_train, "launches_bf16")
+        ctx.spec = spec
+        ctx.save_for_backward(x, *params)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, *params = ctx.saved_tensors
+        n = len(ctx.spec)
+        convs = [(w, b, k, d) for w, b, (k, d) in zip(params[:n], params[n:], ctx.spec)]
+        x32 = x.float()
+        hs = None if x.device.type == "cpu" else _resblock1_forward(x32, convs, BF16_SLOPE)[1]
+        dx, dw, db = fused_resblock1_backward(x32, hs, gy.float().contiguous(), convs,
+                                              slope=BF16_SLOPE)
+        return (dx.to(x.dtype), None, *dw.unbind(0), *db.unbind(0))
+
+
 def fused_resblock1_train(x: torch.Tensor, convs: Sequence[Conv]) -> torch.Tensor:
-    """Differentiable chain: forward kernel 4, backward kernel 5 on the
-    card; gradients reach x and every (weight, bias), and through them the
-    weight-norm parameters. On the CPU the plain version, under autograd."""
+    """Differentiable chain over x (B, T, C), float32 or bfloat16; gradients
+    reach x and every (weight, bias), and through them the weight-norm
+    parameters. float32: forward kernel 4, backward kernel 5 on the card,
+    the plain version under autograd on the CPU. bfloat16: the route of the
+    module docstring (the bf16 unit kernel, then kernel 4 at bf16(0.1) and
+    kernel 5 at bf16(0.1)), its plain version on the CPU."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    spec = tuple((k, d) for _, _, k, d in convs)
+    params = [w for w, _, _, _ in convs] + [b for _, b, _, _ in convs]
+    if x.dtype == torch.bfloat16:
+        return _Resblock1TrainBf16.apply(x.contiguous(), spec, *params)
     if x.device.type == "cpu":
         return fused_resblock1_plain(x, convs)
-    _device_only(x)
-    spec = tuple((k, d) for _, _, k, d in convs)
-    return _Resblock1Train.apply(x.contiguous(), spec, *[w for w, _, _, _ in convs],
-                                 *[b for _, b, _, _ in convs])
+    return _Resblock1Train.apply(x.contiguous(), spec, *params)
+
+
+fused_resblock1_train.launches_bf16 = 0

@@ -23,9 +23,17 @@ PyTorch keeps parameters in the modules, so a step updates the trainer's
 generator and discriminator in place; ``TrainState`` carries what else the
 JAX state carries (optimizer moments, step, balancer states). On the card,
 the decoder's ResBlock1 chains run kernels 4 and 5 and the WN stacks of the
-posterior encoder and the flow kernels 6 and 7; the text encoder's
-attention trains through its plain version, as the JAX ``Trainer``'s does.
-Everything is float32 with TF32 off. ``Trainer.eval_loss`` is the JAX
+posterior encoder and the flow kernels 6 and 7 (in groups of 8 layers);
+the text encoder's attention trains through its plain version, as the JAX
+``Trainer``'s does. ``dtype`` is the compute dtype of the generator and
+the discriminator, as the JAX ``Trainer``'s (float32, or bfloat16, its
+dtype on an accelerator, rvc_tpu/train/step.py:291): in bfloat16 the
+layers round as the conversion path's do (``layers.set_dtype_``), the
+decoder's chains take the bf16 unit kernel forward and kernels 4 and 5 at
+bf16(0.1) backward, the WN groups round x between them, the losses and the
+generated slice's mel are taken in float32; parameters, gradients and the
+AdamW state stay float32. float32 math runs with TF32 off.
+``Trainer.eval_loss`` is the JAX
 ``Trainer.eval_fn``: the generator forward without gradients and the
 sliced mel L1. The JAX package's FlatAdamW and its TPU-layout split of the
 small tensors (``GroupedAdamW``'s ``small_threshold``), and the gradient
@@ -41,8 +49,10 @@ import torch
 from ..config import RVCConfig
 from ..device import resolve_device, set_float32_math
 from ..models.discriminator import MultiPeriodDiscriminator
-from ..models.layers import init_random_, live_weight_norm_, load_numpy_state_dict, slice_segments
+from ..models.layers import (init_random_, live_weight_norm_, load_numpy_state_dict,
+                             set_dtype_, slice_segments)
 from ..models.synthesizer import Synthesizer
+from ..models.wavenet import WN
 from ..ops.mel import mel_spectrogram, spec_to_mel
 from . import balancer as bal
 from . import losses as L
@@ -152,9 +162,11 @@ def _mark(events: list | None, name: str) -> None:
 
 class Trainer:
     """The generator (``synth``) and discriminator (``disc``) of one
-    configuration on one device, and the GAN step over them."""
+    configuration on one device, computing in ``dtype``, and the GAN step
+    over them."""
 
-    def __init__(self, config: RVCConfig, balancer_active: bool = True, device=None):
+    def __init__(self, config: RVCConfig, dtype: torch.dtype = torch.float32,
+                 balancer_active: bool = True, device=None):
         from ..pipelines.convert import synth_kwargs_from_config
 
         self.device = resolve_device(device)
@@ -163,11 +175,15 @@ class Trainer:
         if t.c_gp > 0:
             raise NotImplementedError("the gradient penalty (c_gp > 0) is not ported yet")
         self.config = config
+        self.dtype = dtype
         self.balancer_active = balancer_active
         self.synth = live_weight_norm_(Synthesizer(**synth_kwargs_from_config(config),
-                                                   posterior=True))
-        self.disc = MultiPeriodDiscriminator(config.model.version,
-                                             scale=config.model.disc_scale)
+                                                   posterior=True, dtype=dtype))
+        for m in self.synth.modules():  # as the JAX Trainer's fuse_wn: eval_loss runs it too
+            if isinstance(m, WN):
+                m.fuse = True
+        self.disc = set_dtype_(MultiPeriodDiscriminator(config.model.version,
+                                                        scale=config.model.disc_scale), dtype)
         self.synth.to(self.device)
         self.disc.to(self.device)
         self.seg_frames = t.segment_size // config.data.hop_length
@@ -220,13 +236,13 @@ class Trainer:
         return out
 
     def _mels(self, b: dict, y_hat: torch.Tensor, ids_slice: torch.Tensor):
-        """(the target mel at the generated slice, the generated slice's mel),
-        each (B, n_mels, frames)."""
+        """(the target mel at the generated slice, the generated slice's mel
+        taken in float32), each (B, n_mels, frames)."""
         d = self.config.data
         mel = spec_to_mel(b["spec"], d.filter_length, d.n_mel_channels, d.sampling_rate,
                           d.mel_fmin, d.mel_fmax)
         y_mel = slice_segments(mel.transpose(1, 2), ids_slice, self.seg_frames)
-        y_hat_mel = mel_spectrogram(y_hat[:, 0], d.filter_length, d.n_mel_channels,
+        y_hat_mel = mel_spectrogram(y_hat[:, 0].float(), d.filter_length, d.n_mel_channels,
                                     d.sampling_rate, d.hop_length, d.win_length, d.mel_fmin,
                                     d.mel_fmax).transpose(1, 2)
         return y_mel, y_hat_mel
@@ -287,8 +303,8 @@ class Trainer:
         loss_kl = L.kl_loss(z_p, logs_q, m_p, logs_p, z_mask)
         loss_fm = L.feature_loss(fmap_r, fmap_g)
         loss_gen, _ = L.generator_loss(y_d_g)
-        harmonic, tefs, tsi = L.combined_aux_loss(wave_seg[:, 0], y_hat[:, 0], c_tefs=t.c_tefs,
-                                                  c_hd=t.c_hd, c_tsi=t.c_tsi)
+        harmonic, tefs, tsi = L.combined_aux_loss(wave_seg[:, 0], y_hat[:, 0].float(),
+                                                  c_tefs=t.c_tefs, c_hd=t.c_hd, c_tsi=t.c_tsi)
         loss_g_all, new_bg, _ = bal.balance(
             state.balancer_g,
             torch.stack([loss_gen, loss_fm, loss_mel, loss_kl, harmonic, tsi, tefs]),
@@ -310,5 +326,5 @@ class Trainer:
         # the first sample's slices, for the logged images and audio: device
         # tensors, downloaded only on a log step
         metrics["viz"] = {"y_mel": y_mel[0].detach(), "y_hat_mel": y_hat_mel[0].detach(),
-                          "wave_org": wave_seg[0, 0], "wave_gen": y_hat[0, 0].detach()}
+                          "wave_org": wave_seg[0, 0], "wave_gen": y_hat[0, 0].detach().float()}
         return state._replace(step=state.step + 1, balancer_g=new_bg, balancer_d=new_bd), metrics

@@ -1,11 +1,11 @@
 """Where the time of one GAN training step goes on the card (rvc_tpu_torch).
 
-    python3 scripts/profile_torch_train.py [--steps 5]
+    python3 scripts/profile_torch_train.py [--steps 5] [--dtype float32|bfloat16]
 
 Builds the training run of chip_smoke.py (an RVCDataset of 8 clips of the
 speech fixture at 48 kHz, BucketBatcher(batch_size=4), Trainer(preset
-("48k_v2")) at full width with random weights), takes 2 warm-up steps,
-then:
+("48k_v2"), dtype) at full width with random weights, float32 unless
+--dtype bfloat16), takes 2 warm-up steps, then:
   1. ``--steps`` plain steps: the wall time per step, steps/s, seconds of
      audio (the sliced segments) trained per second, peak device memory;
   2. 3 steps with CUDA events between the step's stages (generator
@@ -37,12 +37,14 @@ from rvc_tpu_torch.train.data import BucketBatcher, RVCDataset  # noqa: E402
 from rvc_tpu_torch.train.step import Trainer  # noqa: E402
 
 # name fragments of the kernels of csrc/ that the training step launches
-OWN_KERNELS = ("resblock_unit_kernel", "chain_conv_kernel", "rb_bwd_", "rb_tc_", "wgrad", "wn_")
+OWN_KERNELS = ("resblock_unit_kernel", "resblock_unit_wgmma", "chain_conv_kernel", "rb_bwd_",
+               "rb_tc_", "wgrad", "wn_")
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -54,7 +56,7 @@ def main():
     batcher = BucketBatcher(RVCDataset(chip_smoke.make_dataset(tmp.name, cfg.data), cfg.data),
                             chip_smoke.TRAIN_BATCH, seed=1234)
     batches = [b for e in range(8) for b in batcher.epoch(e)]
-    trainer = Trainer(cfg, device="cuda")
+    trainer = Trainer(cfg, dtype=getattr(torch, args.dtype), device="cuda")
     state = trainer.init_state(seed=0)
     it = itertools.cycle(batches)  # --steps may ask for more steps than there are batches
     for _ in range(2):
@@ -70,7 +72,8 @@ def main():
         walls.append(time.perf_counter() - t0)
     audio_s = chip_smoke.TRAIN_BATCH * cfg.train.segment_size / cfg.data.sampling_rate
     print(f"card: {card}")
-    print(f"48k_v2, batch {chip_smoke.TRAIN_BATCH}, {np.shape(batches[0]['spec'])[1]} frames: "
+    print(f"48k_v2 in {args.dtype}, batch {chip_smoke.TRAIN_BATCH}, "
+          f"{np.shape(batches[0]['spec'])[1]} frames: "
           f"wall s per step {[round(w, 4) for w in walls]}, {len(walls) / sum(walls):.3f} "
           f"steps/s, {audio_s * len(walls) / sum(walls):.3f} s of audio trained per s, "
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")

@@ -233,9 +233,9 @@ def test_wn_kernels_match_plain(rng, cuda, C, T, L, lengths):
     """Kernel 6 (forward) and kernel 7 (dx, dWa, dWb, dBab, dG, dWres,
     dWskip, dBrs) against autograd of the plain stack, lengths < T (one of
     0), the input masked; C = 16 and 48 (a block of 32 outputs, and the last
-    layer's 1x1 in blocks of 16 and 48). Values within 2e-5 and gradients
-    within 1e-4 of the largest magnitude (sums over every row in another
-    order)."""
+    layer's 1x1 in blocks of 16 and 48); L = 16 as two groups of 8, a launch
+    each way a group. Values within 2e-5 and gradients within 1e-4 of the
+    largest magnitude (sums over every row in another order)."""
     B, k = len(lengths), 5
     lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
     mask = (torch.arange(T, device=cuda)[None, :] < lens[:, None]).float()[..., None]
@@ -247,7 +247,9 @@ def test_wn_kernels_match_plain(rng, cuda, C, T, L, lengths):
     n6, n7 = wavenet.fused_wn.launches, wavenet.fused_wn_backward.launches
     got, g_got = _grads(lambda: wavenet.fused_wn(x, *w, lens, kernel_size=k), x, w, cot)
     torch.cuda.synchronize()
-    assert (wavenet.fused_wn.launches, wavenet.fused_wn_backward.launches) == (n6 + 1, n7 + 1)
+    groups = -(-L // wavenet.GROUP_SIZE)
+    assert (wavenet.fused_wn.launches, wavenet.fused_wn_backward.launches) == (n6 + groups,
+                                                                               n7 + groups)
     ref, g_ref = _grads(lambda: wavenet.fused_wn_plain(x, *w, lens, kernel_size=k), x, w,
                         cot)
     _scaled_close(got, ref, 2e-5)
@@ -948,3 +950,142 @@ def test_kmeans_chunked_matches_whole_on_card(rng, cuda):
     chunked = _kmeans(data, init, 64, 5, chunk_rows=4096)
     whole = _kmeans(data, init, 64, 5, chunk_rows=20000)
     np.testing.assert_allclose(chunked.cpu().numpy(), whole.cpu().numpy(), atol=1e-5, rtol=1e-5)
+
+
+# ---- bfloat16 training: kernels 4-7 in their bf16 form ----
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,T,k", [(256, 433, 11), (32, 5001, 3), (128, 300, 7)])
+def test_resblock1_train_bf16_matches_plain(rng, cuda, C, T, k):
+    """The chain in bf16: the bf16 unit kernel forward (a launch a unit)
+    against the plain bf16 chain within the bf16 bars; its backward (kernel 4
+    in float32 at bf16(0.1), then kernel 5 at bf16(0.1), a launch each)
+    against autograd of the plain float32 chain at bf16(0.1) on x upcast,
+    by check_chain_grads at that slope (dx before its cast), and dx in
+    bf16 as that gradient rounded."""
+    x, convs, cot = _train_chain(rng, cuda, C, k, (1, 3, 5), T, B=2)
+    xb = x.detach().bfloat16().requires_grad_()
+    cot = cot.bfloat16()
+    params = [t for w, b, _, _ in convs for t in (w, b)]
+    before = (resblock.fused_resblock1_train.launches_bf16, resblock.fused_resblock1.launches,
+              resblock.fused_resblock1_backward.launches)
+    y = resblock.fused_resblock1_train(xb, convs)
+    grads = torch.autograd.grad(y, [xb, *params], cot)
+    torch.cuda.synchronize()
+    assert (resblock.fused_resblock1_train.launches_bf16, resblock.fused_resblock1.launches,
+            resblock.fused_resblock1_backward.launches) == (before[0] + 3, before[1] + 1,
+                                                            before[2] + 1)
+    plain = [(w.detach(), b.detach(), kk, d) for w, b, kk, d in convs]
+    _bf16_close(y.detach(), resblock.fused_resblock1_plain(xb.detach(), plain))
+    x32 = xb.detach().float()
+    ref = resblock.fused_resblock1_backward_plain(x32, None, cot.float(), plain,
+                                                  resblock.BF16_SLOPE)
+    with torch.no_grad():
+        _, hs = resblock._resblock1_forward(x32, plain, resblock.BF16_SLOPE)
+        got = resblock.fused_resblock1_backward(x32, hs, cot.float(), plain,
+                                                slope=resblock.BF16_SLOPE)
+    msg, counts = resblock.check_chain_grads(x32, plain, got, ref, slope=resblock.BF16_SLOPE)
+    assert msg is None, f"{msg} ({counts})"
+    assert torch.equal(grads[0], got[0].bfloat16())
+    for i, (dw, db) in enumerate(zip(grads[1::2], grads[2::2])):
+        assert torch.equal(dw, got[1][i]) and torch.equal(db, got[2][i])
+
+
+@pytest.mark.gpu
+def test_chain_slope_argument_on_the_card(rng, cuda):
+    """Kernels 4 and 5 at slope 0.1 given give the default's bits; at
+    bf16(0.1) kernel 4 matches the plain chain at that slope within 2e-5,
+    and kernel 5's gradients pass check_chain_grads at that slope but not
+    at 0.1."""
+    x, convs, cot = _train_chain(rng, cuda, 64, 7, (1, 3, 5), 777)
+    x = x.detach()
+    plain = [(w.detach(), b.detach(), k, d) for w, b, k, d in convs]
+    with torch.no_grad():
+        default = resblock._resblock1_forward(x, plain)
+        at_01 = resblock._resblock1_forward(x, plain, 0.1)
+        assert all(torch.equal(a, b) for a, b in zip(default, at_01))
+        assert all(torch.equal(a, b) for a, b in zip(
+            resblock.fused_resblock1_backward(x, default[1], cot, plain),
+            resblock.fused_resblock1_backward(x, default[1], cot, plain, slope=0.1)))
+        y, hs = resblock._resblock1_forward(x, plain, resblock.BF16_SLOPE)
+        got = resblock.fused_resblock1_backward(x, hs, cot, plain, slope=resblock.BF16_SLOPE)
+    torch.cuda.synchronize()
+    _scaled_close(y, resblock.fused_resblock1_plain(x, plain, resblock.BF16_SLOPE), 2e-5)
+    ref = resblock.fused_resblock1_backward_plain(x, None, cot, plain, resblock.BF16_SLOPE)
+    msg, counts = resblock.check_chain_grads(x, plain, got, ref, slope=resblock.BF16_SLOPE)
+    assert msg is None, f"{msg} ({counts})"
+    ref01 = resblock.fused_resblock1_backward_plain(x, None, cot, plain)
+    msg, _ = resblock.check_chain_grads(x, plain, got, ref01)
+    assert msg is not None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,T,L,lengths,group_size", [
+    (192, 400, 16, (400, 377, 200, 1), 8), (64, 129, 5, (129, 0, 64), 2),
+    (48, 128, 3, (128, 1, 127), 2),
+])
+def test_wn_groups_match_plain(rng, cuda, C, T, L, lengths, group_size):
+    """Kernels 6 and 7 by groups: a group that gives its last x to the next
+    (kernel 6's x_final, kernel 7's gyx) against autograd of the plain
+    group, both cotangents, values within 2e-5 and gradients within 1e-4 of
+    the largest magnitude; the whole stack in float32 and in bf16 (x, the
+    groups' last x, the skip sum and dx rounded where the JAX package rounds
+    them) against the plain stack: float32 at those bars, bf16 within the
+    bf16 bars on values and dx; and in bf16 each group's route on the same
+    input (the kernel route's x from the group before) against the plain
+    group's: its skip, last x and dx within the bf16 bars, its float32
+    weight gradients within 1e-4 (over the whole stack a rounding of the x
+    between groups that flips by one ulp moves the later groups' inputs, and
+    their weight gradients by more than that: 0.066 of a largest magnitude
+    of 32 at C = 64)."""
+    x, w, lens, cot = _wn_case(rng, cuda, C, T, L, lengths)
+    (ws, final), *_ = wavenet.groups(*[t.detach() for t in w], 5, group_size)
+    assert final
+    cot_x = torch.from_numpy(rng.standard_normal(cot.shape).astype(np.float32)).to(cuda)
+    with torch.no_grad():
+        y, xs, pre, xf = wavenet._forward(x.detach(), *ws, lens, 5, final=True)
+        got = wavenet.fused_wn_backward(x.detach(), xs, pre, cot, *ws, lens, kernel_size=5,
+                                        gyx=cot_x)
+    torch.cuda.synchronize()
+    y_ref, xf_ref = wavenet._layers_plain(x.detach(), *ws, lens, 5)
+    _scaled_close(y, y_ref, 2e-5)
+    _scaled_close(xf, xf_ref, 2e-5)
+    ref = wavenet.fused_wn_backward_plain(x.detach(), xs, pre, cot, *ws, lens, kernel_size=5,
+                                          gyx=cot_x)
+    for a, b in zip(got, ref):
+        _scaled_close(a, b, 1e-4)
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.detach().to(dtype).requires_grad_()
+        runs = []
+        for fn in (wavenet.fused_wn, wavenet.fused_wn_plain):
+            out, g = _grads(lambda: fn(xd, *w, lens, kernel_size=5, group_size=group_size).float(),
+                            xd, w, cot)
+            runs.append((out.to(dtype), g))
+        (out, g), (out_ref, g_ref) = runs
+        if dtype == torch.float32:
+            _scaled_close(out, out_ref, 2e-5)
+            for a, b in zip(g, g_ref):
+                _scaled_close(a, b, 1e-4)
+        else:
+            _bf16_close(out, out_ref)
+            _bf16_close(g[0], g_ref[0])
+    xg = x.detach().bfloat16()
+    cot16, cot_x16 = cot.bfloat16(), cot_x.bfloat16()
+    for ws, final in wavenet.groups(*[t.detach() for t in w], 5, group_size):
+        runs = []
+        for group in (wavenet._group_card, wavenet._group_plain):
+            xi = xg.clone().requires_grad_()
+            wi = [t.clone().requires_grad_() for t in ws]
+            skip, x_out = group(xi, *wi, lens, 5, final)
+            outs, cots = ([skip, x_out], [cot16, cot_x16]) if final else ([skip], [cot16])
+            g = torch.autograd.grad(outs, [xi] + wi, cots, allow_unused=True)
+            runs.append(([o.detach() for o in outs],
+                         [torch.zeros_like(t) if d is None else d for t, d in zip([xi] + wi, g)]))
+        (outs, g), (outs_ref, g_ref) = runs
+        for a, b in zip(outs + g[:1], outs_ref + g_ref[:1]):
+            _bf16_close(a, b)
+        for a, b in zip(g[1:], g_ref[1:]):
+            _scaled_close(a, b, 1e-4)
+        if final:
+            xg = outs[1]
