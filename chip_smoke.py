@@ -142,8 +142,29 @@ Phases, each announced on its own line:
      launches exact: a bf16 unit launch per residual unit, a kernel 4 and a
      kernel 5 launch per chain, a kernel 6 and a kernel 7 launch per WN
      group); one bf16 step card vs CPU on phase 8's batch, within bars from
-     the CPU's own bf16-to-float32 distance (run_train_bf16); and
-     scripts/bench_torch_train.py's line, in bf16.
+     the CPU's own bf16-to-float32 distance (run_train_bf16); the whole
+     posterior WN stack's bf16 gradients through kernels 6 and 7 against
+     the plain float32 stack, within twice the plain bf16 stack's own
+     distance, and the kernel groups fed the plain stack's x and dx between
+     groups against the plain bf16 stack (check_wn_stack_bf16); and
+     scripts/bench_torch_train.py's line, in bf16;
+ 20. every loss, and a no-f0 model, trained on the card: 48k_v2 with the
+     gradient penalty and the HPSS, TSI and TEFS aux losses at weight 1 and
+     the multi-scale mel loss, on phase 7's batches, one warm-up step and 3
+     timed in float32 and in bf16 (losses finite, the aux losses and the
+     penalty nonzero, every parameter with a gradient, kernels 4-7 launched
+     as phases 7 and 19 count them, steps/s, peak memory and each stage's
+     median beside phases 7 and 19), each new loss's cost alone, one step
+     card vs CPU at phase 8's batch (phase 8's bars; in bf16 twice the
+     CPU's own bf16-to-float32 distance); then 40k v1 with use_f0 = False
+     (the no-f0 synthesizer) on an 8-clip 40 kHz dataset, 3 steps in each
+     dtype with the same checks, its export (f0 0) loaded back through the
+     port's loader equal to the trainer's weights, one step card vs CPU in
+     each dtype (run_every_loss, run_nof0);
+ 21. 32k_v2 and 48k v1, never run on the card before, at full width: 3 s
+     converted with exact kernel 1-3 launches and card vs CPU within phase
+     5's 4 LSB, one training step card vs CPU within phase 8's bars
+     (run_unchecked_presets).
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that.
 A kernel's time beside its yardsticks (previous_ms, mma_sync_ms) is
@@ -1313,11 +1334,14 @@ def check_wn_train(trainer, lengths, T: int, gen) -> tuple[dict, dict]:
     return _train_results(tot)
 
 
-def make_dataset(root: str, data) -> str:
+def make_dataset(root: str, data, feature_dim: int = 768, use_f0: bool = True) -> str:
     """An RVCDataset on disk: len(CLIP_SECONDS) clips of the speech fixture
-    resampled to 48 kHz and written as float32 wavs (as preprocessing writes
-    them), seeded random 768-dim features at 50 Hz and f0 of 100-300 Hz with
-    its coarse bins. Returns the filelist's path."""
+    resampled to the data's rate and written as float32 wavs (as
+    preprocessing writes them), seeded random features of ``feature_dim`` at
+    50 Hz and, with ``use_f0``, f0 of 100-300 Hz with its coarse bins.
+    Returns the filelist's path."""
+    from fractions import Fraction
+
     import torch
     from scipy.io import wavfile
     from scipy.signal import resample_poly
@@ -1325,16 +1349,21 @@ def make_dataset(root: str, data) -> str:
     from rvc_tpu_torch.pitch.extractor import coarse_f0
     from rvc_tpu_torch.train.data import write_filelist
 
+    ratio = Fraction(data.sampling_rate, 16000)
     rng = np.random.default_rng(0)
     rows = []
     for i, sec in enumerate(CLIP_SECONDS):
-        clip = resample_poly(speech(float(sec), 5.0 + 7.0 * i), 3, 1).astype(np.float32)
+        clip = resample_poly(speech(float(sec), 5.0 + 7.0 * i), ratio.numerator,
+                             ratio.denominator).astype(np.float32)
         frames = len(clip) // data.hop_length
         f0 = rng.uniform(100.0, 300.0, frames).astype(np.float32)
         paths = [os.path.join(root, f"{i}{ext}") for ext in
                  (".wav", ".feat.npy", ".pitch.npy", ".pitchf.npy")]
         wavfile.write(paths[0], data.sampling_rate, clip)
-        np.save(paths[1], rng.standard_normal((frames // 2 + 1, 768)).astype(np.float32))
+        np.save(paths[1], rng.standard_normal((frames // 2 + 1, feature_dim)).astype(np.float32))
+        if not use_f0:
+            rows.append("|".join(paths[:2]) + "|0")
+            continue
         np.save(paths[2], coarse_f0(torch.from_numpy(f0)).numpy().astype(np.int32))
         np.save(paths[3], f0)
         rows.append("|".join(paths) + "|0")
@@ -1343,14 +1372,28 @@ def make_dataset(root: str, data) -> str:
     return filelist
 
 
-def train_step_run(cfg, small: dict, dev: str, dtype) -> tuple[dict, list, float]:
+SEED7 = {}  # seed 7's initial weights by model and data configuration
+
+
+def train_step_run(cfg, small: dict, dev: str, dtype,
+                   multiscale: bool = False) -> tuple[dict, list, float]:
     """One training step from seed 7's weights on ``small`` with seed 3's
-    draws: (metrics, the updated parameters of G and D on the CPU, seconds)."""
+    draws (with ``multiscale`` the multi-scale mel loss): (metrics, the
+    updated parameters of G and D on the CPU, seconds). The weights are
+    drawn once a configuration and loaded by its later runs."""
     from rvc_tpu_torch.train.step import Trainer
 
     t0 = time.perf_counter()
     tr = Trainer(cfg, dtype=dtype, device=dev)
-    st = tr.init_state(seed=7)
+    if multiscale:
+        tr.use_multiscale()
+    key = (repr(cfg.model), repr(cfg.data))
+    if key in SEED7:
+        st = tr.init_state(seed=7, state_g=SEED7[key][0], state_d=SEED7[key][1])
+    else:
+        st = tr.init_state(seed=7)
+        SEED7[key] = tuple({k: v.detach().cpu().numpy() for k, v in m.state_dict().items()}
+                           for m in (tr.synth, tr.disc))
     st, m = tr.step(st, small, draws=tr.draws(small, seed=3))
     params = [p.detach().cpu() for p in list(tr.synth.parameters()) +
               list(tr.disc.parameters())]
@@ -1387,19 +1430,20 @@ def small_batch(batch: dict, frames: int = 48, hop: int = 480) -> dict:
     return small
 
 
-def check_train_vs_cpu(cfg, batch: dict) -> tuple:
+def check_train_vs_cpu(cfg, batch: dict, label: str = "[8/21]",
+                       multiscale: bool = False) -> tuple:
     """One training step on the card and on the CPU (plain versions) from the
-    same weights, batch and draws, at batch 1 and 48 frames. Returns the CPU
-    run (phase 19's bf16 bars are taken from its distance to the CPU's bf16
-    run)."""
+    same weights, batch and draws, at batch 1 and 48 frames. Returns the
+    batch and the CPU run (the bf16 bars of check_train_bf16_vs_cpu are taken
+    from its distance to the CPU's bf16 run)."""
     import torch
 
     small = small_batch(batch, hop=cfg.data.hop_length)
-    (mg, pg, tg), (mc, pc, tc) = (train_step_run(cfg, small, dev, torch.float32)
+    (mg, pg, tg), (mc, pc, tc) = (train_step_run(cfg, small, dev, torch.float32, multiscale)
                                   for dev in ("cuda", "cpu"))
     lr = cfg.train.learning_rate
     loss_err, norm_err, worst, share = step_distance((mg, pg), (mc, pc), lr)
-    say(f"[8/19] one training step, batch 1, 48 frames, card vs CPU: losses within "
+    say(f"{label} one training step, batch 1, 48 frames, card vs CPU: losses within "
         f"{loss_err:.3g} (relative, of max(1, |loss|); tolerance 1e-3), gradient norms within "
         f"{norm_err:.3g} (tolerance 1e-2), updated parameters max |diff| {worst:.3g} "
         f"(tolerance 2.01 lr = {2.01 * lr:.3g}), share above 0.01 lr {share:.4%} (tolerance "
@@ -1448,10 +1492,12 @@ def expected_training_launches(trainer, steps: int) -> dict:
     return out
 
 
-def run_training(trainer, batches: list, card: str, label: str) -> tuple[dict, float]:
-    """One warm-up step and TRAIN_STEPS timed steps; returns the launches of
-    the timed steps and their steps/s. Prints each stage's median CUDA-event
-    ms over the timed steps."""
+def run_training(trainer, batches: list, card: str, label: str,
+                 name: str = "48k_v2") -> dict:
+    """One warm-up step on batches[0] and a timed step on each later batch;
+    returns the timed steps' ``launches``, ``rate`` (steps/s), each stage's
+    median CUDA-event ms (``stages``, printed), ``peak`` memory (GiB), their
+    ``losses`` and the last ``state``."""
     import torch
 
     state = trainer.init_state(seed=0, steps_per_epoch=len(batches))
@@ -1491,20 +1537,21 @@ def run_training(trainer, batches: list, card: str, label: str) -> tuple[dict, f
     cfg = trainer.config
     audio_s = TRAIN_BATCH * cfg.train.segment_size / cfg.data.sampling_rate
     total = sum(walls)
-    say(f"[{label}] training 48k_v2 in {str(trainer.dtype).split('.')[-1]}, batch {TRAIN_BATCH}, "
+    say(f"[{label}] training {name} in {str(trainer.dtype).split('.')[-1]}, batch {TRAIN_BATCH}, "
         f"padded to {np.shape(batches[1]['spec'])[1]} frames: {steps} steps, wall s "
         f"{[round(w, 4) for w in walls]}, {steps / total:.3f} steps/s, "
         f"{audio_s * steps / total:.3f} s of audio (the sliced segments) trained per s, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"launches { {k: v for k, v in launches.items() if v} }; {card}")
-    say("  stages, median over the timed steps (CUDA events, ms): "
-        + str({name: round(float(np.median([st[name] for st in stages])), 3)
-               for name in stages[0]}))
+    medians = {stage: round(float(np.median([st[stage] for st in stages])), 3)
+               for stage in stages[0]}
+    say(f"  stages, median over the timed steps (CUDA events, ms): {medians}")
     for i, vals in enumerate(losses):
         say(f"  step {i + 1}: " + ", ".join(f"{k} {v:.5g}" for k, v in vals.items()))
     if launches != expected:
         fail(f"training kernel launches {launches}, expected {expected}")
-    return launches, steps / total
+    return dict(launches=launches, rate=steps / total, stages=medians, losses=losses,
+                peak=torch.cuda.max_memory_allocated() / 2**30, state=state)
 
 
 # ---- phase 19: training in bfloat16 ----
@@ -1728,6 +1775,123 @@ def check_wn_train_bf16(trainer, lengths, T: int, gen) -> tuple[dict, dict]:
                  for t in tot.values())
 
 
+STACK_MARGIN = 2.0  # see check_wn_stack_bf16
+STACK_NAMES = ("dx", "dWa", "dWb", "dBab", "dG", "dWres", "dWskip", "dBrs")
+
+
+def wn_stack_grads(x, ws, lens, k: int, gy, group_size: int | None = None) -> dict:
+    """The gradients of <stack(x), gy> for x and the seven fused_wn weights
+    (each float32): the plain stack in float32 ("f32") and in bf16
+    ("plain16"), fused_wn in bf16, kernels 6 and 7 by groups ("card16"), and
+    the kernel groups fed the plain bf16 stack's x between groups, its
+    value swapped in and the gradient passed through ("fed_x"), and fed
+    also the plain stack's gradient with respect to that x ("fed_x_dx"):
+    then each group sees the plain stack's input and cotangent."""
+    import torch
+
+    from rvc_tpu_torch.ops import wavenet as wn
+
+    gs = wn.GROUP_SIZE if group_size is None else group_size
+    x16 = x.to(torch.bfloat16)
+    xd = x16.detach().requires_grad_()
+    entries, skip, xp = [], None, xd
+    for gw, final in wn.groups(*[t.detach() for t in ws], k, gs):
+        entries.append(xp)
+        if xp is not xd:
+            xp.retain_grad()
+        sk, xp = wn._group_plain(xp, *gw, lens, k, final)
+        skip = sk if skip is None else skip + sk
+    torch.autograd.backward(skip.float(), gy)
+    boundary = [(e.detach(), e.grad) for e in entries]
+
+    def fed(with_dx: bool):
+        def run(xg, *wg):
+            skip = xc = None
+            for (gw, final), (xe, ge) in zip(wn.groups(*wg, k, gs), boundary):
+                if xc is None:
+                    xin = xg
+                else:
+                    xin = xc + (xe - xc).detach()
+                    if with_dx:
+                        xin.register_hook(lambda g, ge=ge: ge)
+                sk, xc = wn._group_card(xin, *gw, lens, k, final)
+                skip = sk if skip is None else skip + sk
+            return skip
+        return run
+
+    def stack(fn):
+        return lambda xg, *wg: fn(xg, *wg, lens, kernel_size=k, group_size=gs)
+
+    def grads(fn, xin):
+        xg = xin.detach().clone().requires_grad_()
+        wg = [t.detach().clone().requires_grad_() for t in ws]
+        out = torch.autograd.grad(fn(xg, *wg).float(), [xg] + wg, gy, allow_unused=True)
+        return [torch.zeros_like(t) if g is None else g.float() for t, g in zip([xg] + wg, out)]
+
+    return {"f32": grads(stack(wn.fused_wn_plain), x.float()),
+            "plain16": grads(stack(wn.fused_wn_plain), x16),
+            "card16": grads(stack(wn.fused_wn), x16),
+            "fed_x": grads(fed(False), x16), "fed_x_dx": grads(fed(True), x16)}
+
+
+def stack_distances(runs: dict) -> dict:
+    """From wn_stack_grads' runs: each gradient's relative L2 distance to the
+    float32 one, for the kernel route ("card16") and the plain bf16 route
+    ("plain16"); and the weight gradients' worst max |diff| relative to the
+    largest magnitude against the plain bf16 route, for the kernel route and
+    the two fed routes."""
+    def rel(a, r):
+        return ((a - r).norm() / r.norm().clamp_min(1e-30)).item()
+
+    out = {key: [rel(a, r) for a, r in zip(runs[key], runs["f32"])]
+           for key in ("card16", "plain16")}
+    for key in ("card16", "fed_x", "fed_x_dx"):
+        out[f"{key}_vs_plain16"] = max(e / m for e, m in (
+            scaled(a, r) for a, r in zip(runs[key][1:], runs["plain16"][1:])))
+    return out
+
+
+def check_wn_stack_bf16(trainer, lengths, T: int, gen) -> dict:
+    """The whole posterior WN stack in bf16 (16 layers, two groups of 8 at
+    phase 7's shapes) through fused_wn, kernels 6 and 7 by groups with x
+    rounded to bf16 between them, against the plain float32 stack on the
+    same x and cotangent: dx and each weight and conditioning gradient within
+    STACK_MARGIN times the plain bf16 stack's own relative L2 distance to
+    that float32 result, measured here. The kernel route rounds where the
+    plain bf16 route rounds (the x between groups, the skip sum, dx), so its
+    distance to float32 is of the same size; the triangle inequality through
+    the plain bf16 result bounds it by that distance plus the kernel's
+    distance to the plain bf16 result, another set of roundings of that
+    size: hence 2. Then the cause of the whole stack's distance to the plain
+    bf16 stack's weight gradients (the guess: one-ulp flips of the bf16 x
+    between groups): the kernel groups fed the plain stack's x between
+    them, and then its x and the gradient there too (wn_stack_grads),
+    against the group bar GRAD_TOL; reported, and the first bar fails the
+    run."""
+    import torch
+
+    from rvc_tpu_torch.ops import wavenet as wn
+
+    C, k, ws, lens, mask = next(wn_stacks(trainer, lengths, T, gen))
+    B = len(lengths)
+    dev = trainer.device
+    x = torch.randn(B, T, C, generator=gen).to(dev) * mask.transpose(1, 2)
+    gy = torch.randn(B, T, C, generator=gen).to(dev)
+    dist = stack_distances(wn_stack_grads(x, ws, lens, k, gy))
+    torch.cuda.synchronize()
+    say(f"  bf16 WN stack whole (x ({B}, {T}, {C}), {ws[4].shape[0]} layers in groups of "
+        f"{wn.GROUP_SIZE}) against the plain float32 stack, relative L2: "
+        + ", ".join(f"{n} {g:.3g} (bar {STACK_MARGIN} x {o:.3g})"
+                    for n, g, o in zip(STACK_NAMES, dist["card16"], dist["plain16"]))
+        + f"; the weight gradients against the plain bf16 stack's, worst of the largest: "
+        f"{dist['card16_vs_plain16']:.3g}; fed the plain stack's x between groups "
+        f"{dist['fed_x_vs_plain16']:.3g}, its x and dx {dist['fed_x_dx_vs_plain16']:.3g} (the "
+        f"group bar {GRAD_TOL})")
+    if not all(g <= STACK_MARGIN * o for g, o in zip(dist["card16"], dist["plain16"])):
+        fail("the whole bf16 WN stack's gradients are farther from float32 than the bar")
+    return dist
+
+
 def run_bench_train(card: str) -> None:
     """scripts/bench_torch_train.py in this process, in bf16: its JSON line."""
     import importlib.util
@@ -1750,18 +1914,8 @@ def run_train_bf16(cfg, batches: list, small: dict, cpu32, card: str, checks: di
     dtype=bfloat16) on phase 7's batches (one warm-up step, TRAIN_STEPS
     timed, exact launches, every parameter with a gradient, losses finite,
     each stage's CUDA-event ms); one step card vs CPU in bf16 on phase 8's
-    batch, weights and draws; the training bench's line. Returns the bf16
-    kernels' launches in the timed steps.
-
-    The card-vs-CPU bars, fixed before the first card run from the CPU run's
-    own distance between its bf16 and its float32 step (phase 8's CPU run):
-    losses within max(1e-3, that distance) relative to max(1, |loss|);
-    gradient norms within max(1e-2, that distance) relative; parameters
-    within 2.01 lr (Adam's first update moves each by about lr, so a flipped
-    gradient sign moves two runs 2 lr apart) with at most max(1%, that
-    share) of elements more than 0.01 lr apart. So the card's bf16 step must
-    agree with the CPU's bf16 step at least as closely as phase 8's float32
-    bars ask, or as the CPU's own bf16 step agrees with its float32 one."""
+    batch, weights and draws (check_train_bf16_vs_cpu's bars); the training
+    bench's line. Returns run_training's result."""
     import torch
 
     from rvc_tpu_torch.train.step import Trainer
@@ -1771,22 +1925,55 @@ def run_train_bf16(cfg, batches: list, small: dict, cpu32, card: str, checks: di
     trainer = Trainer(cfg, dtype=bf16, device="cuda")
     trainer.init_state(seed=0)
     gen = torch.Generator().manual_seed(19)
-    say(f"[19/19] training in bf16: kernels 4-7 in their bf16 form at phase 7's shapes "
+    say(f"[19/21] training in bf16: kernels 4-7 in their bf16 form at phase 7's shapes "
         f"(trainer built in {time.perf_counter() - t0:.1f} s)")
     checks["chain_bf16"], checks["chain_bwd_bf16"] = check_chain_train_bf16(trainer, gen)
     checks["wn_bf16"], checks["wn_bwd_bf16"] = check_wn_train_bf16(
         trainer, batches[0]["spec_lengths"], np.shape(batches[0]["spec"])[1], gen)
+    checks["wn_stack_bf16"] = check_wn_stack_bf16(
+        trainer, batches[0]["spec_lengths"], np.shape(batches[0]["spec"])[1], gen)
     torch.cuda.empty_cache()
-    launched, rate = run_training(trainer, batches, card, "19/19")
-    say(f"  bf16 {rate:.3f} steps/s against float32 {rate32:.3f} (phase 7, this run); {card}")
+    run = run_training(trainer, batches, card, "19/21")
+    say(f"  bf16 {run['rate']:.3f} steps/s against float32 {rate32:.3f} (phase 7, this run); "
+        f"{card}")
     del trainer
     torch.cuda.empty_cache()
+    check_train_bf16_vs_cpu(cfg, small, cpu32)
+    run_bench_train(card)
+    return run
+
+
+def check_train_bf16_vs_cpu(cfg, small: dict, cpu32, multiscale: bool = False,
+                            factor: float = 1.0) -> None:
+    """One bf16 training step on the card and on the CPU on check_train_vs_cpu's
+    batch, weights and draws, within bars from the CPU's own distance between
+    its bf16 and its float32 step (``cpu32``, check_train_vs_cpu's CPU run):
+    losses within max(1e-3, ``factor`` x that distance) relative to
+    max(1, |loss|); gradient norms within max(1e-2, ``factor`` x that
+    distance) relative; parameters within 2.01 lr (Adam's first update moves
+    each by about lr, so a flipped gradient sign moves two runs 2 lr apart)
+    with at most max(1%, that share) of elements more than 0.01 lr apart. So
+    the card's bf16 step must agree with the CPU's bf16 step at least as
+    closely as phase 8's float32 bars ask, or as the CPU's own bf16 step
+    agrees with its float32 one (``factor`` 1, phase 19's rule). ``factor``
+    2 is the CPU bf16 tests' rule (tests/test_torch_bf16_train_step.py): two
+    bf16 runs that round apart lie up to twice as far apart as either lies
+    from float32 (the triangle inequality through the float32 run)."""
+    import torch
+
+    bf16 = torch.bfloat16
     lr = cfg.train.learning_rate
-    (mg, pg, tg), (mc, pc, tc) = (train_step_run(cfg, small, dev, bf16)
+    (mg, pg, tg), (mc, pc, tc) = (train_step_run(cfg, small, dev, bf16, multiscale)
                                   for dev in ("cuda", "cpu"))
     own = step_distance((mc, pc), cpu32, lr)
-    bars = (max(1e-3, own[0]), max(1e-2, own[1]), 2.01 * lr, max(0.01, own[3]))
+    bars = (max(1e-3, factor * own[0]), max(1e-2, factor * own[1]), 2.01 * lr,
+            max(0.01, own[3]))
     got = step_distance((mg, pg), (mc, pc), lr)
+    apart = {k: round(abs(mg[k] - mc[k]) / max(1.0, abs(mc[k])), 6) for k in mc
+             if not k.startswith("grad_norm")}
+    say(f"  one bf16 training step, batch 1, 48 frames, card vs CPU, each loss apart "
+        f"(relative): {apart}; the CPU's own bf16 against float32: "
+        f"{ {k: round(abs(mc[k] - cpu32[0][k]) / max(1.0, abs(cpu32[0][k])), 6) for k in apart} }")
     say(f"  one bf16 training step, batch 1, 48 frames, card vs CPU: losses within {got[0]:.3g} "
         f"(bar {bars[0]:.3g}), gradient norms within {got[1]:.3g} (bar {bars[1]:.3g}), "
         f"parameters max |diff| {got[2]:.3g} (bar {bars[2]:.3g}), share above 0.01 lr "
@@ -1795,10 +1982,276 @@ def run_train_bf16(cfg, batches: list, small: dict, cpu32, card: str, checks: di
         f"{tc:.1f} s")
     if not all(g <= b for g, b in zip(got, bars)):
         fail("the card's bf16 training step disagrees with the CPU's")
-    run_bench_train(card)
-    return {k: launched[k] for k in ("fused_resblock1_train[bf16]", "fused_resblock1",
-                                     "fused_resblock1_backward", "fused_wn",
-                                     "fused_wn_backward")}
+
+
+# ---- phase 20: every loss, and a no-f0 model, trained on the card ----
+
+PHASE20_STEPS = 3
+
+
+def all_losses(cfg):
+    """``cfg`` with the gradient penalty and the HPSS, TSI and TEFS aux losses
+    at weight 1 (combined_aux_loss's own default weight)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, c_gp=1.0, c_hd=1.0, c_tsi=1.0, c_tefs=1.0))
+
+
+def loss_costs(cfg, batch: dict, card: str) -> dict:
+    """Each new loss alone at phase 7's segment shapes (batch 4, 17280
+    samples), forward and backward, CUDA events: the TEFS loss (its FFTs),
+    the harmonic loss (its mels and 2 x 5 median pools), the TSI loss, the
+    six-scale mel loss; and the gradient penalty (the discriminator on the
+    interpolation, its input gradient with a graph, the double backward
+    into the discriminator's parameters) against the discriminator's loss
+    alone."""
+    import torch
+
+    from rvc_tpu_torch.models.discriminator import MultiPeriodDiscriminator
+    from rvc_tpu_torch.models.layers import init_random_
+    from rvc_tpu_torch.train import losses as L
+
+    d, t = cfg.data, cfg.train
+    gen = torch.Generator().manual_seed(20)
+    B, seg = TRAIN_BATCH, t.segment_size
+    real = torch.from_numpy(np.asarray(batch["wave"])[:, :seg].copy()).cuda()
+    fake = (0.1 * torch.randn(B, seg, generator=gen)).cuda().requires_grad_()
+    data = dict(n_mels=d.n_mel_channels, sample_rate=d.sampling_rate, n_fft=d.filter_length,
+                hop_length=d.hop_length, win_length=d.win_length, fmin=d.mel_fmin,
+                fmax=d.mel_fmax, eps=t.eps)
+    msml = L.MultiScaleMelLoss(d.sampling_rate)
+    only = {"tefs": dict(c_tefs=1.0, c_hd=0.0, c_tsi=0.0),
+            "harmonic": dict(c_tefs=0.0, c_hd=1.0, c_tsi=0.0),
+            "tsi": dict(c_tefs=0.0, c_hd=0.0, c_tsi=1.0)}
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad(fn(), fake)
+
+    out = {name: timed(fwd_bwd(lambda w=w: sum(L.combined_aux_loss(real, fake, **w, **data))),
+                       reps=5)
+           for name, w in only.items()}
+    out["multiscale_mel"] = timed(fwd_bwd(lambda: msml(fake, real)), reps=5)
+    disc = init_random_(MultiPeriodDiscriminator(cfg.model.version), 1).cuda()
+    params = list(disc.parameters())
+    real3, fake3 = real[:, None], fake.detach()[:, None]
+    alpha = torch.rand(B, 1, 1, generator=gen).cuda()
+
+    def disc_loss():
+        return torch.autograd.grad(L.discriminator_loss(*disc(real3, fake3)[:2])[0], params)
+
+    def with_penalty():
+        loss = L.discriminator_loss(*disc(real3, fake3)[:2])[0]
+        interp = (alpha * real3 + (1 - alpha) * fake3).requires_grad_()
+        (gx,) = torch.autograd.grad(L.discriminator_loss(*disc(real3, interp)[:2])[0], interp,
+                                    create_graph=True)
+        gp = torch.mean((torch.sqrt(torch.sum(gx.reshape(B, -1) ** 2, -1) + 1e-12) - 1) ** 2)
+        return torch.autograd.grad(loss + gp, params)
+
+    out["discriminator_loss"] = timed(disc_loss, reps=3)
+    out["discriminator_loss_with_penalty"] = timed(with_penalty, reps=3)
+    say(f"  each new loss alone, forward and backward, batch {B} x {seg} samples (CUDA events, "
+        f"ms): " + ", ".join(f"{k} {v:.3f}" for k, v in out.items()) + f"; {card}")
+    return out
+
+
+def run_every_loss(cfg, batches: list, card: str, base: dict, checks: dict) -> None:
+    """Phase 20, first part: 48k_v2 at full width with every loss on
+    (all_losses, use_multiscale) on phase 7's batches, one warm-up step and
+    PHASE20_STEPS timed, in float32 and in bf16: losses finite, the harmonic,
+    TSI and TEFS losses and the penalty nonzero in every timed step, every
+    parameter with a gradient, kernels 4-7 launched as phases 7 and 19 count
+    them (the losses launch none), steps/s and each stage's median beside
+    phases 7 and 19 (``base``); each new loss's cost alone; one step card vs
+    CPU at phase 8's batch in float32 (phase 8's bars) and in bf16
+    (check_train_bf16_vs_cpu's)."""
+    import torch
+
+    from rvc_tpu_torch.train.step import Trainer
+
+    cfg = all_losses(cfg)
+    say(f"[20/21] every loss: 48k_v2 with c_gp = c_hd = c_tsi = c_tefs = 1 and the multi-scale "
+        f"mel loss, on phase 7's batches")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        trainer = Trainer(cfg, dtype=dtype, device="cuda")
+        trainer.use_multiscale()
+        run = run_training(trainer, batches[:1 + PHASE20_STEPS], card, "20/21",
+                           "48k_v2 with every loss")
+        penalty = float(run["state"].balancer_d.hist_losses[1])
+        zero = [k for vals in run["losses"] for k in ("harmonic_loss", "tsi_loss", "tefs_loss")
+                if vals[k] == 0]
+        ref = base[name]
+        say(f"  {name}: {run['rate']:.3f} steps/s against {ref['rate']:.3f} without the new "
+            f"losses (phase {ref['phase']}, this run); peak {run['peak']:.2f} GiB against "
+            f"{ref['peak']:.2f}; the last step's penalty {penalty:.5g}; each stage's median "
+            f"ms, this phase - phase {ref['phase']}: "
+            + str({k: round(v - ref["stages"][k], 3) for k, v in run["stages"].items()}))
+        if zero or not (math.isfinite(penalty) and penalty > 0):
+            fail(f"a new loss is zero: {zero}, penalty {penalty}")
+        checks[f"every_loss_{name}"] = dict(rate=run["rate"], stages=run["stages"],
+                                            peak=run["peak"])
+        del trainer, run
+        torch.cuda.empty_cache()
+    checks["loss_costs"] = loss_costs(cfg, batches[0], card)
+    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/21] every loss:", True)
+    # the aux and multi-scale losses are taken on the bf16 generated slice:
+    # the CPU bf16 tests' factor 2 (check_train_bf16_vs_cpu)
+    check_train_bf16_vs_cpu(cfg, small, cpu32, True, factor=2.0)
+
+
+def run_nof0(tmp: str, card: str, checks: dict) -> None:
+    """Phase 20, second part: preset("40k") (reference configs/40k.json, v1)
+    with use_f0 = False at full width, the no-f0 synthesizer (Generator, no
+    pitch embedding) trained on an 8-clip 40 kHz dataset made as phase 7
+    makes its own (256-dim features, no f0 files): one warm-up step and
+    PHASE20_STEPS timed in float32 and in bf16, with phase 7's checks and
+    exact launches (kernels 4 and 5 once a chain, 6 and 7 once a group of 8
+    WN layers); one step card vs CPU at batch 1 x 48 frames in both dtypes;
+    the float32 run's .pth exported (f0 0) and loaded back through the
+    port's loader into the converter's synthesizer, whose weights must equal
+    the trainer's (fp16, weight norm folded)."""
+    import dataclasses
+
+    import torch
+
+    from rvc_tpu_torch.config import preset
+    from rvc_tpu_torch.train.data import BucketBatcher, RVCDataset
+    from rvc_tpu_torch.train.step import Trainer
+
+    base = preset("40k")
+    cfg = dataclasses.replace(base, model=dataclasses.replace(base.model, use_f0=False))
+    filelist = make_dataset(tmp, cfg.data, feature_dim=cfg.model.feature_dim, use_f0=False)
+    batcher = BucketBatcher(RVCDataset(filelist, cfg.data, use_f0=False), TRAIN_BATCH,
+                            seed=1234)
+    batches = [b for e in range(1 + PHASE20_STEPS) for b in batcher.epoch(e)][
+        :1 + PHASE20_STEPS]
+    say(f"[20/21] no f0: 40k v1 with use_f0 = False on {len(CLIP_SECONDS)} clips at "
+        f"{cfg.data.sampling_rate} Hz, batches of {np.shape(batches[0]['spec'])[:2]} frames, "
+        f"keys {sorted(batches[0])}")
+    if "pitch" in batches[0] or "pitchf" in batches[0]:
+        fail("the no-f0 dataset gave pitch")
+    for dtype in (torch.float32, torch.bfloat16):
+        trainer = Trainer(cfg, dtype=dtype, device="cuda")
+        if type(trainer.synth.dec).__name__ != "Generator":
+            fail(f"the no-f0 decoder is {type(trainer.synth.dec).__name__}")
+        run = run_training(trainer, batches, card, "20/21", "40k no-f0")
+        checks[f"nof0_{str(dtype).split('.')[-1]}"] = dict(rate=run["rate"],
+                                                           launches=run["launches"])
+        if dtype == torch.float32:
+            check_export(cfg, trainer, tmp, filelist)
+        del trainer, run
+        torch.cuda.empty_cache()
+    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/21] no f0:")
+    check_train_bf16_vs_cpu(cfg, small, cpu32)
+
+
+def check_export(cfg, trainer, tmp: str, filelist: str) -> None:
+    """The trainer's generator exported as train_model exports it, loaded
+    back through the port's loader into a converter's synthesizer (as
+    VoiceConverter.from_state_dicts builds it); fails unless the file says
+    the model's f0 flag and the weights equal the trainer's (fp16, weight
+    norm folded)."""
+    from rvc_tpu_torch.compat import torch_import as ti
+    from rvc_tpu_torch.models.layers import load_numpy_state_dict
+    from rvc_tpu_torch.models.synthesizer import Synthesizer
+    from rvc_tpu_torch.pipelines.train import TrainRunConfig, _export
+
+    path = _export(cfg, trainer, TrainRunConfig(model_dir=tmp, filelist=filelist))
+    state, meta = ti.load_rvc_checkpoint(path)
+    kw = ti.synthesizer_kwargs_from_config(meta["config"], meta["version"], meta["f0"])
+    synth = load_numpy_state_dict(Synthesizer(**kw), state)
+    live = {k: v.detach().cpu().half().float().numpy()
+            for k, v in trainer.synth.state_dict().items() if not k.startswith("enc_q.")}
+    want = ti.fold_pairs(live)
+    got = {k: v.numpy() for k, v in synth.state_dict().items()}
+    same = set(got) == set(want) and all(np.array_equal(got[k], want[k]) for k in want)
+    say(f"  exported {os.path.basename(path)}: f0 {meta['f0']}, version {meta['version']}, "
+        f"{len(state)} tensors; the converter's synthesizer ({type(synth.dec).__name__}, "
+        f"use_f0 {synth.use_f0}) equals the trainer's weights (fp16, folded): {same}")
+    if meta["f0"] != int(cfg.model.use_f0) or synth.use_f0 != cfg.model.use_f0 or not same:
+        fail("the exported model does not load back as trained")
+
+
+# ---- phase 21: the presets never run on the card before ----
+
+
+def synthetic_batch(cfg, frames: int = 48, seed: int = 21) -> dict:
+    """One training sample of ``frames`` frames at the preset's rate: the
+    speech fixture resampled, its spectrogram, seeded random features of the
+    preset's width and f0 of 100-300 Hz with its coarse bins."""
+    from fractions import Fraction
+
+    import torch
+    from scipy.signal import resample_poly
+
+    from rvc_tpu_torch.pitch.extractor import coarse_f0
+    from rvc_tpu_torch.train.data import spectrogram_np
+
+    d = cfg.data
+    ratio = Fraction(d.sampling_rate, 16000)
+    wave = resample_poly(speech((frames + 1) * d.hop_length / d.sampling_rate, 20.0),
+                         ratio.numerator, ratio.denominator).astype(np.float32)
+    spec = spectrogram_np(wave, d.filter_length, d.hop_length, d.win_length)[:frames]
+    rng = np.random.default_rng(seed)
+    f0 = rng.uniform(100.0, 300.0, frames).astype(np.float32)
+    lens = np.array([frames], np.int32)
+    return dict(phone=rng.standard_normal((1, frames, cfg.model.feature_dim)).astype(np.float32),
+                phone_lengths=lens, spec=spec[None].astype(np.float32), spec_lengths=lens,
+                wave=wave[None, :frames * d.hop_length], wave_lengths=lens * d.hop_length,
+                sid=np.zeros(1, np.int32), pitch=coarse_f0(torch.from_numpy(f0)).numpy()[None]
+                .astype(np.int32), pitchf=f0[None])
+
+
+def cpu_copy(vc, synth_kwargs: dict):
+    """``vc`` on the CPU (plain versions): its modules and retrieval bank
+    copied, not drawn again."""
+    import copy
+
+    from rvc_tpu_torch.pipelines.convert import VoiceConverter
+
+    cpu = VoiceConverter(copy.deepcopy(vc.synth), synth_kwargs, copy.deepcopy(vc.hubert),
+                         copy.deepcopy(vc.pitch), config=vc.config, device="cpu", seed=vc.seed,
+                         dtype=vc.dtype)
+    cpu.index_bank = tuple(t.cpu() for t in vc.index_bank)
+    return cpu
+
+
+def run_unchecked_presets(settings, card: str) -> dict:
+    """Phase 21: 32k_v2 (upsampling by kernels 20 and 16 at strides 10 and
+    8) and 48k v1 (five stages, segment 11520) at full width with seeded
+    random weights: 3 s converted with exact kernel 1-3 launches, card vs
+    CPU within phase 5's 4 LSB; one training step card vs CPU at batch 1 x 48
+    frames within phase 8's bars. Returns the conversions' kernel launches."""
+    import torch
+
+    from rvc_tpu_torch.config import preset
+    from rvc_tpu_torch.pipelines.convert import make_random_converter, synth_kwargs_from_config
+
+    clip3 = speech(3.0, 40.0)
+    launched = {}
+    for name, seed in (("32k_v2", 21), ("48k", 22)):
+        t0 = time.perf_counter()
+        vc = make_random_converter(name, seed=seed, chunking=CHUNKING, index_rows=BANK_ROWS,
+                                   device="cuda")
+        dec = vc.synth.dec
+        say(f"[21/21] {name} at full width (converter built in {time.perf_counter() - t0:.1f} "
+            f"s): upsampling {list(dec.upsample_rates)}, decoder stages of "
+            f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
+            f"channels, segment {preset(name).train.segment_size} samples")
+        counters = launch_counters()
+        expected = {**dict.fromkeys(counters, 0),
+                    "fused_resblock_group": sum(len(rb.convs1) for rb in dec.resblocks),
+                    "banded_rel_attention": len(vc.synth.enc_p.encoder.attn_layers),
+                    "nearest_rows_q": 1}
+        timed_convert(name, vc, clip3, 3.0, settings, counters, expected, card)
+        launched[name] = {k: v for k, v in expected.items() if v}
+        card_vs_cpu(name, vc, cpu_copy(vc, synth_kwargs_from_config(preset(name))), clip3,
+                    settings)
+        del vc, dec
+        torch.cuda.empty_cache()
+        check_train_vs_cpu(preset(name), synthetic_batch(preset(name)), f"  [21/21] {name}:")
+    return launched
 
 
 def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dict:
@@ -1816,7 +2269,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
                                device="cuda", dtype=bf16)
     say(f"bf16 converter built in {time.perf_counter() - t0:.1f} s")
     shapes = path_shapes(vc, clips[30])
-    say(f"[9/19] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
+    say(f"[9/21] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz")
     gen = torch.Generator().manual_seed(3)
     with torch.no_grad():
@@ -1855,7 +2308,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[10/19] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
+        say(f"[10/21] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
             f"{sr} Hz, peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x (float32 "
             f"in this run {rtf32[sec]:.2f}x), max_memory_allocated "
@@ -1880,7 +2333,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out, sr, launched, wall = counted_convert(vc, audio, settings, counters)
     vc.synth.dec.fuse_group = True
     same = bool(np.array_equal(out, outs[30]))
-    say(f"[11/19] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
+    say(f"[11/21] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
         f"(RTF {30 / wall:.2f}x), launches { {k: v for k, v in launched.items() if v} }, "
         f"bit-identical to the default route: {same} (the default route against itself: "
         f"{bool(np.array_equal(again, outs[30]))})")
@@ -1916,7 +2369,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     a, b = out_gpu.astype(np.float64), out_cpu.astype(np.float64)
     l2 = float(np.linalg.norm(a - b) / np.linalg.norm(b)) if a.shape == b.shape else math.inf
-    say(f"[12/19] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
+    say(f"[12/21] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
         f"differs on {differ:.2%} of frames between them): {len(out_gpu)} vs {len(out_cpu)} "
         f"samples, relative L2 {l2:.4g} (tolerance {BF16_CPU_L2}: bf16 roundings flip "
         f"between the card's sums and the CPU's and the flips travel through the decoder; "
@@ -2016,7 +2469,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
                                          * 32000).astype(np.int16))
     sizes = {k: round(os.path.getsize(p) / 2**20, 1) for k, p in path.items()
              if os.path.exists(p)}
-    say(f"[13/19] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
+    say(f"[13/21] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
 
     # 13. the command line, in process, every count set to 0 just before
     counters = {**launch_counters(), "nearest_rows": (retrieval.nearest_rows, "launches")}
@@ -2081,7 +2534,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
         dec = vc.synth.dec
         label = f"{key} {version}" + ("" if f0 else " no-f0")
         phase = 14 if f0 else 15
-        say(f"[{phase}/19] {label} from files: decoder stages of "
+        say(f"[{phase}/21] {label} from files: decoder stages of "
             f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
             f"channels, HuBERT features D = {vc.hubert.cfg.classifier_proj_size}, "
             f"{type(dec).__name__}")
@@ -2147,7 +2600,7 @@ def run_batch(settings, card: str) -> dict:
                 "nearest_rows_q": 1}
     best, med = 80.0 / min(walls), 80.0 / float(np.median(walls))
     dev_s, down_s, disp_s = shares[int(np.argmin(walls))]
-    say(f"[16/19] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
+    say(f"[16/21] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
         f"{stats['chunk_samples']} samples, wall ms {[round(w * 1e3, 2) for w in walls]}, "
         f"aggregate RTF best {best:.2f}x, median {med:.2f}x; stats of the best: device_s "
         f"{dev_s:.4f} ({dev_s / min(walls):.1%} of the wall), download_s {down_s:.4f} "
@@ -2313,7 +2766,7 @@ def run_train_from_dataset(tmp: str, settings, card: str, checks: dict) -> dict:
     hub_state = write_hubert_safetensors(path["hubert"], HubertConfig(), seed=21)
     rmvpe_state = write_rmvpe_pt(path["rmvpe"], seed=22)
     odd_g, odd_d = write_pretrained(path["G"], path["D"], cfg, seed=23)
-    say(f"[17/19] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
+    say(f"[17/21] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
         f"pretrained G and D ({odd_g} and {odd_d} of another shape) written in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -2587,7 +3040,7 @@ def check_host_library() -> dict:
     nrms = slicer.frame_rms_numpy(x, sl.win_size, sl.hop_size)
     rms_err = float(np.max(np.abs(rms - nrms) / np.maximum(nrms, 1e-9)))
     tags, ntags = sl._silence_tags(rms), sl._silence_tags_numpy(rms)
-    say(f"[18/19] host library {os.path.relpath(lib._name, REPO)} built and loaded in "
+    say(f"[18/21] host library {os.path.relpath(lib._name, REPO)} built and loaded in "
         f"{build_s:.2f} s: peak_quantize_i16 on 30 s equal to numpy's {np.array_equal(q, nq)} "
         f"(peak {peak} / {npeak}); frame_rms of {len(rms)} frames within {rms_err:.3g} "
         f"relative of numpy's float32 sums (tolerance {RMS_REL}); the slicer's {len(tags)} "
@@ -2720,7 +3173,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi gave nothing"
-    say(f"[1/19] card: {name}, {count} device(s); torch {torch.__version__}, "
+    say(f"[1/21] card: {name}, {count} device(s); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     say(card)
 
@@ -2730,7 +3183,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library()
     info = _cuda.build_info
-    say(f"[2/19] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
+    say(f"[2/21] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
         f"(load {time.perf_counter() - t0:.2f} s)")
     say("ptxas: " + "; ".join(info["ptxas"]))
     say("ptxas C7515 (wgmma serialized): " + (", ".join(info["serialized"]) or "none"))
@@ -2760,7 +3213,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions at the 30 s conversion's shapes
     shapes = path_shapes(vc, clips[30])
-    say(f"[3/19] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
+    say(f"[3/21] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz, {shapes['T50']} HuBERT frames per chunk")
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -2815,7 +3268,7 @@ def main() -> int:
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[4/19] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
+        say(f"[4/21] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
             f"peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x, "
             f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -2838,7 +3291,7 @@ def main() -> int:
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     diff = np.abs(out_gpu.astype(np.int32) - out_cpu.astype(np.int32))
     tol = 4
-    say(f"[5/19] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
+    say(f"[5/21] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
         f"max |diff| {diff.max()} LSB, share above {tol} LSB {np.mean(diff > tol):.4%} "
         f"(tolerance {tol} LSB: the same float32 math summed in another order, "
         f"~1e-5 relative before the int16 scaling); CPU run "
@@ -2866,7 +3319,7 @@ def main() -> int:
     trainer.init_state(seed=0)
     say(f"dataset of {len(CLIP_SECONDS)} clips, {len(batches)} batches, trainer built in "
         f"{time.perf_counter() - t0:.1f} s")
-    say(f"[6/19] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
+    say(f"[6/21] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
         f"segment {cfg.train.segment_size} samples, WN over {np.shape(batches[0]['spec'])[1]} "
         f"frames")
     gen = torch.Generator().manual_seed(2)
@@ -2894,7 +3347,8 @@ def main() -> int:
             + f"launches per step {per_step[key.split('_')[0]]}")
 
     # 7. the training path
-    trained, rate32 = run_training(trainer, batches, card, "7/19")
+    run32 = run_training(trainer, batches, card, "7/21")
+    trained, rate32 = run32["launches"], run32["rate"]
     launches = {"fused_resblock_group": launches["resblock"],
                 "banded_rel_attention": launches["attention"],
                 "nearest_rows_q": launches["nearest"],
@@ -2926,9 +3380,32 @@ def main() -> int:
 
     # 19. training in bfloat16
     t19 = time.perf_counter()
-    launches.update({f"{k}[bf16]" if not k.endswith("]") else k: v for k, v in run_train_bf16(
-        cfg, batches, small, cpu32, card, checks, rate32).items()})
+    run16 = run_train_bf16(cfg, batches, small, cpu32, card, checks, rate32)
+    launches.update({f"{k}[bf16]" if not k.endswith("]") else k: run16["launches"][k]
+                     for k in ("fused_resblock1_train[bf16]", "fused_resblock1",
+                               "fused_resblock1_backward", "fused_wn", "fused_wn_backward")})
+    checks["wn_bwd_bf16"]["whole_stack"] = checks.pop("wn_stack_bf16")
     say(f"  phase 19 took {time.perf_counter() - t19:.1f} s")
+
+    # 20. every loss, and a no-f0 model, trained on the card
+    t20 = time.perf_counter()
+    base = {"float32": dict(run32, phase=7), "bfloat16": dict(run16, phase=19)}
+    del run32, run16
+    run_every_loss(cfg, batches, card, base, checks)
+    with tempfile.TemporaryDirectory(prefix="rvc_nof0_") as work:
+        run_nof0(work, card, checks)
+    for key, kname in (("chain", "fused_resblock1"), ("chain_bwd", "fused_resblock1_backward"),
+                       ("wn", "fused_wn"), ("wn_bwd", "fused_wn_backward")):
+        checks[key]["launches_40k_nof0"] = checks["nof0_float32"]["launches"][kname]
+    say(f"  phase 20 took {time.perf_counter() - t20:.1f} s")
+
+    # 21. 32k_v2 and 48k v1, converting and training one step, card vs CPU
+    t21 = time.perf_counter()
+    for preset_name, counts in run_unchecked_presets(settings, card).items():
+        for key, kname in (("resblock", "fused_resblock_group"),
+                           ("attention", "banded_rel_attention"), ("nearest", "nearest_rows_q")):
+            checks[key][f"launches_{preset_name}"] = counts[kname]
+    say(f"  phase 21 took {time.perf_counter() - t21:.1f} s")
 
     kernels = []
     meta = {
@@ -2972,6 +3449,8 @@ def main() -> int:
                                              "pack_ms", "float32_ms", "ms_10s",
                                              "previous_ms_10s", "32k_v1", "d256",
                                              "cli_float32_bank", "launches_40k_v2",
+                                             "launches_40k_nof0", "launches_32k_v2",
+                                             "launches_48k", "whole_stack",
                                              "recompute_launches") if k in c}})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -2,9 +2,9 @@
 
 Counterpart of ``rvc_tpu/models/synthesizer.py`` (TextEncoder,
 PosteriorEncoder, Synthesizer.__call__ and .infer) with a ResBlock1 or
-ResBlock2 decoder: the f0 variants (NSF decoder, pitch embedding) and, for
-inference, the no-f0 ones (``use_f0=False``: the plain HiFiGAN decoder and
-no pitch embedding). Module names (enc_p, enc_q, flow,
+ResBlock2 decoder: the f0 variants (NSF decoder, pitch embedding) and the
+no-f0 ones (``use_f0=False``: the plain HiFiGAN decoder and no pitch
+embedding), for training and inference. Module names (enc_p, enc_q, flow,
 dec, emb_g) are the reference state_dict prefixes. The posterior encoder
 is used only in training: it is built only with ``posterior=True``, so the
 inference state_dicts (without ``enc_q.*``) load as they are.
@@ -120,22 +120,22 @@ class Synthesizer(nn.Module):
                                           16, gin_channels=gin_channels)
         set_dtype_(self, dtype)
 
-    def forward(self, phone: torch.Tensor, phone_lengths: torch.Tensor, pitch: torch.Tensor,
-                pitchf: torch.Tensor, spec: torch.Tensor, spec_lengths: torch.Tensor,
+    def forward(self, phone: torch.Tensor, phone_lengths: torch.Tensor,
+                pitch: torch.Tensor | None, pitchf: torch.Tensor | None, spec: torch.Tensor,
+                spec_lengths: torch.Tensor,
                 sid: torch.Tensor, *, eps_q: torch.Tensor | None = None,
                 u_slice: torch.Tensor | None = None,
                 generator: torch.Generator | None = None, **draws):
         """Training forward (rvc_tpu/models/synthesizer.py:250-267).
 
-        phone (B, T, feat); pitch (B, T) coarse bins; pitchf (B, T) Hz;
-        spec (B, T, spec_channels) linear spectrogram; sid (B,). The draws,
-        each from ``generator`` when absent: ``eps_q`` (B, inter, T) the
-        posterior sample's normal, ``u_slice`` (B,) the segment starts'
-        uniform, and the sine source's ``rand_ini`` and ``noise``.
+        phone (B, T, feat); pitch (B, T) coarse bins and pitchf (B, T) Hz,
+        both None without f0; spec (B, T, spec_channels) linear spectrogram;
+        sid (B,). The draws, each from ``generator`` when absent: ``eps_q``
+        (B, inter, T) the posterior sample's normal, ``u_slice`` (B,) the
+        segment starts' uniform, and with f0 the sine source's ``rand_ini``
+        and ``noise``.
         Returns (o (B, 1, segment·upp), ids_slice (B,), x_mask, y_mask,
         (z, z_p, m_p, logs_p, m_q, logs_q)), activations (B, C, T)."""
-        if not self.use_f0:
-            raise NotImplementedError("training the no-f0 variants is not ported yet")
         g = self.emb_g(sid)[:, :, None]
         m_p, logs_p, x_mask = self.enc_p(phone, pitch, phone_lengths)
         z, m_q, logs_q, y_mask = self.enc_q(spec.transpose(1, 2), spec_lengths, g=g,
@@ -143,8 +143,11 @@ class Synthesizer(nn.Module):
         z_p = self.flow(z, y_mask, g=g)
         z_slice, ids_slice = rand_slice_segments(z, spec_lengths, self.segment_size,
                                                  u=u_slice, generator=generator)
-        pitchf_slice = slice_segments(pitchf, ids_slice, self.segment_size)
-        o = self.dec(z_slice, pitchf_slice, g=g, generator=generator, **draws)
+        if self.use_f0:
+            pitchf_slice = slice_segments(pitchf, ids_slice, self.segment_size)
+            o = self.dec(z_slice, pitchf_slice, g=g, generator=generator, **draws)
+        else:
+            o = self.dec(z_slice, g=g)
         return o, ids_slice, x_mask, y_mask, (z, z_p, m_p, logs_p, m_q, logs_q)
 
     def infer_mix(self, phone: torch.Tensor, phone_lengths: torch.Tensor,

@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .stft import reflect_pad
+
 
 @functools.lru_cache(maxsize=None)
 def dft_basis_np(n_fft: int, win_length: int) -> tuple[np.ndarray, np.ndarray]:
@@ -106,6 +108,16 @@ def mel_filterbank_slaney_np(sr: int, n_fft: int, n_mels: int, fmin: float,
     return weights.T.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _on_device(make, device: torch.device, *args):
+    """``make(*args)``'s array (or tuple of arrays) as tensors on ``device``,
+    uploaded once: the multi-scale mel loss's bases reach 67 MB a scale."""
+    out = make(*args)
+    if isinstance(out, tuple):
+        return tuple(torch.as_tensor(a, device=device) for a in out)
+    return torch.as_tensor(out, device=device)
+
+
 def dynamic_range_compression(x: torch.Tensor, clip_val: float = 1e-5) -> torch.Tensor:
     return torch.log(torch.clamp(x, min=clip_val))
 
@@ -124,8 +136,8 @@ def spec_to_mel(spec: torch.Tensor, n_fft: int, num_mels: int, sampling_rate: in
                 fmin: float, fmax: float | None) -> torch.Tensor:
     """Linear spectrogram (..., T, n_bins) -> log-mel (..., T, n_mels)
     (rvc_tpu/ops/mel.py:112, the reference's spec_to_mel_torch)."""
-    fb = torch.as_tensor(mel_filterbank_slaney_np(sampling_rate, n_fft, num_mels, fmin, fmax),
-                         device=spec.device)
+    fb = _on_device(mel_filterbank_slaney_np, spec.device, sampling_rate, n_fft, num_mels,
+                    fmin, fmax)
     return dynamic_range_compression(torch.matmul(spec, fb))
 
 
@@ -135,12 +147,21 @@ def mel_spectrogram(wav: torch.Tensor, n_fft: int, n_mels: int, sampling_rate: i
     """Waveform (B, N) -> log-mel (B, frames, n_mels), differentiable
     (rvc_tpu/ops/mel.py:125, the reference's mel_spectrogram_torch): reflect
     pad by (n_fft - hop) / 2, uncentered frames, a win_length Hann window
-    centered in n_fft, |STFT| with 1e-9 under the square root."""
+    centered in n_fft, |STFT| with 1e-9 under the square root. A pad as long
+    as the signal or longer reflects again, as ``jnp.pad`` does. Where n_fft
+    is shorter than the hop the "pad" is negative and trims the signal by as
+    much (the multi-scale loss's 256-sample window at a hop of 320-480), so
+    frame i still centres on i·hop + hop/2; ``jnp.pad`` raises there."""
     pad = int((n_fft - hop_length) / 2)
-    x = F.pad(wav[:, None], (pad, pad), mode="reflect")[:, 0]
+    if pad >= wav.shape[-1]:  # F.pad refuses; JAX reflects again
+        x = reflect_pad(wav, pad, pad)
+    elif pad < 0:  # a window shorter than the hop: the frames keep their centres
+        x = wav[..., -pad:wav.shape[-1] + pad]
+    else:
+        x = F.pad(wav[:, None], (pad, pad), mode="reflect")[:, 0]
     frames = x.unfold(-1, n_fft, hop_length)
-    cos_b, sin_b = dft_basis_np(n_fft, win_length)
-    real = torch.matmul(frames, torch.as_tensor(cos_b, device=wav.device))
-    imag = torch.matmul(frames, torch.as_tensor(sin_b, device=wav.device))
+    cos_b, sin_b = _on_device(dft_basis_np, wav.device, n_fft, win_length)
+    real = torch.matmul(frames, cos_b)
+    imag = torch.matmul(frames, sin_b)
     mag = torch.sqrt(real * real + imag * imag + 1e-9)
     return spec_to_mel(mag, n_fft, n_mels, sampling_rate, fmin, fmax)

@@ -44,6 +44,7 @@ class TrainRunConfig:
     pretrained_d: str | None = None
     export_name: str = "model"
     balancer_active: bool = True
+    use_multiscale: bool = False  # the multi-scale mel loss in place of the sliced mel L1
     log_media: bool = True  # TensorBoard mel images and audio on log steps
     eval_every_n: int = 0  # hold out every n-th utterance (0: no evaluation)
     device: str | None = None  # the card unless "cpu" is asked for
@@ -102,6 +103,8 @@ def train_model(config: RVCConfig, run: TrainRunConfig) -> str:
     steps_per_epoch = max(1, sum(len(v) // config.train.batch_size
                                  for v in batcher.buckets.values()))
     trainer = Trainer(config, balancer_active=run.balancer_active, device=run.device)
+    if run.use_multiscale:
+        trainer.use_multiscale()
     state = trainer.init_state(seed=config.train.seed, steps_per_epoch=steps_per_epoch)
 
     # resume, or a warm start

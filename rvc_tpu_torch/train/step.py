@@ -4,13 +4,21 @@ Counterpart of ``rvc_tpu/train/step.py`` (Trainer, TrainState, the
 optimizers' math and ``lr_schedule``), itself the reference's
 training_cli.py:374-602. One step:
 
-  1. the generator's training forward, once (``Synthesizer.forward``);
-  2. the discriminator's update on (real slice, generated slice detached),
-     its losses through the balancer;
+  1. the generator's training forward, once (``Synthesizer.forward``; the
+     no-f0 variants' without pitch);
+  2. the discriminator's update on (real slice, generated slice detached):
+     its LSGAN loss and, with ``c_gp > 0``, the gradient penalty (the
+     discriminator's loss on a random real/generated interpolation,
+     differentiated with respect to that input with a graph, so that the
+     penalty on the gradient's norm trains through a double backward),
+     both through the balancer;
   3. the generator's losses through the *updated* discriminator: LSGAN,
-     feature matching, mel L1 on the sliced target mel (weight ``c_mel``),
-     the prior KL over the posterior's mask, the aux losses (zeros at the
-     default weights), balanced; one backward into the generator;
+     feature matching, the mel loss (the L1 on the sliced target mel, or
+     with ``use_multiscale`` the multi-scale mel loss on the waveforms,
+     weight ``c_mel``), the prior KL over the posterior's mask, the
+     harmonic, TSI and TEFS aux losses (weights ``c_hd``, ``c_tsi``,
+     ``c_tefs``; not computed at 0), balanced; one backward into the
+     generator;
   4. both updates are AdamW with optax's semantics: betas (0.8, 0.99),
      eps 1e-9, decoupled weight decay 0.01 on every parameter, the learning
      rate ``lr_schedule`` indexed by the update count before its increment.
@@ -25,19 +33,20 @@ JAX state carries (optimizer moments, step, balancer states). On the card,
 the decoder's ResBlock1 chains run kernels 4 and 5 and the WN stacks of the
 posterior encoder and the flow kernels 6 and 7 (in groups of 8 layers);
 the text encoder's attention trains through its plain version, as the JAX
-``Trainer``'s does. ``dtype`` is the compute dtype of the generator and
-the discriminator, as the JAX ``Trainer``'s (float32, or bfloat16, its
-dtype on an accelerator, rvc_tpu/train/step.py:291): in bfloat16 the
-layers round as the conversion path's do (``layers.set_dtype_``), the
-decoder's chains take the bf16 unit kernel forward and kernels 4 and 5 at
-bf16(0.1) backward, the WN groups round x between them, the losses and the
-generated slice's mel are taken in float32; parameters, gradients and the
-AdamW state stay float32. float32 math runs with TF32 off.
-``Trainer.eval_loss`` is the JAX
-``Trainer.eval_fn``: the generator forward without gradients and the
-sliced mel L1. The JAX package's FlatAdamW and its TPU-layout split of the
-small tensors (``GroupedAdamW``'s ``small_threshold``), and the gradient
-penalty (``c_gp > 0``), are not ported.
+``Trainer``'s does; the losses add no kernel launch (the discriminator is
+cuDNN and autograd-native, so the penalty's double backward needs no
+second-order rule of a kernel). ``dtype`` is the compute dtype of the
+generator and the discriminator, as the JAX ``Trainer``'s (float32, or
+bfloat16, its dtype on an accelerator, rvc_tpu/train/step.py:291): in
+bfloat16 the layers round as the conversion path's do
+(``layers.set_dtype_``), the decoder's chains take the bf16 unit kernel
+forward and kernels 4 and 5 at bf16(0.1) backward, the WN groups round x
+between them, the losses, the penalty's interpolation and the generated
+slice's mels are taken in float32; parameters, gradients and the AdamW
+state stay float32. float32 math runs with TF32 off. ``Trainer.eval_loss``
+is the JAX ``Trainer.eval_fn``: the generator forward without gradients and
+the sliced mel L1. The JAX package's FlatAdamW and its TPU-layout split of
+the small tensors (``GroupedAdamW``'s ``small_threshold``) are not ported.
 """
 from __future__ import annotations
 
@@ -172,8 +181,6 @@ class Trainer:
         self.device = resolve_device(device)
         set_float32_math()
         t = config.train
-        if t.c_gp > 0:
-            raise NotImplementedError("the gradient penalty (c_gp > 0) is not ported yet")
         self.config = config
         self.dtype = dtype
         self.balancer_active = balancer_active
@@ -189,8 +196,14 @@ class Trainer:
         self.seg_frames = t.segment_size // config.data.hop_length
         self.g_initial = torch.tensor([1.0, 1.0, t.c_mel, t.c_kl, t.c_hd, t.c_tsi, t.c_tefs],
                                       device=self.device)
-        self.d_initial = torch.tensor([1.0, 0.0], device=self.device)
+        self.d_initial = torch.tensor([1.0, 1.0 if t.c_gp > 0 else 0.0], device=self.device)
+        self.msml: L.MultiScaleMelLoss | None = None  # set by use_multiscale
         self.grads: dict | None = None  # the last step's, when it was asked to keep them
+
+    def use_multiscale(self, **kwargs) -> None:
+        """The mel loss becomes ``losses.MultiScaleMelLoss`` at the data's
+        sampling rate (``kwargs`` its own) on the waveforms, in float32."""
+        self.msml = L.MultiScaleMelLoss(self.config.data.sampling_rate, **kwargs)
 
     def init_state(self, seed: int = 0, steps_per_epoch: int = 100,
                    state_g: dict | None = None, state_d: dict | None = None) -> TrainState:
@@ -215,18 +228,29 @@ class Trainer:
 
     def draws(self, batch: dict, seed: int) -> dict:
         """The step's random draws from a CPU generator seeded with
-        ``seed``, so that every device draws the same: the posterior
-        sample's normal, the segment starts' uniform, the sine source's start
-        phase and noise."""
+        ``seed``, so that every device draws the same, in the JAX step's
+        order: the posterior sample's normal, the segment starts' uniform,
+        with f0 the sine source's start phase and noise, and with
+        ``c_gp > 0`` the penalty's interpolation weight ``alpha`` (B, 1, 1)."""
         gen = torch.Generator().manual_seed(seed)
         B, T = np.shape(batch["spec"])[:2]
         inter = self.synth.enc_p.out_channels
         out = dict(eps_q=torch.randn(B, inter, T, generator=gen),
-                   u_slice=torch.rand(B, generator=gen),
-                   rand_ini=torch.rand(B, 1, generator=gen),
-                   noise=torch.randn(B, self.seg_frames * self.synth.dec.upp, 1,
-                                     generator=gen))
+                   u_slice=torch.rand(B, generator=gen))
+        if self.synth.use_f0:
+            out["rand_ini"] = torch.rand(B, 1, generator=gen)
+            out["noise"] = torch.randn(B, self.seg_frames * self.synth.dec.upp, 1,
+                                       generator=gen)
+        if self.config.train.c_gp > 0:
+            out["alpha"] = torch.rand(B, 1, 1, generator=gen)
         return {k: v.to(self.device) for k, v in out.items()}
+
+    def _forward(self, b: dict, draws: dict):
+        """The generator's training forward on a batch of tensors, without
+        or with pitch, the draws other than ``alpha``."""
+        return self.synth(b["phone"], b["phone_lengths"], b.get("pitch"), b.get("pitchf"),
+                          b["spec"], b["spec_lengths"], b["sid"],
+                          **{k: v for k, v in draws.items() if k != "alpha"})
 
     def _tensors(self, batch: dict) -> dict:
         out = {}
@@ -255,9 +279,7 @@ class Trainer:
         b = self._tensors(batch)
         if draws is None:
             draws = self.draws(batch, 0)
-        y_hat, ids_slice, *_ = self.synth(b["phone"], b["phone_lengths"], b["pitch"],
-                                          b["pitchf"], b["spec"], b["spec_lengths"],
-                                          b["sid"], **draws)
+        y_hat, ids_slice, *_ = self._forward(b, draws)
         return L.mel_l1(*self._mels(b, y_hat, ids_slice))
 
     def step(self, state: TrainState, batch: dict, draws: dict | None = None,
@@ -278,20 +300,34 @@ class Trainer:
         if draws is None:
             draws = self.draws(batch, state.step)
         _mark(events, "start")
-        y_hat, ids_slice, x_mask, z_mask, (z, z_p, m_p, logs_p, m_q, logs_q) = self.synth(
-            b["phone"], b["phone_lengths"], b["pitch"], b["pitchf"], b["spec"],
-            b["spec_lengths"], b["sid"], **draws)
+        y_hat, ids_slice, x_mask, z_mask, (z, z_p, m_p, logs_p, m_q, logs_q) = self._forward(
+            b, draws)
         wave_seg = slice_segments(b["wave"][:, None], ids_slice * d.hop_length, t.segment_size)
-        y_mel, y_hat_mel = self._mels(b, y_hat, ids_slice)
+        # with the multi-scale loss the sliced mel L1 is not a loss: its
+        # generated mel is only logged
+        y_mel, y_hat_mel = self._mels(b, y_hat if self.msml is None else y_hat.detach(),
+                                      ids_slice)
         _mark(events, "generator forward")
 
         # the discriminator's update, the generated slice detached
         d_params = state.opt_d.params
-        y_d_r, y_d_g, _, _ = self.disc(wave_seg, y_hat.detach())
+        fake = y_hat.detach()
+        y_d_r, y_d_g, _, _ = self.disc(wave_seg, fake)
         loss_disc, _ = L.discriminator_loss(y_d_r, y_d_g)
+        if t.c_gp > 0:
+            # the penalty on a random real/generated interpolation, in
+            # float32 as JAX's type promotion gives it
+            alpha = draws["alpha"]
+            interp = (alpha * wave_seg + (1.0 - alpha) * fake).requires_grad_()
+            loss_interp, _ = L.discriminator_loss(*self.disc(wave_seg, interp)[:2])
+            (grad_x,) = torch.autograd.grad(loss_interp, interp, create_graph=True)
+            gnorm = torch.sqrt(torch.sum(grad_x.reshape(grad_x.shape[0], -1) ** 2, -1) + 1e-12)
+            gp = torch.mean((gnorm - 1.0) ** 2) * t.c_gp
+        else:
+            gp = torch.zeros_like(loss_disc)
         loss_d_all, new_bd, _ = bal.balance(
-            state.balancer_d, torch.stack([loss_disc, torch.zeros_like(loss_disc)]),
-            self.d_initial, active=self.balancer_active)
+            state.balancer_d, torch.stack([loss_disc, gp]), self.d_initial,
+            active=self.balancer_active)
         d_grads = _grads(loss_d_all, d_params)
         _mark(events, "discriminator forward and backward")
         grad_norm_d = state.opt_d.step(d_grads)
@@ -299,12 +335,18 @@ class Trainer:
 
         # the generator's losses through the updated discriminator
         y_d_r, y_d_g, fmap_r, fmap_g = self.disc(wave_seg, y_hat)
-        loss_mel = L.mel_l1(y_mel, y_hat_mel)
+        if self.msml is None:
+            loss_mel = L.mel_l1(y_mel, y_hat_mel)
+        else:
+            loss_mel = self.msml(y_hat[:, 0].float(), wave_seg[:, 0].float())
         loss_kl = L.kl_loss(z_p, logs_q, m_p, logs_p, z_mask)
         loss_fm = L.feature_loss(fmap_r, fmap_g)
         loss_gen, _ = L.generator_loss(y_d_g)
-        harmonic, tefs, tsi = L.combined_aux_loss(wave_seg[:, 0], y_hat[:, 0].float(),
-                                                  c_tefs=t.c_tefs, c_hd=t.c_hd, c_tsi=t.c_tsi)
+        harmonic, tefs, tsi = L.combined_aux_loss(
+            wave_seg[:, 0].float(), y_hat[:, 0].float(), c_tefs=t.c_tefs, c_hd=t.c_hd,
+            c_tsi=t.c_tsi, n_mels=d.n_mel_channels, sample_rate=d.sampling_rate,
+            n_fft=d.filter_length, hop_length=d.hop_length, win_length=d.win_length,
+            fmin=d.mel_fmin, fmax=d.mel_fmax, eps=t.eps)
         loss_g_all, new_bg, _ = bal.balance(
             state.balancer_g,
             torch.stack([loss_gen, loss_fm, loss_mel, loss_kl, harmonic, tsi, tefs]),

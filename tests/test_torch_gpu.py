@@ -1023,6 +1023,33 @@ def test_chain_slope_argument_on_the_card(rng, cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("C,T,L,lengths,group_size", [
     (192, 400, 16, (400, 377, 200, 1), 8), (64, 129, 5, (129, 0, 64), 2),
+])
+def test_wn_stack_bf16_gradients_against_float32(rng, cuda, C, T, L, lengths, group_size):
+    """The whole WN stack in bf16 through kernels 6 and 7 by groups (x rounded
+    to bf16 between groups), against the plain float32 stack on the same x
+    and cotangent: dx and every weight and conditioning gradient within
+    chip_smoke.STACK_MARGIN times the plain bf16 stack's own relative L2
+    distance to that float32 result (chip_smoke.check_wn_stack_bf16 says
+    why). And the cause of the whole stack's distance from the plain bf16
+    stack: the kernel groups fed the plain bf16 stack's x and its gradient
+    there between groups (chip_smoke.wn_stack_grads) agree with the plain
+    bf16 stack's weight gradients within 1e-4 of the largest, the group bar
+    of test_wn_groups_match_plain."""
+    import chip_smoke
+
+    x, w, lens, cot = _wn_case(rng, cuda, C, T, L, lengths)
+    runs = chip_smoke.wn_stack_grads(x.detach(), [t.detach() for t in w], lens, 5, cot,
+                                     group_size)
+    dist = chip_smoke.stack_distances(runs)
+    for got, own in zip(dist["card16"], dist["plain16"]):
+        assert got <= chip_smoke.STACK_MARGIN * own, (got, own)
+    for a, p in zip(runs["fed_x_dx"][1:], runs["plain16"][1:]):
+        _scaled_close(a, p, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,T,L,lengths,group_size", [
+    (192, 400, 16, (400, 377, 200, 1), 8), (64, 129, 5, (129, 0, 64), 2),
     (48, 128, 3, (128, 1, 127), 2),
 ])
 def test_wn_groups_match_plain(rng, cuda, C, T, L, lengths, group_size):

@@ -226,7 +226,8 @@ def test_losses_match_jax(rng):
     np.testing.assert_allclose(float(tloss.mel_l1(T_(a), T_(b))),
                                float(jloss.mel_l1(jnp.asarray(a), jnp.asarray(b))), rtol=1e-6)
     w = T_(f(2, 640))
-    assert [float(v) for v in tloss.combined_aux_loss(w, w)] == [
+    assert [float(v) for v in tloss.combined_aux_loss(w, w, c_tefs=0.0, c_hd=0.0,
+                                                      c_tsi=0.0)] == [
         float(v) for v in jloss.combined_aux_loss(jnp.asarray(w.numpy()),
                                                   jnp.asarray(w.numpy()),
                                                   c_tefs=0.0, c_hd=0.0, c_tsi=0.0)]

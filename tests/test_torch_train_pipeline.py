@@ -135,6 +135,43 @@ def test_train_model_resumes_and_exports(runs):
         assert torch.equal(a[k], b[k]), k
 
 
+def test_train_model_nof0_with_multiscale_exports_f0_0(filelist, tmp_path, monkeypatch):
+    """``train_model`` on a no-f0 model (``use_f0 = False``, a filelist
+    without f0 columns, as ``RVCDataset(use_f0=False)`` reads it) with
+    ``use_multiscale``: it runs an epoch on the CPU, the trainer takes the
+    multi-scale mel loss, and the exported ``.pth`` says ``f0: 0`` and loads
+    through the port's loader into the no-f0 synthesizer."""
+    import dataclasses
+
+    from rvc_tpu_torch.models.layers import load_numpy_state_dict
+    from rvc_tpu_torch.models.synthesizer import Synthesizer
+
+    rows = [ln.split("|") for ln in open(filelist).read().splitlines()]
+    nof0_list = str(tmp_path / "nof0.txt")
+    write_filelist(nof0_list, ["|".join([r[0], r[1], r[4]]) for r in rows])
+    cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, use_f0=False))
+    kwargs_of = tconv.synth_kwargs_from_config
+    monkeypatch.setattr(tconv, "synth_kwargs_from_config",
+                        lambda c: {**kwargs_of(c), "feature_dim": FEAT})
+    msml = []
+    use_multiscale = ttrain.Trainer.use_multiscale
+    monkeypatch.setattr(ttrain.Trainer, "use_multiscale",
+                        lambda self, **kw: msml.append(use_multiscale(self, **kw) or self.msml))
+    path = ttrain.train_model(cfg, ttrain.TrainRunConfig(
+        model_dir=str(tmp_path / "run"), filelist=nof0_list, total_epochs=1, device="cpu",
+        use_multiscale=True))
+    assert len(msml) == 1 and msml[0].sampling_rate == SR
+    state, meta = ti.load_rvc_checkpoint(path)
+    assert meta["f0"] == 0
+    kw = {**ti.synthesizer_kwargs_from_config(meta["config"], meta["version"], meta["f0"]),
+          "feature_dim": FEAT}
+    assert kw["use_f0"] is False
+    synth = load_numpy_state_dict(Synthesizer(**kw), state)
+    assert type(synth.dec).__name__ == "Generator"
+    assert all(torch.isfinite(v).all() for v in synth.state_dict().values())
+
+
 def test_warm_started_run_and_its_export_convert_as_jax(runs, filelist, monkeypatch):
     """The warm-started run's export (the mismatched speaker table kept at its
     initial rows) converts 2 s through the JAX VoiceConverter and the port's
