@@ -1,4 +1,5 @@
-"""Smoke run of rvc_tpu_torch on one NVIDIA card: build, check, convert, train.
+"""Smoke run of rvc_tpu_torch on one NVIDIA card: build, check, convert, train,
+separate.
 
     python3 chip_smoke.py
 
@@ -164,7 +165,18 @@ Phases, each announced on its own line:
  21. 32k_v2 and 48k v1, never run on the card before, at full width: 3 s
      converted with exact kernel 1-3 launches and card vs CPU within phase
      5's 4 LSB, one training step card vs CPU within phase 8's bars
-     (run_unchecked_presets).
+     (run_unchecked_presets);
+ 22. separation at full width (run_separation): a seeded 4-band VR
+     CascadedASPPNet written as a UVR5 .pth and a seeded MDX-Net
+     ConvTDFNetTrim written as an anonymous .onnx separate 30 s of stereo
+     44.1 kHz (the speech fixture at two delays over a harmonic
+     accompaniment) through load_separator, VR also with tta and MDX with
+     denoise: RTF (best and median of 3 after a set-up call), each stage's
+     CUDA-event ms, the network's TFLOP/s, peak memory, the busy share under
+     the profiler; card vs CPU on one window of the song a route within
+     phase 5's 4 LSB;
+     the CLI's separate on both routes within 4 LSB of load_separator on the
+     same downmix; kernels 1-8 launched no time in the phase.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that.
 A kernel's time beside its yardsticks (previous_ms, mma_sync_ms) is
@@ -1430,7 +1442,7 @@ def small_batch(batch: dict, frames: int = 48, hop: int = 480) -> dict:
     return small
 
 
-def check_train_vs_cpu(cfg, batch: dict, label: str = "[8/21]",
+def check_train_vs_cpu(cfg, batch: dict, label: str = "[8/22]",
                        multiscale: bool = False) -> tuple:
     """One training step on the card and on the CPU (plain versions) from the
     same weights, batch and draws, at batch 1 and 48 frames. Returns the
@@ -1925,7 +1937,7 @@ def run_train_bf16(cfg, batches: list, small: dict, cpu32, card: str, checks: di
     trainer = Trainer(cfg, dtype=bf16, device="cuda")
     trainer.init_state(seed=0)
     gen = torch.Generator().manual_seed(19)
-    say(f"[19/21] training in bf16: kernels 4-7 in their bf16 form at phase 7's shapes "
+    say(f"[19/22] training in bf16: kernels 4-7 in their bf16 form at phase 7's shapes "
         f"(trainer built in {time.perf_counter() - t0:.1f} s)")
     checks["chain_bf16"], checks["chain_bwd_bf16"] = check_chain_train_bf16(trainer, gen)
     checks["wn_bf16"], checks["wn_bwd_bf16"] = check_wn_train_bf16(
@@ -1933,7 +1945,7 @@ def run_train_bf16(cfg, batches: list, small: dict, cpu32, card: str, checks: di
     checks["wn_stack_bf16"] = check_wn_stack_bf16(
         trainer, batches[0]["spec_lengths"], np.shape(batches[0]["spec"])[1], gen)
     torch.cuda.empty_cache()
-    run = run_training(trainer, batches, card, "19/21")
+    run = run_training(trainer, batches, card, "19/22")
     say(f"  bf16 {run['rate']:.3f} steps/s against float32 {rate32:.3f} (phase 7, this run); "
         f"{card}")
     del trainer
@@ -2070,13 +2082,13 @@ def run_every_loss(cfg, batches: list, card: str, base: dict, checks: dict) -> N
     from rvc_tpu_torch.train.step import Trainer
 
     cfg = all_losses(cfg)
-    say(f"[20/21] every loss: 48k_v2 with c_gp = c_hd = c_tsi = c_tefs = 1 and the multi-scale "
+    say(f"[20/22] every loss: 48k_v2 with c_gp = c_hd = c_tsi = c_tefs = 1 and the multi-scale "
         f"mel loss, on phase 7's batches")
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         trainer = Trainer(cfg, dtype=dtype, device="cuda")
         trainer.use_multiscale()
-        run = run_training(trainer, batches[:1 + PHASE20_STEPS], card, "20/21",
+        run = run_training(trainer, batches[:1 + PHASE20_STEPS], card, "20/22",
                            "48k_v2 with every loss")
         penalty = float(run["state"].balancer_d.hist_losses[1])
         zero = [k for vals in run["losses"] for k in ("harmonic_loss", "tsi_loss", "tefs_loss")
@@ -2094,7 +2106,7 @@ def run_every_loss(cfg, batches: list, card: str, base: dict, checks: dict) -> N
         del trainer, run
         torch.cuda.empty_cache()
     checks["loss_costs"] = loss_costs(cfg, batches[0], card)
-    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/21] every loss:", True)
+    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/22] every loss:", True)
     # the aux and multi-scale losses are taken on the bf16 generated slice:
     # the CPU bf16 tests' factor 2 (check_train_bf16_vs_cpu)
     check_train_bf16_vs_cpu(cfg, small, cpu32, True, factor=2.0)
@@ -2126,7 +2138,7 @@ def run_nof0(tmp: str, card: str, checks: dict) -> None:
                             seed=1234)
     batches = [b for e in range(1 + PHASE20_STEPS) for b in batcher.epoch(e)][
         :1 + PHASE20_STEPS]
-    say(f"[20/21] no f0: 40k v1 with use_f0 = False on {len(CLIP_SECONDS)} clips at "
+    say(f"[20/22] no f0: 40k v1 with use_f0 = False on {len(CLIP_SECONDS)} clips at "
         f"{cfg.data.sampling_rate} Hz, batches of {np.shape(batches[0]['spec'])[:2]} frames, "
         f"keys {sorted(batches[0])}")
     if "pitch" in batches[0] or "pitchf" in batches[0]:
@@ -2135,14 +2147,14 @@ def run_nof0(tmp: str, card: str, checks: dict) -> None:
         trainer = Trainer(cfg, dtype=dtype, device="cuda")
         if type(trainer.synth.dec).__name__ != "Generator":
             fail(f"the no-f0 decoder is {type(trainer.synth.dec).__name__}")
-        run = run_training(trainer, batches, card, "20/21", "40k no-f0")
+        run = run_training(trainer, batches, card, "20/22", "40k no-f0")
         checks[f"nof0_{str(dtype).split('.')[-1]}"] = dict(rate=run["rate"],
                                                            launches=run["launches"])
         if dtype == torch.float32:
             check_export(cfg, trainer, tmp, filelist)
         del trainer, run
         torch.cuda.empty_cache()
-    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/21] no f0:")
+    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/22] no f0:")
     check_train_bf16_vs_cpu(cfg, small, cpu32)
 
 
@@ -2235,7 +2247,7 @@ def run_unchecked_presets(settings, card: str) -> dict:
         vc = make_random_converter(name, seed=seed, chunking=CHUNKING, index_rows=BANK_ROWS,
                                    device="cuda")
         dec = vc.synth.dec
-        say(f"[21/21] {name} at full width (converter built in {time.perf_counter() - t0:.1f} "
+        say(f"[21/22] {name} at full width (converter built in {time.perf_counter() - t0:.1f} "
             f"s): upsampling {list(dec.upsample_rates)}, decoder stages of "
             f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
             f"channels, segment {preset(name).train.segment_size} samples")
@@ -2250,7 +2262,7 @@ def run_unchecked_presets(settings, card: str) -> dict:
                     settings)
         del vc, dec
         torch.cuda.empty_cache()
-        check_train_vs_cpu(preset(name), synthetic_batch(preset(name)), f"  [21/21] {name}:")
+        check_train_vs_cpu(preset(name), synthetic_batch(preset(name)), f"  [21/22] {name}:")
     return launched
 
 
@@ -2269,7 +2281,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
                                device="cuda", dtype=bf16)
     say(f"bf16 converter built in {time.perf_counter() - t0:.1f} s")
     shapes = path_shapes(vc, clips[30])
-    say(f"[9/21] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
+    say(f"[9/22] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz")
     gen = torch.Generator().manual_seed(3)
     with torch.no_grad():
@@ -2308,7 +2320,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[10/21] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
+        say(f"[10/22] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
             f"{sr} Hz, peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x (float32 "
             f"in this run {rtf32[sec]:.2f}x), max_memory_allocated "
@@ -2333,7 +2345,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out, sr, launched, wall = counted_convert(vc, audio, settings, counters)
     vc.synth.dec.fuse_group = True
     same = bool(np.array_equal(out, outs[30]))
-    say(f"[11/21] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
+    say(f"[11/22] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
         f"(RTF {30 / wall:.2f}x), launches { {k: v for k, v in launched.items() if v} }, "
         f"bit-identical to the default route: {same} (the default route against itself: "
         f"{bool(np.array_equal(again, outs[30]))})")
@@ -2369,7 +2381,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     a, b = out_gpu.astype(np.float64), out_cpu.astype(np.float64)
     l2 = float(np.linalg.norm(a - b) / np.linalg.norm(b)) if a.shape == b.shape else math.inf
-    say(f"[12/21] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
+    say(f"[12/22] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
         f"differs on {differ:.2%} of frames between them): {len(out_gpu)} vs {len(out_cpu)} "
         f"samples, relative L2 {l2:.4g} (tolerance {BF16_CPU_L2}: bf16 roundings flip "
         f"between the card's sums and the CPU's and the flips travel through the decoder; "
@@ -2469,7 +2481,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
                                          * 32000).astype(np.int16))
     sizes = {k: round(os.path.getsize(p) / 2**20, 1) for k, p in path.items()
              if os.path.exists(p)}
-    say(f"[13/21] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
+    say(f"[13/22] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
 
     # 13. the command line, in process, every count set to 0 just before
     counters = {**launch_counters(), "nearest_rows": (retrieval.nearest_rows, "launches")}
@@ -2534,7 +2546,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
         dec = vc.synth.dec
         label = f"{key} {version}" + ("" if f0 else " no-f0")
         phase = 14 if f0 else 15
-        say(f"[{phase}/21] {label} from files: decoder stages of "
+        say(f"[{phase}/22] {label} from files: decoder stages of "
             f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
             f"channels, HuBERT features D = {vc.hubert.cfg.classifier_proj_size}, "
             f"{type(dec).__name__}")
@@ -2600,7 +2612,7 @@ def run_batch(settings, card: str) -> dict:
                 "nearest_rows_q": 1}
     best, med = 80.0 / min(walls), 80.0 / float(np.median(walls))
     dev_s, down_s, disp_s = shares[int(np.argmin(walls))]
-    say(f"[16/21] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
+    say(f"[16/22] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
         f"{stats['chunk_samples']} samples, wall ms {[round(w * 1e3, 2) for w in walls]}, "
         f"aggregate RTF best {best:.2f}x, median {med:.2f}x; stats of the best: device_s "
         f"{dev_s:.4f} ({dev_s / min(walls):.1%} of the wall), download_s {down_s:.4f} "
@@ -2766,7 +2778,7 @@ def run_train_from_dataset(tmp: str, settings, card: str, checks: dict) -> dict:
     hub_state = write_hubert_safetensors(path["hubert"], HubertConfig(), seed=21)
     rmvpe_state = write_rmvpe_pt(path["rmvpe"], seed=22)
     odd_g, odd_d = write_pretrained(path["G"], path["D"], cfg, seed=23)
-    say(f"[17/21] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
+    say(f"[17/22] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
         f"pretrained G and D ({odd_g} and {odd_d} of another shape) written in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -3040,7 +3052,7 @@ def check_host_library() -> dict:
     nrms = slicer.frame_rms_numpy(x, sl.win_size, sl.hop_size)
     rms_err = float(np.max(np.abs(rms - nrms) / np.maximum(nrms, 1e-9)))
     tags, ntags = sl._silence_tags(rms), sl._silence_tags_numpy(rms)
-    say(f"[18/21] host library {os.path.relpath(lib._name, REPO)} built and loaded in "
+    say(f"[18/22] host library {os.path.relpath(lib._name, REPO)} built and loaded in "
         f"{build_s:.2f} s: peak_quantize_i16 on 30 s equal to numpy's {np.array_equal(q, nq)} "
         f"(peak {peak} / {npeak}); frame_rms of {len(rms)} frames within {rms_err:.3g} "
         f"relative of numpy's float32 sums (tolerance {RMS_REL}); the slicer's {len(tags)} "
@@ -3158,6 +3170,365 @@ def run_f0_methods(card: str) -> dict:
     return out
 
 
+# ---- phase 22: separation (the VR and MDX-Net routes) ----
+
+def lively_array(name: str, shape, rng) -> np.ndarray:
+    """A separation net's parameter drawn so that activations neither vanish
+    nor saturate (random weights at 0.02 leave every mask at 0.5): kernels
+    N(0, 2 / fan_in), norm gains and running variances U(0.5, 1.5), shifts,
+    biases and running means N(0, 0.1)."""
+    shape = tuple(shape)
+    if len(shape) >= 2:
+        return (rng.standard_normal(shape) * np.sqrt(2.0 / np.prod(shape[1:]))).astype(np.float32)
+    if name in ("weight", "running_var"):
+        return rng.uniform(0.5, 1.5, shape).astype(np.float32)
+    return (0.1 * rng.standard_normal(shape)).astype(np.float32)
+
+
+def lively_state(module, seed: int) -> dict:
+    """{name: array} for every entry of ``module``'s state_dict, by
+    ``lively_array`` in state_dict order."""
+    rng = np.random.default_rng(seed)
+    return {k: lively_array(k.rsplit(".", 1)[-1], t.shape, rng)
+            for k, t in module.state_dict().items()}
+
+
+def write_vr_pth(path: str, n_fft: int, seed: int) -> dict:
+    """A UVR5 VR ``.pth`` as the reference saves it: CascadedASPPNet(n_fft)'s
+    state_dict with the training-only aux outputs and num_batches_tracked,
+    ``lively_state`` weights. Returns the arrays the net takes."""
+    import torch
+
+    from rvc_tpu_torch.models.vr_network import CascadedASPPNet
+
+    state = lively_state(CascadedASPPNet(n_fft), seed)
+    saved = {k: torch.from_numpy(v) for k, v in state.items()}
+    saved["aux1_out.weight"] = torch.zeros(2, 32, 1, 1)
+    saved["aux2_out.weight"] = torch.zeros(2, 32, 1, 1)
+    for k in [k for k in state if k.endswith("running_mean")]:
+        saved[k.replace("running_mean", "num_batches_tracked")] = torch.tensor(100)
+    torch.save(saved, path)
+    return state
+
+
+def _pb_varint(v: int) -> bytes:
+    out = b""
+    while True:
+        low, v = v & 0x7F, v >> 7
+        out += bytes([low | (0x80 if v else 0)])
+        if not v:
+            return out
+
+
+def _pb_field(num: int, wire: int, payload: bytes) -> bytes:
+    key = _pb_varint((num << 3) | wire)
+    return key + (_pb_varint(len(payload)) + payload if wire == 2 else payload)
+
+
+def write_mdx_onnx(path: str, net, seed: int) -> dict:
+    """A UVR MDX ``.onnx`` with anonymous initializers (``onnx::W_i``), the
+    form the UVR exports take, so that the structural route maps it: one
+    node a parameter in ``net``'s forward order (Conv, ConvTranspose, MatMul
+    storing (in, out), a norm's Mul and Add, or BatchNormalization), raw
+    float32 data. ``lively_state`` weights; returns them."""
+    from rvc_tpu_torch.compat.onnx_import import trace_order
+
+    state = lively_state(net, seed)
+    names = list(trace_order(net))
+    inits, nodes, i = [], [], 0
+
+    def tensor(name, arr):
+        buf = b"".join(_pb_field(1, 0, _pb_varint(d)) for d in arr.shape)
+        buf += _pb_field(2, 0, _pb_varint(1)) + _pb_field(8, 2, name.encode())
+        buf += _pb_field(9, 2, np.ascontiguousarray(arr, np.float32).tobytes())
+        return _pb_field(5, 2, buf)
+
+    def node(op, inputs):
+        buf = b"".join(_pb_field(1, 2, x.encode()) for x in inputs)
+        buf += _pb_field(2, 2, f"y{len(nodes)}".encode()) + _pb_field(4, 2, op.encode())
+        return _pb_field(1, 2, buf)
+
+    while i < len(names):
+        a = state[names[i]]
+        if a.ndim == 1 and names[i + 2:i + 3] and names[i + 2].endswith("running_mean"):
+            group = [f"onnx::W_{i + j}" for j in range(4)]
+            inits += [tensor(n, state[names[i + j]]) for j, n in enumerate(group)]
+            nodes.append(node("BatchNormalization", ["x", *group]))
+            i += 4
+            continue
+        name = f"onnx::W_{i}"
+        if a.ndim == 4:
+            op = "ConvTranspose" if names[i].startswith("us.") else "Conv"
+        elif a.ndim == 2:
+            op, a = "MatMul", a.T
+        else:
+            op = "Mul" if names[i].endswith("weight") else "Add"
+        inits.append(tensor(name, a))
+        nodes.append(node(op, ["x", name]))
+        i += 1
+    with open(path, "wb") as f:
+        f.write(_pb_field(7, 2, b"".join(nodes + inits)))
+    return state
+
+
+def network_flops(make_net, shape) -> float:
+    """Multiply-adds x 2 of one forward of the net ``make_net()`` builds,
+    on an input of ``shape``, counted from each conv's, transposed conv's and
+    linear's shapes by forward hooks on the meta device (no arithmetic)."""
+    import torch
+    from torch import nn
+
+    total = [0.0]
+
+    def hook(m, inp, out):
+        k = math.prod(m.kernel_size) if hasattr(m, "kernel_size") else 1
+        if isinstance(m, nn.ConvTranspose2d):
+            total[0] += 2.0 * inp[0].numel() * m.out_channels // m.groups * k
+        elif isinstance(m, nn.Conv2d):
+            total[0] += 2.0 * out.numel() * m.in_channels // m.groups * k
+        else:
+            total[0] += 2.0 * out.numel() * m.in_features
+
+    with torch.device("meta"):
+        net = make_net()
+        for m in net.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                m.register_forward_hook(hook)
+        with torch.no_grad():
+            net(torch.empty(shape))
+    return total[0]
+
+
+def song_stereo(seconds: float) -> np.ndarray:
+    """(2, T) float32 at 44.1 kHz: the speech fixture (from 5 s in) at 0 and
+    3 ms of delay on the left and right, each over a seeded harmonic
+    "instrumental" (five partials of 110 Hz, seeded phases a channel, a
+    slow swell), peak 0.9."""
+    from scipy import signal as ss
+
+    voice = ss.resample_poly(speech(seconds, 5.0), 441, 160).astype(np.float64)
+    t = np.arange(voice.size) / 44100
+    rng = np.random.default_rng(22)
+    chans = []
+    for delay in (0, 132):
+        v = np.concatenate([np.zeros(delay), voice[: voice.size - delay]])
+        inst = sum(0.15 / k * np.sin(2 * np.pi * 110 * k * t + rng.uniform(0, 2 * np.pi))
+                   for k in range(1, 6)) * (0.6 + 0.4 * np.sin(2 * np.pi * 0.25 * t))
+        chans.append(v + inst)
+    out = np.stack(chans)
+    return (0.9 * out / np.abs(out).max()).astype(np.float32)
+
+
+def stage_ms(events: list) -> dict:
+    """Milliseconds between consecutive (stage, CUDA event) marks, summed
+    by the stage each interval ends."""
+    out: dict = {}
+    for (_, a), (name, b) in zip(events, events[1:]):
+        out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+    return out
+
+
+def busy_share(fn) -> tuple[float, float, list]:
+    """(busy ms, wall ms, the 5 kernels with the most device time as (ms,
+    calls, name)) of one call of ``fn`` under torch.profiler. Busy is the
+    union of the device's activity intervals (cuDNN and cuFFT may run
+    kernels side by side, so their sum can exceed the wall); 0 where the
+    profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type.name == "CUDA")
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    kernels = sorted((e for e in prof.key_averages() if e.device_type.name == "CUDA"),
+                     key=lambda e: -e.self_device_time_total)[:5]
+    top = [(e.self_device_time_total / 1e3, e.count, e.key[:60]) for e in kernels]
+    return busy / 1e3, wall, top
+
+
+SEP_SECONDS = 30.0
+SEP_TOL = 4  # LSB, card vs CPU: phase 5's bar
+
+
+def stem_lsb(a: dict, b: dict) -> dict:
+    """max |a - b| in LSB of each int16 stem; fails on another shape."""
+    out = {}
+    for stem in ("vocals", "instrumentals"):
+        x, y = a[stem][0], b[stem][0]
+        if x.shape != y.shape or x.dtype != np.int16 or y.dtype != np.int16:
+            fail(f"{stem}: {x.dtype} {x.shape} against {y.dtype} {y.shape}")
+        out[stem] = int(np.abs(x.astype(np.int32) - y.astype(np.int32)).max())
+    return out
+
+
+def check_stems(out: dict, n_in: int, hop: int, label: str) -> None:
+    """int16 stems at 44.1 kHz, within a hop of the input's length, not
+    silent, not equal to each other."""
+    v, i = out["vocals"][0], out["instrumentals"][0]
+    if out["sr"] != 44100 or v.dtype != np.int16 or i.dtype != np.int16:
+        fail(f"{label}: stems are {v.dtype}/{i.dtype} at {out['sr']} Hz")
+    if not (abs(len(v) - n_in) <= hop and len(i) == len(v)):
+        fail(f"{label}: stems of {len(v)} and {len(i)} samples from {n_in}")
+    if np.abs(v).max() == 0 or np.abs(i).max() == 0 or np.array_equal(v, i):
+        fail(f"{label}: a silent stem, or two equal stems")
+
+
+def run_separation(tmp: str, card: str) -> None:
+    """Phase 22: separation at full width through load_separator and the
+    CLI, on both routes: RTF, stages, peak memory and busy share; card vs
+    CPU on one window a route; kernels 1-8 launched no time."""
+    import torch
+
+    from rvc_tpu_torch.cli import main as cli
+    from rvc_tpu_torch.models.mdx_net import ConvTDFNetTrim
+    from rvc_tpu_torch.models.vr_network import CascadedASPPNet
+    from rvc_tpu_torch.ops.bands import FOURBAND_V2_PARAM
+    from rvc_tpu_torch.pipelines.separate import load_separator, route_separator
+
+    counters = training_counters()  # every kernel wrapper of the port
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    n_fft_vr = FOURBAND_V2_PARAM["bins"] * 2
+    paths = {"VR": os.path.join(tmp, "HP2-4BAND-3090_4band_v2.pth"),
+             "MDX": os.path.join(tmp, "UVR-MDX-NET-Inst_full.onnx")}
+    write_vr_pth(paths["VR"], n_fft_vr, seed=22)
+    write_mdx_onnx(paths["MDX"], ConvTDFNetTrim(), seed=23)
+    song = song_stereo(SEP_SECONDS)
+    flops = {"VR": network_flops(lambda: CascadedASPPNet(n_fft_vr), (1, 2, 673, 512)),
+             "MDX": network_flops(ConvTDFNetTrim, (1, 4, 256, 3072))}
+    say(f"[22/22] separation at full width: VR CascadedASPPNet({n_fft_vr}) from a .pth "
+        f"(4band_v2, {FOURBAND_V2_PARAM['bins'] + 1} bins, window 512, offset 128, agg 10, mirroring), "
+        f"{flops['VR'] / 1e9:.1f} GFLOP a window; MDX ConvTDFNetTrim(11 blocks, l 3, g 32, "
+        f"bn 8, dim_f 3072, GroupNorm2) from an anonymous .onnx (dim_t 256, n_fft 6144, hop "
+        f"1024, 15 s chunks, 1 s margin), {flops['MDX'] / 1e9:.1f} GFLOP a window; "
+        f"{SEP_SECONDS:.0f} s of stereo 44.1 kHz; files written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    hop = {"VR": 480, "MDX": 0}
+    t1 = time.perf_counter()
+    seps = {kind: load_separator(route_separator(path), path, 10.0)  # the card
+            for kind, path in paths.items()}
+    say(f"  both separators loaded from their files in {time.perf_counter() - t1:.1f} s")
+    for label, kind, opt in (("VR", "VR", None), ("VR tta", "VR", "tta"),
+                             ("MDX", "MDX", None), ("MDX denoise", "MDX", "denoise")):
+        sep = seps[kind]
+        if opt:
+            setattr(sep, opt, True)
+        t1 = time.perf_counter()
+        out = sep.run_inference(song, 44100)  # first call: set-up
+        first = time.perf_counter() - t1
+        check_stems(out, song.shape[1], hop[kind], label)
+        net = sep.model if kind == "VR" else sep.net
+        windows = [0]
+        hook = net.register_forward_pre_hook(
+            lambda m, a: windows.__setitem__(0, windows[0] + a[0].shape[0]))
+        torch.cuda.reset_peak_memory_stats()
+        walls, stages = [], {}
+        for _ in range(3):
+            events = []
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            again = sep.run_inference(song, 44100, events=events)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            stages = stage_ms(events)
+            stages["host and gaps"] = walls[-1] * 1e3 - events[0][1].elapsed_time(events[-1][1])
+        hook.remove()
+        rerun = stem_lsb(out, again)
+        if max(rerun.values()) > SEP_TOL:
+            fail(f"{label}: two runs on the card differ by {rerun} LSB")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # the profiler on the plain runs only (tta and denoise repeat them)
+        busy, wall, top = (0.0, 1.0, []) if opt else busy_share(
+            lambda: sep.run_inference(song, 44100))
+        n_win = windows[0] // 3  # network forwards of one window a run (twice with denoise)
+        nets = n_win * flops[kind]
+        say(f"  {label}: RTF best {SEP_SECONDS / min(walls):.2f}x, median "
+            f"{SEP_SECONDS / float(np.median(walls)):.2f}x (walls ms "
+            f"{[round(w * 1e3, 2) for w in walls]}; first call {first * 1e3:.1f}); stages ms "
+            f"(CUDA events, last run): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+            + f"; network {n_win} window forwards, {nets / 1e12:.3f} TFLOP, "
+            f"{nets / stages['network'] / 1e9:.1f} TFLOP/s; peak {peak:.2f} GiB; device busy "
+            + (f"{busy / wall:.1%} ({busy:.2f} of {wall:.2f} ms under the profiler)" if busy > 0
+               else "not measured" + (" (the plain run's is above)" if opt else
+                                      " (the profiler saw no device time)"))
+            + f"; the set-up call against the last, max |diff| {rerun} LSB; {card}")
+        if top:
+            say("    top kernels (ms, calls): "
+                + "; ".join(f"{ms:.2f} x{n} {k}" for ms, n, k in top))
+        if opt:
+            setattr(sep, opt, False)
+        torch.cuda.empty_cache()
+
+    # card against CPU on one window a route, on the song itself (VR 2.5 s:
+    # 230 frames, 3 s would be two 256-frame windows; MDX 3 s of its 5.78 s
+    # window)
+    cpus = {kind: load_separator(route_separator(path), path, 10.0, device="cpu")
+            for kind, path in paths.items()}
+    for kind, seconds in (("VR", 2.5), ("MDX", 3.0)):
+        clip = song[:, : int(seconds * 44100)]
+        t1 = time.perf_counter()
+        got, ref = (sep.run_inference(clip, 44100) for sep in (seps[kind], cpus[kind]))
+        lsb = stem_lsb(got, ref)
+        say(f"  {kind} {seconds} s on the card vs the CPU: max |diff| {lsb} LSB (tolerance "
+            f"{SEP_TOL} LSB, phase 5's: the same float32 math summed in another order); "
+            f"{time.perf_counter() - t1:.1f} s")
+        if max(lsb.values()) > SEP_TOL:
+            fail(f"{kind}: the card's stems disagree with the CPU's")
+    del cpus
+
+    # the command line, on the song's file: its downmix, as the JAX CLI's
+    from scipy.io import wavfile
+
+    from rvc_tpu_torch.io.audio import load_input_audio, save_input_audio
+
+    wav = os.path.join(tmp, "song.wav")
+    with wave.open(wav, "wb") as f:
+        f.setnchannels(2)
+        f.setsampwidth(2)
+        f.setframerate(44100)
+        f.writeframes((song.T * 32767).astype(np.int16).tobytes())
+    audio, sr = load_input_audio(wav)
+    for kind in ("VR", "MDX"):
+        outdir = os.path.join(tmp, f"stems_{kind}")
+        t1 = time.perf_counter()
+        cli.main(["separate", wav, outdir, "--model", paths[kind]])
+        took = time.perf_counter() - t1
+        ref = seps[kind].run_inference(audio, sr)  # load_separator's, as the CLI builds it
+        lsb = {}
+        for stem in ("vocals", "instrumentals"):
+            # both through save_input_audio (peak-scaled float32 wavs), the
+            # difference in LSB of the reference's int16 stem
+            want = os.path.join(tmp, f"{kind}_{stem}_ref.wav")
+            save_input_audio(want, ref[stem])
+            rate, got = wavfile.read(os.path.join(outdir, f"{stem}.wav"))
+            _, exp = wavfile.read(want)
+            if rate != 44100 or got.shape != exp.shape or got.ndim != 1:
+                fail(f"CLI {kind} {stem}.wav: {got.shape} at {rate} Hz, expected {exp.shape}")
+            scale = np.abs(ref[stem][0]).max() / max(np.abs(exp).max(), 1e-9)
+            lsb[stem] = float(np.abs(got - exp).max() * scale)
+        say(f"  CLI separate --model {os.path.basename(paths[kind])}: {took:.1f} s; its wavs "
+            f"against load_separator's on the same downmix: max |diff| "
+            + ", ".join(f"{k} {v:.2f}" for k, v in lsb.items()) + f" LSB (tolerance {SEP_TOL})")
+        if max(lsb.values()) > SEP_TOL:
+            fail(f"CLI {kind}: its stems disagree with load_separator's")
+
+    launched = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    say(f"  kernel launches in phase 22: {launched}")
+    if any(launched.values()):
+        fail("separation launched a kernel of the conversion or training path")
+
+
 def main() -> int:
     try:
         import torch
@@ -3173,7 +3544,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi gave nothing"
-    say(f"[1/21] card: {name}, {count} device(s); torch {torch.__version__}, "
+    say(f"[1/22] card: {name}, {count} device(s); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     say(card)
 
@@ -3183,7 +3554,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library()
     info = _cuda.build_info
-    say(f"[2/21] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
+    say(f"[2/22] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
         f"(load {time.perf_counter() - t0:.2f} s)")
     say("ptxas: " + "; ".join(info["ptxas"]))
     say("ptxas C7515 (wgmma serialized): " + (", ".join(info["serialized"]) or "none"))
@@ -3213,7 +3584,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions at the 30 s conversion's shapes
     shapes = path_shapes(vc, clips[30])
-    say(f"[3/21] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
+    say(f"[3/22] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz, {shapes['T50']} HuBERT frames per chunk")
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -3268,7 +3639,7 @@ def main() -> int:
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[4/21] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
+        say(f"[4/22] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
             f"peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x, "
             f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -3291,7 +3662,7 @@ def main() -> int:
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     diff = np.abs(out_gpu.astype(np.int32) - out_cpu.astype(np.int32))
     tol = 4
-    say(f"[5/21] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
+    say(f"[5/22] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
         f"max |diff| {diff.max()} LSB, share above {tol} LSB {np.mean(diff > tol):.4%} "
         f"(tolerance {tol} LSB: the same float32 math summed in another order, "
         f"~1e-5 relative before the int16 scaling); CPU run "
@@ -3319,7 +3690,7 @@ def main() -> int:
     trainer.init_state(seed=0)
     say(f"dataset of {len(CLIP_SECONDS)} clips, {len(batches)} batches, trainer built in "
         f"{time.perf_counter() - t0:.1f} s")
-    say(f"[6/21] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
+    say(f"[6/22] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
         f"segment {cfg.train.segment_size} samples, WN over {np.shape(batches[0]['spec'])[1]} "
         f"frames")
     gen = torch.Generator().manual_seed(2)
@@ -3347,7 +3718,7 @@ def main() -> int:
             + f"launches per step {per_step[key.split('_')[0]]}")
 
     # 7. the training path
-    run32 = run_training(trainer, batches, card, "7/21")
+    run32 = run_training(trainer, batches, card, "7/22")
     trained, rate32 = run32["launches"], run32["rate"]
     launches = {"fused_resblock_group": launches["resblock"],
                 "banded_rel_attention": launches["attention"],
@@ -3406,6 +3777,12 @@ def main() -> int:
                            ("attention", "banded_rel_attention"), ("nearest", "nearest_rows_q")):
             checks[key][f"launches_{preset_name}"] = counts[kname]
     say(f"  phase 21 took {time.perf_counter() - t21:.1f} s")
+
+    # 22. separation: the VR and MDX-Net routes through load_separator and the CLI
+    t22 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="rvc_sep_") as work:
+        run_separation(work, card)
+    say(f"  phase 22 took {time.perf_counter() - t22:.1f} s")
 
     kernels = []
     meta = {

@@ -1,4 +1,4 @@
-"""Command line of the port: build a dataset, train, index, convert.
+"""Command line of the port: build a dataset, train, index, convert, separate.
 
     python -m rvc_tpu_torch.cli.main preprocess clips/ exp/ --sr 40k \
         --hubert content-vec-best.safetensors --rmvpe rmvpe.pt [--device cpu]
@@ -8,13 +8,18 @@
     python -m rvc_tpu_torch.cli.main convert in.wav out.wav --model run/model.pth \
         --hubert content-vec-best.safetensors --rmvpe rmvpe.pt --index exp/index.npy \
         [--resample-sr 44100] [--device cpu]
+    python -m rvc_tpu_torch.cli.main separate song.wav stems/ --model HP2-4BAND.pth \
+        [--agg 10] [--device cpu]
 
 The arguments, defaults and steps of ``rvc_tpu/cli/main.py``'s subcommands,
 plus ``--device`` (the card unless ``cpu`` is asked for). ``--f0-method``
 takes each of JAX's methods (pitch.extractor.METHODS): pm, dio and harvest
 need no weights, rmvpe and rmvpe+ need ``--rmvpe``; crepe has no weights
-flag here, as in JAX, so its methods raise KeyError. The JAX package's
-``separate`` waits for the separation models.
+flag here, as in JAX, so its methods raise KeyError. ``separate`` picks
+the separator from the model file's name (``pipelines.separate.
+route_separator``: a UVR5 VR ``.pth``, or an MDX-Net ``.onnx`` whose name
+holds "mdx"), separates the file's downmix, as the JAX package's does, and
+writes ``vocals.wav`` and ``instrumentals.wav``.
 """
 from __future__ import annotations
 
@@ -62,6 +67,29 @@ def cmd_convert(args) -> None:
         rms_mix_rate=args.rms_mix_rate, resample_sr=args.resample_sr))
     save_input_audio(args.output, (out, out_sr))
     print(f"wrote {args.output} ({out_sr} Hz)")
+
+
+def _add_separate(sub) -> None:
+    p = sub.add_parser("separate", help="vocal/instrumental separation")
+    p.add_argument("input")
+    p.add_argument("output_dir")
+    p.add_argument("--model", required=True, help="UVR5 VR .pth or MDX-Net .onnx")
+    p.add_argument("--agg", type=float, default=10.0)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+
+def cmd_separate(args) -> None:
+    from ..io.audio import load_input_audio, save_input_audio
+    from ..pipelines.separate import load_separator, route_separator
+
+    audio, sr = load_input_audio(args.input)
+    sep = load_separator(route_separator(args.model), args.model, args.agg, device=args.device)
+    out = sep.run_inference(audio, sr)
+    os.makedirs(args.output_dir, exist_ok=True)
+    for stem in ("vocals", "instrumentals"):
+        path = os.path.join(args.output_dir, f"{stem}.wav")
+        save_input_audio(path, out[stem])
+        print(f"wrote {path}")
 
 
 def _add_preprocess(sub) -> None:
@@ -156,6 +184,7 @@ def cmd_index(args) -> None:
 
 
 COMMANDS = {"convert": (_add_convert, cmd_convert),
+            "separate": (_add_separate, cmd_separate),
             "preprocess": (_add_preprocess, cmd_preprocess),
             "train": (_add_train, cmd_train), "index": (_add_index, cmd_index)}
 

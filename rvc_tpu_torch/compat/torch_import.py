@@ -1,7 +1,7 @@
 """A user's model files -> the port's reference-named state_dicts.
 
 Counterpart of ``rvc_tpu/compat/torch_import.py`` for the files the
-conversion path reads:
+conversion and separation paths read:
 
   * an RVC inference checkpoint ``.pth`` (``cpt["weight"]``, fp16, with
     ``weight_g``/``weight_v`` pairs, and a positional ``config`` list),
@@ -9,7 +9,8 @@ conversion path reads:
     its HF config in the metadata,
   * an RMVPE ``.pt`` (the ``E2E`` state_dict, bare or under ``"model"``),
   * a torchcrepe state_dict (``conv1..conv6``, ``conv{i}_BN``,
-    ``classifier``), full or tiny.
+    ``classifier``), full or tiny,
+  * a UVR5 VR ``.pth`` (the separation route's ``CascadedASPPNet``).
 
 Each returns ``{name: float32 numpy array}`` under the names the port's
 modules use, which ``pipelines.convert.VoiceConverter.from_state_dicts``
@@ -201,3 +202,20 @@ def load_crepe(path: str) -> dict[str, np.ndarray]:
     as they are, ``num_batches_tracked`` left out."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     return {k: _np32(v) for k, v in sd.items() if not k.endswith("num_batches_tracked")}
+
+
+# ---------------------------------------------------------------------------
+# UVR5 VR networks
+# ---------------------------------------------------------------------------
+
+_VR_SKIP = re.compile(r"num_batches_tracked$|^aux\d?_out\.")
+
+
+def load_vr_pth(path: str) -> dict[str, np.ndarray]:
+    """A UVR5 VR ``.pth`` (the state_dict of the reference's
+    ``CascadedASPPNet``), its names as they are; the training-only auxiliary
+    outputs (``aux1_out``, ``aux2_out``) and ``num_batches_tracked`` left
+    out, as the JAX package's loader leaves them. ``load_state_dict`` on the
+    port's ``models.vr_network.CascadedASPPNet`` checks the names."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: _np32(v) for k, v in sd.items() if not _VR_SKIP.search(k)}

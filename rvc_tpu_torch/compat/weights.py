@@ -6,7 +6,9 @@ a tree as nested dicts of numpy arrays (``jax.tree.map(np.asarray, p)``),
 these functions fold weight norm into plain weights (the reference's
 ``remove_weight_norm``) and rename the keys to the reference's torch names:
 the RVC synthesizer, HuBERT/ContentVec (HF ``HubertModel`` names),
-RMVPE (``E2E`` names) and CREPE (torchcrepe's names). For inference a ``weight_g``/``weight_v`` pair
+RMVPE (``E2E`` names), CREPE (torchcrepe's names), the UVR5 VR nets (the
+reference's names, each conv kernel's spatial axes swapped back) and the
+MDX-Net Conv-TDF nets. For inference a ``weight_g``/``weight_v`` pair
 becomes one ``weight``; for training (``fold=False``) the pair is kept under
 the names of the reference's ``G_*.pth`` / ``D_*.pth`` checkpoints, which
 the port's layers take after ``models.layers.live_weight_norm_``.
@@ -136,3 +138,46 @@ def crepe_state_dict(params: Mapping) -> dict[str, np.ndarray]:
     """CREPE: the JAX tree's paths are torchcrepe's names (``conv1``,
     ``conv1_BN``, ``classifier``)."""
     return _state_dict(params, ".".join, fold=False)
+
+
+# UVR5 VR nets: the JAX package's module paths -> the reference's names
+# (the inverse of rvc_tpu/compat/torch_import.py's _VR_RENAMES)
+_VR_KEYS = [
+    (r"\.conv_(\d+)_weight$", r".conv.\1.weight"),  # a separable/dilated conv's flat leaf
+    (r"\.conv_(\d+)\.", r".conv.\1."),
+    (r"\.conv1_1\.", r".conv1.1."),
+    (r"\.bottleneck_0\.", r".bottleneck.0."),
+    (r"^stg(\d)_low_band_net_(\d)\.", r"stg\1_low_band_net.\2."),
+    (r"\.lstm_dec2\.dense_(\d)\.", r".lstm_dec2.dense.\1."),
+]
+
+
+def vr_state_dict(params: Mapping) -> dict[str, np.ndarray]:
+    """A JAX ``CascadedASPPNet`` or ``CascadedNet`` tree -> the reference's
+    state_dict names, each 4-D kernel's spatial axes swapped back to
+    (bins, frames) (the JAX nets run time-major). In the "new" family
+    (a tree with ``lstm_dec2``) a decoder's conv is the reference's
+    ``conv1``."""
+    rename = _regex_rename(_VR_KEYS)
+    sd = {}
+    for path, arr in flatten_tree(params.get("params", params)).items():
+        arr = np.asarray(arr, np.float32)
+        sd[rename(path)] = np.ascontiguousarray(arr.swapaxes(2, 3) if arr.ndim == 4 else arr)
+    if any(".lstm_dec2." in k for k in sd):
+        sd = {re.sub(r"\.dec(\d)\.conv\.conv\.", r".dec\1.conv1.conv.", k): v
+              for k, v in sd.items()}
+    return sd
+
+
+def _dotted(path: tuple[str, ...]) -> str:
+    """``blocks_0_tfc1_0`` -> ``blocks.0.tfc1.0``: an underscore next to a
+    digit is a ModuleList / Sequential index."""
+    return ".".join(re.sub(r"(?<=\d)_", ".", re.sub(r"_(?=\d)", ".", p)) for p in path)
+
+
+def convtdf_state_dict(params: Mapping) -> dict[str, np.ndarray]:
+    """A JAX ``ConvTDFNetTrim`` or ``TFCTDFNet`` tree -> the port's names.
+    The mixer's (8, 10) weight needs no bridge: ``models.mdx_net.apply_mixer``
+    takes it as the JAX package's does."""
+    return {_dotted(path): np.ascontiguousarray(arr, np.float32)
+            for path, arr in flatten_tree(params.get("params", params)).items()}

@@ -22,3 +22,12 @@ def set_float32_math() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def mark(events: list | None, name: str) -> None:
+    """Append (name, a CUDA event after the work queued so far) to
+    ``events`` when it is a list: a stage's end, for timing on the card."""
+    if events is not None:
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append((name, e))

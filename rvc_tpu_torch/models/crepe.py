@@ -26,8 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.stft import frame_signal
-from .layers import Conv2d, Linear, sigmoid
-from .rmvpe import BatchNorm
+from .layers import BatchNorm, Conv2d, Linear, sigmoid
 
 PITCH_BINS = 360
 WINDOW = 1024

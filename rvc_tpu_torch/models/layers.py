@@ -1,4 +1,5 @@
-"""Primitive layers of the synthesizer, in PyTorch's (B, C, T) layout.
+"""Primitive layers of the port's networks, in PyTorch's layouts ((B, C, T),
+(B, C, H, W)).
 
 Counterparts of ``rvc_tpu/models/layers.py``. The JAX package keeps
 activations channels-last; here activations are (B, C, T) as in the
@@ -179,13 +180,15 @@ class ConvTranspose1d(_WeightNorm, nn.ConvTranspose1d):
 
 
 class Conv2d(_WeightNorm, nn.Conv2d):
-    """``nn.Conv2d`` (the discriminator's and RMVPE's); weight (O, I, kh, kw)."""
+    """``nn.Conv2d`` (the discriminator's, RMVPE's and the separation nets');
+    weight (O, I / groups, kh, kw)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: tuple[int, int],
                  stride: tuple[int, int] = (1, 1), padding: tuple[int, int] = (0, 0),
-                 bias: bool = True, weight_norm: bool = False):
+                 bias: bool = True, weight_norm: bool = False,
+                 dilation: tuple[int, int] = (1, 1), groups: int = 1):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
-                         padding=padding, bias=bias)
+                         padding=padding, dilation=dilation, groups=groups, bias=bias)
         self.weight_norm = weight_norm
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -196,7 +199,8 @@ class Conv2d(_WeightNorm, nn.Conv2d):
 
 
 class ConvTranspose2d(_Cast, nn.ConvTranspose2d):
-    """``nn.ConvTranspose2d`` (RMVPE's decoder); weight (I, O, kh, kw)."""
+    """``nn.ConvTranspose2d`` (RMVPE's decoder, MDX-Net's up path); weight
+    (I, O, kh, kw)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.dtype == torch.float32:
@@ -205,6 +209,27 @@ class ConvTranspose2d(_Cast, nn.ConvTranspose2d):
         return self._affine(F.conv_transpose2d(
             x.to(dt), self.weight.to(dt), None, self.stride, self.padding,
             self.output_padding, self.groups, self.dilation))
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm over dim 1 with loaded running statistics (eps
+    1e-5), any rank: ``x * scale + shift`` with ``scale = w / sqrt(var +
+    eps)``, as the JAX package's ``BatchNorm`` folds it."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = torch.rsqrt(self.running_var + self.eps)
+        scale = (self.weight * inv).to(x.dtype)
+        shift = (self.bias - self.running_mean * self.weight * inv).to(x.dtype)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        return x * scale.view(shape) + shift.view(shape)
 
 
 class Linear(_Cast, nn.Linear):

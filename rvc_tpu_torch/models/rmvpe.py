@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.mel import log_mel
-from .layers import Conv2d, ConvTranspose2d, Linear, set_dtype_, sigmoid
+from .layers import BatchNorm, Conv2d, ConvTranspose2d, Linear, set_dtype_, sigmoid
 
 N_MELS = 128
 N_CLASS = 360
@@ -28,25 +28,6 @@ HOP = 160
 def mel_frontend(audio: torch.Tensor) -> torch.Tensor:
     """(B, T) 16 kHz -> (B, frames, 128) log-mel (HTK, 30-8000 Hz)."""
     return log_mel(audio, SR, WIN, HOP, N_MELS, 30.0, 8000.0)
-
-
-class BatchNorm(nn.Module):
-    """Inference BatchNorm over dim 1 with loaded running statistics."""
-
-    def __init__(self, channels: int, eps: float = 1e-5):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var + self.eps)
-        scale = (self.weight * inv).to(x.dtype)
-        shift = (self.bias - self.running_mean * self.weight * inv).to(x.dtype)
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        return x * scale.view(shape) + shift.view(shape)
 
 
 class ConvBlockRes(nn.Module):

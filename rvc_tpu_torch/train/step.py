@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from ..config import RVCConfig
-from ..device import resolve_device, set_float32_math
+from ..device import mark as _mark, resolve_device, set_float32_math
 from ..models.discriminator import MultiPeriodDiscriminator
 from ..models.layers import (init_random_, live_weight_norm_, load_numpy_state_dict,
                              set_dtype_, slice_segments)
@@ -159,14 +159,6 @@ def _grads(total: torch.Tensor, params: list) -> list:
 
 def _global_norm(grads: list) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g * g) for g in grads))
-
-
-def _mark(events: list | None, name: str) -> None:
-    """A CUDA event after the work queued so far, named for the stage it ends."""
-    if events is not None:
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        events.append((name, e))
 
 
 class Trainer:

@@ -170,3 +170,74 @@ def test_cli_convert_with_a_method_that_needs_no_weights(files, tmp_path, method
     for missing in ("rmvpe", "crepe", "mangio-crepe-tiny"):
         with pytest.raises(KeyError):
             vc.convert(audio, sr, tconv.ConvertSettings(f0_method=missing))
+
+
+SEPARATE_PATCH = """
+import functools, json, sys, torch
+from rvc_tpu_torch.ops import bands
+from rvc_tpu_torch.pipelines import separate
+torch.set_num_threads(1)
+narrow = json.loads(sys.argv.pop(1))
+narrow["band"] = {int(k): v for k, v in narrow["band"].items()}
+bands.FOURBAND_V2_PARAM = narrow
+separate.VRSeparator = functools.partial(separate.VRSeparator, window_size=%d)
+separate.MDXSeparator = functools.partial(separate.MDXSeparator, **%r)
+separate.ConvTDFNetTrim = functools.partial(separate.ConvTDFNetTrim, **%r)
+"""
+
+
+def test_cli_separate_equals_load_separator(tmp_path, monkeypatch):
+    """``python -m rvc_tpu_torch.cli.main separate`` in its own process on
+    both routes (a VR ``.pth``, an anonymous MDX ``.onnx``), on 1 s of stereo
+    44.1 kHz, with the 4-band layout narrowed to the separator test's layout
+    and the MDX net to its tiny config (a full-width window costs hundreds
+    of GFLOP; full width runs in chip_smoke's phase 22): it imports neither
+    jax nor rvc_tpu, and its wavs equal those of load_separator's
+    run_inference on the same downmix, saved the same way."""
+    import functools
+    import json
+
+    from rvc_tpu_torch.ops import bands
+    from rvc_tpu_torch.pipelines import separate
+    from test_torch_separation import NARROW, NARROW_WINDOW, TINY_MDX, TINY_SPEC
+
+    net_kw = {k: v for k, v in TINY_MDX.items() if k != "dim_f"}
+    monkeypatch.setattr(bands, "FOURBAND_V2_PARAM", NARROW)
+    monkeypatch.setattr(separate, "VRSeparator",
+                        functools.partial(separate.VRSeparator, window_size=NARROW_WINDOW))
+    monkeypatch.setattr(separate, "MDXSeparator",
+                        functools.partial(separate.MDXSeparator, **TINY_SPEC))
+    monkeypatch.setattr(separate, "ConvTDFNetTrim",
+                        functools.partial(separate.ConvTDFNetTrim, **net_kw))
+    models = {"vr": str(tmp_path / "HP5-vocals.pth"), "mdx": str(tmp_path / "UVR-MDX-NET-t.onnx")}
+    chip_smoke.write_vr_pth(models["vr"], NARROW["bins"] * 2, seed=31)
+    chip_smoke.write_mdx_onnx(models["mdx"], separate.ConvTDFNetTrim(dim_f=256), seed=32)
+    song = np.stack([speech(1.0, 3.0), speech(1.0, 3.01)])
+    song = signal.resample_poly(song, 441, 160, axis=1)
+    wav = str(tmp_path / "song.wav")
+    wavfile.write(wav, 44100, (song.T * 30000).astype(np.int16))
+
+    code = (SEPARATE_PATCH % (NARROW_WINDOW, TINY_SPEC, net_kw)
+            + "from rvc_tpu_torch.cli.main import main\n"
+            + "main(['separate', *sys.argv[1:4], '--device', 'cpu'])\n"
+            + "main(['separate', sys.argv[1], sys.argv[4], '--model', sys.argv[5], "
+              "'--device', 'cpu'])\n"
+            + "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'rvc_tpu')]\n"
+            + "assert not bad, bad\n")
+    outs = {k: str(tmp_path / f"stems_{k}") for k in models}
+    res = subprocess.run([sys.executable, "-c", code, json.dumps(NARROW), wav, outs["vr"],
+                          "--model=" + models["vr"], outs["mdx"], models["mdx"]],
+                         cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    audio, sr = load_input_audio(wav)
+    assert audio.ndim == 1 and sr == 44100
+    for kind, model in models.items():
+        assert separate.route_separator(model) == kind
+        out = separate.load_separator(kind, model, 10.0, device="cpu").run_inference(audio, sr)
+        for stem in ("vocals", "instrumentals"):
+            ref = str(tmp_path / f"{kind}_{stem}.wav")
+            save_input_audio(ref, out[stem])
+            got_sr, got = wavfile.read(os.path.join(outs[kind], f"{stem}.wav"))
+            want_sr, want = wavfile.read(ref)
+            assert got_sr == want_sr == out["sr"] and np.abs(out[stem][0]).max() > 1000
+            np.testing.assert_array_equal(got, want)

@@ -1116,3 +1116,80 @@ def test_wn_groups_match_plain(rng, cuda, C, T, L, lengths, group_size):
             _scaled_close(a, b, 1e-4)
         if final:
             xg = outs[1]
+
+
+# ---- separation (no kernel of the repository: cuFFT, cuDNN and cuBLAS) ----
+
+SEP_LAYOUT = {  # tests/test_torch_separation.py's narrowed 2-band layout
+    "bins": 64, "unstable_bins": 4, "reduction_bins": 60, "sr": 8000,
+    "pre_filter_start": 60, "pre_filter_stop": 64,
+    "band": {
+        1: {"sr": 2000, "hl": 32, "n_fft": 64, "crop_start": 0, "crop_stop": 20,
+            "lpf_start": 10, "lpf_stop": 20, "res_type": "polyphase"},
+        2: {"sr": 8000, "hl": 128, "n_fft": 128, "crop_start": 4, "crop_stop": 48,
+            "hpf_start": 10, "hpf_stop": 4, "res_type": "polyphase"},
+    },
+}
+
+
+def _song(rng, seconds, sr):
+    t = np.arange(int(seconds * sr)) / sr
+    return np.stack([0.3 * np.sin(2 * np.pi * f * t) + 0.1 * rng.standard_normal(t.size)
+                     for f in (220.0, 330.0)]).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_fft,hop", [(320, 80), (960, 480), (6144, 1024)])
+def test_stft_on_the_card_matches_the_cpu(rng, cuda, n_fft, hop):
+    """stft (cuFFT) and istft on the card within 1e-5 of the CPU's."""
+    from rvc_tpu_torch.ops import stft
+
+    x = torch.from_numpy(0.3 * rng.standard_normal((2, 50000)).astype(np.float32))
+    ref = stft.stft(x, n_fft, hop)
+    got = stft.stft(x.to(cuda), n_fft, hop)
+    for a, b in zip(got, ref):
+        _scaled_close(a.cpu(), b, 1e-5)
+    back = stft.istft(*got, n_fft, hop).cpu()
+    _scaled_close(back, stft.istft(*ref, n_fft, hop), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tta", [False, True])
+def test_vr_separator_on_the_card_matches_the_cpu(rng, cuda, tta):
+    """The narrowed VR route, 3 s at 8 kHz: int16 stems within 4 LSB."""
+    import copy
+
+    from rvc_tpu_torch.models.vr_network import CascadedASPPNet
+    from rvc_tpu_torch.ops.bands import ModelParameters
+    from rvc_tpu_torch.pipelines.separate import VRSeparator
+
+    state = _chip_smoke().lively_state(CascadedASPPNet(128), seed=3)
+    audio = _song(rng, 3.0, 8000)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        mp = ModelParameters()
+        mp.param = {**copy.deepcopy(SEP_LAYOUT), "mid_side": False, "mid_side_b2": False,
+                    "reverse": False}
+        sep = VRSeparator(state, mp, window_size=384, tta=tta, device=dev)
+        outs.append(sep.run_inference(audio, 8000))
+    for stem in ("vocals", "instrumentals"):
+        a, b = (o[stem][0].astype(np.int32) for o in outs)
+        assert a.shape == b.shape and np.abs(a - b).max() <= 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("denoise", [False, True])
+def test_mdx_separator_on_the_card_matches_the_cpu(rng, cuda, denoise):
+    """The tiny MDX net, 3 s at 44.1 kHz in 1 s segments: stems within 4 LSB."""
+    from rvc_tpu_torch.models.mdx_net import ConvTDFNetTrim
+    from rvc_tpu_torch.pipelines.separate import MDXSeparator
+
+    cfg = dict(num_blocks=5, l=1, g=4, bn=2, dim_f=256, norm="GroupNorm2")
+    state = _chip_smoke().lively_state(ConvTDFNetTrim(**cfg), seed=4)
+    audio = _song(rng, 3.0, 44100)
+    outs = [MDXSeparator(state, dim_f=256, dim_t=32, n_fft=512, hop=128, chunks=1,
+                         margin=22050, denoise=denoise, net=ConvTDFNetTrim(**cfg),
+                         device=dev).run_inference(audio, 44100) for dev in ("cpu", "cuda")]
+    for stem in ("vocals", "instrumentals"):
+        a, b = (o[stem][0].astype(np.int32) for o in outs)
+        assert a.shape == b.shape and np.abs(a - b).max() <= 4

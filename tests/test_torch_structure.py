@@ -63,7 +63,7 @@ def test_import_leaves_jax_unloaded():
             "rvc_tpu_torch.retrieval.index, rvc_tpu_torch.compat.optimizer_import, "
             "rvc_tpu_torch.compat.torch_export, rvc_tpu_torch.compat.process_ckpt, "
             "rvc_tpu_torch.cli.main, rvc_tpu_torch.pitch.world, rvc_tpu_torch.models.crepe, "
-            "rvc_tpu_torch.native, chip_smoke; "
+            "rvc_tpu_torch.native, rvc_tpu_torch.pipelines.separate, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'rvc_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
@@ -109,6 +109,27 @@ def test_training_workflow_defaults_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         extract_features(str(tmp_path), None)
     assert TrainRunConfig("run", "list.txt").device is None  # Trainer(device=None): the card
+
+
+def test_separation_defaults_to_the_card(tmp_path):
+    """load_separator, both separators and the CLI's separate take the card
+    unless the CPU is asked for, and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from rvc_tpu_torch.cli.main import main
+    from rvc_tpu_torch.pipelines.separate import MDXSeparator, VRSeparator, load_separator
+
+    for make in (lambda: VRSeparator({}), lambda: MDXSeparator({}),
+                 lambda: load_separator("vr", str(tmp_path / "m.pth")),
+                 lambda: load_separator("mdx", str(tmp_path / "mdx.onnx"))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    wav = tmp_path / "in.wav"
+    from scipy.io import wavfile
+
+    wavfile.write(wav, 44100, np.zeros(4410, np.int16))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["separate", str(wav), str(tmp_path / "out"), "--model", str(tmp_path / "m.pth")])
 
 
 def test_wrappers_count_only_kernel_launches(rng):
