@@ -1,5 +1,5 @@
 """Smoke run of rvc_tpu_torch on one NVIDIA card: build, check, convert, train,
-separate.
+separate (VR, MDX-Net, Demucs).
 
     python3 chip_smoke.py
 
@@ -177,6 +177,19 @@ Phases, each announced on its own line:
      phase 5's 4 LSB;
      the CLI's separate on both routes within 4 LSB of load_separator on the
      same downmix; kernels 1-8 launched no time in the phase.
+ 23. separation with Demucs at full width (run_demucs): a seeded HTDemucs
+     (htdemucs's layout, 7.8 s training segment) and HDemucs (hdemucs_mmi's
+     layout, 10 s) written as demucs .th packages (float16, the class
+     pickled as demucs's own), a Conv-TasNet .th (a bare state dict, 8 s)
+     and a bag .yaml of four HTDemucs with htdemucs_ft's weights separate
+     phase 22's song (30 s; the bag 10 s) through load_separator: RTF (best
+     and median of 3 after a set-up call), each stage's CUDA-event ms
+     (chunking, STFT, network, iSTFT, overlap-add, int16; the host the
+     rest), the network's TFLOP/s, peak memory, the busy share; card vs CPU
+     on one segment a model within phase 5's 4 LSB, HTDemucs also with 2
+     shifts; the Wiener filter at HDemucs's spectrogram card vs CPU;
+     Conv-TasNet's depthwise convs shifted against cuDNN's grouped conv;
+     the CLI's separate on the HTDemucs file; kernels 1-8 launched no time.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that.
 A kernel's time beside its yardsticks (previous_ms, mma_sync_ms) is
@@ -195,6 +208,7 @@ import tempfile
 import time
 import types
 import wave
+from fractions import Fraction
 
 import numpy as np
 
@@ -1442,7 +1456,7 @@ def small_batch(batch: dict, frames: int = 48, hop: int = 480) -> dict:
     return small
 
 
-def check_train_vs_cpu(cfg, batch: dict, label: str = "[8/22]",
+def check_train_vs_cpu(cfg, batch: dict, label: str = "[8/23]",
                        multiscale: bool = False) -> tuple:
     """One training step on the card and on the CPU (plain versions) from the
     same weights, batch and draws, at batch 1 and 48 frames. Returns the
@@ -1937,7 +1951,7 @@ def run_train_bf16(cfg, batches: list, small: dict, cpu32, card: str, checks: di
     trainer = Trainer(cfg, dtype=bf16, device="cuda")
     trainer.init_state(seed=0)
     gen = torch.Generator().manual_seed(19)
-    say(f"[19/22] training in bf16: kernels 4-7 in their bf16 form at phase 7's shapes "
+    say(f"[19/23] training in bf16: kernels 4-7 in their bf16 form at phase 7's shapes "
         f"(trainer built in {time.perf_counter() - t0:.1f} s)")
     checks["chain_bf16"], checks["chain_bwd_bf16"] = check_chain_train_bf16(trainer, gen)
     checks["wn_bf16"], checks["wn_bwd_bf16"] = check_wn_train_bf16(
@@ -1945,7 +1959,7 @@ def run_train_bf16(cfg, batches: list, small: dict, cpu32, card: str, checks: di
     checks["wn_stack_bf16"] = check_wn_stack_bf16(
         trainer, batches[0]["spec_lengths"], np.shape(batches[0]["spec"])[1], gen)
     torch.cuda.empty_cache()
-    run = run_training(trainer, batches, card, "19/22")
+    run = run_training(trainer, batches, card, "19/23")
     say(f"  bf16 {run['rate']:.3f} steps/s against float32 {rate32:.3f} (phase 7, this run); "
         f"{card}")
     del trainer
@@ -2082,13 +2096,13 @@ def run_every_loss(cfg, batches: list, card: str, base: dict, checks: dict) -> N
     from rvc_tpu_torch.train.step import Trainer
 
     cfg = all_losses(cfg)
-    say(f"[20/22] every loss: 48k_v2 with c_gp = c_hd = c_tsi = c_tefs = 1 and the multi-scale "
+    say(f"[20/23] every loss: 48k_v2 with c_gp = c_hd = c_tsi = c_tefs = 1 and the multi-scale "
         f"mel loss, on phase 7's batches")
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         trainer = Trainer(cfg, dtype=dtype, device="cuda")
         trainer.use_multiscale()
-        run = run_training(trainer, batches[:1 + PHASE20_STEPS], card, "20/22",
+        run = run_training(trainer, batches[:1 + PHASE20_STEPS], card, "20/23",
                            "48k_v2 with every loss")
         penalty = float(run["state"].balancer_d.hist_losses[1])
         zero = [k for vals in run["losses"] for k in ("harmonic_loss", "tsi_loss", "tefs_loss")
@@ -2106,7 +2120,7 @@ def run_every_loss(cfg, batches: list, card: str, base: dict, checks: dict) -> N
         del trainer, run
         torch.cuda.empty_cache()
     checks["loss_costs"] = loss_costs(cfg, batches[0], card)
-    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/22] every loss:", True)
+    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/23] every loss:", True)
     # the aux and multi-scale losses are taken on the bf16 generated slice:
     # the CPU bf16 tests' factor 2 (check_train_bf16_vs_cpu)
     check_train_bf16_vs_cpu(cfg, small, cpu32, True, factor=2.0)
@@ -2138,7 +2152,7 @@ def run_nof0(tmp: str, card: str, checks: dict) -> None:
                             seed=1234)
     batches = [b for e in range(1 + PHASE20_STEPS) for b in batcher.epoch(e)][
         :1 + PHASE20_STEPS]
-    say(f"[20/22] no f0: 40k v1 with use_f0 = False on {len(CLIP_SECONDS)} clips at "
+    say(f"[20/23] no f0: 40k v1 with use_f0 = False on {len(CLIP_SECONDS)} clips at "
         f"{cfg.data.sampling_rate} Hz, batches of {np.shape(batches[0]['spec'])[:2]} frames, "
         f"keys {sorted(batches[0])}")
     if "pitch" in batches[0] or "pitchf" in batches[0]:
@@ -2147,14 +2161,14 @@ def run_nof0(tmp: str, card: str, checks: dict) -> None:
         trainer = Trainer(cfg, dtype=dtype, device="cuda")
         if type(trainer.synth.dec).__name__ != "Generator":
             fail(f"the no-f0 decoder is {type(trainer.synth.dec).__name__}")
-        run = run_training(trainer, batches, card, "20/22", "40k no-f0")
+        run = run_training(trainer, batches, card, "20/23", "40k no-f0")
         checks[f"nof0_{str(dtype).split('.')[-1]}"] = dict(rate=run["rate"],
                                                            launches=run["launches"])
         if dtype == torch.float32:
             check_export(cfg, trainer, tmp, filelist)
         del trainer, run
         torch.cuda.empty_cache()
-    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/22] no f0:")
+    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/23] no f0:")
     check_train_bf16_vs_cpu(cfg, small, cpu32)
 
 
@@ -2247,7 +2261,7 @@ def run_unchecked_presets(settings, card: str) -> dict:
         vc = make_random_converter(name, seed=seed, chunking=CHUNKING, index_rows=BANK_ROWS,
                                    device="cuda")
         dec = vc.synth.dec
-        say(f"[21/22] {name} at full width (converter built in {time.perf_counter() - t0:.1f} "
+        say(f"[21/23] {name} at full width (converter built in {time.perf_counter() - t0:.1f} "
             f"s): upsampling {list(dec.upsample_rates)}, decoder stages of "
             f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
             f"channels, segment {preset(name).train.segment_size} samples")
@@ -2262,7 +2276,7 @@ def run_unchecked_presets(settings, card: str) -> dict:
                     settings)
         del vc, dec
         torch.cuda.empty_cache()
-        check_train_vs_cpu(preset(name), synthetic_batch(preset(name)), f"  [21/22] {name}:")
+        check_train_vs_cpu(preset(name), synthetic_batch(preset(name)), f"  [21/23] {name}:")
     return launched
 
 
@@ -2281,7 +2295,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
                                device="cuda", dtype=bf16)
     say(f"bf16 converter built in {time.perf_counter() - t0:.1f} s")
     shapes = path_shapes(vc, clips[30])
-    say(f"[9/22] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
+    say(f"[9/23] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz")
     gen = torch.Generator().manual_seed(3)
     with torch.no_grad():
@@ -2320,7 +2334,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[10/22] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
+        say(f"[10/23] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
             f"{sr} Hz, peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x (float32 "
             f"in this run {rtf32[sec]:.2f}x), max_memory_allocated "
@@ -2345,7 +2359,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out, sr, launched, wall = counted_convert(vc, audio, settings, counters)
     vc.synth.dec.fuse_group = True
     same = bool(np.array_equal(out, outs[30]))
-    say(f"[11/22] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
+    say(f"[11/23] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
         f"(RTF {30 / wall:.2f}x), launches { {k: v for k, v in launched.items() if v} }, "
         f"bit-identical to the default route: {same} (the default route against itself: "
         f"{bool(np.array_equal(again, outs[30]))})")
@@ -2381,7 +2395,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     a, b = out_gpu.astype(np.float64), out_cpu.astype(np.float64)
     l2 = float(np.linalg.norm(a - b) / np.linalg.norm(b)) if a.shape == b.shape else math.inf
-    say(f"[12/22] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
+    say(f"[12/23] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
         f"differs on {differ:.2%} of frames between them): {len(out_gpu)} vs {len(out_cpu)} "
         f"samples, relative L2 {l2:.4g} (tolerance {BF16_CPU_L2}: bf16 roundings flip "
         f"between the card's sums and the CPU's and the flips travel through the decoder; "
@@ -2481,7 +2495,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
                                          * 32000).astype(np.int16))
     sizes = {k: round(os.path.getsize(p) / 2**20, 1) for k, p in path.items()
              if os.path.exists(p)}
-    say(f"[13/22] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
+    say(f"[13/23] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
 
     # 13. the command line, in process, every count set to 0 just before
     counters = {**launch_counters(), "nearest_rows": (retrieval.nearest_rows, "launches")}
@@ -2546,7 +2560,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
         dec = vc.synth.dec
         label = f"{key} {version}" + ("" if f0 else " no-f0")
         phase = 14 if f0 else 15
-        say(f"[{phase}/22] {label} from files: decoder stages of "
+        say(f"[{phase}/23] {label} from files: decoder stages of "
             f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
             f"channels, HuBERT features D = {vc.hubert.cfg.classifier_proj_size}, "
             f"{type(dec).__name__}")
@@ -2612,7 +2626,7 @@ def run_batch(settings, card: str) -> dict:
                 "nearest_rows_q": 1}
     best, med = 80.0 / min(walls), 80.0 / float(np.median(walls))
     dev_s, down_s, disp_s = shares[int(np.argmin(walls))]
-    say(f"[16/22] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
+    say(f"[16/23] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
         f"{stats['chunk_samples']} samples, wall ms {[round(w * 1e3, 2) for w in walls]}, "
         f"aggregate RTF best {best:.2f}x, median {med:.2f}x; stats of the best: device_s "
         f"{dev_s:.4f} ({dev_s / min(walls):.1%} of the wall), download_s {down_s:.4f} "
@@ -2778,7 +2792,7 @@ def run_train_from_dataset(tmp: str, settings, card: str, checks: dict) -> dict:
     hub_state = write_hubert_safetensors(path["hubert"], HubertConfig(), seed=21)
     rmvpe_state = write_rmvpe_pt(path["rmvpe"], seed=22)
     odd_g, odd_d = write_pretrained(path["G"], path["D"], cfg, seed=23)
-    say(f"[17/22] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
+    say(f"[17/23] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
         f"pretrained G and D ({odd_g} and {odd_d} of another shape) written in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -3052,7 +3066,7 @@ def check_host_library() -> dict:
     nrms = slicer.frame_rms_numpy(x, sl.win_size, sl.hop_size)
     rms_err = float(np.max(np.abs(rms - nrms) / np.maximum(nrms, 1e-9)))
     tags, ntags = sl._silence_tags(rms), sl._silence_tags_numpy(rms)
-    say(f"[18/22] host library {os.path.relpath(lib._name, REPO)} built and loaded in "
+    say(f"[18/23] host library {os.path.relpath(lib._name, REPO)} built and loaded in "
         f"{build_s:.2f} s: peak_quantize_i16 on 30 s equal to numpy's {np.array_equal(q, nq)} "
         f"(peak {peak} / {npeak}); frame_rms of {len(rms)} frames within {rms_err:.3g} "
         f"relative of numpy's float32 sums (tolerance {RMS_REL}); the slicer's {len(tags)} "
@@ -3271,31 +3285,51 @@ def write_mdx_onnx(path: str, net, seed: int) -> dict:
     return state
 
 
-def network_flops(make_net, shape) -> float:
-    """Multiply-adds x 2 of one forward of the net ``make_net()`` builds,
-    on an input of ``shape``, counted from each conv's, transposed conv's and
-    linear's shapes by forward hooks on the meta device (no arithmetic)."""
+def network_flops(make_net, shape, device: str = "meta") -> float:
+    """Multiply-adds x 2 of one forward of the net ``make_net()`` returns,
+    on an input of ``shape``, counted from the shapes each conv, transposed
+    conv, linear, LSTM and attention (``models.htdemucs``'s
+    ``MultiheadAttention`` and ``LocalState`` products) sees, by forward
+    hooks. On the meta device no arithmetic runs; ``device`` "cuda" runs
+    one forward of the net, which may be one that exists already (meta
+    unrolls an LSTM step by step on the host)."""
     import torch
     from torch import nn
+
+    from rvc_tpu_torch.models.htdemucs import LocalState, MultiheadAttention
 
     total = [0.0]
 
     def hook(m, inp, out):
-        k = math.prod(m.kernel_size) if hasattr(m, "kernel_size") else 1
-        if isinstance(m, nn.ConvTranspose2d):
-            total[0] += 2.0 * inp[0].numel() * m.out_channels // m.groups * k
-        elif isinstance(m, nn.Conv2d):
-            total[0] += 2.0 * out.numel() * m.in_channels // m.groups * k
-        else:
+        x = inp[0]
+        if isinstance(m, nn.modules.conv._ConvTransposeNd):
+            total[0] += 2.0 * x.numel() * m.out_channels // m.groups * math.prod(m.kernel_size)
+        elif isinstance(m, nn.modules.conv._ConvNd):
+            total[0] += 2.0 * out.numel() * m.in_channels // m.groups * math.prod(m.kernel_size)
+        elif isinstance(m, nn.Linear):
             total[0] += 2.0 * out.numel() * m.in_features
+        elif isinstance(m, nn.LSTM):  # (T, B, I) in, per direction 4H x (I + H) a step
+            steps, H = x.shape[0] * x.shape[1], m.hidden_size
+            for layer in range(m.num_layers):
+                i = m.input_size if layer == 0 else 2 * H
+                total[0] += 2.0 * 2 * steps * 4 * H * (i + H)
+        elif isinstance(m, MultiheadAttention):  # in-projections, q k^T, p v
+            (B, Tq, C), Tk = x.shape, inp[1].shape[1]
+            total[0] += 2.0 * B * C * C * (Tq + 2 * Tk) + 4.0 * B * Tq * Tk * C
+        elif isinstance(m, LocalState):  # k^T q and w content over (B, C, T)
+            B, C, T = x.shape
+            total[0] += 4.0 * B * T * T * C
 
-    with torch.device("meta"):
+    kinds = (nn.modules.conv._ConvNd, nn.Linear, nn.LSTM, MultiheadAttention, LocalState)
+    with torch.device(device):
         net = make_net()
-        for m in net.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
-                m.register_forward_hook(hook)
-        with torch.no_grad():
-            net(torch.empty(shape))
+        handles = [m.register_forward_hook(hook) for m in net.modules() if isinstance(m, kinds)]
+        try:
+            with torch.no_grad():
+                net(torch.empty(shape))
+        finally:
+            for h in handles:
+                h.remove()
     return total[0]
 
 
@@ -3360,9 +3394,10 @@ SEP_TOL = 4  # LSB, card vs CPU: phase 5's bar
 
 
 def stem_lsb(a: dict, b: dict) -> dict:
-    """max |a - b| in LSB of each int16 stem; fails on another shape."""
+    """max |a - b| in LSB of each int16 stem of ``a`` (a separator's output);
+    fails on another shape."""
     out = {}
-    for stem in ("vocals", "instrumentals"):
+    for stem in (k for k in a if k not in ("sr", "input_audio")):
         x, y = a[stem][0], b[stem][0]
         if x.shape != y.shape or x.dtype != np.int16 or y.dtype != np.int16:
             fail(f"{stem}: {x.dtype} {x.shape} against {y.dtype} {y.shape}")
@@ -3382,13 +3417,54 @@ def check_stems(out: dict, n_in: int, hop: int, label: str) -> None:
         fail(f"{label}: a silent stem, or two equal stems")
 
 
+def write_song_wav(path: str, song: np.ndarray) -> None:
+    """(2, T) float at 44.1 kHz -> a stereo int16 wav."""
+    with wave.open(path, "wb") as f:
+        f.setnchannels(2)
+        f.setsampwidth(2)
+        f.setframerate(44100)
+        f.writeframes((song.T * 32767).astype(np.int16).tobytes())
+
+
+def check_cli_separate(tmp: str, wav: str, path: str, sep, label: str, channels: int) -> None:
+    """The CLI's ``separate`` on ``wav`` with the model at ``path``: its
+    vocals.wav and instrumentals.wav against ``sep``'s stems (the separator
+    load_separator builds) on the file's downmix, both written by
+    save_input_audio (peak-scaled), the difference in LSB of ``sep``'s
+    int16 stem; ``channels`` a wav."""
+    from scipy.io import wavfile
+
+    from rvc_tpu_torch.cli import main as cli
+    from rvc_tpu_torch.io.audio import load_input_audio, save_input_audio
+
+    outdir = os.path.join(tmp, f"stems_{label}")
+    t1 = time.perf_counter()
+    cli.main(["separate", wav, outdir, "--model", path])
+    took = time.perf_counter() - t1
+    ref = sep.run_inference(*load_input_audio(wav))
+    lsb = {}
+    for stem in ("vocals", "instrumentals"):
+        want = os.path.join(tmp, f"{label}_{stem}_ref.wav")
+        save_input_audio(want, ref[stem])
+        rate, got = wavfile.read(os.path.join(outdir, f"{stem}.wav"))
+        _, exp = wavfile.read(want)
+        if rate != 44100 or got.shape != exp.shape or (got.shape + (1,))[1] != channels:
+            fail(f"CLI {label} {stem}.wav: {got.shape} at {rate} Hz, expected {exp.shape}")
+        scale = np.abs(ref[stem][0]).max() / max(np.abs(exp).max(), 1e-9)
+        lsb[stem] = float(np.abs(got.astype(np.float64) - exp).max() * scale)
+    say(f"  CLI separate --model {os.path.basename(path)}: {took:.1f} s; its wavs against "
+        f"load_separator's on the same downmix: max |diff| "
+        + ", ".join(f"{k} {v:.2f}" for k, v in lsb.items()) + f" LSB (tolerance {SEP_TOL})")
+    if max(lsb.values()) > SEP_TOL:
+        fail(f"CLI {label}: its stems disagree with load_separator's")
+
+
 def run_separation(tmp: str, card: str) -> None:
     """Phase 22: separation at full width through load_separator and the
     CLI, on both routes: RTF, stages, peak memory and busy share; card vs
     CPU on one window a route; kernels 1-8 launched no time."""
     import torch
 
-    from rvc_tpu_torch.cli import main as cli
     from rvc_tpu_torch.models.mdx_net import ConvTDFNetTrim
     from rvc_tpu_torch.models.vr_network import CascadedASPPNet
     from rvc_tpu_torch.ops.bands import FOURBAND_V2_PARAM
@@ -3406,7 +3482,7 @@ def run_separation(tmp: str, card: str) -> None:
     song = song_stereo(SEP_SECONDS)
     flops = {"VR": network_flops(lambda: CascadedASPPNet(n_fft_vr), (1, 2, 673, 512)),
              "MDX": network_flops(ConvTDFNetTrim, (1, 4, 256, 3072))}
-    say(f"[22/22] separation at full width: VR CascadedASPPNet({n_fft_vr}) from a .pth "
+    say(f"[22/23] separation at full width: VR CascadedASPPNet({n_fft_vr}) from a .pth "
         f"(4band_v2, {FOURBAND_V2_PARAM['bins'] + 1} bins, window 512, offset 128, agg 10, mirroring), "
         f"{flops['VR'] / 1e9:.1f} GFLOP a window; MDX ConvTDFNetTrim(11 blocks, l 3, g 32, "
         f"bn 8, dim_f 3072, GroupNorm2) from an anonymous .onnx (dim_t 256, n_fft 6144, hop "
@@ -3488,45 +3564,263 @@ def run_separation(tmp: str, card: str) -> None:
     del cpus
 
     # the command line, on the song's file: its downmix, as the JAX CLI's
-    from scipy.io import wavfile
-
-    from rvc_tpu_torch.io.audio import load_input_audio, save_input_audio
-
     wav = os.path.join(tmp, "song.wav")
-    with wave.open(wav, "wb") as f:
-        f.setnchannels(2)
-        f.setsampwidth(2)
-        f.setframerate(44100)
-        f.writeframes((song.T * 32767).astype(np.int16).tobytes())
-    audio, sr = load_input_audio(wav)
+    write_song_wav(wav, song)
     for kind in ("VR", "MDX"):
-        outdir = os.path.join(tmp, f"stems_{kind}")
-        t1 = time.perf_counter()
-        cli.main(["separate", wav, outdir, "--model", paths[kind]])
-        took = time.perf_counter() - t1
-        ref = seps[kind].run_inference(audio, sr)  # load_separator's, as the CLI builds it
-        lsb = {}
-        for stem in ("vocals", "instrumentals"):
-            # both through save_input_audio (peak-scaled float32 wavs), the
-            # difference in LSB of the reference's int16 stem
-            want = os.path.join(tmp, f"{kind}_{stem}_ref.wav")
-            save_input_audio(want, ref[stem])
-            rate, got = wavfile.read(os.path.join(outdir, f"{stem}.wav"))
-            _, exp = wavfile.read(want)
-            if rate != 44100 or got.shape != exp.shape or got.ndim != 1:
-                fail(f"CLI {kind} {stem}.wav: {got.shape} at {rate} Hz, expected {exp.shape}")
-            scale = np.abs(ref[stem][0]).max() / max(np.abs(exp).max(), 1e-9)
-            lsb[stem] = float(np.abs(got - exp).max() * scale)
-        say(f"  CLI separate --model {os.path.basename(paths[kind])}: {took:.1f} s; its wavs "
-            f"against load_separator's on the same downmix: max |diff| "
-            + ", ".join(f"{k} {v:.2f}" for k, v in lsb.items()) + f" LSB (tolerance {SEP_TOL})")
-        if max(lsb.values()) > SEP_TOL:
-            fail(f"CLI {kind}: its stems disagree with load_separator's")
+        check_cli_separate(tmp, wav, paths[kind], seps[kind], kind, channels=1)
 
     launched = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
     say(f"  kernel launches in phase 22: {launched}")
     if any(launched.values()):
         fail("separation launched a kernel of the conversion or training path")
+
+
+# ---- phase 23: separation with Demucs (HTDemucs, HDemucs, Conv-TasNet, a bag) ----
+
+DEMUCS_SOURCES = ["drums", "bass", "other", "vocals"]
+
+
+def write_demucs_th(path: str, klass: str, kwargs: dict, state: dict, half: bool = True) -> None:
+    """A demucs v3/v4 package as ``demucs.states.serialize_model`` saves
+    one: {klass, args, kwargs, state (float16 with ``half``),
+    training_args}, the class pickled by reference to a stub of the name
+    ``klass`` gives (e.g. "demucs.htdemucs.HTDemucs"). Modules that are not
+    registered yet are registered only while saving, so the loader's own
+    unpickling path finds none of them."""
+    import torch
+
+    module, name = klass.rsplit(".", 1)
+    parts = module.split(".")
+    added = []
+    try:
+        for i in range(len(parts)):
+            m = ".".join(parts[: i + 1])
+            if m not in sys.modules:
+                sys.modules[m] = types.ModuleType(m)
+                added.append(m)
+        mod = sys.modules[module]
+        cls = getattr(mod, name, None)
+        if cls is None:
+            cls = type(name, (), {"__module__": module, "__qualname__": name})
+            setattr(mod, name, cls)
+        dt = torch.float16 if half else torch.float32
+        torch.save({"klass": cls, "args": [], "kwargs": dict(kwargs),
+                    "state": {k: torch.from_numpy(np.asarray(v)).to(dt) for k, v in state.items()},
+                    "training_args": {}}, path)
+    finally:
+        for m in reversed(added):
+            del sys.modules[m]
+
+
+def write_demucs_model(path: str, klass: str, kwargs: dict, seed: int) -> dict:
+    """A seeded ``HTDemucs``/``HDemucs`` (``klass``'s last name) written by
+    ``write_demucs_th`` in float16, ``lively_state`` weights. Returns the
+    state as the file holds it, in float32."""
+    from rvc_tpu_torch.compat.torch_import import htdemucs_kwargs_from_meta
+    from rvc_tpu_torch.models import htdemucs
+
+    name = klass.rsplit(".", 1)[1]
+    net = getattr(htdemucs, name)(**htdemucs_kwargs_from_meta({"klass": name,
+                                                                "kwargs": kwargs}))
+    state = {k: v.astype(np.float16).astype(np.float32)
+             for k, v in lively_state(net, seed).items()}
+    write_demucs_th(path, klass, kwargs, state)
+    return state
+
+
+def write_tasnet_th(path: str, cfg: dict, seed: int) -> dict:
+    """A seeded Conv-TasNet ``.th`` as demucs v2 released them: the bare
+    state_dict, ``lively_state`` weights (``cfg``: the ConvTasNet keywords)."""
+    import torch
+
+    from rvc_tpu_torch.models.tasnet import ConvTasNet
+
+    state = lively_state(ConvTasNet(**cfg), seed)
+    torch.save({k: torch.from_numpy(v) for k, v in state.items()}, path)
+    return state
+
+
+def write_demucs_bag(folder: str, name: str, kwargs: dict, seed: int, weights: list) -> str:
+    """A bag of ``len(weights)`` seeded HTDemucs: ``<name>.yaml`` in demucs's
+    form (``models`` a flow list of signatures, ``weights`` a flow list of
+    rows over several lines with trailing commas, as demucs's
+    ``htdemucs_ft.yaml``) beside ``<signature>-<hash>.th`` members."""
+    sigs = [f"{0xf7e0c4bc + seed + i:08x}" for i in range(len(weights))]
+    for i, sig in enumerate(sigs):
+        write_demucs_model(os.path.join(folder, f"{sig}-{i:08x}.th"), "demucs.htdemucs.HTDemucs",
+                           kwargs, seed + i)
+    rows = "".join(f"    [{', '.join(f'{w:.1f}'[:-1] if w == int(w) else str(w) for w in row)}],\n"
+                   for row in weights)
+    path = os.path.join(folder, f"{name}.yaml")
+    with open(path, "w") as f:
+        f.write(f"models: [{', '.join(repr(s) for s in sigs)}]\nweights: [\n{rows}]\n")
+    return path
+
+
+# the released htdemucs packages' kwargs where they differ from HTDemucs's
+# defaults, and options the loader must drop or refuse (all off)
+HTDEMUCS_KW = dict(sources=DEMUCS_SOURCES, audio_channels=2, samplerate=44100,
+                   segment=Fraction(39, 5), use_train_segment=True, t_sparse_self_attn=False,
+                   t_sparse_cross_attn=False, t_cape_augment=[0.0, 500.0], rescale=0.1)
+HDEMUCS_KW = dict(sources=DEMUCS_SOURCES, audio_channels=2, samplerate=44100, segment=10)
+FT_WEIGHTS = [[1.0, 0.0, 0.0, 0.0], [0.0, 1.0, 0.0, 0.0], [0.0, 0.0, 1.0, 0.0],
+              [0.0, 0.0, 0.0, 1.0]]  # htdemucs_ft.yaml's rows
+WIENER_TOL = 1e-4  # of the largest magnitude, card vs CPU: complex64 EM at full size
+
+
+def check_demucs_stems(out: dict, n_in: int, label: str) -> None:
+    """Every source and the instrumentals: stereo int16 of the input's
+    length at 44.1 kHz, not silent; vocals and instrumentals differ."""
+    stems = [k for k in out if k not in ("sr", "input_audio")]
+    if stems != DEMUCS_SOURCES + ["instrumentals"] or out["sr"] != 44100:
+        fail(f"{label}: stems {stems} at {out['sr']} Hz")
+    for k in stems:
+        a = out[k][0]
+        if a.dtype != np.int16 or a.shape != (2, n_in) or np.abs(a).max() == 0:
+            fail(f"{label}: {k} is {a.dtype} {a.shape}, peak {np.abs(a).max()}")
+    if np.array_equal(out["vocals"][0], out["instrumentals"][0]):
+        fail(f"{label}: vocals equal instrumentals")
+
+
+def demucs_models(sep) -> list:
+    return [s.model for s in sep.sub] if sep.sub else [sep.model]
+
+
+def run_demucs(tmp: str, card: str) -> None:
+    """Phase 23: Demucs separation at full width through load_separator and
+    the CLI: an HTDemucs and an HDemucs package, a Conv-TasNet and a bag of
+    four HTDemucs; RTF, stages, peak memory, busy share and TFLOP/s; card vs
+    CPU on one segment a model (HTDemucs also with 2 shifts); the Wiener
+    filter and Conv-TasNet's two depthwise forms on the card; kernels 1-8
+    launched no time."""
+    import torch
+
+    from rvc_tpu_torch.models.tasnet import depthwise, depthwise_conv1d
+    from rvc_tpu_torch.ops.wiener import wiener
+    from rvc_tpu_torch.pipelines.separate import DemucsSeparator, load_separator, route_separator
+
+    counters = training_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    paths = {"HTDemucs": os.path.join(tmp, "htdemucs.th"),
+             "HDemucs": os.path.join(tmp, "hdemucs_mmi.th"),
+             "Conv-TasNet": os.path.join(tmp, "tasnet.th")}
+    write_demucs_model(paths["HTDemucs"], "demucs.htdemucs.HTDemucs", HTDEMUCS_KW, seed=31)
+    write_demucs_model(paths["HDemucs"], "demucs.hdemucs.HDemucs", HDEMUCS_KW, seed=32)
+    write_tasnet_th(paths["Conv-TasNet"], {}, seed=33)
+    paths["bag"] = write_demucs_bag(tmp, "htdemucs_ft", HTDEMUCS_KW, 34, FT_WEIGHTS)
+    song = song_stereo(SEP_SECONDS)
+    written = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    seps = {label: load_separator(route_separator(path), path)  # the card
+            for label, path in paths.items()}
+    say(f"[23/23] Demucs at full width: HTDemucs (channels 48, depth 4, nfft 4096, 5 "
+        f"transformer layers of 384 x 8 heads, segment {float(HTDEMUCS_KW['segment'])} s with "
+        f"use_train_segment), HDemucs (depth 6, BLSTM and LocalState from layer 4, 10 s "
+        f"segments), Conv-TasNet (N 256, L 20, B 256, H 512, P 3, X 10, R 4, gLN, 8 s), a bag of "
+        f"4 HTDemucs (htdemucs_ft's one-hot weights); files written in {written:.1f} s, loaded "
+        f"in {time.perf_counter() - t1:.1f} s")
+    for label, sep in seps.items():
+        sec = 10.0 if label == "bag" else SEP_SECONDS
+        clip = song[:, : int(sec * 44100)]
+        models = demucs_models(sep)
+        flops = network_flops(lambda: models[0], (1, 2, sep.segment_samples), device="cuda")
+        t1 = time.perf_counter()
+        out = sep.run_inference(clip, 44100)  # first call: set-up
+        first = time.perf_counter() - t1
+        check_demucs_stems(out, clip.shape[1], label)
+        chunks = [0]
+        hooks = [m.register_forward_pre_hook(
+            lambda m, a: chunks.__setitem__(0, chunks[0] + a[0].shape[0])) for m in models]
+        torch.cuda.reset_peak_memory_stats()
+        walls, stages = [], {}
+        for _ in range(3):
+            events = []
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            again = sep.run_inference(clip, 44100, events=events)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            stages = stage_ms(events)
+            stages["host and gaps"] = walls[-1] * 1e3 - events[0][1].elapsed_time(events[-1][1])
+        for h in hooks:
+            h.remove()
+        rerun = stem_lsb(out, again)
+        if max(rerun.values()) > SEP_TOL:
+            fail(f"{label}: two runs on the card differ by {rerun} LSB")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy, wall, top = busy_share(lambda: sep.run_inference(clip, 44100))
+        n_chunks = chunks[0] // 3
+        nets = n_chunks * flops
+        say(f"  {label} on {sec:.0f} s: RTF best {sec / min(walls):.2f}x, median "
+            f"{sec / float(np.median(walls)):.2f}x (walls ms {[round(w * 1e3, 2) for w in walls]}; "
+            f"first call {first * 1e3:.1f}); stages ms (CUDA events, last run): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+            + f"; network {n_chunks} chunks of {sep.segment_samples} samples, "
+            f"{flops / 1e9:.1f} GFLOP a chunk, {nets / 1e12:.3f} TFLOP, "
+            f"{nets / stages['network'] / 1e9:.1f} TFLOP/s; peak {peak:.2f} GiB; device busy "
+            + (f"{busy / wall:.1%} ({busy:.2f} of {wall:.2f} ms under the profiler)" if busy > 0
+               else "not measured (the profiler saw no device time)")
+            + f"; the set-up call against the last, max |diff| {max(rerun.values())} LSB; {card}")
+        if top:
+            say("    top kernels (ms, calls): " + "; ".join(f"{ms:.2f} x{n} {k}" for ms, n, k in top))
+        torch.cuda.empty_cache()
+
+    # card against CPU on one segment a model: the clip and the 0.5 s shift
+    # pad make one chunk (the bag: one a member); HTDemucs also with 2 shifts
+    for label, shifts in (("HTDemucs", 1), ("HTDemucs", 2), ("HDemucs", 1), ("Conv-TasNet", 1),
+                          ("bag", 1)):
+        path = paths[label]
+        got, ref = (DemucsSeparator(path, shifts=shifts, device=dev) for dev in ("cuda", "cpu"))
+        clip = song[:, 44100: 44100 + got.segment_samples - 22050]
+        t1 = time.perf_counter()
+        lsb = stem_lsb(got.run_inference(clip, 44100), ref.run_inference(clip, 44100))
+        say(f"  {label}{' shifts 2' if shifts > 1 else ''} on {clip.shape[1] / 44100:.2f} s, "
+            f"card vs CPU: max |diff| {lsb} LSB (tolerance {SEP_TOL}); "
+            f"{time.perf_counter() - t1:.1f} s")
+        if max(lsb.values()) > SEP_TOL:
+            fail(f"{label}: the card's stems disagree with the CPU's")
+        del got, ref
+
+    # the Wiener EM at HDemucs's spectrogram (a 10 s chunk: 431 frames, 2048
+    # bins, stereo, 4 sources), as a cac=False model with wiener_iters 1 runs it
+    gen = np.random.default_rng(23)
+    mix = ((gen.standard_normal((1, 431, 2048, 2)) + 1j * gen.standard_normal((1, 431, 2048, 2)))
+           * 10).astype(np.complex64)
+    mag = np.abs(gen.standard_normal((1, 431, 2048, 2, 4)) * 5).astype(np.float32)
+    mix_c, mag_c = torch.from_numpy(mix).cuda(), torch.from_numpy(mag).cuda()
+    got = torch.view_as_real(wiener(mag_c, mix_c, 1)).cpu()
+    ref = torch.view_as_real(wiener(torch.from_numpy(mag), torch.from_numpy(mix), 1))
+    err = float((got - ref).abs().max() / ref.abs().max())
+    ms = timed(lambda: wiener(mag_c, mix_c, 1), reps=5, warmup=1)
+    say(f"  wiener (1 EM iteration, 431 x 2048 x 2 x 4) card vs CPU: max |diff| {err:.3g} of the "
+        f"largest (tolerance {WIENER_TOL:g}); {ms:.2f} ms on the card")
+    if not err <= WIENER_TOL:
+        fail("the card's Wiener filter disagrees with the CPU's")
+    del mix_c, mag_c
+
+    # Conv-TasNet's depthwise dilated conv at the 30 s run's shape: cuDNN's
+    # grouped conv it runs against the JAX package's shifted multiply-adds,
+    # summed over X
+    y = torch.randn(5, 512, 35279, device="cuda")
+    w = torch.randn(512, 1, 3, device="cuda") / 3 ** 0.5
+    forms = {name: sum(timed(lambda: f(y, w, 2 ** x), reps=5, warmup=1) for x in range(10))
+             for name, f in (("shifted", depthwise), ("grouped conv1d", depthwise_conv1d))}
+    say("  Conv-TasNet depthwise convs of one repeat (X = 10, dilations 1-512, (5, 512, 35279)), "
+        "ms: " + ", ".join(f"{k} {v:.3f}" for k, v in forms.items())
+        + " (the port runs the grouped conv1d)")
+    del y
+
+    # the command line on the song's file: its downmix, as the JAX CLI's
+    wav = os.path.join(tmp, "song.wav")
+    write_song_wav(wav, song)
+    check_cli_separate(tmp, wav, paths["HTDemucs"], seps["HTDemucs"], "HTDemucs", channels=2)
+
+    launched = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    say(f"  kernel launches in phase 23: {launched}")
+    if any(launched.values()):
+        fail("Demucs separation launched a kernel of the conversion or training path")
 
 
 def main() -> int:
@@ -3536,6 +3830,13 @@ def main() -> int:
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs the card")
+    clock = [time.perf_counter()]
+
+    def lap(label: str) -> None:
+        """Seconds since the last lap, for the phases named by ``label``."""
+        now = time.perf_counter()
+        say(f"  {label} took {now - clock[0]:.1f} s")
+        clock[0] = now
 
     # 1. the card
     name = torch.cuda.get_device_name(0)
@@ -3544,7 +3845,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi gave nothing"
-    say(f"[1/22] card: {name}, {count} device(s); torch {torch.__version__}, "
+    say(f"[1/23] card: {name}, {count} device(s); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     say(card)
 
@@ -3554,7 +3855,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library()
     info = _cuda.build_info
-    say(f"[2/22] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
+    say(f"[2/23] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
         f"(load {time.perf_counter() - t0:.2f} s)")
     say("ptxas: " + "; ".join(info["ptxas"]))
     say("ptxas C7515 (wgmma serialized): " + (", ".join(info["serialized"]) or "none"))
@@ -3582,9 +3883,11 @@ def main() -> int:
     say(f"converter built in {time.perf_counter() - t0:.1f} s")
     clips = {10: speech(10.0, 0.0), 30: speech(30.0, 10.0)}
 
+    lap("phases 1-2 and the converter")
+
     # 3. kernels against their plain versions at the 30 s conversion's shapes
     shapes = path_shapes(vc, clips[30])
-    say(f"[3/22] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
+    say(f"[3/23] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz, {shapes['T50']} HuBERT frames per chunk")
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -3599,6 +3902,7 @@ def main() -> int:
     expected = {"resblock": sum(len(rb.convs1) for rb in dec.resblocks),
                 "attention": len(vc.synth.enc_p.encoder.attn_layers), "nearest": 1}
     say(f"launches expected per conversion: {expected}")
+    lap("phase 3")
 
     # 4. the main path
     counters = {"resblock": resblock.fused_resblock_group,
@@ -3639,7 +3943,7 @@ def main() -> int:
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[4/22] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
+        say(f"[4/23] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
             f"peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x, "
             f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -3653,6 +3957,8 @@ def main() -> int:
         if launches != expected:
             fail(f"kernel launches {launches}, expected {expected}")
 
+    lap("phase 4")
+
     # 5. the card's conversion against the CPU's (plain versions) on 3 s
     ref_clip = speech(3.0, 40.0)
     out_gpu, _ = vc.convert(ref_clip, settings=settings)
@@ -3662,7 +3968,7 @@ def main() -> int:
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     diff = np.abs(out_gpu.astype(np.int32) - out_cpu.astype(np.int32))
     tol = 4
-    say(f"[5/22] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
+    say(f"[5/23] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
         f"max |diff| {diff.max()} LSB, share above {tol} LSB {np.mean(diff > tol):.4%} "
         f"(tolerance {tol} LSB: the same float32 math summed in another order, "
         f"~1e-5 relative before the int16 scaling); CPU run "
@@ -3672,6 +3978,7 @@ def main() -> int:
 
     del vc, cpu
     torch.cuda.empty_cache()
+    lap("phase 5")
 
     # 6. the training kernels at the training run's shapes
     from rvc_tpu_torch.config import preset
@@ -3690,7 +3997,7 @@ def main() -> int:
     trainer.init_state(seed=0)
     say(f"dataset of {len(CLIP_SECONDS)} clips, {len(batches)} batches, trainer built in "
         f"{time.perf_counter() - t0:.1f} s")
-    say(f"[6/22] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
+    say(f"[6/23] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
         f"segment {cfg.train.segment_size} samples, WN over {np.shape(batches[0]['spec'])[1]} "
         f"frames")
     gen = torch.Generator().manual_seed(2)
@@ -3717,8 +4024,10 @@ def main() -> int:
             + (f"pack_ms {c['pack_ms']:.3f} per step (apart), " if "pack_ms" in c else "")
             + f"launches per step {per_step[key.split('_')[0]]}")
 
+    lap("phase 6 and the dataset")
+
     # 7. the training path
-    run32 = run_training(trainer, batches, card, "7/22")
+    run32 = run_training(trainer, batches, card, "7/23")
     trained, rate32 = run32["launches"], run32["rate"]
     launches = {"fused_resblock_group": launches["resblock"],
                 "banded_rel_attention": launches["attention"],
@@ -3727,17 +4036,22 @@ def main() -> int:
                                            "fused_wn", "fused_wn_backward")}}
     del trainer
     torch.cuda.empty_cache()
+    lap("phase 7")
 
     # 8. the card's training step against the CPU's
     small, cpu32 = check_train_vs_cpu(cfg, batches[0])
+    lap("phase 8")
 
     # 9-12. conversion in bfloat16 (the JAX package's bench configuration)
     launches.update(run_bf16(clips, settings, card, rtf32, checks))
+    lap("phases 9-12")
 
     # 13-15. models from a user's files; 16. convert_batch in bf16
     with tempfile.TemporaryDirectory(prefix="rvc_files_") as files:
         run_files(files, settings, card, checks)
+    lap("phases 13-15")
     run_batch(settings, card)
+    lap("phase 16")
 
     # 17. training 40k_v2 from a dataset through the CLI, then convert with it
     with tempfile.TemporaryDirectory(prefix="rvc_train_") as work:
@@ -3745,21 +4059,21 @@ def main() -> int:
     for key, kname in (("chain", "fused_resblock1"), ("chain_bwd", "fused_resblock1_backward"),
                        ("wn", "fused_wn"), ("wn_bwd", "fused_wn_backward")):
         checks[key]["launches_40k_v2"] = trained40[kname]
+    lap("phase 17")
 
     # 18. every f0 method, infer_mix and the host library
     run_f0_methods(card)
+    lap("phase 18")
 
     # 19. training in bfloat16
-    t19 = time.perf_counter()
     run16 = run_train_bf16(cfg, batches, small, cpu32, card, checks, rate32)
     launches.update({f"{k}[bf16]" if not k.endswith("]") else k: run16["launches"][k]
                      for k in ("fused_resblock1_train[bf16]", "fused_resblock1",
                                "fused_resblock1_backward", "fused_wn", "fused_wn_backward")})
     checks["wn_bwd_bf16"]["whole_stack"] = checks.pop("wn_stack_bf16")
-    say(f"  phase 19 took {time.perf_counter() - t19:.1f} s")
+    lap("phase 19")
 
     # 20. every loss, and a no-f0 model, trained on the card
-    t20 = time.perf_counter()
     base = {"float32": dict(run32, phase=7), "bfloat16": dict(run16, phase=19)}
     del run32, run16
     run_every_loss(cfg, batches, card, base, checks)
@@ -3768,21 +4082,24 @@ def main() -> int:
     for key, kname in (("chain", "fused_resblock1"), ("chain_bwd", "fused_resblock1_backward"),
                        ("wn", "fused_wn"), ("wn_bwd", "fused_wn_backward")):
         checks[key]["launches_40k_nof0"] = checks["nof0_float32"]["launches"][kname]
-    say(f"  phase 20 took {time.perf_counter() - t20:.1f} s")
+    lap("phase 20")
 
     # 21. 32k_v2 and 48k v1, converting and training one step, card vs CPU
-    t21 = time.perf_counter()
     for preset_name, counts in run_unchecked_presets(settings, card).items():
         for key, kname in (("resblock", "fused_resblock_group"),
                            ("attention", "banded_rel_attention"), ("nearest", "nearest_rows_q")):
             checks[key][f"launches_{preset_name}"] = counts[kname]
-    say(f"  phase 21 took {time.perf_counter() - t21:.1f} s")
+    lap("phase 21")
 
     # 22. separation: the VR and MDX-Net routes through load_separator and the CLI
-    t22 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="rvc_sep_") as work:
         run_separation(work, card)
-    say(f"  phase 22 took {time.perf_counter() - t22:.1f} s")
+    lap("phase 22")
+
+    # 23. separation with Demucs: HTDemucs, HDemucs, Conv-TasNet and a bag
+    with tempfile.TemporaryDirectory(prefix="rvc_demucs_") as work:
+        run_demucs(work, card)
+    lap("phase 23")
 
     kernels = []
     meta = {

@@ -17,9 +17,10 @@ takes each of JAX's methods (pitch.extractor.METHODS): pm, dio and harvest
 need no weights, rmvpe and rmvpe+ need ``--rmvpe``; crepe has no weights
 flag here, as in JAX, so its methods raise KeyError. ``separate`` picks
 the separator from the model file's name (``pipelines.separate.
-route_separator``: a UVR5 VR ``.pth``, or an MDX-Net ``.onnx`` whose name
-holds "mdx"), separates the file's downmix, as the JAX package's does, and
-writes ``vocals.wav`` and ``instrumentals.wav``.
+route_separator``: a UVR5 VR ``.pth``, an MDX-Net ``.onnx`` whose name
+holds "mdx", or a Demucs ``.th`` package or bag ``.yaml``), separates the
+file's downmix, as the JAX package's does, and writes ``vocals.wav`` and
+``instrumentals.wav``.
 """
 from __future__ import annotations
 
@@ -73,7 +74,7 @@ def _add_separate(sub) -> None:
     p = sub.add_parser("separate", help="vocal/instrumental separation")
     p.add_argument("input")
     p.add_argument("output_dir")
-    p.add_argument("--model", required=True, help="UVR5 VR .pth or MDX-Net .onnx")
+    p.add_argument("--model", required=True, help="UVR5 VR .pth, MDX-Net .onnx, or Demucs .th / bag .yaml")
     p.add_argument("--agg", type=float, default=10.0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 

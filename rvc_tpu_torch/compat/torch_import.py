@@ -10,7 +10,9 @@ conversion and separation paths read:
   * an RMVPE ``.pt`` (the ``E2E`` state_dict, bare or under ``"model"``),
   * a torchcrepe state_dict (``conv1..conv6``, ``conv{i}_BN``,
     ``classifier``), full or tiny,
-  * a UVR5 VR ``.pth`` (the separation route's ``CascadedASPPNet``).
+  * a UVR5 VR ``.pth`` (the separation route's ``CascadedASPPNet``),
+  * a demucs v3/v4 ``.th`` package (``HDemucs``/``HTDemucs``) and a demucs
+    v2 Conv-TasNet ``.th``.
 
 Each returns ``{name: float32 numpy array}`` under the names the port's
 modules use, which ``pipelines.convert.VoiceConverter.from_state_dicts``
@@ -20,15 +22,22 @@ axis but 0); ``fold=False`` keeps the pairs, for a training warm start.
 
 The safetensors format is read here (an 8-byte little-endian header
 length, a JSON header, the raw buffers), so the ``safetensors`` package is
-not needed. ``torch.load`` runs with ``weights_only=True``: both formats
-hold only tensors, numbers, strings, lists and dicts, and a user's file
-is then never unpickled into arbitrary objects.
+not needed. ``torch.load`` runs with ``weights_only=True`` but on the
+Demucs files: the other formats hold only tensors, numbers, strings, lists
+and dicts, and such a file is then never unpickled into arbitrary objects.
+A Demucs package pickles its model's class; its loader stubs the modules
+the pickle names (as the JAX package's does) and reads only the class's
+name.
 """
 from __future__ import annotations
 
+import importlib.machinery
+import inspect
 import json
 import re
 import struct
+import sys
+import types
 from typing import Mapping
 
 import numpy as np
@@ -219,3 +228,200 @@ def load_vr_pth(path: str) -> dict[str, np.ndarray]:
     port's ``models.vr_network.CascadedASPPNet`` checks the names."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     return {k: _np32(v) for k, v in sd.items() if not _VR_SKIP.search(k)}
+
+
+# ---------------------------------------------------------------------------
+# Demucs: v3/v4 packages and demucs v2 Conv-TasNet
+# ---------------------------------------------------------------------------
+
+_DEMUCS_STUBS = ("demucs", "demucs.htdemucs", "demucs.hdemucs", "demucs.demucs",
+                 "demucs.transformer", "demucs.apply", "demucs.states", "demucs.tasnet")
+
+
+def _install_stub_module(name: str) -> None:
+    """Register an empty package ``name`` in ``sys.modules`` (unless a module
+    of that name is there already) whose every attribute is a stub class of
+    that name, so that unpickling a file that names a class of ``name``
+    finds one. A class is made once per name, so a loaded package pickles
+    again."""
+    if name in sys.modules:
+        return
+    mod = types.ModuleType(name)
+    mod.__spec__ = importlib.machinery.ModuleSpec(name, loader=None, is_package=True)
+    mod.__path__ = []
+
+    def _getattr(attr, _m=name, _mod=mod):
+        if attr.startswith("__"):
+            raise AttributeError(attr)
+        kls = type(attr, (), {"__module__": _m, "__qualname__": attr})
+        setattr(_mod, attr, kls)
+        return kls
+
+    mod.__getattr__ = _getattr
+    sys.modules[name] = mod
+
+
+def _load_pickled(path: str):
+    """``torch.load`` of a demucs file, stubbing each module the pickle names
+    and that is not importable (``demucs.*``, or a vendored prefix) and
+    trying again. ``weights_only=False``: a package pickles its model's
+    class (read here only for its ``__name__``), so load only files you
+    trust, as with the reference."""
+    for name in _DEMUCS_STUBS:
+        _install_stub_module(name)
+    for _ in range(8):
+        try:
+            return torch.load(path, map_location="cpu", weights_only=False)
+        except ModuleNotFoundError as e:
+            parts = (e.name or "").split(".")
+            if not parts[0]:
+                raise
+            for i in range(len(parts)):
+                _install_stub_module(".".join(parts[: i + 1]))
+    raise RuntimeError(f"could not unpickle {path}")
+
+
+def load_demucs_v4(path: str) -> tuple[dict[str, np.ndarray], dict]:
+    """A demucs v3/v4 ``.th`` package (``{klass, args, kwargs, state}``, the
+    state often in float16) -> (float32 state_dict in the reference's names,
+    meta). meta: ``klass`` (the class's ``__name__``), ``kwargs`` (the
+    constructor's, ``sources`` from ``args[0]`` where only given there),
+    ``sources``, ``samplerate``, ``segment`` (a ``Fraction`` made float). A
+    bare state_dict gives meta {}. diffq-quantized packages raise."""
+    pkg = _load_pickled(path)
+    if "state" not in pkg:
+        return {k: _np32(v) for k, v in pkg.items()}, {}
+    state = pkg["state"]
+    if isinstance(state, dict) and state.get("__quantized"):
+        raise NotImplementedError("diffq-quantized demucs checkpoints")
+    kwargs = dict(pkg.get("kwargs", {}))
+    args = list(pkg.get("args", ()))
+    if args and "sources" not in kwargs:
+        kwargs["sources"] = args[0]
+    meta = {"klass": getattr(pkg.get("klass"), "__name__", "HTDemucs"), "kwargs": kwargs,
+            "sources": tuple(kwargs.get("sources", ())),
+            "samplerate": kwargs.get("samplerate", 44100),
+            "segment": float(kwargs.get("segment", 10.0))}
+    return {k: _np32(v) for k, v in state.items()}, meta
+
+
+def htdemucs_kwargs_from_meta(meta: dict) -> dict:
+    """The reference constructor's kwargs cut to the keywords the port's
+    ``HTDemucs`` (``klass`` "HTDemucs") or ``HDemucs`` (any other class, as
+    the JAX package builds it) takes; lists become tuples, ``segment`` a
+    float. Training-only options are dropped; sparse attention raises."""
+    from ..models.htdemucs import HDemucs, HTDemucs
+
+    klass = HTDemucs if meta.get("klass", "HTDemucs") == "HTDemucs" else HDemucs
+    given = meta.get("kwargs", {})
+    if given.get("t_sparse_self_attn") or given.get("t_sparse_cross_attn"):
+        raise NotImplementedError("sparse attention in the cross-domain transformer")
+    names = set(inspect.signature(klass.__init__).parameters) - {"self"}
+    out = {k: tuple(v) if isinstance(v, list) else v for k, v in given.items() if k in names}
+    if "segment" in out:
+        out["segment"] = float(out["segment"])
+    return out
+
+
+def tasnet_state_from_checkpoint(state: Mapping[str, object]) -> tuple[dict[str, np.ndarray],
+                                                                        dict]:
+    """A demucs v2 Conv-TasNet state_dict -> (float32 state_dict as it is,
+    config: N, L, B, H, P, X, R, audio_channels, n_sources, read from the
+    shapes and names). BatchNorm ("BN") checkpoints raise."""
+    sd = {k: _np32(v) for k, v in state.items()}
+    if any("running_mean" in k for k in sd):
+        raise NotImplementedError("BatchNorm ('BN') tasnet checkpoints")
+    N, ac, L = sd["encoder.conv1d_U.weight"].shape
+    B = sd["separator.network.1.weight"].shape[0]
+    C = sd["separator.network.3.weight"].shape[0] // N
+    blocks = [re.match(r"separator\.network\.2\.(\d+)\.(\d+)\.", k) for k in sd]
+    R = 1 + max(int(m.group(1)) for m in blocks if m)
+    X = 1 + max(int(m.group(2)) for m in blocks if m)
+    P = sd["separator.network.2.0.0.net.3.net.0.weight"].shape[-1]
+    H = sd["separator.network.2.0.0.net.0.weight"].shape[0]
+    return sd, {"N": N, "L": L, "B": B, "H": H, "P": P, "X": X, "R": R,
+                "audio_channels": ac, "n_sources": C}
+
+
+def load_tasnet(path: str) -> tuple[dict[str, np.ndarray], dict]:
+    """A demucs v2 Conv-TasNet ``.th`` (a bare state_dict, as demucs v2
+    released them, or a ``{klass, args, kwargs, state}`` package) ->
+    ``tasnet_state_from_checkpoint``'s (state_dict, config)."""
+    pkg = _load_pickled(path)
+    if isinstance(pkg, dict) and "state" in pkg:
+        pkg = pkg["state"]
+    return tasnet_state_from_checkpoint(pkg)
+
+
+# a bag of models: the keys and value forms demucs writes (the card's machine
+# has no PyYAML): ``key: scalar``, ``key: [flow, list]`` over one or more
+# lines, nested, trailing commas allowed, and ``key:`` then ``- item`` lines
+_YAML_FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*\.[0-9_]*|\.[0-9_]+)(?:[eE][-+][0-9]+)?$")
+_YAML_INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)$")
+
+
+def _yaml_scalar(text: str):
+    text = text.strip()
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
+        return text[1:-1]
+    if _YAML_INT.match(text):
+        return int(text.replace("_", ""))
+    if _YAML_FLOAT.match(text):
+        return float(text.replace("_", ""))
+    return {"true": True, "false": False, "null": None, "~": None, "": None}.get(
+        text.lower(), text)
+
+
+def _yaml_flow(text: str):
+    """A flow sequence ``[a, [b, c], ...]`` -> nested lists of scalars."""
+    stack, item, quote = [[]], "", None
+    for ch in text:
+        if quote:
+            item += ch
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            item, quote = item + ch, ch
+        elif ch == "[":
+            stack.append([])
+        elif ch in ",]":
+            if item.strip():
+                stack[-1].append(_yaml_scalar(item))
+            item = ""
+            if ch == "]":
+                done = stack.pop()
+                stack[-1].append(done)
+        else:
+            item += ch
+    return stack[0][0]
+
+
+def read_demucs_bag(path: str) -> dict:
+    """A demucs bag-of-models ``.yaml`` -> {key: value} for its top-level
+    keys (``models``, ``weights``, ``segment``), as ``yaml.safe_load`` reads
+    the forms demucs writes."""
+    out, key, pending = {}, None, ""
+    with open(path) as f:
+        lines = [ln.split(" #")[0].rstrip() for ln in f if not ln.lstrip().startswith("#")]
+    for line in lines:
+        if not line.strip():
+            continue
+        if pending:
+            pending += " " + line.strip()
+        elif line[0] not in " -\t" and ":" in line:
+            key, _, rest = line.partition(":")
+            key, rest = key.strip(), rest.strip()
+            if rest.startswith("["):
+                pending = rest
+            else:
+                out[key] = _yaml_scalar(rest) if rest else None
+        elif line.lstrip().startswith("-") and key is not None:
+            item = line.lstrip()[1:].strip()
+            out[key] = out[key] or []
+            out[key].append(_yaml_flow(item) if item.startswith("[") else _yaml_scalar(item))
+        else:
+            raise ValueError(f"{path}: cannot read line {line!r}")
+        if pending and pending.count("[") == pending.count("]"):
+            out[key], pending = _yaml_flow(pending), ""
+    if pending:
+        raise ValueError(f"{path}: unclosed list under {key!r}")
+    return out

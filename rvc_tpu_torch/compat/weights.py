@@ -7,8 +7,9 @@ these functions fold weight norm into plain weights (the reference's
 ``remove_weight_norm``) and rename the keys to the reference's torch names:
 the RVC synthesizer, HuBERT/ContentVec (HF ``HubertModel`` names),
 RMVPE (``E2E`` names), CREPE (torchcrepe's names), the UVR5 VR nets (the
-reference's names, each conv kernel's spatial axes swapped back) and the
-MDX-Net Conv-TDF nets. For inference a ``weight_g``/``weight_v`` pair
+reference's names, each conv kernel's spatial axes swapped back), the
+MDX-Net Conv-TDF nets, and the Demucs family (HDemucs, HTDemucs, Demucs v2
+and Conv-TasNet, the reference's names and shapes). For inference a ``weight_g``/``weight_v`` pair
 becomes one ``weight``; for training (``fold=False``) the pair is kept under
 the names of the reference's ``G_*.pth`` / ``D_*.pth`` checkpoints, which
 the port's layers take after ``models.layers.live_weight_norm_``.
@@ -181,3 +182,66 @@ def convtdf_state_dict(params: Mapping) -> dict[str, np.ndarray]:
     takes it as the JAX package's does."""
     return {_dotted(path): np.ascontiguousarray(arr, np.float32)
             for path, arr in flatten_tree(params.get("params", params)).items()}
+
+
+def _demucs_key(path: tuple[str, ...]) -> str:
+    """A JAX Demucs path -> the reference's name: ``_N`` read as ``.N``
+    but in ``gamma_1``/``gamma_2`` (LayerScale) and an LSTM leaf
+    (``lstm_weight_ih_l0_reverse`` -> ``lstm.weight_ih_l0_reverse``), the
+    ``blstm`` level of the framed BLSTM dropped, ``freq_emb`` the
+    ``ScaledEmbedding``'s ``embedding`` (``_DEMUCS_RENAMES`` undone)."""
+    parts = []
+    for p in path:
+        if p == "blstm":
+            continue
+        if p.startswith("lstm_") and (p.startswith("lstm_weight") or p.startswith("lstm_bias")):
+            parts.append("lstm." + p[len("lstm_"):])
+        elif p in ("gamma_1", "gamma_2"):
+            parts.append(p)
+        elif p == "freq_emb":
+            parts.append("freq_emb.embedding")
+        else:
+            parts.append(_dotted((p,)))
+    return ".".join(parts)
+
+
+def demucs_state_dict(params: Mapping) -> dict[str, np.ndarray]:
+    """A JAX ``HDemucs``, ``HTDemucs`` or v2 ``Demucs`` tree (or a subtree:
+    a ``DConv``, a layer, the transformer) -> the reference's state_dict
+    names; every weight keeps its torch layout."""
+    return _state_dict(params, _demucs_key, fold=False)
+
+
+def tasnet_state_dict(params: Mapping, cfg: Mapping) -> dict[str, np.ndarray]:
+    """A JAX ``ConvTasNet`` tree -> the reference's names and shapes (the
+    inverse of ``rvc_tpu/compat/torch_import.py::tasnet_params_from_state_dict``):
+    each 1x1 kernel given back its trailing axis, the depthwise (P, H) as
+    (H, 1, P), the norms (1, C, 1), the PReLUs (1,). ``cfg``: R and X."""
+    tree = params.get("params", params)
+
+    def arr(a) -> np.ndarray:
+        return np.ascontiguousarray(np.asarray(a, np.float32))
+
+    def norm(prefix: str, node) -> dict:
+        if not isinstance(node, Mapping):  # the "id" norm holds nothing
+            return {}
+        return {f"{prefix}.gamma": arr(node["gamma"]).reshape(1, -1, 1),
+                f"{prefix}.beta": arr(node["beta"]).reshape(1, -1, 1)}
+
+    sd = {"encoder.conv1d_U.weight": arr(tree["encoder_U"]["weight"]),
+          **norm("separator.network.0", tree["layer_norm"]),
+          "separator.network.1.weight": arr(tree["bottleneck"]["weight"])[..., None],
+          "separator.network.3.weight": arr(tree["mask_conv"]["weight"])[..., None],
+          "decoder.basis_signals.weight": arr(tree["basis_signals"]["weight"])}
+    for r in range(cfg["R"]):
+        for x in range(cfg["X"]):
+            b = tree[f"block_{r}_{x}"]
+            p = f"separator.network.2.{r}.{x}.net"
+            sd.update({f"{p}.0.weight": arr(b["conv1x1"]["weight"])[..., None],
+                       f"{p}.1.weight": arr(b["prelu1"]).reshape(1),
+                       **norm(f"{p}.2", b.get("norm1")),
+                       f"{p}.3.net.0.weight": arr(np.asarray(b["dw_weight"]).T[:, None, :]),
+                       f"{p}.3.net.1.weight": arr(b["prelu2"]).reshape(1),
+                       **norm(f"{p}.3.net.2", b.get("norm2")),
+                       f"{p}.3.net.3.weight": arr(b["pointwise"]["weight"])[..., None]})
+    return sd

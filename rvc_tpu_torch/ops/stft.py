@@ -114,8 +114,13 @@ def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop_length: int,
           length: int | None = None) -> torch.Tensor:
     """Inverse of ``stft``: real, imag (..., frames, bins) -> (..., T). The
     imaginary parts of the DC and Nyquist bins are ignored, as the JAX
-    package's inverse basis ignores them."""
+    package's inverse basis and the CPU's ``irfft`` ignore them; cuFFT's
+    C2R transform reads them, so they are zeroed first."""
     win_length = win_length or n_fft
+    imag = imag.clone()
+    imag[..., 0] = 0
+    if n_fft % 2 == 0 and imag.shape[-1] == n_fft // 2 + 1:
+        imag[..., -1] = 0
     frames = torch.fft.irfft(torch.complex(real, imag), n=n_fft, dim=-1)
     frames = frames * _window(n_fft, win_length, frames)
     sig = _overlap_add(frames, hop_length)

@@ -1,8 +1,8 @@
-"""Vocal / instrumental separation: the VR and MDX-Net routes.
+"""Vocal / instrumental separation: the VR, MDX-Net and Demucs routes.
 
 Counterpart of ``rvc_tpu/pipelines/separate.py`` (the reference's
-``uvr5_cli.py`` and ``lib/separators.py``) for its ``vr``, ``vr_new`` and
-``mdx`` kinds:
+``uvr5_cli.py``, ``lib/separators.py`` and ``demucs/apply.py``) for its
+``vr``, ``vr_new``, ``mdx`` and ``demucs`` kinds:
 
   * ``VRSeparator``: the 4-band ``CascadedASPPNet`` route. Per-band STFTs
     build the composite magnitude spectrogram (``ops.bands``), the network
@@ -29,10 +29,12 @@ Every separator runs on the card unless ``device="cpu"`` is asked for, and
 raises without a card (``device.resolve_device``). ``run_inference(audio,
 sr, events=)`` appends (stage, CUDA event) pairs to ``events`` when given:
 "start", then "analysis", "network" and "synthesis" as each stage's work
-is queued (the MDX stages once per group of windows).
+is queued (the MDX stages once per group of windows; Demucs's stages are
+its own, ``DemucsSeparator.run_inference``).
 """
 from __future__ import annotations
 
+import glob
 import math
 import os
 
@@ -42,11 +44,15 @@ import torch.nn.functional as F
 from scipy import signal as _ss
 
 from ..compat.onnx_import import convtdf_state_from_onnx
-from ..compat.torch_import import load_vr_pth
+from ..compat.torch_import import (htdemucs_kwargs_from_meta, load_demucs_v4, load_tasnet,
+                                   load_vr_pth, read_demucs_bag)
 from ..device import mark, resolve_device, set_float32_math
 from ..io.audio import remix_audio
+from ..models.demucs import apply_model
+from ..models.htdemucs import HDemucs, HTDemucs
 from ..models.layers import load_numpy_state_dict
 from ..models.mdx_net import ConvTDFNetTrim, MDXSpectrogram
+from ..models.tasnet import ConvTasNet
 from ..models.vr_network import CascadedASPPNet
 from ..ops import bands as B
 from ..ops.resample import resample
@@ -276,6 +282,117 @@ class MDXSeparator:
                 "input_audio": (mix, 44100)}
 
 
+class DemucsSeparator:
+    """The Demucs route (reference demucs/apply.py's drive): ``apply_model``
+    over the song's chunks with the model from ``model_path``, one of
+      * a demucs v3/v4 ``.th`` package: ``HTDemucs`` for that ``klass``,
+        else ``HDemucs`` (as the JAX package builds it), its segment the
+        package's;
+      * a demucs v2 Conv-TasNet ``.th`` (the file name holds "tasnet"), 8 s
+        segments;
+      * a bag of models: a ``.yaml`` (``models``: signatures, ``weights``:
+        a row of per-source weights a model, ``segment``) beside the members'
+        ``<signature>*.th``; the stems are the weighted per-source average.
+    Every stem of the model is returned as stereo int16, and with a
+    ``vocals`` source ``instrumentals`` = mix - vocals."""
+
+    def __init__(self, model_path: str, segment: float | None = None, overlap: float = 0.25,
+                 shifts: int = 1, device=None):
+        self.device = resolve_device(device)
+        set_float32_math()
+        self.overlap, self.shifts = overlap, shifts
+        self.sub: list[DemucsSeparator] = []
+        self.weights: list = []
+        self.model = None
+        if "tasnet" in os.path.basename(model_path).lower():
+            state, cfg = load_tasnet(model_path)
+            n_src = cfg.pop("n_sources")
+            sources = (("drums", "bass", "other", "vocals") if n_src == 4
+                       else tuple(f"source_{i}" for i in range(n_src)))
+            self.model = ConvTasNet(sources=sources, **cfg)
+            self.samplerate = 44100
+            # the reference's segment_length, 44100 * 2 * 4 samples over stereo: 8 s
+            self.segment_samples = int(float(segment or 8.0) * self.samplerate)
+        elif model_path.endswith((".yaml", ".yml")):
+            bag = read_demucs_bag(model_path)
+            folder = os.path.dirname(os.path.abspath(model_path))
+            for sig in bag["models"]:
+                found = (sorted(glob.glob(os.path.join(folder, f"{sig}*.th")))
+                         or sorted(glob.glob(os.path.join(folder, f"{sig}*.ckpt"))))
+                if not found:
+                    raise FileNotFoundError(f"bag member {sig}*.th in {folder}")
+                self.sub.append(DemucsSeparator(found[0], bag.get("segment", segment),
+                                                overlap, shifts, self.device))
+            sources = self.sub[0].sources
+            self.samplerate = self.sub[0].samplerate
+            self.segment_samples = self.sub[0].segment_samples
+            self.weights = bag.get("weights") or [[1.0] * len(sources) for _ in self.sub]
+        else:
+            state, meta = load_demucs_v4(model_path)
+            klass = HTDemucs if meta.get("klass", "HTDemucs") == "HTDemucs" else HDemucs
+            self.model = klass(**htdemucs_kwargs_from_meta(meta))
+            sources = meta.get("sources") or self.model.sources
+            self.samplerate = int(meta.get("samplerate", 44100))
+            seg = segment if segment is not None else meta.get("segment", 10.0)
+            self.segment_samples = int(float(seg) * self.samplerate)
+        if self.model is not None:
+            load_numpy_state_dict(self.model, state)
+            self.model.to(self.device).eval()
+        self.sources = list(sources)
+
+    @torch.no_grad()
+    def demix(self, mix: torch.Tensor, events: list | None = None) -> torch.Tensor:
+        """mix (C, T) float32 on the separator's device -> stems (S, C, T);
+        for a bag the weighted per-source average over its members."""
+        if not self.sub:
+            return apply_model(self.model, mix, self.segment_samples, overlap=self.overlap,
+                               shifts=self.shifts, events=events)
+        est = None
+        for sep, w in zip(self.sub, self.weights):
+            w = torch.tensor(w, dtype=torch.float32, device=mix.device)[:, None, None]
+            out = sep.demix(mix, events) * w
+            est = out if est is None else est + out
+        totals = torch.tensor(np.sum(np.asarray(self.weights, np.float64), axis=0),
+                              dtype=torch.float32, device=mix.device)
+        return est / totals[:, None, None]
+
+    @staticmethod
+    def _stereo_int16(stems: torch.Tensor) -> np.ndarray:
+        """(N, C, T) float -> (N, C, T) int16, each stem divided by its peak
+        over 0.95 where that is above 1, times 32768, clipped to +-32767."""
+        peak = stems.abs().amax(dim=(1, 2), keepdim=True) / 0.95
+        scaled = stems / torch.where(peak > 1, peak, torch.ones_like(peak))
+        return (scaled * 32768.0).clamp(-32767, 32767).to(torch.int16).cpu().numpy()
+
+    @torch.no_grad()
+    def run_inference(self, audio: np.ndarray, sr: int, events: list | None = None) -> dict:
+        """audio (T,) or (C, T) at any rate -> {"sr", "input_audio", one
+        (int16 (C, T), sr) per source, and "instrumentals" with a vocals
+        source}. ``events``: "start", then per chunk group "chunking",
+        "stft", "network", "istft" (the hybrids), "overlap-add", and "int16"."""
+        mix = np.atleast_2d(np.asarray(audio, np.float32))
+        if self.samplerate == 44100:
+            mix = _to_stereo_44k(mix, sr)
+        x = torch.from_numpy(mix).to(self.device)
+        if self.samplerate != 44100:
+            x = resample(x, sr, self.samplerate)
+            if x.shape[0] == 1:
+                x = torch.cat([x, x])
+            mix = x.cpu().numpy()
+        mark(events, "start")
+        stems = self.demix(x, events)
+        names = list(self.sources)
+        if "vocals" in names:
+            v = stems[names.index("vocals")]
+            stems = torch.cat([stems, (x[:, : v.shape[1]] - v)[None]])
+            names.append("instrumentals")
+        ints = self._stereo_int16(stems)
+        mark(events, "int16")
+        out = {"sr": self.samplerate, "input_audio": (mix, self.samplerate)}
+        out.update({name: (ints[i], self.samplerate) for i, name in enumerate(names)})
+        return out
+
+
 def route_separator(model_path: str) -> str:
     """The separator kind a model file's name asks for (reference
     uvr5_cli.py:24-64, with Demucs and RoFormer checkpoints)."""
@@ -291,21 +408,23 @@ def route_separator(model_path: str) -> str:
     return "vr"
 
 
-_NOT_PORTED = {"demucs": "3.4 (Demucs)", "bs_roformer": "3.5 (RoFormers)",
-               "mel_roformer": "3.5 (RoFormers)"}
+_NOT_PORTED = {"bs_roformer": "3.5 (RoFormers)", "mel_roformer": "3.5 (RoFormers)"}
 
 
 def load_separator(kind: str, model_path: str, agg: float = 10.0, device=None):
     """A separator of ``kind`` (``route_separator``) from ``model_path``:
     ``vr`` and ``vr_new`` read a UVR5 ``.pth`` into the 4-band
     ``CascadedASPPNet`` (``ModelParameters(preset="4band_v2")``, ``agg``),
-    ``mdx`` an ``.onnx`` into ``ConvTDFNetTrim`` at the UVR defaults."""
+    ``mdx`` an ``.onnx`` into ``ConvTDFNetTrim`` at the UVR defaults,
+    ``demucs`` a ``.th`` or a bag ``.yaml`` into a ``DemucsSeparator``."""
     device = resolve_device(device)
     if kind in ("vr", "vr_new"):
         return VRSeparator(load_vr_pth(model_path), B.ModelParameters(preset="4band_v2"),
                            agg=agg, device=device)
     if kind == "mdx":
         return MDXSeparator(model_path, device=device)
+    if kind == "demucs":
+        return DemucsSeparator(model_path, device=device)
     if kind in _NOT_PORTED:
         raise NotImplementedError(f"the {kind} separator is not ported yet "
                                   f"(ROADMAP.md, queue 1, item {_NOT_PORTED[kind]})")

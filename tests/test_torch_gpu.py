@@ -1193,3 +1193,80 @@ def test_mdx_separator_on_the_card_matches_the_cpu(rng, cuda, denoise):
     for stem in ("vocals", "instrumentals"):
         a, b = (o[stem][0].astype(np.int32) for o in outs)
         assert a.shape == b.shape and np.abs(a - b).max() <= 4
+
+
+def _demucs_nets():
+    """Tiny HTDemucs (cross transformer, bottom channels), HDemucs with the
+    framed BLSTM (T 2048 at its first time layer) and LocalState, and
+    Conv-TasNet, each with (input shape) and lively weights."""
+    from rvc_tpu_torch.models.htdemucs import HDemucs, HTDemucs
+    from rvc_tpu_torch.models.tasnet import ConvTasNet
+
+    return {
+        "htdemucs": (lambda: HTDemucs(sources=("a", "b"), channels=16, depth=2, nfft=512,
+                                      norm_starts=1, t_layers=3, t_heads=2, bottom_channels=8,
+                                      use_train_segment=False), (2, 2, 8192)),
+        "hdemucs": (lambda: HDemucs(sources=("a", "b"), audio_channels=1, channels=16, depth=2,
+                                    nfft=64, norm_starts=1, dconv_lstm=0, dconv_attn=1),
+                    (1, 1, 8192)),
+        "tasnet": (lambda: ConvTasNet(N=16, L=8, B=8, H=16, P=3, X=4, R=2), (2, 2, 8000)),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["htdemucs", "hdemucs", "tasnet"])
+def test_demucs_nets_on_the_card_match_the_cpu(rng, cuda, name):
+    """The same weights and mix through each net on the CPU and the card
+    (cuDNN convs and LSTMs, cuBLAS attention, cuFFT, TF32 off): within
+    1e-4 of the largest output."""
+    make, shape = _demucs_nets()[name]
+    state = _chip_smoke().lively_state(make(), seed=5)
+    x = torch.from_numpy(0.3 * rng.standard_normal(shape).astype(np.float32))
+    outs = []
+    for dev in ("cpu", "cuda"):
+        net = make()
+        net.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+        with torch.no_grad():
+            outs.append(net.to(dev).eval()(x.to(dev)).cpu())
+    _scaled_close(outs[1], outs[0], 1e-4)
+
+
+@pytest.mark.gpu
+def test_wiener_on_the_card_matches_the_cpu(rng, cuda):
+    """The EM filter in complex64 at 430 frames (two windows), 2 channels,
+    4 sources: within 1e-5 of the largest magnitude."""
+    from rvc_tpu_torch.ops.wiener import wiener
+
+    mix = torch.from_numpy((rng.standard_normal((2, 430, 33, 2)) + 1j * rng.standard_normal(
+        (2, 430, 33, 2))).astype(np.complex64) * 30)
+    mag = torch.from_numpy(np.abs(rng.standard_normal((2, 430, 33, 2, 4)) * 20)
+                           .astype(np.float32))
+    ref = torch.view_as_real(wiener(mag, mix, 1))
+    got = torch.view_as_real(wiener(mag.to(cuda), mix.to(cuda), 1)).cpu()
+    _scaled_close(got, ref, 1e-5)
+
+
+@pytest.mark.gpu
+def test_tasnet_depthwise_forms_agree_on_the_card(rng, cuda):
+    """The depthwise dilated conv as shifted multiply-adds and as cuDNN's
+    grouped conv, at the full model's width (H 512) and dilations 1-512."""
+    from rvc_tpu_torch.models.tasnet import depthwise, depthwise_conv1d
+
+    y = torch.from_numpy(rng.standard_normal((2, 512, 5000)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy((rng.standard_normal((512, 1, 3)) / 3 ** 0.5).astype(np.float32))
+    for d in (1, 8, 64, 512):
+        _scaled_close(depthwise(y, w.to(cuda), d).cpu(),
+                      depthwise_conv1d(y, w.to(cuda), d).cpu(), 1e-6)
+
+
+@pytest.mark.gpu
+def test_istft_ignores_imaginary_dc_on_the_card(rng, cuda):
+    """A network's complex output (HDemucs's CaC masks, MDX-Net's) has
+    imaginary DC and Nyquist parts, which cuFFT's C2R transform would read
+    and the CPU's ignores: istft zeroes them, card and CPU within 1e-5."""
+    from rvc_tpu_torch.ops import stft
+
+    re, im = (torch.from_numpy(rng.standard_normal((2, 60, 2049)).astype(np.float32))
+              for _ in range(2))
+    ref = stft.istft(re, im, 4096, 1024)
+    _scaled_close(stft.istft(re.to(cuda), im.to(cuda), 4096, 1024).cpu(), ref, 1e-5)

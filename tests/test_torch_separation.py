@@ -444,6 +444,10 @@ def test_load_vr_pth_gives_back_the_jax_tree(vr128, tmp_path):
 
 
 def test_load_separator_names_what_is_not_ported():
-    for kind in ("demucs", "bs_roformer", "mel_roformer"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The RoFormers name their ROADMAP item; Demucs is ported and reads its
+    file."""
+    for kind in ("bs_roformer", "mel_roformer"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 3.5"):
             tsep.load_separator(kind, "model.th", device="cpu")
+    with pytest.raises(FileNotFoundError):
+        tsep.load_separator("demucs", "model.th", device="cpu")
