@@ -1,5 +1,5 @@
 """Smoke run of rvc_tpu_torch on one NVIDIA card: build, check, convert, train,
-separate (VR, MDX-Net, Demucs).
+separate (VR, MDX-Net, Demucs, BS-RoFormer, Mel-Band RoFormer, Karafan).
 
     python3 chip_smoke.py
 
@@ -100,8 +100,9 @@ Phases, each announced on its own line:
  17. training from a dataset through the CLI (rvc_tpu_torch.cli.main, in
      process) at 40k_v2, full width: a HuBERT .safetensors, an rmvpe.pt and a
      pretrained G and D (one tensor each of another shape) written with
-     random weights; `preprocess` of assets/speech_65s.wav at 40 kHz (clip,
-     feature and f0 counts equal); `train` for 2 epochs at batch 4 from the
+     random weights; `preprocess` of the first 32 s of assets/speech_65s.wav
+     at 40 kHz (clip, feature and f0 counts equal); `train` for 2 epochs at
+     batch 4 from the
      pretrained G and D, saving every epoch (steps/s, audio trained per s,
      peak memory, one step's stages and each stage's median over the steps
      on the card and on the host; losses finite; kernels 4-7 launched as
@@ -113,7 +114,7 @@ Phases, each announced on its own line:
      x 768 seeded rows to 10000 centroids in 20 iterations (inertia never
      rising, no NaN); `convert` of 10 s with the exported model and index
      (kernels 1-3 launched as the structure says, 40 kHz of the expected
-     length), and 3 s card vs CPU within phase 5's 4 LSB;
+     length), and 1.5 s card vs CPU within phase 5's 4 LSB;
  18. every f0 method and the host library: the port's rvc_host.cpp built by
      g++ and held against its numpy versions (the int16 quantization and
      the slicer's tags equal, the frame RMS within 5e-6); phase 4's
@@ -121,12 +122,12 @@ Phases, each announced on its own line:
      10 s with each of pm, dio, harvest, crepe, crepe-tiny, mangio-crepe
      (hop 64), mangio-crepe-tiny, rmvpe+ and the median of rmvpe, harvest and
      crepe-tiny (kernels 1-3 launched as in phase 4, the output checked as
-     there, RTF); each method's f0 of 30 s timed alone (CUDA events) with
+     there, RTF); each method's f0 of 10 s timed alone (CUDA events) with
      the kernels one call runs (torch.profiler); each method's f0 on the card
-     against the CPU's on 3 s of speech and of a harmonic glide (CREPE full
-     on 0.5 s of each): the same voicing and f0
+     against the CPU's on 1.5 s of speech and of a harmonic glide (CREPE
+     full and mangio-crepe on 0.5 s of each): the same voicing and f0
      within the CPU tests' bars on 99% of the frames; the hybrid conversion
-     of 3 s card vs CPU within phase 5's 4 LSB; infer_mix with one-hot
+     of 1.5 s card vs CPU within phase 5's 4 LSB; infer_mix with one-hot
      weights against infer at that speaker;
  19. training in bfloat16 (the JAX trainer's dtype on its accelerator):
      kernels 4-7 in their bf16 form at phase 7's shapes against their plain
@@ -171,7 +172,8 @@ Phases, each announced on its own line:
      ConvTDFNetTrim written as an anonymous .onnx separate 30 s of stereo
      44.1 kHz (the speech fixture at two delays over a harmonic
      accompaniment) through load_separator, VR also with tta and MDX with
-     denoise: RTF (best and median of 3 after a set-up call), each stage's
+     denoise: RTF (best and median of 3 after a set-up call; tta and denoise
+     one timed call), each stage's
      CUDA-event ms, the network's TFLOP/s, peak memory, the busy share under
      the profiler; card vs CPU on one window of the song a route within
      phase 5's 4 LSB;
@@ -190,6 +192,26 @@ Phases, each announced on its own line:
      shifts; the Wiener filter at HDemucs's spectrogram card vs CPU;
      Conv-TasNet's depthwise convs shifted against cuDNN's grouped conv;
      the CLI's separate on the HTDemucs file; kernels 1-8 launched no time.
+ 24. the RoFormers at full width (run_roformer): a seeded BS-RoFormer at
+     the ep_317 layout (dim 512, depth 12, 62 bands, 8 heads of 64, mask
+     depth 2) as a Lightning .ckpt and a Mel-Band RoFormer at the JAX
+     defaults (dim 384, depth 6, 60 bands) as a bare state dict without
+     freq_indices, weights at the JAX initializer's scale, separate phase
+     22's song (30 s) through load_separator: the loader's config, RTF (best
+     and median of 3 after a set-up call), each stage's CUDA-event ms
+     (chunking, STFT, network, iSTFT, overlap-add, int16; the host the
+     rest), TFLOP/s, peak memory, busy share; the stems' response to a
+     perturbation of 1e-7 of the spectrogram on a window of the song
+     (reported); card vs CPU on one 8 s window within phase 5's 4 LSB
+     (every layer; a seeded -60 dB floor under the song, whose empty bands
+     otherwise carry the STFT's rounding); the CLI's separate on both
+     files; the Karafan recipe on 10 s at speed_preset("Fast") with the Mel
+     model for vocals (cut_off 16000: both SRS passes) and phase 22's MDX
+     net for music (wall, the extractors' share, the stems' peaks);
+     pitch_shift by +12 and -5 semitones on 30 s of stereo, card vs CPU
+     with the floor within 2e-3 relative L2 (the song as it is reported:
+     its silent frames' phases are the roundings'); kernels 1-8 launched no
+     time.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that.
 A kernel's time beside its yardsticks (previous_ms, mma_sync_ms) is
@@ -1399,6 +1421,21 @@ def make_dataset(root: str, data, feature_dim: int = 768, use_f0: bool = True) -
 
 
 SEED7 = {}  # seed 7's initial weights by model and data configuration
+DRAWN = {}  # initial weights by model and data configuration and seed
+
+
+def seeded_state(trainer, seed: int, steps_per_epoch: int = 100):
+    """``trainer.init_state(seed=seed)``, its weights drawn once a model and
+    data configuration and seed and loaded by later calls (the same weights;
+    the draws take seconds at full width)."""
+    key = (repr(trainer.config.model), repr(trainer.config.data), seed)
+    if key not in DRAWN:
+        state = trainer.init_state(seed=seed, steps_per_epoch=steps_per_epoch)
+        DRAWN[key] = tuple({k: v.detach().cpu().numpy() for k, v in m.state_dict().items()}
+                           for m in (trainer.synth, trainer.disc))
+        return state
+    return trainer.init_state(seed=seed, steps_per_epoch=steps_per_epoch,
+                              state_g=DRAWN[key][0], state_d=DRAWN[key][1])
 
 
 def train_step_run(cfg, small: dict, dev: str, dtype,
@@ -1456,7 +1493,7 @@ def small_batch(batch: dict, frames: int = 48, hop: int = 480) -> dict:
     return small
 
 
-def check_train_vs_cpu(cfg, batch: dict, label: str = "[8/23]",
+def check_train_vs_cpu(cfg, batch: dict, label: str = "[8/24]",
                        multiscale: bool = False) -> tuple:
     """One training step on the card and on the CPU (plain versions) from the
     same weights, batch and draws, at batch 1 and 48 frames. Returns the
@@ -1526,7 +1563,7 @@ def run_training(trainer, batches: list, card: str, label: str,
     ``losses`` and the last ``state``."""
     import torch
 
-    state = trainer.init_state(seed=0, steps_per_epoch=len(batches))
+    state = seeded_state(trainer, 0, steps_per_epoch=len(batches))
     t0 = time.perf_counter()
     state, m = trainer.step(state, batches[0], keep_grads=True)
     torch.cuda.synchronize()
@@ -1949,9 +1986,9 @@ def run_train_bf16(cfg, batches: list, small: dict, cpu32, card: str, checks: di
     bf16 = torch.bfloat16
     t0 = time.perf_counter()
     trainer = Trainer(cfg, dtype=bf16, device="cuda")
-    trainer.init_state(seed=0)
+    seeded_state(trainer, 0)
     gen = torch.Generator().manual_seed(19)
-    say(f"[19/23] training in bf16: kernels 4-7 in their bf16 form at phase 7's shapes "
+    say(f"[19/24] training in bf16: kernels 4-7 in their bf16 form at phase 7's shapes "
         f"(trainer built in {time.perf_counter() - t0:.1f} s)")
     checks["chain_bf16"], checks["chain_bwd_bf16"] = check_chain_train_bf16(trainer, gen)
     checks["wn_bf16"], checks["wn_bwd_bf16"] = check_wn_train_bf16(
@@ -1959,7 +1996,7 @@ def run_train_bf16(cfg, batches: list, small: dict, cpu32, card: str, checks: di
     checks["wn_stack_bf16"] = check_wn_stack_bf16(
         trainer, batches[0]["spec_lengths"], np.shape(batches[0]["spec"])[1], gen)
     torch.cuda.empty_cache()
-    run = run_training(trainer, batches, card, "19/23")
+    run = run_training(trainer, batches, card, "19/24")
     say(f"  bf16 {run['rate']:.3f} steps/s against float32 {rate32:.3f} (phase 7, this run); "
         f"{card}")
     del trainer
@@ -2012,7 +2049,7 @@ def check_train_bf16_vs_cpu(cfg, small: dict, cpu32, multiscale: bool = False,
 
 # ---- phase 20: every loss, and a no-f0 model, trained on the card ----
 
-PHASE20_STEPS = 3
+PHASE20_STEPS = 2  # timed steps a dtype
 
 
 def all_losses(cfg):
@@ -2096,13 +2133,13 @@ def run_every_loss(cfg, batches: list, card: str, base: dict, checks: dict) -> N
     from rvc_tpu_torch.train.step import Trainer
 
     cfg = all_losses(cfg)
-    say(f"[20/23] every loss: 48k_v2 with c_gp = c_hd = c_tsi = c_tefs = 1 and the multi-scale "
+    say(f"[20/24] every loss: 48k_v2 with c_gp = c_hd = c_tsi = c_tefs = 1 and the multi-scale "
         f"mel loss, on phase 7's batches")
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         trainer = Trainer(cfg, dtype=dtype, device="cuda")
         trainer.use_multiscale()
-        run = run_training(trainer, batches[:1 + PHASE20_STEPS], card, "20/23",
+        run = run_training(trainer, batches[:1 + PHASE20_STEPS], card, "20/24",
                            "48k_v2 with every loss")
         penalty = float(run["state"].balancer_d.hist_losses[1])
         zero = [k for vals in run["losses"] for k in ("harmonic_loss", "tsi_loss", "tefs_loss")
@@ -2120,7 +2157,7 @@ def run_every_loss(cfg, batches: list, card: str, base: dict, checks: dict) -> N
         del trainer, run
         torch.cuda.empty_cache()
     checks["loss_costs"] = loss_costs(cfg, batches[0], card)
-    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/23] every loss:", True)
+    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/24] every loss:", True)
     # the aux and multi-scale losses are taken on the bf16 generated slice:
     # the CPU bf16 tests' factor 2 (check_train_bf16_vs_cpu)
     check_train_bf16_vs_cpu(cfg, small, cpu32, True, factor=2.0)
@@ -2152,7 +2189,7 @@ def run_nof0(tmp: str, card: str, checks: dict) -> None:
                             seed=1234)
     batches = [b for e in range(1 + PHASE20_STEPS) for b in batcher.epoch(e)][
         :1 + PHASE20_STEPS]
-    say(f"[20/23] no f0: 40k v1 with use_f0 = False on {len(CLIP_SECONDS)} clips at "
+    say(f"[20/24] no f0: 40k v1 with use_f0 = False on {len(CLIP_SECONDS)} clips at "
         f"{cfg.data.sampling_rate} Hz, batches of {np.shape(batches[0]['spec'])[:2]} frames, "
         f"keys {sorted(batches[0])}")
     if "pitch" in batches[0] or "pitchf" in batches[0]:
@@ -2161,14 +2198,14 @@ def run_nof0(tmp: str, card: str, checks: dict) -> None:
         trainer = Trainer(cfg, dtype=dtype, device="cuda")
         if type(trainer.synth.dec).__name__ != "Generator":
             fail(f"the no-f0 decoder is {type(trainer.synth.dec).__name__}")
-        run = run_training(trainer, batches, card, "20/23", "40k no-f0")
+        run = run_training(trainer, batches, card, "20/24", "40k no-f0")
         checks[f"nof0_{str(dtype).split('.')[-1]}"] = dict(rate=run["rate"],
                                                            launches=run["launches"])
         if dtype == torch.float32:
             check_export(cfg, trainer, tmp, filelist)
         del trainer, run
         torch.cuda.empty_cache()
-    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/23] no f0:")
+    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/24] no f0:")
     check_train_bf16_vs_cpu(cfg, small, cpu32)
 
 
@@ -2229,6 +2266,35 @@ def synthetic_batch(cfg, frames: int = 48, seed: int = 21) -> dict:
                 .astype(np.int32), pitchf=f0[None])
 
 
+MAIN_CONVERTER = {}  # the host's copy of the main path's converter
+
+
+def main_converter(device: str, dtype=None):
+    """make_random_converter("48k_v2", seed=0, chunking=CHUNKING,
+    index_rows=BANK_ROWS, device=device, dtype=dtype): the weights are drawn
+    once, on the host, and each call copies them (the same converter, built
+    in a second rather than ten)."""
+    import copy
+
+    import torch
+
+    from rvc_tpu_torch.pipelines.convert import (VoiceConverter, make_random_converter,
+                                                 synth_kwargs_from_config)
+    from rvc_tpu_torch.pitch.extractor import PitchExtractor
+
+    if "host" not in MAIN_CONVERTER:
+        MAIN_CONVERTER["host"] = make_random_converter(
+            "48k_v2", seed=0, chunking=CHUNKING, index_rows=BANK_ROWS, device="cpu")
+    host = MAIN_CONVERTER["host"]
+    dtype = dtype or torch.float32
+    vc = VoiceConverter(copy.deepcopy(host.synth), synth_kwargs_from_config(host.config),
+                        copy.deepcopy(host.hubert),
+                        PitchExtractor(copy.deepcopy(host.pitch.rmvpe), dtype=dtype),
+                        config=host.config, device=device, seed=host.seed, dtype=dtype)
+    vc.index_bank = tuple(t.to(vc.device) for t in host.index_bank)
+    return vc
+
+
 def cpu_copy(vc, synth_kwargs: dict):
     """``vc`` on the CPU (plain versions): its modules and retrieval bank
     copied, not drawn again."""
@@ -2261,7 +2327,7 @@ def run_unchecked_presets(settings, card: str) -> dict:
         vc = make_random_converter(name, seed=seed, chunking=CHUNKING, index_rows=BANK_ROWS,
                                    device="cuda")
         dec = vc.synth.dec
-        say(f"[21/23] {name} at full width (converter built in {time.perf_counter() - t0:.1f} "
+        say(f"[21/24] {name} at full width (converter built in {time.perf_counter() - t0:.1f} "
             f"s): upsampling {list(dec.upsample_rates)}, decoder stages of "
             f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
             f"channels, segment {preset(name).train.segment_size} samples")
@@ -2276,7 +2342,7 @@ def run_unchecked_presets(settings, card: str) -> dict:
                     settings)
         del vc, dec
         torch.cuda.empty_cache()
-        check_train_vs_cpu(preset(name), synthetic_batch(preset(name)), f"  [21/23] {name}:")
+        check_train_vs_cpu(preset(name), synthetic_batch(preset(name)), f"  [21/24] {name}:")
     return launched
 
 
@@ -2287,15 +2353,14 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     import torch
 
     from rvc_tpu_torch.ops.filters import butter_highpass_host
-    from rvc_tpu_torch.pipelines.convert import WINDOW, make_random_converter
+    from rvc_tpu_torch.pipelines.convert import WINDOW
 
     bf16 = torch.bfloat16
     t0 = time.perf_counter()
-    vc = make_random_converter("48k_v2", seed=0, chunking=CHUNKING, index_rows=BANK_ROWS,
-                               device="cuda", dtype=bf16)
+    vc = main_converter("cuda", bf16)
     say(f"bf16 converter built in {time.perf_counter() - t0:.1f} s")
     shapes = path_shapes(vc, clips[30])
-    say(f"[9/23] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
+    say(f"[9/24] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz")
     gen = torch.Generator().manual_seed(3)
     with torch.no_grad():
@@ -2334,7 +2399,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[10/23] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
+        say(f"[10/24] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
             f"{sr} Hz, peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x (float32 "
             f"in this run {rtf32[sec]:.2f}x), max_memory_allocated "
@@ -2359,7 +2424,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out, sr, launched, wall = counted_convert(vc, audio, settings, counters)
     vc.synth.dec.fuse_group = True
     same = bool(np.array_equal(out, outs[30]))
-    say(f"[11/23] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
+    say(f"[11/24] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
         f"(RTF {30 / wall:.2f}x), launches { {k: v for k, v in launched.items() if v} }, "
         f"bit-identical to the default route: {same} (the default route against itself: "
         f"{bool(np.array_equal(again, outs[30]))})")
@@ -2385,8 +2450,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     del vc
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    cpu = make_random_converter("48k_v2", seed=0, chunking=CHUNKING, index_rows=BANK_ROWS,
-                                device="cpu", dtype=bf16)
+    cpu = main_converter("cpu", bf16)
     chunks, _ = cpu.chunks(ref_clip)
     f0_cpu = cpu.pitch.method_fn("rmvpe", 50.0, 1100.0)(chunks)
     differ = float(torch.mean((torch.abs(f0_cpu - f0_card)
@@ -2395,7 +2459,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     a, b = out_gpu.astype(np.float64), out_cpu.astype(np.float64)
     l2 = float(np.linalg.norm(a - b) / np.linalg.norm(b)) if a.shape == b.shape else math.inf
-    say(f"[12/23] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
+    say(f"[12/24] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
         f"differs on {differ:.2%} of frames between them): {len(out_gpu)} vs {len(out_cpu)} "
         f"samples, relative L2 {l2:.4g} (tolerance {BF16_CPU_L2}: bf16 roundings flip "
         f"between the card's sums and the CPU's and the flips travel through the decoder; "
@@ -2417,7 +2481,7 @@ def card_vs_cpu(label: str, vc, cpu, clip, settings) -> int:
     if out_gpu.shape != out_cpu.shape:
         fail(f"{label}: the card gave {out_gpu.shape}, the CPU {out_cpu.shape}")
     diff = np.abs(out_gpu.astype(np.int32) - out_cpu.astype(np.int32))
-    say(f"  {label}: 3 s on the card vs the CPU: {len(out_gpu)} samples, max |diff| "
+    say(f"  {label}: {len(clip) / 16000:g} s on the card vs the CPU: {len(out_gpu)} samples, max |diff| "
         f"{diff.max()} LSB, share above {tol} LSB {np.mean(diff > tol):.4%} (tolerance "
         f"{tol} LSB, as phase 5's); CPU run {time.perf_counter() - t0:.1f} s")
     if diff.max() > tol:
@@ -2495,7 +2559,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
                                          * 32000).astype(np.int16))
     sizes = {k: round(os.path.getsize(p) / 2**20, 1) for k, p in path.items()
              if os.path.exists(p)}
-    say(f"[13/23] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
+    say(f"[13/24] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
 
     # 13. the command line, in process, every count set to 0 just before
     counters = {**launch_counters(), "nearest_rows": (retrieval.nearest_rows, "launches")}
@@ -2560,7 +2624,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
         dec = vc.synth.dec
         label = f"{key} {version}" + ("" if f0 else " no-f0")
         phase = 14 if f0 else 15
-        say(f"[{phase}/23] {label} from files: decoder stages of "
+        say(f"[{phase}/24] {label} from files: decoder stages of "
             f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
             f"channels, HuBERT features D = {vc.hubert.cfg.classifier_proj_size}, "
             f"{type(dec).__name__}")
@@ -2601,10 +2665,7 @@ def run_batch(settings, card: str) -> dict:
     by their peaks."""
     import torch
 
-    from rvc_tpu_torch.pipelines.convert import make_random_converter
-
-    vc = make_random_converter("48k_v2", seed=0, chunking=CHUNKING, index_rows=BANK_ROWS,
-                               device="cuda", dtype=torch.bfloat16)
+    vc = main_converter("cuda", torch.bfloat16)
     songs = [speech(10.0, 3.0 * i) for i in range(8)]
     stats: dict = {}
     vc.convert_batch(songs, settings=settings, stats=stats)  # set-up
@@ -2626,7 +2687,7 @@ def run_batch(settings, card: str) -> dict:
                 "nearest_rows_q": 1}
     best, med = 80.0 / min(walls), 80.0 / float(np.median(walls))
     dev_s, down_s, disp_s = shares[int(np.argmin(walls))]
-    say(f"[16/23] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
+    say(f"[16/24] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
         f"{stats['chunk_samples']} samples, wall ms {[round(w * 1e3, 2) for w in walls]}, "
         f"aggregate RTF best {best:.2f}x, median {med:.2f}x; stats of the best: device_s "
         f"{dev_s:.4f} ({dev_s / min(walls):.1%} of the wall), download_s {down_s:.4f} "
@@ -2660,6 +2721,7 @@ def run_batch(settings, card: str) -> dict:
 
 # ---- phase 17: training a 40k_v2 model from a dataset through the CLI ----
 TRAIN_PRESET = "40k_v2"
+TRAIN_SOURCE_SECONDS = 32.0  # of the speech fixture, sliced into 16 clips
 ADAMW_TOL = dict(atol=1e-7, rtol=1e-6)  # tests/test_torch_optimizer.py's bar
 KMEANS_ROWS, KMEANS_DIM, KMEANS_CLUSTERS, KMEANS_ITERS = 200_001, 768, 10_000, 20
 
@@ -2764,7 +2826,6 @@ def run_train_from_dataset(tmp: str, settings, card: str, checks: dict) -> dict:
     convert with the exported model: all through the port's CLI, on the
     card, at full width. Returns the training kernels' launches."""
     import dataclasses
-    import shutil
 
     import torch
 
@@ -2788,11 +2849,12 @@ def run_train_from_dataset(tmp: str, settings, card: str, checks: dict) -> dict:
     cfg = preset(TRAIN_PRESET)
     t0 = time.perf_counter()
     os.makedirs(path["src"])
-    shutil.copy(os.path.join(REPO, "assets", "speech_65s.wav"), path["src"])
+    wavfile.write(os.path.join(path["src"], "speech.wav"), 16000,
+                  (speech(TRAIN_SOURCE_SECONDS, 0.0) * 32768).astype(np.int16))
     hub_state = write_hubert_safetensors(path["hubert"], HubertConfig(), seed=21)
     rmvpe_state = write_rmvpe_pt(path["rmvpe"], seed=22)
     odd_g, odd_d = write_pretrained(path["G"], path["D"], cfg, seed=23)
-    say(f"[17/23] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
+    say(f"[17/24] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
         f"pretrained G and D ({odd_g} and {odd_d} of another shape) written in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -2805,7 +2867,8 @@ def run_train_from_dataset(tmp: str, settings, card: str, checks: dict) -> dict:
     n_clips = sum(f.endswith(".wav") for f in os.listdir(os.path.join(path["exp"], "0_gt_wavs")))
     n_files = {sub: len(os.listdir(os.path.join(path["exp"], sub)))
                for sub in ("3_feature768", "2a_f0", "2b-f0nsf")}
-    say(f"  preprocess: assets/speech_65s.wav at 40 kHz -> {n_clips} clips, feature and f0 "
+    say(f"  preprocess: the first {TRAIN_SOURCE_SECONDS:g} s of assets/speech_65s.wav at 40 kHz "
+        f"-> {n_clips} clips, feature and f0 "
         f"files {n_files}, {pre_s:.2f} s (slicing, writing, HuBERT and RMVPE on the card, the "
         f"filelist)")
     if n_clips < 10 or any(n != n_clips for n in n_files.values()):
@@ -2968,7 +3031,7 @@ def run_train_from_dataset(tmp: str, settings, card: str, checks: dict) -> dict:
     torch.cuda.empty_cache()
 
     # convert 10 s with the exported model and the index through the CLI
-    clip10, clip3 = speech(10.0, 30.0), speech(3.0, 50.0)
+    clip10, clip_cpu = speech(10.0, 30.0), speech(1.5, 50.0)
     wavfile.write(path["in"], 16000, (clip10 * 32768).astype(np.int16))
     conv = {**launch_counters(), "nearest_rows": (retrieval.nearest_rows, "launches")}
     for fn, attr in conv.values():
@@ -3005,7 +3068,7 @@ def run_train_from_dataset(tmp: str, settings, card: str, checks: dict) -> dict:
     if launched_c != expected_c:
         fail(f"the CLI's kernel launches {launched_c}, expected {expected_c}")
     cpu = VoiceConverter.from_state_dicts(*args, index_bank=bank, device="cpu")
-    lsb = card_vs_cpu(f"{TRAIN_PRESET} trained", vc, cpu, clip3, settings)
+    lsb = card_vs_cpu(f"{TRAIN_PRESET} trained", vc, cpu, clip_cpu, settings)
     del vc, cpu
     torch.cuda.empty_cache()
     checks["train_40k_v2"] = dict(clips=n_clips, steps=steps, adamw=adamw, lsb=lsb)
@@ -3023,6 +3086,8 @@ MANGIO_HOP = 64
 # test_torch_hubert_rmvpe.py: 1e-5 for rmvpe)
 F0_SHARE = 0.99
 RMS_REL = 5e-6  # the host library's double sums against numpy's float32 ones
+F0_TIMED_SECONDS = 10.0   # each method's f0 timed alone
+F0_CPU_SECONDS = 1.5      # card vs CPU (CREPE full: 0.5 s)
 
 
 def f0_label(method) -> str:
@@ -3066,7 +3131,7 @@ def check_host_library() -> dict:
     nrms = slicer.frame_rms_numpy(x, sl.win_size, sl.hop_size)
     rms_err = float(np.max(np.abs(rms - nrms) / np.maximum(nrms, 1e-9)))
     tags, ntags = sl._silence_tags(rms), sl._silence_tags_numpy(rms)
-    say(f"[18/23] host library {os.path.relpath(lib._name, REPO)} built and loaded in "
+    say(f"[18/24] host library {os.path.relpath(lib._name, REPO)} built and loaded in "
         f"{build_s:.2f} s: peak_quantize_i16 on 30 s equal to numpy's {np.array_equal(q, nq)} "
         f"(peak {peak} / {npeak}); frame_rms of {len(rms)} frames within {rms_err:.3g} "
         f"relative of numpy's float32 sums (tolerance {RMS_REL}); the slicer's {len(tags)} "
@@ -3098,13 +3163,12 @@ def run_f0_methods(card: str) -> dict:
 
     import torch
 
-    from rvc_tpu_torch.pipelines.convert import ConvertSettings, make_random_converter
+    from rvc_tpu_torch.pipelines.convert import ConvertSettings, synth_kwargs_from_config
     from rvc_tpu_torch.pitch.extractor import PitchExtractor, coarse_f0
 
     out = {"host": check_host_library()}
     t0 = time.perf_counter()
-    vc = with_crepe(make_random_converter("48k_v2", seed=0, chunking=CHUNKING,
-                                          index_rows=BANK_ROWS, device="cuda"), "cuda")
+    vc = with_crepe(main_converter("cuda"), "cuda")
     say(f"  converter with CREPE full and tiny built in {time.perf_counter() - t0:.1f} s")
     counters = launch_counters()
     dec = vc.synth.dec
@@ -3113,10 +3177,10 @@ def run_f0_methods(card: str) -> dict:
                 "banded_rel_attention": len(vc.synth.enc_p.encoder.attn_layers),
                 "nearest_rows_q": 1}
     clip10 = speech(10.0, 0.0)
-    a30 = torch.from_numpy(speech(30.0, 10.0))[None].cuda()
+    a_timed = torch.from_numpy(speech(F0_TIMED_SECONDS, 10.0))[None].cuda()
     cpu_pitch = PitchExtractor(**{k: copy.deepcopy(getattr(vc.pitch, k)).cpu()
                                   for k in ("rmvpe", "crepe", "crepe_tiny")}).to("cpu")
-    a3 = torch.from_numpy(np.stack([speech(3.0, 40.0), glide(3.0)]))
+    a_cpu = torch.from_numpy(np.stack([speech(F0_CPU_SECONDS, 40.0), glide(F0_CPU_SECONDS)]))
     for method in F0_METHODS:
         label = f0_label(method)
         settings = ConvertSettings(**dict(SETTINGS, f0_method=method,
@@ -3126,14 +3190,16 @@ def run_f0_methods(card: str) -> dict:
         def f0_of(audio, pitch=vc.pitch, method=method):
             return pitch.compute(audio, method, "median", 50.0, 1100.0, 3, MANGIO_HOP)
 
-        ms = timed(lambda: f0_of(a30), reps=3, warmup=1)
-        n_kernels = kernel_launches(lambda: f0_of(a30))
-        clip = a3[:, :8000] if method == "crepe" else a3  # CREPE full: 0.5 s on the CPU
+        ms = timed(lambda: f0_of(a_timed), reps=3, warmup=1)
+        n_kernels = kernel_launches(lambda: f0_of(a_timed))
+        # CREPE full (and its mangio form): 0.5 s on the CPU
+        clip = a_cpu[:, :8000] if method in ("crepe", "mangio-crepe") else a_cpu
         got = f0_of(clip.cuda()).cpu().numpy()
         t1 = time.perf_counter()
         ref = f0_of(clip, cpu_pitch).numpy()
         n_ok, n = f0_agreement(got, ref, f0_rel(method))
-        say(f"    f0 of 30 s alone: {ms:.2f} ms (CUDA events, median of 3 after a warm-up), "
+        say(f"    f0 of {F0_TIMED_SECONDS:g} s alone: {ms:.2f} ms (CUDA events, mean of 3 after a "
+            f"warm-up), "
             f"{n_kernels} kernels in one call (torch.profiler); card vs CPU on "
             f"{clip.shape[1] / 16000:g} s: {n_ok} of {n} frames agree (voicing, and f0 within "
             f"{f0_rel(method):g} relative; bar {F0_SHARE:.0%}), {int((ref > 0).sum())} voiced "
@@ -3141,20 +3207,20 @@ def run_f0_methods(card: str) -> dict:
             f"CPU {time.perf_counter() - t1:.1f} s")
         if got.shape != ref.shape or n_ok < F0_SHARE * n or not (ref > 0).any():
             fail(f"{label}: the card's f0 disagrees with the CPU's")
-        out[label] = dict(rtf_10s=rtf, f0_ms_30s=ms, kernels=n_kernels, agree=n_ok, frames=n)
+        out[label] = dict(rtf_10s=rtf, f0_ms=ms, kernels=n_kernels, agree=n_ok, frames=n)
 
     walls = {k: 10.0 / v["rtf_10s"] for k, v in out.items() if "rtf_10s" in v}
     say("  f0's share of the 10 s conversion's wall (the wall beyond pm's, whose f0 is the "
         "cheapest): " + ", ".join(f"{k} {(w - walls['pm']) / w:.1%}" for k, w in walls.items()
                                   if k != "pm"))
 
-    # the hybrid conversion of 3 s, card vs CPU
+    # the hybrid conversion, card vs CPU
     hybrid = ConvertSettings(**dict(SETTINGS, f0_method=list(F0_METHODS[-1])))
     t0 = time.perf_counter()
-    cpu = with_crepe(make_random_converter("48k_v2", seed=0, chunking=CHUNKING,
-                                           index_rows=BANK_ROWS, device="cpu"), "cpu")
-    say(f"  CPU converter built in {time.perf_counter() - t0:.1f} s")
-    out["hybrid_lsb"] = card_vs_cpu(f0_label(F0_METHODS[-1]), vc, cpu, speech(3.0, 40.0), hybrid)
+    cpu = cpu_copy(vc, synth_kwargs_from_config(vc.config))  # the same weights, copied
+    say(f"  CPU converter copied in {time.perf_counter() - t0:.1f} s")
+    out["hybrid_lsb"] = card_vs_cpu(f0_label(F0_METHODS[-1]), vc, cpu,
+                                    speech(F0_CPU_SECONDS, 40.0), hybrid)
     del cpu
 
     # infer_mix with one-hot weights against infer at that sid
@@ -3289,13 +3355,14 @@ def network_flops(make_net, shape, device: str = "meta") -> float:
     """Multiply-adds x 2 of one forward of the net ``make_net()`` returns,
     on an input of ``shape``, counted from the shapes each conv, transposed
     conv, linear, LSTM and attention (``models.htdemucs``'s
-    ``MultiheadAttention`` and ``LocalState`` products) sees, by forward
-    hooks. On the meta device no arithmetic runs; ``device`` "cuda" runs
+    ``MultiheadAttention`` and ``LocalState`` products, the RoFormers'
+    ``Attention``) sees, by forward hooks. On the meta device no arithmetic runs; ``device`` "cuda" runs
     one forward of the net, which may be one that exists already (meta
     unrolls an LSTM step by step on the host)."""
     import torch
     from torch import nn
 
+    from rvc_tpu_torch.models.bs_roformer import Attention as RoformerAttention
     from rvc_tpu_torch.models.htdemucs import LocalState, MultiheadAttention
 
     total = [0.0]
@@ -3319,8 +3386,12 @@ def network_flops(make_net, shape, device: str = "meta") -> float:
         elif isinstance(m, LocalState):  # k^T q and w content over (B, C, T)
             B, C, T = x.shape
             total[0] += 4.0 * B * T * T * C
+        elif isinstance(m, RoformerAttention):  # q k^T and p v a head (projections: Linear)
+            B, N, _ = x.shape
+            total[0] += 4.0 * B * m.heads * N * N * m.dim_head
 
-    kinds = (nn.modules.conv._ConvNd, nn.Linear, nn.LSTM, MultiheadAttention, LocalState)
+    kinds = (nn.modules.conv._ConvNd, nn.Linear, nn.LSTM, MultiheadAttention, LocalState,
+             RoformerAttention)
     with torch.device(device):
         net = make_net()
         handles = [m.register_forward_hook(hook) for m in net.modules() if isinstance(m, kinds)]
@@ -3377,16 +3448,18 @@ def busy_share(fn) -> tuple[float, float, list]:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type.name == "CUDA")
+    device = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy, end = 0.0, -math.inf
-    for a, b in spans:
+    by_name: dict = {}
+    for e in sorted(device, key=lambda e: e.time_range.start):
+        a, b = e.time_range.start, e.time_range.end
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
-    kernels = sorted((e for e in prof.key_averages() if e.device_type.name == "CUDA"),
-                     key=lambda e: -e.self_device_time_total)[:5]
-    top = [(e.self_device_time_total / 1e3, e.count, e.key[:60]) for e in kernels]
-    return busy / 1e3, wall, top
+        total = by_name.setdefault(e.name, [0.0, 0])
+        total[0] += b - a
+        total[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return busy / 1e3, wall, [(t / 1e3, n, k[:60]) for k, (t, n) in top]
 
 
 SEP_SECONDS = 30.0
@@ -3482,7 +3555,7 @@ def run_separation(tmp: str, card: str) -> None:
     song = song_stereo(SEP_SECONDS)
     flops = {"VR": network_flops(lambda: CascadedASPPNet(n_fft_vr), (1, 2, 673, 512)),
              "MDX": network_flops(ConvTDFNetTrim, (1, 4, 256, 3072))}
-    say(f"[22/23] separation at full width: VR CascadedASPPNet({n_fft_vr}) from a .pth "
+    say(f"[22/24] separation at full width: VR CascadedASPPNet({n_fft_vr}) from a .pth "
         f"(4band_v2, {FOURBAND_V2_PARAM['bins'] + 1} bins, window 512, offset 128, agg 10, mirroring), "
         f"{flops['VR'] / 1e9:.1f} GFLOP a window; MDX ConvTDFNetTrim(11 blocks, l 3, g 32, "
         f"bn 8, dim_f 3072, GroupNorm2) from an anonymous .onnx (dim_t 256, n_fft 6144, hop "
@@ -3509,7 +3582,7 @@ def run_separation(tmp: str, card: str) -> None:
             lambda m, a: windows.__setitem__(0, windows[0] + a[0].shape[0]))
         torch.cuda.reset_peak_memory_stats()
         walls, stages = [], {}
-        for _ in range(3):
+        for _ in range(1 if opt else 3):  # tta and denoise: one timed run
             events = []
             torch.cuda.synchronize()
             t1 = time.perf_counter()
@@ -3526,7 +3599,7 @@ def run_separation(tmp: str, card: str) -> None:
         # the profiler on the plain runs only (tta and denoise repeat them)
         busy, wall, top = (0.0, 1.0, []) if opt else busy_share(
             lambda: sep.run_inference(song, 44100))
-        n_win = windows[0] // 3  # network forwards of one window a run (twice with denoise)
+        n_win = windows[0] // len(walls)  # network forwards of one window a run (twice with denoise)
         nets = n_win * flops[kind]
         say(f"  {label}: RTF best {SEP_SECONDS / min(walls):.2f}x, median "
             f"{SEP_SECONDS / float(np.median(walls)):.2f}x (walls ms "
@@ -3668,11 +3741,11 @@ FT_WEIGHTS = [[1.0, 0.0, 0.0, 0.0], [0.0, 1.0, 0.0, 0.0], [0.0, 0.0, 1.0, 0.0],
 WIENER_TOL = 1e-4  # of the largest magnitude, card vs CPU: complex64 EM at full size
 
 
-def check_demucs_stems(out: dict, n_in: int, label: str) -> None:
+def check_demucs_stems(out: dict, n_in: int, label: str, sources=DEMUCS_SOURCES) -> None:
     """Every source and the instrumentals: stereo int16 of the input's
     length at 44.1 kHz, not silent; vocals and instrumentals differ."""
     stems = [k for k in out if k not in ("sr", "input_audio")]
-    if stems != DEMUCS_SOURCES + ["instrumentals"] or out["sr"] != 44100:
+    if stems != list(sources) + ["instrumentals"] or out["sr"] != 44100:
         fail(f"{label}: stems {stems} at {out['sr']} Hz")
     for k in stems:
         a = out[k][0]
@@ -3715,7 +3788,7 @@ def run_demucs(tmp: str, card: str) -> None:
     t1 = time.perf_counter()
     seps = {label: load_separator(route_separator(path), path)  # the card
             for label, path in paths.items()}
-    say(f"[23/23] Demucs at full width: HTDemucs (channels 48, depth 4, nfft 4096, 5 "
+    say(f"[23/24] Demucs at full width: HTDemucs (channels 48, depth 4, nfft 4096, 5 "
         f"transformer layers of 384 x 8 heads, segment {float(HTDEMUCS_KW['segment'])} s with "
         f"use_train_segment), HDemucs (depth 6, BLSTM and LocalState from layer 4, 10 s "
         f"segments), Conv-TasNet (N 256, L 20, B 256, H 512, P 3, X 10, R 4, gLN, 8 s), a bag of "
@@ -3823,6 +3896,302 @@ def run_demucs(tmp: str, card: str) -> None:
         fail("Demucs separation launched a kernel of the conversion or training path")
 
 
+# ---- phase 24: BS-RoFormer and Mel-Band RoFormer, the Karafan recipe, pitch_shift ----
+
+def roformer_weights(model, seed: int) -> dict:
+    """{name: array} for every entry of a RoFormer's state_dict at the JAX
+    initializer's scale: each Linear's weight and bias uniform in
+    +-1/sqrt(fan_in), every RMSNorm gamma ones; drawn in state_dict order
+    from ``seed``. ``model`` may live on the meta device."""
+    from torch import nn
+
+    rng = np.random.default_rng(seed)
+    fan_in = {name: m.in_features for name, m in model.named_modules()
+              if isinstance(m, nn.Linear)}
+    out = {}
+    for key, t in model.state_dict().items():
+        owner, leaf = key.rsplit(".", 1)
+        if leaf == "gamma":
+            out[key] = np.ones(tuple(t.shape), np.float32)
+        else:
+            bound = np.float32(1.0 / math.sqrt(fan_in[owner]))
+            u = rng.random(tuple(t.shape), dtype=np.float32)
+            out[key] = (2 * bound) * u - bound
+    return out
+
+
+def write_roformer_ckpt(path: str, state: dict, cfg, lightning: bool,
+                        freq_indices: bool = False) -> None:
+    """A UVR/MSST ``.ckpt`` of a RoFormer's ``state`` ({lucidrains name:
+    array}) with the buffers a released file carries beside the weights
+    (each attention's ``rotary_embed.freqs``; with ``freq_indices``, a Mel
+    model's band layout): as Lightning saves it, {"state_dict": {"model." +
+    name: tensor}, ...}, or the bare state dict."""
+    import torch
+
+    sd = {k: torch.from_numpy(v) for k, v in state.items()}
+    rot = 1.0 / 10000 ** (torch.arange(0, cfg.dim_head, 2).float() / cfg.dim_head)
+    for k in [k for k in state if k.endswith(".to_qkv.weight")]:
+        sd[k.replace("to_qkv.weight", "rotary_embed.freqs")] = rot
+    if freq_indices:
+        sd["freq_indices"] = torch.tensor(cfg.freq_indices, dtype=torch.long)
+    if lightning:
+        sd = {"epoch": 317, "global_step": 0, "pytorch-lightning_version": "2.1.0",
+              "state_dict": {"model." + k: v for k, v in sd.items()}}
+    torch.save(sd, path)
+
+
+ROFORMER_FLOOR_DB = -60.0  # a seeded noise floor under the card-vs-CPU window
+KARAFAN_SECONDS = 10.0
+STRETCH_TOL = 2e-3  # relative L2, card vs CPU: the CPU tests' bar against JAX
+# (a seeded floor under the card-vs-CPU window and pitch_shift's song; see run_roformer)
+
+
+def roformer_config_line(cfg) -> str:
+    """A RoFormer config's fields, the Mel layout's tuples summarized."""
+    import dataclasses
+
+    out = []
+    for k, v in dataclasses.asdict(cfg).items():
+        if k in ("freq_indices", "band_widths"):
+            v = f"{len(v)} entries" if k == "freq_indices" else f"{len(v)} bands, {sum(v)} entries"
+        elif k == "freqs_per_bands":
+            v = f"{len(v)} bands over {sum(v)} bins"
+        out.append(f"{k} {v}")
+    return ", ".join(out)
+
+
+def rounding_response(sep, window: np.ndarray) -> int:
+    """max |diff| in LSB between the stems of ``window`` (one segment) through
+    ``sep``'s network and those of its spectrogram plus seeded noise of 1e-7
+    of its largest value, each stem scaled to int16 as ``run_inference``
+    scales it."""
+    import torch
+
+    from rvc_tpu_torch.models.bs_roformer import pack_spec, unpack_spec
+    from rvc_tpu_torch.pipelines.separate import stereo_int16
+
+    x = torch.from_numpy(np.ascontiguousarray(window)).to(sep.device)[None]
+    spec = pack_spec(x, sep.cfg)
+    g = torch.Generator(device=sep.device).manual_seed(7)
+    noise = torch.randn(spec.shape, generator=g, device=sep.device) * 1e-7 * spec.abs().amax()
+    with torch.no_grad():
+        a, b = (stereo_int16(unpack_spec(sep.model(s), sep.cfg, x.shape[-1])[:, 0])
+                for s in (spec, spec + noise))
+    return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+
+
+def run_roformer(tmp: str, card: str) -> None:
+    """Phase 24: BS-RoFormer (the ep_317 layout) and Mel-Band RoFormer (the
+    JAX defaults) written as .ckpt files with seeded weights at the JAX
+    initializer's scale, separating phase 22's 30 s song through
+    load_separator and the CLI: the loader's config, RTF, stages, TFLOP/s,
+    busy share and peak memory; card vs CPU on one 8 s window; the Karafan
+    recipe on 10 s (the Mel model for vocals, phase 22's MDX net for music);
+    pitch_shift card vs CPU; kernels 1-8 launched no time."""
+    import torch
+
+    from rvc_tpu_torch.models.bs_roformer import BSRoformer, BSRoformerConfig
+    from rvc_tpu_torch.models.mdx_net import ConvTDFNetTrim
+    from rvc_tpu_torch.models.mel_roformer import MelBandRoformer, MelRoformerConfig
+    from rvc_tpu_torch.ops.stretch import pitch_shift
+    from rvc_tpu_torch.pipelines import karafan
+    from rvc_tpu_torch.pipelines.separate import load_separator, route_separator
+
+    counters = training_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    models = {"BS-RoFormer": (BSRoformer, BSRoformerConfig(), "model_bs_roformer_ep_317_sdr_12.9755.ckpt",
+                              True, 41),
+              "Mel-RoFormer": (MelBandRoformer, MelRoformerConfig(), "MelBandRoformer.ckpt",
+                               False, 42)}
+    paths, states, flops = {}, {}, {}
+    for label, (cls, cfg, name, lightning, seed) in models.items():
+        with torch.device("meta"):
+            states[label] = roformer_weights(cls(cfg), seed)
+        paths[label] = os.path.join(tmp, name)
+        write_roformer_ckpt(paths[label], states[label], cfg, lightning=lightning)
+        flops[label] = network_flops(lambda: cls(cfg), (1, 801, 2050, 2))
+    song = song_stereo(SEP_SECONDS)
+    written = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    seps = {label: load_separator(route_separator(path), path) for label, path in paths.items()}
+    say(f"[24/24] RoFormers at full width: a BS-RoFormer as a Lightning .ckpt and a Mel-Band "
+        f"RoFormer as a bare state dict without freq_indices, seeded weights at the JAX "
+        f"initializer's scale (uniform +-1/sqrt(fan_in), gamma 1); written in {written:.1f} s, "
+        f"loaded in {time.perf_counter() - t1:.1f} s; {SEP_SECONDS:.0f} s of stereo 44.1 kHz "
+        f"(phase 22's song)")
+    for label, sep in seps.items():
+        if sep.cfg != models[label][1]:
+            fail(f"{label}: the loader read {sep.cfg}, the file holds {models[label][1]}")
+        n_params = sum(p.numel() for p in sep.model.parameters())
+        say(f"  {label} ({type(sep).__name__}, {n_params / 1e6:.1f} M parameters): the "
+            f"loader's config: {roformer_config_line(sep.cfg)}; {flops[label] / 1e12:.3f} TFLOP "
+            f"a {sep.segment}-sample window (801 frames)")
+
+    for label, sep in seps.items():
+        t1 = time.perf_counter()
+        out = sep.run_inference(song, 44100)  # first call: set-up
+        first = time.perf_counter() - t1
+        check_demucs_stems(out, song.shape[1], label, sources=["vocals"])
+        windows = [0]
+        hook = sep.model.register_forward_pre_hook(
+            lambda m, a: windows.__setitem__(0, windows[0] + a[0].shape[0]))
+        torch.cuda.reset_peak_memory_stats()
+        walls, stages = [], {}
+        for _ in range(3):
+            events = []
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            again = sep.run_inference(song, 44100, events=events)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            stages = stage_ms(events)
+            stages["host and gaps"] = walls[-1] * 1e3 - events[0][1].elapsed_time(events[-1][1])
+        hook.remove()
+        rerun = stem_lsb(out, again)
+        if max(rerun.values()) > SEP_TOL:
+            fail(f"{label}: two runs on the card differ by {rerun} LSB")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy, wall, top = busy_share(lambda: sep.run_inference(song, 44100))
+        n_win = windows[0] // 3
+        nets = n_win * flops[label]
+        say(f"  {label} on {SEP_SECONDS:.0f} s: RTF best {SEP_SECONDS / min(walls):.2f}x, median "
+            f"{SEP_SECONDS / float(np.median(walls)):.2f}x (walls ms "
+            f"{[round(w * 1e3, 2) for w in walls]}; first call {first * 1e3:.1f}); stages ms "
+            f"(CUDA events, last run): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+            + f"; network {n_win} windows, {nets / 1e12:.3f} TFLOP, "
+            f"{nets / stages['network'] / 1e9:.1f} TFLOP/s; peak {peak:.2f} GiB; device busy "
+            + (f"{busy / wall:.1%} ({busy:.2f} of {wall:.2f} ms under the profiler)" if busy > 0
+               else "not measured (the profiler saw no device time)")
+            + f"; the set-up call against the last, max |diff| {max(rerun.values())} LSB; {card}")
+        if top:
+            say("    top kernels (ms, calls): " + "; ".join(f"{ms:.2f} x{n} {k}" for ms, n, k in top))
+        torch.cuda.empty_cache()
+
+    # card against CPU on one 8 s window, the same weights. The song is band-
+    # limited at 8 kHz (the speech fixture is 16 kHz): its empty bands hold the
+    # STFT's rounding, which each band's RMSNorm scales to unit norm, so the
+    # stems follow cuFFT's or pocketfft's roundings there (shown below); with
+    # a seeded floor at ROFORMER_FLOOR_DB every band holds signal
+    window = song[:, 44100: 44100 + seps["BS-RoFormer"].segment]
+    floor = 10 ** (ROFORMER_FLOOR_DB / 20) * np.random.default_rng(24).standard_normal(window.shape)
+    clip = (window + floor).astype(np.float32)
+    for label, sep in seps.items():
+        say(f"  {label}: the stems of the song's window as it is moved by "
+            f"{rounding_response(sep, window)} LSB by a perturbation of 1e-7 of the "
+            f"spectrogram's largest value (the STFT's rounding), on the card")
+    for label, sep in seps.items():
+        cpu_sep = type(sep)(states[label], sep.cfg, device="cpu")
+        got = sep.run_inference(clip, 44100)
+        t1 = time.perf_counter()
+        ref = cpu_sep.run_inference(clip, 44100)
+        lsb = stem_lsb(got, ref)
+        say(f"  {label} on one {clip.shape[1] / 44100:.0f} s window with the floor, card vs CPU "
+            f"(all {sep.cfg.depth} layers): max |diff| {lsb} LSB (tolerance {SEP_TOL}); CPU "
+            f"{time.perf_counter() - t1:.1f} s")
+        if max(lsb.values()) > SEP_TOL:
+            fail(f"{label}: the card's stems disagree with the CPU's")
+        del cpu_sep
+
+    # the command line on the song's file: its downmix doubled to stereo
+    wav = os.path.join(tmp, "song.wav")
+    write_song_wav(wav, song)
+    for label, path in paths.items():
+        check_cli_separate(tmp, wav, path, seps[label], label, channels=2)
+    del states
+
+    # the Karafan recipe: the Mel model's vocals (band-limited at 16 kHz, so
+    # both SRS passes run, each as two denoise passes) and phase 22's MDX net
+    mdx_path = os.path.join(tmp, "UVR-MDX-NET-Inst_full.onnx")
+    write_mdx_onnx(mdx_path, ConvTDFNetTrim(), seed=23)
+    mdx = load_separator(route_separator(mdx_path), mdx_path)
+    spent, calls = [0.0], [0]
+
+    def extractor(fn):
+        def run(mix):
+            t1 = time.perf_counter()
+            out = fn(torch.from_numpy(np.ascontiguousarray(mix, np.float32)).cuda()).cpu().numpy()
+            spent[0] += time.perf_counter() - t1
+            calls[0] += 1
+            return out
+        return run
+
+    mel = seps["Mel-RoFormer"]
+    pipe = karafan.KarafanPipeline(
+        vocal=[karafan.KarafanModel(extractor(lambda x: mel.demix(x)[0]), name="mel_roformer",
+                                    cut_off=16000)],
+        music=[karafan.KarafanModel(extractor(mdx.demix), name="mdx_inst")],
+        config=karafan.speed_preset("Fast"))
+    clip = song[:, : int(KARAFAN_SECONDS * 44100)]
+    stages = {}
+    pipe.separate(clip, 44100)  # set-up
+    spent[0], calls[0] = 0.0, 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = pipe.separate(clip, 44100, stages=stages)
+    wall = time.perf_counter() - t1
+    peaks = {k: int(np.abs(out[k][0].astype(np.int32)).max()) for k in ("vocals", "instrumentals")}
+    say(f"  Karafan (speed_preset Fast: vocal bigshifts 1 and SRS 1, music 1) on "
+        f"{KARAFAN_SECONDS:.0f} s, Mel-RoFormer vocals (cut_off 16000) and the MDX net's music: "
+        f"wall {wall:.2f} s, {calls[0]} extractor calls {spent[0]:.2f} s "
+        f"({spent[0] / wall:.1%} of the wall; the rest the host's filters, resampling and "
+        f"ensembles), stems' peaks {peaks} (int16, mono), stages "
+        + ", ".join(f"{k} {np.shape(v)}" for k, v in stages.items() if v is not None))
+    if any(v == 0 for v in peaks.values()) or len(out["vocals"][0]) != clip.shape[1]:
+        fail("Karafan: a silent stem or another length")
+    del mdx, pipe
+
+    # pitch_shift on 30 s of stereo, card vs CPU. The speech fixture holds
+    # digital silence (bins fall to 1e-8): a silent frame's atan2 phase is
+    # the rounding's, and the phase vocoder carries it into every later frame
+    # of the bin, so the song as it is is only reported; with the floor every
+    # frame holds signal
+    floored = song + 10 ** (ROFORMER_FLOOR_DB / 20) * np.random.default_rng(25).standard_normal(
+        song.shape)
+    for n_steps in (12.0, -5.0):
+        errs = []
+        for y in (torch.from_numpy(song), torch.from_numpy(floored.astype(np.float32))):
+            ref = pitch_shift(y, 44100, n_steps)
+            yc = y.cuda()
+            got = pitch_shift(yc, 44100, n_steps).cpu()
+            if got.shape != y.shape:
+                fail(f"pitch_shift {n_steps}: {tuple(got.shape)} from {tuple(y.shape)}")
+            errs.append(float((got - ref).norm() / ref.norm()))
+        ms = timed(lambda: pitch_shift(yc, 44100, n_steps), reps=3, warmup=1)
+        say(f"  pitch_shift {n_steps:+g} semitones on {SEP_SECONDS:.0f} s of stereo: {ms:.2f} ms on "
+            f"the card (CUDA events, 3 after a warm-up); card vs CPU relative L2 {errs[1]:.3g} "
+            f"with the {ROFORMER_FLOOR_DB:g} dB floor (tolerance {STRETCH_TOL:g}, the CPU tests' "
+            f"bar against JAX), {errs[0]:.3g} on the song as it is (not held: its silent frames' "
+            f"phases are the roundings')")
+        if not errs[1] <= STRETCH_TOL:
+            fail(f"pitch_shift {n_steps}: the card disagrees with the CPU")
+
+    launched = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    say(f"  kernel launches in phase 24: {launched}")
+    if any(launched.values()):
+        fail("RoFormer separation launched a kernel of the conversion or training path")
+
+
+def skip_default_init() -> None:
+    """For this process, torch's default parameter initialization (the
+    ``torch.nn.init`` calls in each layer's constructor) writes nothing.
+    Every module this script builds has each parameter drawn (init_random_,
+    the writers' draws) or loaded strictly (load_state_dict) before use; the
+    defaults cost ~50 s of random numbers that nothing read (cProfile of
+    the whole script on the card)."""
+    from torch.nn import init
+
+    def keep(tensor, *args, **kwargs):
+        return tensor
+
+    for name in ("uniform_", "normal_", "trunc_normal_", "constant_", "ones_", "zeros_",
+                 "xavier_uniform_", "xavier_normal_", "kaiming_uniform_", "kaiming_normal_",
+                 "orthogonal_"):
+        setattr(init, name, keep)
+
+
 def main() -> int:
     try:
         import torch
@@ -3830,6 +4199,7 @@ def main() -> int:
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs the card")
+    skip_default_init()
     clock = [time.perf_counter()]
 
     def lap(label: str) -> None:
@@ -3845,7 +4215,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi gave nothing"
-    say(f"[1/23] card: {name}, {count} device(s); torch {torch.__version__}, "
+    say(f"[1/24] card: {name}, {count} device(s); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     say(card)
 
@@ -3855,7 +4225,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library()
     info = _cuda.build_info
-    say(f"[2/23] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
+    say(f"[2/24] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
         f"(load {time.perf_counter() - t0:.2f} s)")
     say("ptxas: " + "; ".join(info["ptxas"]))
     say("ptxas C7515 (wgmma serialized): " + (", ".join(info["serialized"]) or "none"))
@@ -3875,11 +4245,10 @@ def main() -> int:
 
     from rvc_tpu_torch.ops import attention, resblock, retrieval
     from rvc_tpu_torch.ops.filters import butter_highpass_host
-    from rvc_tpu_torch.pipelines.convert import WINDOW, ConvertSettings, make_random_converter
+    from rvc_tpu_torch.pipelines.convert import WINDOW, ConvertSettings
 
     t0 = time.perf_counter()
-    vc = make_random_converter("48k_v2", seed=0, chunking=CHUNKING, index_rows=BANK_ROWS,
-                               device="cuda")
+    vc = main_converter("cuda")
     say(f"converter built in {time.perf_counter() - t0:.1f} s")
     clips = {10: speech(10.0, 0.0), 30: speech(30.0, 10.0)}
 
@@ -3887,7 +4256,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions at the 30 s conversion's shapes
     shapes = path_shapes(vc, clips[30])
-    say(f"[3/23] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
+    say(f"[3/24] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz, {shapes['T50']} HuBERT frames per chunk")
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -3943,7 +4312,7 @@ def main() -> int:
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[4/23] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
+        say(f"[4/24] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
             f"peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x, "
             f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -3963,12 +4332,11 @@ def main() -> int:
     ref_clip = speech(3.0, 40.0)
     out_gpu, _ = vc.convert(ref_clip, settings=settings)
     t0 = time.perf_counter()
-    cpu = make_random_converter("48k_v2", seed=0, chunking=CHUNKING, index_rows=BANK_ROWS,
-                                device="cpu")
+    cpu = main_converter("cpu")
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     diff = np.abs(out_gpu.astype(np.int32) - out_cpu.astype(np.int32))
     tol = 4
-    say(f"[5/23] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
+    say(f"[5/24] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
         f"max |diff| {diff.max()} LSB, share above {tol} LSB {np.mean(diff > tol):.4%} "
         f"(tolerance {tol} LSB: the same float32 math summed in another order, "
         f"~1e-5 relative before the int16 scaling); CPU run "
@@ -3994,10 +4362,10 @@ def main() -> int:
     batches = [b for e in range(-(-(1 + TRAIN_STEPS) // per_epoch))
                for b in batcher.epoch(e)][:1 + TRAIN_STEPS]
     trainer = Trainer(cfg, device="cuda")
-    trainer.init_state(seed=0)
+    seeded_state(trainer, 0)
     say(f"dataset of {len(CLIP_SECONDS)} clips, {len(batches)} batches, trainer built in "
         f"{time.perf_counter() - t0:.1f} s")
-    say(f"[6/23] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
+    say(f"[6/24] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
         f"segment {cfg.train.segment_size} samples, WN over {np.shape(batches[0]['spec'])[1]} "
         f"frames")
     gen = torch.Generator().manual_seed(2)
@@ -4027,7 +4395,7 @@ def main() -> int:
     lap("phase 6 and the dataset")
 
     # 7. the training path
-    run32 = run_training(trainer, batches, card, "7/23")
+    run32 = run_training(trainer, batches, card, "7/24")
     trained, rate32 = run32["launches"], run32["rate"]
     launches = {"fused_resblock_group": launches["resblock"],
                 "banded_rel_attention": launches["attention"],
@@ -4100,6 +4468,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="rvc_demucs_") as work:
         run_demucs(work, card)
     lap("phase 23")
+
+    # 24. BS-RoFormer and Mel-Band RoFormer, the Karafan recipe, pitch_shift
+    with tempfile.TemporaryDirectory(prefix="rvc_roformer_") as work:
+        run_roformer(work, card)
+    lap("phase 24")
 
     kernels = []
     meta = {

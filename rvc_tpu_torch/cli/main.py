@@ -10,6 +10,8 @@
         [--resample-sr 44100] [--device cpu]
     python -m rvc_tpu_torch.cli.main separate song.wav stems/ --model HP2-4BAND.pth \
         [--agg 10] [--device cpu]
+    python -m rvc_tpu_torch.cli.main separate song.wav stems/ \
+        --model model_bs_roformer_ep_317_sdr_12.9755.ckpt [--device cpu]
 
 The arguments, defaults and steps of ``rvc_tpu/cli/main.py``'s subcommands,
 plus ``--device`` (the card unless ``cpu`` is asked for). ``--f0-method``
@@ -18,7 +20,8 @@ need no weights, rmvpe and rmvpe+ need ``--rmvpe``; crepe has no weights
 flag here, as in JAX, so its methods raise KeyError. ``separate`` picks
 the separator from the model file's name (``pipelines.separate.
 route_separator``: a UVR5 VR ``.pth``, an MDX-Net ``.onnx`` whose name
-holds "mdx", or a Demucs ``.th`` package or bag ``.yaml``), separates the
+holds "mdx", a Demucs ``.th`` package or bag ``.yaml``, or a UVR/MSST
+BS-RoFormer or Mel-Band RoFormer ``.ckpt``), separates the
 file's downmix, as the JAX package's does, and writes ``vocals.wav`` and
 ``instrumentals.wav``.
 """
@@ -74,7 +77,8 @@ def _add_separate(sub) -> None:
     p = sub.add_parser("separate", help="vocal/instrumental separation")
     p.add_argument("input")
     p.add_argument("output_dir")
-    p.add_argument("--model", required=True, help="UVR5 VR .pth, MDX-Net .onnx, or Demucs .th / bag .yaml")
+    p.add_argument("--model", required=True, help="UVR5 VR .pth, MDX-Net .onnx, Demucs .th / bag .yaml, "
+                   "or BS-RoFormer / Mel-Band RoFormer .ckpt")
     p.add_argument("--agg", type=float, default=10.0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 

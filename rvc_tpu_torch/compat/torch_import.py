@@ -12,7 +12,10 @@ conversion and separation paths read:
     ``classifier``), full or tiny,
   * a UVR5 VR ``.pth`` (the separation route's ``CascadedASPPNet``),
   * a demucs v3/v4 ``.th`` package (``HDemucs``/``HTDemucs``) and a demucs
-    v2 Conv-TasNet ``.th``.
+    v2 Conv-TasNet ``.th``,
+  * a UVR/MSST BS-RoFormer or Mel-Band RoFormer ``.ckpt`` (lucidrains'
+    names, bare or under a Lightning ``state_dict``), its architecture read
+    from the tensors' shapes.
 
 Each returns ``{name: float32 numpy array}`` under the names the port's
 modules use, which ``pipelines.convert.VoiceConverter.from_state_dicts``
@@ -23,7 +26,7 @@ axis but 0); ``fold=False`` keeps the pairs, for a training warm start.
 The safetensors format is read here (an 8-byte little-endian header
 length, a JSON header, the raw buffers), so the ``safetensors`` package is
 not needed. ``torch.load`` runs with ``weights_only=True`` but on the
-Demucs files: the other formats hold only tensors, numbers, strings, lists
+Demucs and RoFormer files: the other formats hold only tensors, numbers, strings, lists
 and dicts, and such a file is then never unpickled into arbitrary objects.
 A Demucs package pickles its model's class; its loader stubs the modules
 the pickle names (as the JAX package's does) and reads only the class's
@@ -44,7 +47,9 @@ import numpy as np
 import torch
 
 from ..config import SR_MAP
+from ..models.bs_roformer import BSRoformerConfig
 from ..models.hubert import HubertConfig
+from ..models.mel_roformer import MelRoformerConfig, mel_band_indices
 from .weights import _norm_except_dim0
 
 
@@ -425,3 +430,152 @@ def read_demucs_bag(path: str) -> dict:
     if pending:
         raise ValueError(f"{path}: unclosed list under {key!r}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# BS-RoFormer and Mel-Band RoFormer (.ckpt, lucidrains/MSST layout)
+# ---------------------------------------------------------------------------
+
+# tensors the modules recompute: the rotary frequencies, the STFT window,
+# the mel band layout's buffers
+_ROFORMER_SKIP = re.compile(r"rotary_embed\.|multi_stft|stft_window|window_fn|freq_indices"
+                            r"|freqs_per_band|num_freqs_per_band|num_bands_per_freq")
+
+
+def _read_roformer_ckpt(path: str) -> dict:
+    """The state dict of a UVR/MSST ``.ckpt``: bare, or under ``state_dict``
+    (a Lightning checkpoint), with any ``model.`` prefix stripped.
+    ``weights_only=False``, as the JAX package reads it: a Lightning
+    checkpoint pickles its hyper-parameters; load only files you trust."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k[6:] if k.startswith("model.") else k: v for k, v in sd.items()}
+
+
+def _roformer_shapes(sd: Mapping[str, object], what: str) -> dict:
+    """The hyperparameters both RoFormers read from their tensors' shapes
+    (``rvc_tpu/compat/torch_import.py``'s two inferers, line for line):
+    the band widths, dim, depths, heads, dim_head, ff_mult, stems, mask
+    depth, mlp expansion and whether the axial transformers end in a norm."""
+    dims_in = []
+    while f"band_split.to_features.{len(dims_in)}.1.weight" in sd:
+        dims_in.append(int(sd[f"band_split.to_features.{len(dims_in)}.1.weight"].shape[1]))
+    if not dims_in:
+        raise ValueError(f"not a {what} state dict (no band_split keys)")
+    dim = int(sd["band_split.to_features.0.1.weight"].shape[0])
+    depth = 0
+    while f"layers.{depth}.0.layers.0.0.to_qkv.weight" in sd:
+        depth += 1
+    if depth == 0:
+        raise ValueError(f"no transformer layers found (layers.0.0.layers.0.0.to_qkv.weight "
+                         f"missing) in the {what} state dict")
+    t_depth = 0
+    while f"layers.0.0.layers.{t_depth}.0.to_qkv.weight" in sd:
+        t_depth += 1
+    f_depth = 0
+    while f"layers.0.1.layers.{f_depth}.0.to_qkv.weight" in sd:
+        f_depth += 1
+    heads = int(sd["layers.0.0.layers.0.0.to_gates.weight"].shape[0])
+    num_stems = 0
+    while f"mask_estimators.{num_stems}.to_freqs.0.0.0.weight" in sd:
+        num_stems += 1
+    est_depth = 0
+    while f"mask_estimators.0.to_freqs.0.0.{2 * est_depth}.weight" in sd:
+        est_depth += 1
+    mlp_exp = 4
+    if est_depth > 1:
+        mlp_exp = int(sd["mask_estimators.0.to_freqs.0.0.0.weight"].shape[0]) // dim
+    return dict(
+        dims_in=dims_in, dim=dim, depth=depth, time_transformer_depth=t_depth,
+        freq_transformer_depth=f_depth, heads=heads,
+        dim_head=int(sd["layers.0.0.layers.0.0.to_qkv.weight"].shape[0]) // (3 * heads),
+        ff_mult=int(sd["layers.0.0.layers.0.1.net.1.weight"].shape[0]) // dim,
+        num_stems=num_stems, mask_estimator_depth=est_depth, mlp_expansion_factor=mlp_exp,
+        transformer_norm_output="layers.0.0.norm.gamma" in sd)
+
+
+def bs_roformer_config_from_state_dict(state_dict: Mapping[str, object]) -> BSRoformerConfig:
+    """A ``BSRoformerConfig`` from the tensors' shapes. The channel count is
+    the one of {1, 2} that gives an odd bin count (n_fft // 2 + 1 is odd for
+    every even n_fft) with every band width divisible by 2 channels; a
+    checkpoint holding ``freq_indices`` is a Mel-Band RoFormer and raises."""
+    if any("freq_indices" in k for k in state_dict):
+        raise ValueError(
+            "this looks like a Mel-Band RoFormer checkpoint (freq_indices buffer present); "
+            "overlapping mel bands are a different architecture: load it with "
+            "load_mel_roformer")
+    s = _roformer_shapes(state_dict, "BS-RoFormer")
+    dims_in = s.pop("dims_in")
+    total = sum(dims_in)  # 2 * channels * (n_fft // 2 + 1)
+    candidates = [ch for ch in (1, 2)
+                  if total % (2 * ch) == 0 and (total // (2 * ch)) % 2 == 1
+                  and all(d % (2 * ch) == 0 for d in dims_in)]
+    if len(candidates) != 1:
+        raise ValueError(f"cannot infer the channel count from band widths {dims_in} "
+                         f"(total {total}): no unique ch in {{1, 2}} gives an odd "
+                         "n_fft // 2 + 1 bin count")
+    ch = candidates[0]
+    return BSRoformerConfig(stereo=ch == 2, n_fft=(total // (2 * ch) - 1) * 2,
+                            freqs_per_bands=tuple(d // (2 * ch) for d in dims_in), **s)
+
+
+def mel_roformer_config_from_state_dict(state_dict: Mapping[str, object]) -> MelRoformerConfig:
+    """A ``MelRoformerConfig`` from the tensors' shapes and the
+    ``freq_indices`` buffer where the checkpoint holds one (stereo when every
+    entry's channel sibling ``v ^ 1`` is there and the slots split into an
+    odd bin count over 2 channels). Without it the layout at 44.1 kHz is
+    rebuilt from the mel filterbank, stereo tried first, n_fft 2048, 4096
+    then 1024, and must give the checkpoint's band widths."""
+    s = _roformer_shapes(state_dict, "Mel-Band RoFormer")
+    widths = tuple(d // 2 for d in s.pop("dims_in"))  # (real, imag) pairs -> entries
+    freq_indices = None
+    for key in ("freq_indices", "model.freq_indices"):
+        if key in state_dict:
+            freq_indices = tuple(int(v) for v in np.asarray(state_dict[key]).reshape(-1))
+            break
+    if freq_indices is not None:
+        FS = max(freq_indices) + 1
+        idxset = set(freq_indices)
+        stereo = (FS % 2 == 0 and (FS // 2) % 2 == 1
+                  and all((v ^ 1) in idxset for v in freq_indices))
+        n_fft = (FS // (2 if stereo else 1) - 1) * 2
+    else:
+        match = None
+        for ch in (2, 1):
+            if all(w % ch == 0 for w in widths):
+                for n_fft in (2048, 4096, 1024):
+                    idx, w = mel_band_indices(44100, n_fft, len(widths), ch)
+                    if w == widths:
+                        match = (idx, ch, n_fft)
+                        break
+            if match:
+                break
+        if match is None:
+            raise ValueError(
+                f"cannot rebuild the mel band layout for widths {widths[:8]}...: the "
+                "checkpoint has no freq_indices buffer and no standard layout (44.1 kHz, "
+                "n_fft 1024, 2048 or 4096) matches")
+        freq_indices, ch, n_fft = match
+        stereo = ch == 2
+    return MelRoformerConfig(stereo=stereo, num_bands=len(widths), n_fft=n_fft,
+                             freq_indices=freq_indices, band_widths=widths, **s)
+
+
+def _roformer_state(sd: Mapping[str, object]) -> dict[str, np.ndarray]:
+    return {k: _np32(v) for k, v in sd.items() if not _ROFORMER_SKIP.search(k)}
+
+
+def load_bs_roformer(path: str) -> tuple[dict[str, np.ndarray], BSRoformerConfig]:
+    """(float32 state_dict in lucidrains' names, BSRoformerConfig) from a
+    UVR/MSST ``.ckpt``; ``BSRoformer``'s strict ``load_state_dict`` checks
+    every name and shape."""
+    sd = _read_roformer_ckpt(path)
+    return _roformer_state(sd), bs_roformer_config_from_state_dict(sd)
+
+
+def load_mel_roformer(path: str) -> tuple[dict[str, np.ndarray], MelRoformerConfig]:
+    """(float32 state_dict in lucidrains' names, MelRoformerConfig) from a
+    UVR/MSST ``.ckpt``, the band buffers left out."""
+    sd = _read_roformer_ckpt(path)
+    return _roformer_state(sd), mel_roformer_config_from_state_dict(sd)

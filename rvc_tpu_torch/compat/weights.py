@@ -8,8 +8,9 @@ these functions fold weight norm into plain weights (the reference's
 the RVC synthesizer, HuBERT/ContentVec (HF ``HubertModel`` names),
 RMVPE (``E2E`` names), CREPE (torchcrepe's names), the UVR5 VR nets (the
 reference's names, each conv kernel's spatial axes swapped back), the
-MDX-Net Conv-TDF nets, and the Demucs family (HDemucs, HTDemucs, Demucs v2
-and Conv-TasNet, the reference's names and shapes). For inference a ``weight_g``/``weight_v`` pair
+MDX-Net Conv-TDF nets, the Demucs family (HDemucs, HTDemucs, Demucs v2
+and Conv-TasNet, the reference's names and shapes) and the two RoFormers
+(lucidrains' names). For inference a ``weight_g``/``weight_v`` pair
 becomes one ``weight``; for training (``fold=False``) the pair is kept under
 the names of the reference's ``G_*.pth`` / ``D_*.pth`` checkpoints, which
 the port's layers take after ``models.layers.live_weight_norm_``.
@@ -245,3 +246,13 @@ def tasnet_state_dict(params: Mapping, cfg: Mapping) -> dict[str, np.ndarray]:
                        **norm(f"{p}.3.net.2", b.get("norm2")),
                        f"{p}.3.net.3.weight": arr(b["pointwise"]["weight"])[..., None]})
     return sd
+
+
+def roformer_state_dict(params: Mapping) -> dict[str, np.ndarray]:
+    """A JAX ``BSRoformer`` or ``MelBandRoformer`` tree -> lucidrains' names:
+    every ``_N`` run of a component dotted (``layers_0_0`` ->
+    ``layers.0.0``, ``to_freqs_5_0_2`` -> ``to_freqs.5.0.2``, ``to_out_0`` ->
+    ``to_out.0``), names without digits (``final_norm``, ``to_qkv``) kept;
+    every weight keeps its torch layout."""
+    return {_dotted(path): np.ascontiguousarray(arr, np.float32)
+            for path, arr in flatten_tree(params.get("params", params)).items()}

@@ -1,8 +1,8 @@
-"""Vocal / instrumental separation: the VR, MDX-Net and Demucs routes.
+"""Vocal / instrumental separation: the VR, MDX-Net, Demucs and RoFormer routes.
 
 Counterpart of ``rvc_tpu/pipelines/separate.py`` (the reference's
 ``uvr5_cli.py``, ``lib/separators.py`` and ``demucs/apply.py``) for its
-``vr``, ``vr_new``, ``mdx`` and ``demucs`` kinds:
+``vr``, ``vr_new``, ``mdx``, ``demucs``, ``bs_roformer`` and ``mel_roformer`` kinds:
 
   * ``VRSeparator``: the 4-band ``CascadedASPPNet`` route. Per-band STFTs
     build the composite magnitude spectrogram (``ops.bands``), the network
@@ -23,7 +23,9 @@ Counterpart of ``rvc_tpu/pipelines/separate.py`` (the reference's
     is its own sample, so the port runs the windows there are.
   * ``route_separator`` picks the kind from the model file's name, and
     ``load_separator`` builds the separator from the file
-    (``rvc_tpu/graph/nodes.py::_load_separator``).
+    (``rvc_tpu/graph/nodes.py::_load_separator``); the ``bs_roformer`` and
+    ``mel_roformer`` kinds are the separators of ``models/bs_roformer.py``
+    and ``models/mel_roformer.py``.
 
 Every separator runs on the card unless ``device="cpu"`` is asked for, and
 raises without a card (``device.resolve_device``). ``run_inference(audio,
@@ -44,14 +46,16 @@ import torch.nn.functional as F
 from scipy import signal as _ss
 
 from ..compat.onnx_import import convtdf_state_from_onnx
-from ..compat.torch_import import (htdemucs_kwargs_from_meta, load_demucs_v4, load_tasnet,
-                                   load_vr_pth, read_demucs_bag)
+from ..compat.torch_import import (htdemucs_kwargs_from_meta, load_bs_roformer, load_demucs_v4,
+                                   load_mel_roformer, load_tasnet, load_vr_pth, read_demucs_bag)
 from ..device import mark, resolve_device, set_float32_math
 from ..io.audio import remix_audio
+from ..models.bs_roformer import BSRoformerSeparator
 from ..models.demucs import apply_model
 from ..models.htdemucs import HDemucs, HTDemucs
 from ..models.layers import load_numpy_state_dict
 from ..models.mdx_net import ConvTDFNetTrim, MDXSpectrogram
+from ..models.mel_roformer import MelRoformerSeparator
 from ..models.tasnet import ConvTasNet
 from ..models.vr_network import CascadedASPPNet
 from ..ops import bands as B
@@ -189,6 +193,15 @@ def _to_stereo_44k(audio: np.ndarray, sr: int) -> np.ndarray:
         g = math.gcd(sr, 44100)
         audio = _ss.resample_poly(audio, 44100 // g, sr // g, axis=-1).astype(np.float32)
     return audio
+
+
+def stereo_int16(stems: torch.Tensor) -> np.ndarray:
+    """(N, C, T) float -> (N, C, T) int16 on the host, each stem divided by
+    its peak over 0.95 where that is above 1, times 32768, clipped to
+    +-32767 (the JAX package's ``_stereo_int16``, on the stems' device)."""
+    peak = stems.abs().amax(dim=(1, 2), keepdim=True) / 0.95
+    scaled = stems / torch.where(peak > 1, peak, torch.ones_like(peak))
+    return (scaled * 32768.0).clamp(-32767, 32767).to(torch.int16).cpu().numpy()
 
 
 class MDXSeparator:
@@ -356,14 +369,6 @@ class DemucsSeparator:
                               dtype=torch.float32, device=mix.device)
         return est / totals[:, None, None]
 
-    @staticmethod
-    def _stereo_int16(stems: torch.Tensor) -> np.ndarray:
-        """(N, C, T) float -> (N, C, T) int16, each stem divided by its peak
-        over 0.95 where that is above 1, times 32768, clipped to +-32767."""
-        peak = stems.abs().amax(dim=(1, 2), keepdim=True) / 0.95
-        scaled = stems / torch.where(peak > 1, peak, torch.ones_like(peak))
-        return (scaled * 32768.0).clamp(-32767, 32767).to(torch.int16).cpu().numpy()
-
     @torch.no_grad()
     def run_inference(self, audio: np.ndarray, sr: int, events: list | None = None) -> dict:
         """audio (T,) or (C, T) at any rate -> {"sr", "input_audio", one
@@ -386,7 +391,7 @@ class DemucsSeparator:
             v = stems[names.index("vocals")]
             stems = torch.cat([stems, (x[:, : v.shape[1]] - v)[None]])
             names.append("instrumentals")
-        ints = self._stereo_int16(stems)
+        ints = stereo_int16(stems)
         mark(events, "int16")
         out = {"sr": self.samplerate, "input_audio": (mix, self.samplerate)}
         out.update({name: (ints[i], self.samplerate) for i, name in enumerate(names)})
@@ -408,15 +413,15 @@ def route_separator(model_path: str) -> str:
     return "vr"
 
 
-_NOT_PORTED = {"bs_roformer": "3.5 (RoFormers)", "mel_roformer": "3.5 (RoFormers)"}
-
-
 def load_separator(kind: str, model_path: str, agg: float = 10.0, device=None):
     """A separator of ``kind`` (``route_separator``) from ``model_path``:
     ``vr`` and ``vr_new`` read a UVR5 ``.pth`` into the 4-band
     ``CascadedASPPNet`` (``ModelParameters(preset="4band_v2")``, ``agg``),
     ``mdx`` an ``.onnx`` into ``ConvTDFNetTrim`` at the UVR defaults,
-    ``demucs`` a ``.th`` or a bag ``.yaml`` into a ``DemucsSeparator``."""
+    ``demucs`` a ``.th`` or a bag ``.yaml`` into a ``DemucsSeparator``,
+    ``bs_roformer`` and ``mel_roformer`` a UVR/MSST ``.ckpt`` into a
+    ``BSRoformerSeparator`` or ``MelRoformerSeparator`` (the architecture
+    read from the tensors' shapes)."""
     device = resolve_device(device)
     if kind in ("vr", "vr_new"):
         return VRSeparator(load_vr_pth(model_path), B.ModelParameters(preset="4band_v2"),
@@ -425,7 +430,8 @@ def load_separator(kind: str, model_path: str, agg: float = 10.0, device=None):
         return MDXSeparator(model_path, device=device)
     if kind == "demucs":
         return DemucsSeparator(model_path, device=device)
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(f"the {kind} separator is not ported yet "
-                                  f"(ROADMAP.md, queue 1, item {_NOT_PORTED[kind]})")
+    if kind == "bs_roformer":
+        return BSRoformerSeparator(*load_bs_roformer(model_path), device=device)
+    if kind == "mel_roformer":
+        return MelRoformerSeparator(*load_mel_roformer(model_path), device=device)
     raise ValueError(f"unknown separator kind {kind!r}")

@@ -1270,3 +1270,44 @@ def test_istft_ignores_imaginary_dc_on_the_card(rng, cuda):
               for _ in range(2))
     ref = stft.istft(re, im, 4096, 1024)
     _scaled_close(stft.istft(re.to(cuda), im.to(cuda), 4096, 1024).cpu(), ref, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bs", "mel"])
+def test_roformer_separators_on_the_card_match_the_cpu(rng, cuda, kind):
+    """A narrow RoFormer at the released layout (n_fft 2048, hop 441, 62 or 60
+    bands; dim 32, 2 layers, 2 heads), 10 s of stereo in two 8 s windows:
+    the memory-efficient attention, the mask sum by atomics (Mel) and the
+    overlap-add on the card, int16 stems within 4 LSB of the CPU's."""
+    from rvc_tpu_torch.models import bs_roformer, mel_roformer
+
+    mod = bs_roformer if kind == "bs" else mel_roformer
+    cfg = (mod.BSRoformerConfig if kind == "bs" else mod.MelRoformerConfig)(
+        dim=32, depth=2, heads=2, dim_head=32)
+    model_cls = mod.BSRoformer if kind == "bs" else mod.MelBandRoformer
+    sep_cls = mod.BSRoformerSeparator if kind == "bs" else mod.MelRoformerSeparator
+    with torch.device("meta"):
+        state = _chip_smoke().roformer_weights(model_cls(cfg), seed=6)
+    audio = _song(rng, 10.0, 44100)
+    outs = [sep_cls(state, cfg, device=dev).run_inference(audio, 44100) for dev in ("cpu", "cuda")]
+    assert list(outs[1]) == ["sr", "input_audio", "vocals", "instrumentals"]
+    for stem in ("vocals", "instrumentals"):
+        a, b = (o[stem][0].astype(np.int32) for o in outs)
+        assert a.shape == b.shape == (2, 441000) and np.abs(a).max() > 1000
+        assert np.abs(a - b).max() <= 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps", [12.0, -5.0])
+def test_pitch_shift_on_the_card_matches_the_cpu(rng, cuda, n_steps):
+    """The phase vocoder on the card within 2e-3 relative L2 of the CPU's,
+    the CPU tests' bar against JAX: its phase arithmetic is float64 on both
+    (the card's running sum a parallel scan); the song has no silent frame,
+    whose rounding-level phase would carry into every later frame."""
+    from rvc_tpu_torch.ops.stretch import pitch_shift
+
+    y = torch.from_numpy(_song(rng, 5.0, 44100))
+    ref = pitch_shift(y, 44100, n_steps)
+    got = pitch_shift(y.to(cuda), 44100, n_steps).cpu()
+    assert got.shape == ref.shape == y.shape
+    assert float((got - ref).norm() / ref.norm()) <= 2e-3

@@ -444,10 +444,10 @@ def test_load_vr_pth_gives_back_the_jax_tree(vr128, tmp_path):
 
 
 def test_load_separator_names_what_is_not_ported():
-    """The RoFormers name their ROADMAP item; Demucs is ported and reads its
-    file."""
-    for kind in ("bs_roformer", "mel_roformer"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 3.5"):
+    """Every kind the router gives is ported and reads its file (the
+    RoFormers since their slice); a kind no router gives is named."""
+    for kind in ("bs_roformer", "mel_roformer", "demucs"):
+        with pytest.raises(FileNotFoundError):
             tsep.load_separator(kind, "model.th", device="cpu")
-    with pytest.raises(FileNotFoundError):
-        tsep.load_separator("demucs", "model.th", device="cpu")
+    with pytest.raises(ValueError, match="unknown separator kind 'scnet'"):
+        tsep.load_separator("scnet", "model.th", device="cpu")
