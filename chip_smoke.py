@@ -211,7 +211,22 @@ Phases, each announced on its own line:
      pitch_shift by +12 and -5 semitones on 30 s of stereo, card vs CPU
      with the floor within 2e-3 relative L2 (the song as it is reported:
      its silent frames' phases are the roundings'); kernels 1-8 launched no
-     time.
+     time;
+ 25. the node graph (``rvc_tpu_torch.graph``) on the card at full width, on
+     files the earlier phases wrote (phase 13's 48k_v2 .pth, HuBERT
+     .safetensors, rmvpe.pt and bank, phase 22's VR .pth and 30 s song,
+     phase 17's source clip): LoadAudio -> UVR5 -> LoadRVCModel, LoadHubert,
+     PitchParams (RMVPE) -> Convert on the vocals -> MergeAudio with the
+     instrumentals -> PreviewAudio (wav); then ProcessDataset (pm) ->
+     TrainModel (40k_v2, 1 epoch) -> TrainIndex -> Convert with the exported
+     .pth and its index. Convert must launch kernels 1-3 (float32 bank:
+     nearest_rows) as many times as the model's structure asks and equal
+     VoiceConverter.convert on the same arrays bit for bit; TrainModel must
+     launch kernels 4-7 as phase 7 counts them; a repeated Convert and UVR5
+     must hit the node cache (no counted launch, no kernel the profiler
+     sees); every cached model must sit on the card. Prints each node's
+     seconds, the RTF of the node against the direct call and
+     max_memory_allocated.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that.
 A kernel's time beside its yardsticks (previous_ms, mma_sync_ms) is
@@ -1493,7 +1508,7 @@ def small_batch(batch: dict, frames: int = 48, hop: int = 480) -> dict:
     return small
 
 
-def check_train_vs_cpu(cfg, batch: dict, label: str = "[8/24]",
+def check_train_vs_cpu(cfg, batch: dict, label: str = "[8/25]",
                        multiscale: bool = False) -> tuple:
     """One training step on the card and on the CPU (plain versions) from the
     same weights, batch and draws, at batch 1 and 48 frames. Returns the
@@ -1988,7 +2003,7 @@ def run_train_bf16(cfg, batches: list, small: dict, cpu32, card: str, checks: di
     trainer = Trainer(cfg, dtype=bf16, device="cuda")
     seeded_state(trainer, 0)
     gen = torch.Generator().manual_seed(19)
-    say(f"[19/24] training in bf16: kernels 4-7 in their bf16 form at phase 7's shapes "
+    say(f"[19/25] training in bf16: kernels 4-7 in their bf16 form at phase 7's shapes "
         f"(trainer built in {time.perf_counter() - t0:.1f} s)")
     checks["chain_bf16"], checks["chain_bwd_bf16"] = check_chain_train_bf16(trainer, gen)
     checks["wn_bf16"], checks["wn_bwd_bf16"] = check_wn_train_bf16(
@@ -1996,7 +2011,7 @@ def run_train_bf16(cfg, batches: list, small: dict, cpu32, card: str, checks: di
     checks["wn_stack_bf16"] = check_wn_stack_bf16(
         trainer, batches[0]["spec_lengths"], np.shape(batches[0]["spec"])[1], gen)
     torch.cuda.empty_cache()
-    run = run_training(trainer, batches, card, "19/24")
+    run = run_training(trainer, batches, card, "19/25")
     say(f"  bf16 {run['rate']:.3f} steps/s against float32 {rate32:.3f} (phase 7, this run); "
         f"{card}")
     del trainer
@@ -2133,13 +2148,13 @@ def run_every_loss(cfg, batches: list, card: str, base: dict, checks: dict) -> N
     from rvc_tpu_torch.train.step import Trainer
 
     cfg = all_losses(cfg)
-    say(f"[20/24] every loss: 48k_v2 with c_gp = c_hd = c_tsi = c_tefs = 1 and the multi-scale "
+    say(f"[20/25] every loss: 48k_v2 with c_gp = c_hd = c_tsi = c_tefs = 1 and the multi-scale "
         f"mel loss, on phase 7's batches")
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         trainer = Trainer(cfg, dtype=dtype, device="cuda")
         trainer.use_multiscale()
-        run = run_training(trainer, batches[:1 + PHASE20_STEPS], card, "20/24",
+        run = run_training(trainer, batches[:1 + PHASE20_STEPS], card, "20/25",
                            "48k_v2 with every loss")
         penalty = float(run["state"].balancer_d.hist_losses[1])
         zero = [k for vals in run["losses"] for k in ("harmonic_loss", "tsi_loss", "tefs_loss")
@@ -2157,7 +2172,7 @@ def run_every_loss(cfg, batches: list, card: str, base: dict, checks: dict) -> N
         del trainer, run
         torch.cuda.empty_cache()
     checks["loss_costs"] = loss_costs(cfg, batches[0], card)
-    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/24] every loss:", True)
+    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/25] every loss:", True)
     # the aux and multi-scale losses are taken on the bf16 generated slice:
     # the CPU bf16 tests' factor 2 (check_train_bf16_vs_cpu)
     check_train_bf16_vs_cpu(cfg, small, cpu32, True, factor=2.0)
@@ -2189,7 +2204,7 @@ def run_nof0(tmp: str, card: str, checks: dict) -> None:
                             seed=1234)
     batches = [b for e in range(1 + PHASE20_STEPS) for b in batcher.epoch(e)][
         :1 + PHASE20_STEPS]
-    say(f"[20/24] no f0: 40k v1 with use_f0 = False on {len(CLIP_SECONDS)} clips at "
+    say(f"[20/25] no f0: 40k v1 with use_f0 = False on {len(CLIP_SECONDS)} clips at "
         f"{cfg.data.sampling_rate} Hz, batches of {np.shape(batches[0]['spec'])[:2]} frames, "
         f"keys {sorted(batches[0])}")
     if "pitch" in batches[0] or "pitchf" in batches[0]:
@@ -2198,14 +2213,14 @@ def run_nof0(tmp: str, card: str, checks: dict) -> None:
         trainer = Trainer(cfg, dtype=dtype, device="cuda")
         if type(trainer.synth.dec).__name__ != "Generator":
             fail(f"the no-f0 decoder is {type(trainer.synth.dec).__name__}")
-        run = run_training(trainer, batches, card, "20/24", "40k no-f0")
+        run = run_training(trainer, batches, card, "20/25", "40k no-f0")
         checks[f"nof0_{str(dtype).split('.')[-1]}"] = dict(rate=run["rate"],
                                                            launches=run["launches"])
         if dtype == torch.float32:
             check_export(cfg, trainer, tmp, filelist)
         del trainer, run
         torch.cuda.empty_cache()
-    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/24] no f0:")
+    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/25] no f0:")
     check_train_bf16_vs_cpu(cfg, small, cpu32)
 
 
@@ -2327,7 +2342,7 @@ def run_unchecked_presets(settings, card: str) -> dict:
         vc = make_random_converter(name, seed=seed, chunking=CHUNKING, index_rows=BANK_ROWS,
                                    device="cuda")
         dec = vc.synth.dec
-        say(f"[21/24] {name} at full width (converter built in {time.perf_counter() - t0:.1f} "
+        say(f"[21/25] {name} at full width (converter built in {time.perf_counter() - t0:.1f} "
             f"s): upsampling {list(dec.upsample_rates)}, decoder stages of "
             f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
             f"channels, segment {preset(name).train.segment_size} samples")
@@ -2342,7 +2357,7 @@ def run_unchecked_presets(settings, card: str) -> dict:
                     settings)
         del vc, dec
         torch.cuda.empty_cache()
-        check_train_vs_cpu(preset(name), synthetic_batch(preset(name)), f"  [21/24] {name}:")
+        check_train_vs_cpu(preset(name), synthetic_batch(preset(name)), f"  [21/25] {name}:")
     return launched
 
 
@@ -2360,7 +2375,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     vc = main_converter("cuda", bf16)
     say(f"bf16 converter built in {time.perf_counter() - t0:.1f} s")
     shapes = path_shapes(vc, clips[30])
-    say(f"[9/24] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
+    say(f"[9/25] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz")
     gen = torch.Generator().manual_seed(3)
     with torch.no_grad():
@@ -2399,7 +2414,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[10/24] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
+        say(f"[10/25] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
             f"{sr} Hz, peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x (float32 "
             f"in this run {rtf32[sec]:.2f}x), max_memory_allocated "
@@ -2424,7 +2439,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out, sr, launched, wall = counted_convert(vc, audio, settings, counters)
     vc.synth.dec.fuse_group = True
     same = bool(np.array_equal(out, outs[30]))
-    say(f"[11/24] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
+    say(f"[11/25] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
         f"(RTF {30 / wall:.2f}x), launches { {k: v for k, v in launched.items() if v} }, "
         f"bit-identical to the default route: {same} (the default route against itself: "
         f"{bool(np.array_equal(again, outs[30]))})")
@@ -2459,7 +2474,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     a, b = out_gpu.astype(np.float64), out_cpu.astype(np.float64)
     l2 = float(np.linalg.norm(a - b) / np.linalg.norm(b)) if a.shape == b.shape else math.inf
-    say(f"[12/24] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
+    say(f"[12/25] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
         f"differs on {differ:.2%} of frames between them): {len(out_gpu)} vs {len(out_cpu)} "
         f"samples, relative L2 {l2:.4g} (tolerance {BF16_CPU_L2}: bf16 roundings flip "
         f"between the card's sums and the CPU's and the flips travel through the decoder; "
@@ -2559,7 +2574,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
                                          * 32000).astype(np.int16))
     sizes = {k: round(os.path.getsize(p) / 2**20, 1) for k, p in path.items()
              if os.path.exists(p)}
-    say(f"[13/24] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
+    say(f"[13/25] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
 
     # 13. the command line, in process, every count set to 0 just before
     counters = {**launch_counters(), "nearest_rows": (retrieval.nearest_rows, "launches")}
@@ -2624,7 +2639,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
         dec = vc.synth.dec
         label = f"{key} {version}" + ("" if f0 else " no-f0")
         phase = 14 if f0 else 15
-        say(f"[{phase}/24] {label} from files: decoder stages of "
+        say(f"[{phase}/25] {label} from files: decoder stages of "
             f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
             f"channels, HuBERT features D = {vc.hubert.cfg.classifier_proj_size}, "
             f"{type(dec).__name__}")
@@ -2687,7 +2702,7 @@ def run_batch(settings, card: str) -> dict:
                 "nearest_rows_q": 1}
     best, med = 80.0 / min(walls), 80.0 / float(np.median(walls))
     dev_s, down_s, disp_s = shares[int(np.argmin(walls))]
-    say(f"[16/24] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
+    say(f"[16/25] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
         f"{stats['chunk_samples']} samples, wall ms {[round(w * 1e3, 2) for w in walls]}, "
         f"aggregate RTF best {best:.2f}x, median {med:.2f}x; stats of the best: device_s "
         f"{dev_s:.4f} ({dev_s / min(walls):.1%} of the wall), download_s {down_s:.4f} "
@@ -2854,7 +2869,7 @@ def run_train_from_dataset(tmp: str, settings, card: str, checks: dict) -> dict:
     hub_state = write_hubert_safetensors(path["hubert"], HubertConfig(), seed=21)
     rmvpe_state = write_rmvpe_pt(path["rmvpe"], seed=22)
     odd_g, odd_d = write_pretrained(path["G"], path["D"], cfg, seed=23)
-    say(f"[17/24] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
+    say(f"[17/25] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
         f"pretrained G and D ({odd_g} and {odd_d} of another shape) written in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -3131,7 +3146,7 @@ def check_host_library() -> dict:
     nrms = slicer.frame_rms_numpy(x, sl.win_size, sl.hop_size)
     rms_err = float(np.max(np.abs(rms - nrms) / np.maximum(nrms, 1e-9)))
     tags, ntags = sl._silence_tags(rms), sl._silence_tags_numpy(rms)
-    say(f"[18/24] host library {os.path.relpath(lib._name, REPO)} built and loaded in "
+    say(f"[18/25] host library {os.path.relpath(lib._name, REPO)} built and loaded in "
         f"{build_s:.2f} s: peak_quantize_i16 on 30 s equal to numpy's {np.array_equal(q, nq)} "
         f"(peak {peak} / {npeak}); frame_rms of {len(rms)} frames within {rms_err:.3g} "
         f"relative of numpy's float32 sums (tolerance {RMS_REL}); the slicer's {len(tags)} "
@@ -3555,7 +3570,7 @@ def run_separation(tmp: str, card: str) -> None:
     song = song_stereo(SEP_SECONDS)
     flops = {"VR": network_flops(lambda: CascadedASPPNet(n_fft_vr), (1, 2, 673, 512)),
              "MDX": network_flops(ConvTDFNetTrim, (1, 4, 256, 3072))}
-    say(f"[22/24] separation at full width: VR CascadedASPPNet({n_fft_vr}) from a .pth "
+    say(f"[22/25] separation at full width: VR CascadedASPPNet({n_fft_vr}) from a .pth "
         f"(4band_v2, {FOURBAND_V2_PARAM['bins'] + 1} bins, window 512, offset 128, agg 10, mirroring), "
         f"{flops['VR'] / 1e9:.1f} GFLOP a window; MDX ConvTDFNetTrim(11 blocks, l 3, g 32, "
         f"bn 8, dim_f 3072, GroupNorm2) from an anonymous .onnx (dim_t 256, n_fft 6144, hop "
@@ -3788,7 +3803,7 @@ def run_demucs(tmp: str, card: str) -> None:
     t1 = time.perf_counter()
     seps = {label: load_separator(route_separator(path), path)  # the card
             for label, path in paths.items()}
-    say(f"[23/24] Demucs at full width: HTDemucs (channels 48, depth 4, nfft 4096, 5 "
+    say(f"[23/25] Demucs at full width: HTDemucs (channels 48, depth 4, nfft 4096, 5 "
         f"transformer layers of 384 x 8 heads, segment {float(HTDEMUCS_KW['segment'])} s with "
         f"use_train_segment), HDemucs (depth 6, BLSTM and LocalState from layer 4, 10 s "
         f"segments), Conv-TasNet (N 256, L 20, B 256, H 512, P 3, X 10, R 4, gLN, 8 s), a bag of "
@@ -4017,7 +4032,7 @@ def run_roformer(tmp: str, card: str) -> None:
     written = time.perf_counter() - t0
     t1 = time.perf_counter()
     seps = {label: load_separator(route_separator(path), path) for label, path in paths.items()}
-    say(f"[24/24] RoFormers at full width: a BS-RoFormer as a Lightning .ckpt and a Mel-Band "
+    say(f"[24/25] RoFormers at full width: a BS-RoFormer as a Lightning .ckpt and a Mel-Band "
         f"RoFormer as a bare state dict without freq_indices, seeded weights at the JAX "
         f"initializer's scale (uniform +-1/sqrt(fan_in), gamma 1); written in {written:.1f} s, "
         f"loaded in {time.perf_counter() - t1:.1f} s; {SEP_SECONDS:.0f} s of stereo 44.1 kHz "
@@ -4174,6 +4189,211 @@ def run_roformer(tmp: str, card: str) -> None:
         fail("RoFormer separation launched a kernel of the conversion or training path")
 
 
+# ---- phase 25: the node graph ----
+
+NODE_SECONDS = 10.0  # the clip the trained model converts
+
+
+def run_nodes(files: dict, work: str, card: str) -> dict:
+    """Phase 25: the port's ComfyUI nodes chained as a user's graph on the
+    card (``nodes.DEVICE`` None), on ``files`` the earlier phases wrote;
+    outputs under ``work``. Fails unless Convert launches kernels 1-3 and
+    equals the direct converter bit for bit, TrainModel launches kernels
+    4-7, repeated Convert and UVR5 calls hit the cache, and every model the
+    nodes cached sits on the card. Returns the launches of the first
+    Convert and of TrainModel."""
+    import torch
+
+    from rvc_tpu_torch.compat import torch_import as ti
+    from rvc_tpu_torch.graph import nodes
+    from rvc_tpu_torch.io.audio import load_input_audio
+    from rvc_tpu_torch.ops import retrieval
+    from rvc_tpu_torch.pipelines.convert import ConvertSettings, VoiceConverter
+    from rvc_tpu_torch.train import step as step_mod
+
+    if nodes.DEVICE is not None:
+        fail(f"the node layer's device is {nodes.DEVICE!r}, not the card")
+    counters = {**training_counters(), "nearest_rows": (retrieval.nearest_rows, "launches")}
+
+    def counted(fn):
+        """fn() with every count set to 0 just before and read just after:
+        (result, seconds synchronized, the counts that moved)."""
+        for wrapper, attr in counters.values():
+            setattr(wrapper, attr, 0)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return out, wall, {k: getattr(w, a) for k, (w, a) in counters.items() if getattr(w, a)}
+
+    def conversion_launches(synth) -> dict:
+        return {"fused_resblock_group": sum(len(rb.convs1) for rb in synth.dec.resblocks),
+                "banded_rel_attention": len(synth.enc_p.encoder.attn_layers),
+                "nearest_rows": 1}
+
+    def cache_hit(label: str, fn) -> None:
+        """A repeated node call: no counted launch and no kernel on the card."""
+        (_, wall, moved) = counted(fn)
+        seen = kernel_launches(fn)
+        say(f"  {label} again: {wall * 1e3:.2f} ms, counted launches {moved}, kernels the "
+            f"profiler saw {seen or 0}")
+        if moved or seen:
+            fail(f"the repeated {label} was not a cache hit")
+
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    say(f"[25/25] the node graph on the card: phase 22's VR .pth and {SEP_SECONDS:.0f} s song, "
+        f"phase 13's 48k_v2 .pth, HuBERT, rmvpe.pt and {BANK_ROWS}-row float32 bank, phase 17's "
+        f"{TRAIN_SOURCE_SECONDS:g} s source clip")
+
+    # LoadAudio -> UVR5
+    (song,), t_load, _ = counted(lambda: nodes.LoadAudioNode().load(files["song"], 44100))
+    song_s = song["waveform"].shape[-1] / 44100
+    (vocals, inst), t_uvr, moved = counted(
+        lambda: nodes.UVR5Node().split(song, files["vr"], 10.0))
+    say(f"  LoadAudio {t_load:.2f} s ({song_s:.1f} s at 44.1 kHz, the downmix); UVR5 {t_uvr:.2f} s "
+        f"(the .pth loaded, the first call's set-up, separating: RTF {song_s / t_uvr:.2f}x), "
+        f"vocals peak {np.abs(vocals['waveform']).max():.3f}, counted launches {moved}")
+    if moved or vocals["waveform"].shape != inst["waveform"].shape or not all(
+            np.isfinite(x["waveform"]).all() and np.abs(x["waveform"]).max() > 0
+            for x in (vocals, inst)):
+        fail("UVR5 failed its checks")
+    cache_hit("UVR5", lambda: nodes.UVR5Node().split(song, files["vr"], 10.0))
+
+    # LoadRVCModel + LoadHubert + PitchParams -> Convert on the vocals
+    (model,) = nodes.RVCModelLoaderNode().load(files["model"], files["bank"])
+    (hubert,) = nodes.HubertLoaderNode().load(files["hubert"])
+    settings = dict(f0_method="rmvpe", f0_autotune=False, merge_type="median", index_rate=0.75,
+                    filter_radius=3, resample_sr=0, rms_mix_rate=0.25, protect=0.33,
+                    crepe_hop_length=160)
+    (pp,) = nodes.PitchExtractionParamsNode().load(**settings, rmvpe_path=files["rmvpe"])
+    (converted,), t_first, moved = counted(
+        lambda: nodes.RVCNode().convert(vocals, model, hubert, 0, pp))
+    launched = dict(moved)
+    expected = conversion_launches(model()["synth"])
+    say(f"  Convert, first call {t_first:.2f} s (the files read, the converter built, set-up, "
+        f"converting {song_s:.1f} s); launches {moved} (expected {expected})")
+    if moved != expected:
+        fail(f"Convert's kernel launches {moved}, expected {expected}")
+    on_card = {type(m).__name__: next(m.parameters()).device.type for m in (
+        model()["synth"], hubert()["encoders"]["v2"],
+        *(v for v in nodes._CACHE.values() if isinstance(v, torch.nn.Module)))}
+    vc_node = [v for v in nodes._CACHE.values() if isinstance(v, VoiceConverter)]
+    seps = [v for v in nodes._CACHE.values() if hasattr(v, "run_inference")
+            and not isinstance(v, VoiceConverter)]
+    devices = {*on_card.values(), *(v.device.type for v in vc_node + seps)}
+    say(f"  cached: {len(vc_node)} converter, {len(seps)} separator, modules {on_card}")
+    if devices != {"cuda"} or len(vc_node) != 1 or len(seps) != 1:
+        fail(f"the nodes' models are not all on the card: {devices}")
+    cache_hit("Convert", lambda: nodes.RVCNode().convert(vocals, model, hubert, 0, pp))
+
+    # the node against the direct call on the same arrays
+    wav = vocals["waveform"][0, 0]
+    state, meta = ti.load_rvc_checkpoint(files["model"])
+    kw = ti.synthesizer_kwargs_from_config(meta["config"], meta["version"], meta["f0"])
+    hub_state, hub_cfg = ti.load_hubert_safetensors(files["hubert"])
+    direct = VoiceConverter.from_state_dicts(state, kw, hub_state, hub_cfg,
+                                             ti.load_rmvpe(files["rmvpe"]),
+                                             index_bank=np.load(files["bank"]), device="cuda")
+    s = ConvertSettings(**settings)
+    (want, want_sr), _, _ = counted(lambda: direct.convert(wav, 44100, s))  # set-up
+    walls = {"node": [], "direct": []}
+    for key in (1, 2, 3):  # in turns; each node call a new key: it converts, built already
+        (again, _), t_direct, _ = counted(lambda: direct.convert(wav, 44100, s))
+        (shifted,), t_node, moved = counted(
+            lambda: nodes.RVCNode().convert(vocals, model, hubert, key, pp))
+        walls["direct"].append(t_direct)
+        walls["node"].append(t_node)
+        if moved != expected or not np.isfinite(shifted["waveform"]).all():
+            fail(f"Convert with f0_up_key {key} failed its checks: launches {moved}")
+    got = converted["waveform"][0, 0]
+    exact = (converted["sample_rate"] == want_sr and got.shape == want.shape
+             and np.array_equal(got, want.astype(np.float32) / 32768.0)
+             and np.array_equal(want, again))
+    rtf = {k: song_s / float(np.median(v)) for k, v in walls.items()}
+    say(f"  Convert against VoiceConverter.convert on the same arrays: {len(want)} samples at "
+        f"{want_sr} Hz, bit-equal {exact}; RTF node {rtf['node']:.2f}x (f0_up_key 1-3, the "
+        f"converter cached; walls ms {[round(w * 1e3, 2) for w in walls['node']]}) against the "
+        f"direct call {rtf['direct']:.2f}x ({[round(w * 1e3, 2) for w in walls['direct']]}), "
+        f"medians of 3 in turns; {card}")
+    if not exact:
+        fail("the Convert node differs from VoiceConverter.convert")
+    del direct
+    torch.cuda.empty_cache()
+
+    # MergeAudio -> PreviewAudio
+    t0 = time.perf_counter()
+    (mixed,) = nodes.MergeAudioNode().merge(converted, inst, 44100)
+    tempdir, tempfile.tempdir = tempfile.tempdir, work  # the preview copy: under work
+    try:
+        preview = nodes.PreviewAudioNode().save_audio(mixed, "node_graph", "wav",
+                                                      output_dir=os.path.join(work, "output"))
+    finally:
+        tempfile.tempdir = tempdir
+    out_path, out_audio = preview["result"]
+    back, back_sr = load_input_audio(out_path)
+    say(f"  MergeAudio + PreviewAudio {time.perf_counter() - t0:.2f} s: {out_path} "
+        f"({back.shape[-1] / back_sr:.2f} s at {back_sr} Hz), preview {preview['ui']['preview']}")
+    if back_sr != 44100 or not np.isfinite(back).all() or abs(
+            back.shape[-1] / back_sr - out_audio["waveform"].shape[-1] / 44100) > 1e-3:
+        fail("the previewed mix failed its checks")
+
+    # ProcessDataset -> TrainModel -> TrainIndex -> Convert with the exported model
+    exp = os.path.join(work, "exp")
+    (dataset,), t_pre, moved_pre = counted(lambda: nodes.ProcessDatasetNode().process(
+        files["src"], exp, "40k", hubert, "pm", "v2"))
+    n_clips = len(os.listdir(os.path.join(exp, "0_gt_wavs")))
+    trainers, original = [], step_mod.Trainer.step
+
+    def recorded(self, *args, **kwargs):
+        trainers.append(self)
+        return original(self, *args, **kwargs)
+
+    step_mod.Trainer.step = recorded
+    try:
+        (pth,), t_train, moved = counted(lambda: nodes.TrainModelNode().train(
+            dataset, "node_voice", epochs=1, batch_size=TRAIN_BATCH, save_every_epoch=1))
+    finally:
+        step_mod.Trainer.step = original
+    steps = len(trainers)
+    want_train = {k: v for k, v in expected_training_launches(trainers[0], steps).items() if v}
+    del trainers
+    say(f"  ProcessDataset {t_pre:.2f} s ({n_clips} clips, HuBERT v2 and pm on the card, "
+        f"launches {moved_pre}); TrainModel {t_train:.2f} s (40k_v2, 1 epoch of {steps} steps "
+        f"at batch {TRAIN_BATCH}: building, steps, checkpoint, export), launches {moved} "
+        f"(expected {want_train})")
+    if moved != want_train or not steps or not os.path.isfile(pth):
+        fail(f"TrainModel's kernel launches {moved}, expected {want_train}")
+    launched.update(moved)
+    (index,), t_index, _ = counted(lambda: nodes.TrainIndexNode().train_index(dataset))
+    (trained,) = nodes.RVCModelLoaderNode().load(pth, index)
+    clip = nodes.to_audio_dict(speech(NODE_SECONDS, 30.0), 16000)
+    (out,), t_conv, moved = counted(lambda: nodes.RVCNode().convert(clip, trained, hubert, 0, pp))
+    expected = conversion_launches(trained()["synth"])
+    n_out = out["waveform"].shape[-1]
+    say(f"  TrainIndex {t_index:.2f} s ({trained()['index_bank'].shape[0]} rows); Convert "
+        f"{NODE_SECONDS:g} s with the exported .pth and its index {t_conv:.2f} s (loading, "
+        f"building, set-up, converting): {n_out} samples at {out['sample_rate']} Hz, peak "
+        f"{np.abs(out['waveform']).max():.3f}, launches {moved} (expected {expected})")
+    if (moved != expected or out["sample_rate"] != 40000 or not np.isfinite(out["waveform"]).all()
+            or abs(n_out / 40000 - NODE_SECONDS) > 0.05 or np.abs(out["waveform"]).max() <= 0):
+        fail("the trained model's Convert failed its checks")
+    say(f"  phase 25: {time.perf_counter() - t_phase:.1f} s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the nodes' cache holds every "
+        f"model: {len(nodes._CACHE)} entries); {card}")
+    nodes._CACHE.clear()
+    torch.cuda.empty_cache()
+    return launched
+
+
+def keep(path: str, folder: str) -> str:
+    """``path`` moved into ``folder`` (out of a phase's temporary directory,
+    for a later phase); returns its new path."""
+    dest = os.path.join(folder, os.path.basename(path))
+    os.replace(path, dest)
+    return dest
+
+
 def skip_default_init() -> None:
     """For this process, torch's default parameter initialization (the
     ``torch.nn.init`` calls in each layer's constructor) writes nothing.
@@ -4215,7 +4435,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi gave nothing"
-    say(f"[1/24] card: {name}, {count} device(s); torch {torch.__version__}, "
+    say(f"[1/25] card: {name}, {count} device(s); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     say(card)
 
@@ -4225,7 +4445,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library()
     info = _cuda.build_info
-    say(f"[2/24] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
+    say(f"[2/25] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
         f"(load {time.perf_counter() - t0:.2f} s)")
     say("ptxas: " + "; ".join(info["ptxas"]))
     say("ptxas C7515 (wgmma serialized): " + (", ".join(info["serialized"]) or "none"))
@@ -4256,7 +4476,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions at the 30 s conversion's shapes
     shapes = path_shapes(vc, clips[30])
-    say(f"[3/24] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
+    say(f"[3/25] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz, {shapes['T50']} HuBERT frames per chunk")
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -4312,7 +4532,7 @@ def main() -> int:
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[4/24] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
+        say(f"[4/25] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
             f"peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x, "
             f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -4336,7 +4556,7 @@ def main() -> int:
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     diff = np.abs(out_gpu.astype(np.int32) - out_cpu.astype(np.int32))
     tol = 4
-    say(f"[5/24] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
+    say(f"[5/25] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
         f"max |diff| {diff.max()} LSB, share above {tol} LSB {np.mean(diff > tol):.4%} "
         f"(tolerance {tol} LSB: the same float32 math summed in another order, "
         f"~1e-5 relative before the int16 scaling); CPU run "
@@ -4365,7 +4585,7 @@ def main() -> int:
     seeded_state(trainer, 0)
     say(f"dataset of {len(CLIP_SECONDS)} clips, {len(batches)} batches, trainer built in "
         f"{time.perf_counter() - t0:.1f} s")
-    say(f"[6/24] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
+    say(f"[6/25] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
         f"segment {cfg.train.segment_size} samples, WN over {np.shape(batches[0]['spec'])[1]} "
         f"frames")
     gen = torch.Generator().manual_seed(2)
@@ -4395,7 +4615,7 @@ def main() -> int:
     lap("phase 6 and the dataset")
 
     # 7. the training path
-    run32 = run_training(trainer, batches, card, "7/24")
+    run32 = run_training(trainer, batches, card, "7/25")
     trained, rate32 = run32["launches"], run32["rate"]
     launches = {"fused_resblock_group": launches["resblock"],
                 "banded_rel_attention": launches["attention"],
@@ -4415,8 +4635,13 @@ def main() -> int:
     lap("phases 9-12")
 
     # 13-15. models from a user's files; 16. convert_batch in bf16
+    kept = os.path.join(tmp.name, "kept")  # files phase 25 reads again
+    os.makedirs(kept)
     with tempfile.TemporaryDirectory(prefix="rvc_files_") as files:
         run_files(files, settings, card, checks)
+        node_files = {k: keep(os.path.join(files, n), kept) for k, n in (
+            ("model", "48k_v2.pth"), ("hubert", "hubert_base.safetensors"),
+            ("rmvpe", "rmvpe.pt"), ("bank", "bank.npy"))}
     lap("phases 13-15")
     run_batch(settings, card)
     lap("phase 16")
@@ -4424,6 +4649,7 @@ def main() -> int:
     # 17. training 40k_v2 from a dataset through the CLI, then convert with it
     with tempfile.TemporaryDirectory(prefix="rvc_train_") as work:
         trained40 = run_train_from_dataset(work, settings, card, checks)
+        node_files["src"] = keep(os.path.join(work, "src"), kept)
     for key, kname in (("chain", "fused_resblock1"), ("chain_bwd", "fused_resblock1_backward"),
                        ("wn", "fused_wn"), ("wn_bwd", "fused_wn_backward")):
         checks[key]["launches_40k_v2"] = trained40[kname]
@@ -4462,6 +4688,8 @@ def main() -> int:
     # 22. separation: the VR and MDX-Net routes through load_separator and the CLI
     with tempfile.TemporaryDirectory(prefix="rvc_sep_") as work:
         run_separation(work, card)
+        node_files.update(vr=keep(os.path.join(work, "HP2-4BAND-3090_4band_v2.pth"), kept),
+                          song=keep(os.path.join(work, "song.wav"), kept))
     lap("phase 22")
 
     # 23. separation with Demucs: HTDemucs, HDemucs, Conv-TasNet and a bag
@@ -4473,6 +4701,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="rvc_roformer_") as work:
         run_roformer(work, card)
     lap("phase 24")
+
+    # 25. the node graph: separate, convert, mix, preview; dataset, train, index, convert
+    with tempfile.TemporaryDirectory(prefix="rvc_nodes_") as work:
+        node_launches = run_nodes(node_files, work, card)
+    for key, kname in (("resblock", "fused_resblock_group"), ("attention", "banded_rel_attention"),
+                       ("nearest", "nearest_rows"), ("chain", "fused_resblock1"),
+                       ("chain_bwd", "fused_resblock1_backward"), ("wn", "fused_wn"),
+                       ("wn_bwd", "fused_wn_backward")):
+        checks[key]["launches_nodes"] = node_launches[kname]
+    lap("phase 25")
 
     kernels = []
     meta = {
@@ -4517,7 +4755,7 @@ def main() -> int:
                                              "previous_ms_10s", "32k_v1", "d256",
                                              "cli_float32_bank", "launches_40k_v2",
                                              "launches_40k_nof0", "launches_32k_v2",
-                                             "launches_48k", "whole_stack",
+                                             "launches_48k", "launches_nodes", "whole_stack",
                                              "recompute_launches") if k in c}})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

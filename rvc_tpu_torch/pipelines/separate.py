@@ -139,15 +139,16 @@ class VRSeparator:
 
     @torch.no_grad()
     def run_inference(self, audio: np.ndarray, sr: int, events: list | None = None) -> dict:
-        """audio (T,) or (2, T) at any rate -> {"sr", "vocals", "instrumentals"
-        (int16 mono, each as (audio, sr)), "input_audio"} (reference
-        UVR5Base.run_inference, lib/separators.py:186-247)."""
+        """audio (T,), (1, T) or (2, T) at any rate -> {"sr", "vocals",
+        "instrumentals" (int16 mono, each as (audio, sr)), "input_audio"}
+        (reference UVR5Base.run_inference, lib/separators.py:186-247); one
+        channel is doubled."""
         p = self.mp.param
         bands_n = len(p["band"])
         ms, msb2, rev = p["mid_side"], p["mid_side_b2"], p["reverse"]
-        audio = np.asarray(audio, np.float32)
-        if audio.ndim == 1:
-            audio = np.stack([audio, audio])
+        audio = np.atleast_2d(np.asarray(audio, np.float32))
+        if audio.shape[0] == 1:
+            audio = np.vstack([audio, audio])
         x = torch.from_numpy(audio).to(self.device)
         mark(events, "start")
         X_wave, X_spec = {}, {}
