@@ -226,7 +226,19 @@ Phases, each announced on its own line:
      must hit the node cache (no counted launch, no kernel the profiler
      sees); every cached model must sit on the card. Prints each node's
      seconds, the RTF of the node against the direct call and
-     max_memory_allocated.
+     max_memory_allocated;
+ 26. separation in bf16 (run_separation_bf16): phases 22-24's VR, MDX,
+     HTDemucs, HDemucs, Conv-TasNet, BS-RoFormer and Mel-Band RoFormer files
+     through load_separator(..., dtype=torch.bfloat16) on the 30 s song,
+     nothing cut: every module of each network in bf16, its outputs
+     finite, each int16 stem within 5e-2 relative L2 of the same call's
+     float32 stems (phases 22-24); RTF (best and median of 3 after a set-up
+     call) beside float32's, stages, TFLOP/s, peak memory, busy share; one
+     window a route in bf16 card vs CPU within 5e-2 relative L2 (phase
+     12's bar); the HDemucs BLSTM's recurrence through layers.lstm (a CUDA
+     graph, equal bit for bit to its steps launched one by one) against
+     cuDNN's float32 and bf16 LSTMs (times and distances); kernels 1-8
+     launched no time.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that.
 A kernel's time beside its yardsticks (previous_ms, mma_sync_ms) is
@@ -1508,7 +1520,7 @@ def small_batch(batch: dict, frames: int = 48, hop: int = 480) -> dict:
     return small
 
 
-def check_train_vs_cpu(cfg, batch: dict, label: str = "[8/25]",
+def check_train_vs_cpu(cfg, batch: dict, label: str = "[8/26]",
                        multiscale: bool = False) -> tuple:
     """One training step on the card and on the CPU (plain versions) from the
     same weights, batch and draws, at batch 1 and 48 frames. Returns the
@@ -2003,7 +2015,7 @@ def run_train_bf16(cfg, batches: list, small: dict, cpu32, card: str, checks: di
     trainer = Trainer(cfg, dtype=bf16, device="cuda")
     seeded_state(trainer, 0)
     gen = torch.Generator().manual_seed(19)
-    say(f"[19/25] training in bf16: kernels 4-7 in their bf16 form at phase 7's shapes "
+    say(f"[19/26] training in bf16: kernels 4-7 in their bf16 form at phase 7's shapes "
         f"(trainer built in {time.perf_counter() - t0:.1f} s)")
     checks["chain_bf16"], checks["chain_bwd_bf16"] = check_chain_train_bf16(trainer, gen)
     checks["wn_bf16"], checks["wn_bwd_bf16"] = check_wn_train_bf16(
@@ -2011,7 +2023,7 @@ def run_train_bf16(cfg, batches: list, small: dict, cpu32, card: str, checks: di
     checks["wn_stack_bf16"] = check_wn_stack_bf16(
         trainer, batches[0]["spec_lengths"], np.shape(batches[0]["spec"])[1], gen)
     torch.cuda.empty_cache()
-    run = run_training(trainer, batches, card, "19/25")
+    run = run_training(trainer, batches, card, "19/26")
     say(f"  bf16 {run['rate']:.3f} steps/s against float32 {rate32:.3f} (phase 7, this run); "
         f"{card}")
     del trainer
@@ -2148,13 +2160,13 @@ def run_every_loss(cfg, batches: list, card: str, base: dict, checks: dict) -> N
     from rvc_tpu_torch.train.step import Trainer
 
     cfg = all_losses(cfg)
-    say(f"[20/25] every loss: 48k_v2 with c_gp = c_hd = c_tsi = c_tefs = 1 and the multi-scale "
+    say(f"[20/26] every loss: 48k_v2 with c_gp = c_hd = c_tsi = c_tefs = 1 and the multi-scale "
         f"mel loss, on phase 7's batches")
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         trainer = Trainer(cfg, dtype=dtype, device="cuda")
         trainer.use_multiscale()
-        run = run_training(trainer, batches[:1 + PHASE20_STEPS], card, "20/25",
+        run = run_training(trainer, batches[:1 + PHASE20_STEPS], card, "20/26",
                            "48k_v2 with every loss")
         penalty = float(run["state"].balancer_d.hist_losses[1])
         zero = [k for vals in run["losses"] for k in ("harmonic_loss", "tsi_loss", "tefs_loss")
@@ -2172,7 +2184,7 @@ def run_every_loss(cfg, batches: list, card: str, base: dict, checks: dict) -> N
         del trainer, run
         torch.cuda.empty_cache()
     checks["loss_costs"] = loss_costs(cfg, batches[0], card)
-    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/25] every loss:", True)
+    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/26] every loss:", True)
     # the aux and multi-scale losses are taken on the bf16 generated slice:
     # the CPU bf16 tests' factor 2 (check_train_bf16_vs_cpu)
     check_train_bf16_vs_cpu(cfg, small, cpu32, True, factor=2.0)
@@ -2204,7 +2216,7 @@ def run_nof0(tmp: str, card: str, checks: dict) -> None:
                             seed=1234)
     batches = [b for e in range(1 + PHASE20_STEPS) for b in batcher.epoch(e)][
         :1 + PHASE20_STEPS]
-    say(f"[20/25] no f0: 40k v1 with use_f0 = False on {len(CLIP_SECONDS)} clips at "
+    say(f"[20/26] no f0: 40k v1 with use_f0 = False on {len(CLIP_SECONDS)} clips at "
         f"{cfg.data.sampling_rate} Hz, batches of {np.shape(batches[0]['spec'])[:2]} frames, "
         f"keys {sorted(batches[0])}")
     if "pitch" in batches[0] or "pitchf" in batches[0]:
@@ -2213,14 +2225,14 @@ def run_nof0(tmp: str, card: str, checks: dict) -> None:
         trainer = Trainer(cfg, dtype=dtype, device="cuda")
         if type(trainer.synth.dec).__name__ != "Generator":
             fail(f"the no-f0 decoder is {type(trainer.synth.dec).__name__}")
-        run = run_training(trainer, batches, card, "20/25", "40k no-f0")
+        run = run_training(trainer, batches, card, "20/26", "40k no-f0")
         checks[f"nof0_{str(dtype).split('.')[-1]}"] = dict(rate=run["rate"],
                                                            launches=run["launches"])
         if dtype == torch.float32:
             check_export(cfg, trainer, tmp, filelist)
         del trainer, run
         torch.cuda.empty_cache()
-    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/25] no f0:")
+    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/26] no f0:")
     check_train_bf16_vs_cpu(cfg, small, cpu32)
 
 
@@ -2342,7 +2354,7 @@ def run_unchecked_presets(settings, card: str) -> dict:
         vc = make_random_converter(name, seed=seed, chunking=CHUNKING, index_rows=BANK_ROWS,
                                    device="cuda")
         dec = vc.synth.dec
-        say(f"[21/25] {name} at full width (converter built in {time.perf_counter() - t0:.1f} "
+        say(f"[21/26] {name} at full width (converter built in {time.perf_counter() - t0:.1f} "
             f"s): upsampling {list(dec.upsample_rates)}, decoder stages of "
             f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
             f"channels, segment {preset(name).train.segment_size} samples")
@@ -2357,7 +2369,7 @@ def run_unchecked_presets(settings, card: str) -> dict:
                     settings)
         del vc, dec
         torch.cuda.empty_cache()
-        check_train_vs_cpu(preset(name), synthetic_batch(preset(name)), f"  [21/25] {name}:")
+        check_train_vs_cpu(preset(name), synthetic_batch(preset(name)), f"  [21/26] {name}:")
     return launched
 
 
@@ -2375,7 +2387,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     vc = main_converter("cuda", bf16)
     say(f"bf16 converter built in {time.perf_counter() - t0:.1f} s")
     shapes = path_shapes(vc, clips[30])
-    say(f"[9/25] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
+    say(f"[9/26] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz")
     gen = torch.Generator().manual_seed(3)
     with torch.no_grad():
@@ -2414,7 +2426,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[10/25] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
+        say(f"[10/26] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
             f"{sr} Hz, peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x (float32 "
             f"in this run {rtf32[sec]:.2f}x), max_memory_allocated "
@@ -2439,7 +2451,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out, sr, launched, wall = counted_convert(vc, audio, settings, counters)
     vc.synth.dec.fuse_group = True
     same = bool(np.array_equal(out, outs[30]))
-    say(f"[11/25] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
+    say(f"[11/26] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
         f"(RTF {30 / wall:.2f}x), launches { {k: v for k, v in launched.items() if v} }, "
         f"bit-identical to the default route: {same} (the default route against itself: "
         f"{bool(np.array_equal(again, outs[30]))})")
@@ -2474,7 +2486,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     a, b = out_gpu.astype(np.float64), out_cpu.astype(np.float64)
     l2 = float(np.linalg.norm(a - b) / np.linalg.norm(b)) if a.shape == b.shape else math.inf
-    say(f"[12/25] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
+    say(f"[12/26] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
         f"differs on {differ:.2%} of frames between them): {len(out_gpu)} vs {len(out_cpu)} "
         f"samples, relative L2 {l2:.4g} (tolerance {BF16_CPU_L2}: bf16 roundings flip "
         f"between the card's sums and the CPU's and the flips travel through the decoder; "
@@ -2574,7 +2586,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
                                          * 32000).astype(np.int16))
     sizes = {k: round(os.path.getsize(p) / 2**20, 1) for k, p in path.items()
              if os.path.exists(p)}
-    say(f"[13/25] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
+    say(f"[13/26] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
 
     # 13. the command line, in process, every count set to 0 just before
     counters = {**launch_counters(), "nearest_rows": (retrieval.nearest_rows, "launches")}
@@ -2639,7 +2651,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
         dec = vc.synth.dec
         label = f"{key} {version}" + ("" if f0 else " no-f0")
         phase = 14 if f0 else 15
-        say(f"[{phase}/25] {label} from files: decoder stages of "
+        say(f"[{phase}/26] {label} from files: decoder stages of "
             f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
             f"channels, HuBERT features D = {vc.hubert.cfg.classifier_proj_size}, "
             f"{type(dec).__name__}")
@@ -2702,7 +2714,7 @@ def run_batch(settings, card: str) -> dict:
                 "nearest_rows_q": 1}
     best, med = 80.0 / min(walls), 80.0 / float(np.median(walls))
     dev_s, down_s, disp_s = shares[int(np.argmin(walls))]
-    say(f"[16/25] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
+    say(f"[16/26] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
         f"{stats['chunk_samples']} samples, wall ms {[round(w * 1e3, 2) for w in walls]}, "
         f"aggregate RTF best {best:.2f}x, median {med:.2f}x; stats of the best: device_s "
         f"{dev_s:.4f} ({dev_s / min(walls):.1%} of the wall), download_s {down_s:.4f} "
@@ -2869,7 +2881,7 @@ def run_train_from_dataset(tmp: str, settings, card: str, checks: dict) -> dict:
     hub_state = write_hubert_safetensors(path["hubert"], HubertConfig(), seed=21)
     rmvpe_state = write_rmvpe_pt(path["rmvpe"], seed=22)
     odd_g, odd_d = write_pretrained(path["G"], path["D"], cfg, seed=23)
-    say(f"[17/25] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
+    say(f"[17/26] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
         f"pretrained G and D ({odd_g} and {odd_d} of another shape) written in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -3146,7 +3158,7 @@ def check_host_library() -> dict:
     nrms = slicer.frame_rms_numpy(x, sl.win_size, sl.hop_size)
     rms_err = float(np.max(np.abs(rms - nrms) / np.maximum(nrms, 1e-9)))
     tags, ntags = sl._silence_tags(rms), sl._silence_tags_numpy(rms)
-    say(f"[18/25] host library {os.path.relpath(lib._name, REPO)} built and loaded in "
+    say(f"[18/26] host library {os.path.relpath(lib._name, REPO)} built and loaded in "
         f"{build_s:.2f} s: peak_quantize_i16 on 30 s equal to numpy's {np.array_equal(q, nq)} "
         f"(peak {peak} / {npeak}); frame_rms of {len(rms)} frames within {rms_err:.3g} "
         f"relative of numpy's float32 sums (tolerance {RMS_REL}); the slicer's {len(tags)} "
@@ -3547,10 +3559,12 @@ def check_cli_separate(tmp: str, wav: str, path: str, sep, label: str, channels:
         fail(f"CLI {label}: its stems disagree with load_separator's")
 
 
-def run_separation(tmp: str, card: str) -> None:
+def run_separation(tmp: str, card: str) -> dict:
     """Phase 22: separation at full width through load_separator and the
     CLI, on both routes: RTF, stages, peak memory and busy share; card vs
-    CPU on one window a route; kernels 1-8 launched no time."""
+    CPU on one window a route; kernels 1-8 launched no time. Returns, by
+    route, the set-up call's stems, the network's FLOPs a window and the
+    model file (for phase 26)."""
     import torch
 
     from rvc_tpu_torch.models.mdx_net import ConvTDFNetTrim
@@ -3570,7 +3584,7 @@ def run_separation(tmp: str, card: str) -> None:
     song = song_stereo(SEP_SECONDS)
     flops = {"VR": network_flops(lambda: CascadedASPPNet(n_fft_vr), (1, 2, 673, 512)),
              "MDX": network_flops(ConvTDFNetTrim, (1, 4, 256, 3072))}
-    say(f"[22/25] separation at full width: VR CascadedASPPNet({n_fft_vr}) from a .pth "
+    say(f"[22/26] separation at full width: VR CascadedASPPNet({n_fft_vr}) from a .pth "
         f"(4band_v2, {FOURBAND_V2_PARAM['bins'] + 1} bins, window 512, offset 128, agg 10, mirroring), "
         f"{flops['VR'] / 1e9:.1f} GFLOP a window; MDX ConvTDFNetTrim(11 blocks, l 3, g 32, "
         f"bn 8, dim_f 3072, GroupNorm2) from an anonymous .onnx (dim_t 256, n_fft 6144, hop "
@@ -3578,6 +3592,7 @@ def run_separation(tmp: str, card: str) -> None:
         f"{SEP_SECONDS:.0f} s of stereo 44.1 kHz; files written in "
         f"{time.perf_counter() - t0:.1f} s")
     hop = {"VR": 480, "MDX": 0}
+    kept = {}
     t1 = time.perf_counter()
     seps = {kind: load_separator(route_separator(path), path, 10.0)  # the card
             for kind, path in paths.items()}
@@ -3591,6 +3606,8 @@ def run_separation(tmp: str, card: str) -> None:
         out = sep.run_inference(song, 44100)  # first call: set-up
         first = time.perf_counter() - t1
         check_stems(out, song.shape[1], hop[kind], label)
+        if not opt:
+            kept[kind] = {"out": out, "flops": flops[kind], "path": paths[kind]}
         net = sep.model if kind == "VR" else sep.net
         windows = [0]
         hook = net.register_forward_pre_hook(
@@ -3630,6 +3647,8 @@ def run_separation(tmp: str, card: str) -> None:
         if top:
             say("    top kernels (ms, calls): "
                 + "; ".join(f"{ms:.2f} x{n} {k}" for ms, n, k in top))
+        if not opt:
+            kept[kind].update(rtf=SEP_SECONDS / min(walls), network_ms=stages["network"])
         if opt:
             setattr(sep, opt, False)
         torch.cuda.empty_cache()
@@ -3661,6 +3680,7 @@ def run_separation(tmp: str, card: str) -> None:
     say(f"  kernel launches in phase 22: {launched}")
     if any(launched.values()):
         fail("separation launched a kernel of the conversion or training path")
+    return kept
 
 
 # ---- phase 23: separation with Demucs (HTDemucs, HDemucs, Conv-TasNet, a bag) ----
@@ -3774,13 +3794,14 @@ def demucs_models(sep) -> list:
     return [s.model for s in sep.sub] if sep.sub else [sep.model]
 
 
-def run_demucs(tmp: str, card: str) -> None:
+def run_demucs(tmp: str, card: str) -> dict:
     """Phase 23: Demucs separation at full width through load_separator and
     the CLI: an HTDemucs and an HDemucs package, a Conv-TasNet and a bag of
     four HTDemucs; RTF, stages, peak memory, busy share and TFLOP/s; card vs
     CPU on one segment a model (HTDemucs also with 2 shifts); the Wiener
     filter and Conv-TasNet's two depthwise forms on the card; kernels 1-8
-    launched no time."""
+    launched no time. Returns, by model but the bag, the set-up call's stems
+    of the 30 s song, the FLOPs a chunk and the file (for phase 26)."""
     import torch
 
     from rvc_tpu_torch.models.tasnet import depthwise, depthwise_conv1d
@@ -3803,12 +3824,13 @@ def run_demucs(tmp: str, card: str) -> None:
     t1 = time.perf_counter()
     seps = {label: load_separator(route_separator(path), path)  # the card
             for label, path in paths.items()}
-    say(f"[23/25] Demucs at full width: HTDemucs (channels 48, depth 4, nfft 4096, 5 "
+    say(f"[23/26] Demucs at full width: HTDemucs (channels 48, depth 4, nfft 4096, 5 "
         f"transformer layers of 384 x 8 heads, segment {float(HTDEMUCS_KW['segment'])} s with "
         f"use_train_segment), HDemucs (depth 6, BLSTM and LocalState from layer 4, 10 s "
         f"segments), Conv-TasNet (N 256, L 20, B 256, H 512, P 3, X 10, R 4, gLN, 8 s), a bag of "
         f"4 HTDemucs (htdemucs_ft's one-hot weights); files written in {written:.1f} s, loaded "
         f"in {time.perf_counter() - t1:.1f} s")
+    kept = {}
     for label, sep in seps.items():
         sec = 10.0 if label == "bag" else SEP_SECONDS
         clip = song[:, : int(sec * 44100)]
@@ -3818,6 +3840,8 @@ def run_demucs(tmp: str, card: str) -> None:
         out = sep.run_inference(clip, 44100)  # first call: set-up
         first = time.perf_counter() - t1
         check_demucs_stems(out, clip.shape[1], label)
+        if label != "bag":
+            kept[label] = {"out": out, "flops": flops, "path": paths[label]}
         chunks = [0]
         hooks = [m.register_forward_pre_hook(
             lambda m, a: chunks.__setitem__(0, chunks[0] + a[0].shape[0])) for m in models]
@@ -3853,6 +3877,8 @@ def run_demucs(tmp: str, card: str) -> None:
             + f"; the set-up call against the last, max |diff| {max(rerun.values())} LSB; {card}")
         if top:
             say("    top kernels (ms, calls): " + "; ".join(f"{ms:.2f} x{n} {k}" for ms, n, k in top))
+        if label in kept:
+            kept[label].update(rtf=sec / min(walls), network_ms=stages["network"])
         torch.cuda.empty_cache()
 
     # card against CPU on one segment a model: the clip and the 0.5 s shift
@@ -3909,6 +3935,7 @@ def run_demucs(tmp: str, card: str) -> None:
     say(f"  kernel launches in phase 23: {launched}")
     if any(launched.values()):
         fail("Demucs separation launched a kernel of the conversion or training path")
+    return kept
 
 
 # ---- phase 24: BS-RoFormer and Mel-Band RoFormer, the Karafan recipe, pitch_shift ----
@@ -3996,14 +4023,16 @@ def rounding_response(sep, window: np.ndarray) -> int:
     return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
 
 
-def run_roformer(tmp: str, card: str) -> None:
+def run_roformer(tmp: str, card: str) -> dict:
     """Phase 24: BS-RoFormer (the ep_317 layout) and Mel-Band RoFormer (the
     JAX defaults) written as .ckpt files with seeded weights at the JAX
     initializer's scale, separating phase 22's 30 s song through
     load_separator and the CLI: the loader's config, RTF, stages, TFLOP/s,
     busy share and peak memory; card vs CPU on one 8 s window; the Karafan
     recipe on 10 s (the Mel model for vocals, phase 22's MDX net for music);
-    pitch_shift card vs CPU; kernels 1-8 launched no time."""
+    pitch_shift card vs CPU; kernels 1-8 launched no time. Returns, by
+    model, the set-up call's stems, the FLOPs a window and the file (for
+    phase 26)."""
     import torch
 
     from rvc_tpu_torch.models.bs_roformer import BSRoformer, BSRoformerConfig
@@ -4032,7 +4061,7 @@ def run_roformer(tmp: str, card: str) -> None:
     written = time.perf_counter() - t0
     t1 = time.perf_counter()
     seps = {label: load_separator(route_separator(path), path) for label, path in paths.items()}
-    say(f"[24/25] RoFormers at full width: a BS-RoFormer as a Lightning .ckpt and a Mel-Band "
+    say(f"[24/26] RoFormers at full width: a BS-RoFormer as a Lightning .ckpt and a Mel-Band "
         f"RoFormer as a bare state dict without freq_indices, seeded weights at the JAX "
         f"initializer's scale (uniform +-1/sqrt(fan_in), gamma 1); written in {written:.1f} s, "
         f"loaded in {time.perf_counter() - t1:.1f} s; {SEP_SECONDS:.0f} s of stereo 44.1 kHz "
@@ -4045,11 +4074,13 @@ def run_roformer(tmp: str, card: str) -> None:
             f"loader's config: {roformer_config_line(sep.cfg)}; {flops[label] / 1e12:.3f} TFLOP "
             f"a {sep.segment}-sample window (801 frames)")
 
+    kept = {}
     for label, sep in seps.items():
         t1 = time.perf_counter()
         out = sep.run_inference(song, 44100)  # first call: set-up
         first = time.perf_counter() - t1
         check_demucs_stems(out, song.shape[1], label, sources=["vocals"])
+        kept[label] = {"out": out, "flops": flops[label], "path": paths[label]}
         windows = [0]
         hook = sep.model.register_forward_pre_hook(
             lambda m, a: windows.__setitem__(0, windows[0] + a[0].shape[0]))
@@ -4083,6 +4114,7 @@ def run_roformer(tmp: str, card: str) -> None:
             + f"; the set-up call against the last, max |diff| {max(rerun.values())} LSB; {card}")
         if top:
             say("    top kernels (ms, calls): " + "; ".join(f"{ms:.2f} x{n} {k}" for ms, n, k in top))
+        kept[label].update(rtf=SEP_SECONDS / min(walls), network_ms=stages["network"])
         torch.cuda.empty_cache()
 
     # card against CPU on one 8 s window, the same weights. The song is band-
@@ -4187,6 +4219,7 @@ def run_roformer(tmp: str, card: str) -> None:
     say(f"  kernel launches in phase 24: {launched}")
     if any(launched.values()):
         fail("RoFormer separation launched a kernel of the conversion or training path")
+    return kept
 
 
 # ---- phase 25: the node graph ----
@@ -4242,7 +4275,7 @@ def run_nodes(files: dict, work: str, card: str) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
-    say(f"[25/25] the node graph on the card: phase 22's VR .pth and {SEP_SECONDS:.0f} s song, "
+    say(f"[25/26] the node graph on the card: phase 22's VR .pth and {SEP_SECONDS:.0f} s song, "
         f"phase 13's 48k_v2 .pth, HuBERT, rmvpe.pt and {BANK_ROWS}-row float32 bank, phase 17's "
         f"{TRAIN_SOURCE_SECONDS:g} s source clip")
 
@@ -4386,6 +4419,197 @@ def run_nodes(files: dict, work: str, card: str) -> dict:
     return launched
 
 
+# ---- phase 26: separation in bfloat16 ----
+
+SEP_BF16_L2 = 5e-2  # relative L2 of an int16 stem from the same call's float32 one:
+# the bf16 conversion's bar (phase 12, PERF.md §2)
+
+
+def lstm_forms(module, x) -> str:
+    """The recurrent step of ``module`` (a bidirectional ``nn.LSTM``) on x
+    (T, B, I) four ways, each timed on the card and held against the first
+    by relative L2: cuDNN in float32, ``layers.lstm`` in bf16 (the bf16
+    route's: JAX's roundings, replayed as a CUDA graph), its steps launched
+    one by one (``lstm_steps``, which must give the graph's bits), and
+    cuDNN's bf16 LSTM on a bf16 copy of the weights (as RMVPE's bf16 BiGRU
+    runs on cast weights), which does not round h and c as JAX's scan
+    does."""
+    import copy
+
+    import torch
+
+    from rvc_tpu_torch.models.layers import lstm, lstm_steps
+
+    bf = torch.bfloat16
+    module16 = copy.deepcopy(module).to(bf)
+    module16.flatten_parameters()
+    forms = {"cuDNN float32": lambda: module(x.float())[0],
+             "layers.lstm bf16 (CUDA graph)": lambda: lstm(module, x, bf),
+             "lstm_steps bf16 (no graph)": lambda: lstm_steps(module, x, bf),
+             "cuDNN bf16": lambda: module16(x.to(bf))[0]}
+    with torch.no_grad():
+        ref = forms["cuDNN float32"]().float()
+        if not torch.equal(forms["layers.lstm bf16 (CUDA graph)"](),
+                           forms["lstm_steps bf16 (no graph)"]()):
+            fail("layers.lstm's CUDA graph gives other bits than its steps")
+        out = []
+        for name, fn in forms.items():
+            err = float((fn().float() - ref).norm() / ref.norm())
+            ms = timed(fn, reps=3, warmup=1)
+            out.append(f"{name} {ms:.2f} ms (relative L2 from float32 {err:.3g})")
+    return "; ".join(out) + "; the graph's output equal to the steps' bit for bit"
+
+
+def stem_l2(a: dict, b: dict) -> dict:
+    """Relative L2 of each int16 stem of ``a`` (a separator's output) from
+    ``b``'s; fails on another shape."""
+    out = {}
+    for stem in (k for k in b if k not in ("sr", "input_audio")):
+        x, y = (np.asarray(d[stem][0], np.float64) for d in (a, b))
+        if x.shape != y.shape:
+            fail(f"{stem}: {x.shape} against {y.shape}")
+        out[stem] = float(np.linalg.norm(x - y) / np.linalg.norm(y))
+    return out
+
+
+def bf16_window(label: str, sep, song: np.ndarray) -> np.ndarray:
+    """The clip of ``song`` that phases 22-24 hold card against CPU on, for
+    route ``label``: one window or segment of it."""
+    if label in ("VR", "MDX"):
+        return song[:, : int((2.5 if label == "VR" else 3.0) * 44100)]
+    if "RoFormer" not in label:
+        return song[:, 44100: 44100 + sep.segment_samples - 22050]
+    window = song[:, 44100: 44100 + sep.segment]
+    floor = 10 ** (ROFORMER_FLOOR_DB / 20) * np.random.default_rng(24).standard_normal(window.shape)
+    return (window + floor).astype(np.float32)
+
+
+def run_separation_bf16(routes: dict, card: str) -> None:
+    """Phase 26: every separation route through load_separator(...,
+    dtype=bfloat16) at full width on phases 22-24's files and 30 s song:
+    RTF (best and median of 3 after a set-up call), stages, the network's
+    TFLOP/s beside the same call's float32 run, peak memory, busy share; the
+    networks' outputs finite and each int16 stem within SEP_BF16_L2 relative
+    L2 of phases 22-24's float32 stems (``routes``: by route, those stems,
+    the network's FLOPs a window or chunk, the file, the float32 RTF and
+    network ms); one window a route card vs CPU in bf16; the HDemucs BLSTM's
+    four forms; kernels 1-8 launched no time."""
+    import torch
+
+    from rvc_tpu_torch.models import demucs as demucs_module
+    from rvc_tpu_torch.pipelines.separate import load_separator, route_separator
+
+    counters = training_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    song = song_stereo(SEP_SECONDS)
+    say(f"[26/26] separation in bf16 at full width through load_separator(..., "
+        f"dtype=torch.bfloat16): {', '.join(routes)} on phases 22-24's files and "
+        f"{SEP_SECONDS:.0f} s song; each stem against the same call's float32 stems (phases "
+        f"22-24) within {SEP_BF16_L2:g} relative L2")
+    captured = []
+    for label, f32 in routes.items():
+        path = f32["path"]
+        t1 = time.perf_counter()
+        sep = load_separator(route_separator(path), path, 10.0, dtype=torch.bfloat16)
+        loaded = time.perf_counter() - t1
+        nets = ([sep.model] if label in ("VR", "BS-RoFormer", "Mel-RoFormer") else
+                [sep.net] if label == "MDX" else demucs_models(sep))
+        if any(getattr(m, "dtype", None) != torch.bfloat16 for net in nets for m in net.modules()):
+            fail(f"{label}: a module of the network does not compute in bf16")
+        finite = []
+        hooks = [net.register_forward_hook(
+            lambda m, a, y: finite.append(torch.isfinite(y).all())) for net in nets]
+        record = demucs_module.lstm
+        if label == "HDemucs":  # the first BLSTM's input, for lstm_forms below
+            def capture(module, x, dtype):
+                if not captured:
+                    captured.append((module, x))
+                return record(module, x, dtype)
+            demucs_module.lstm = capture
+        try:
+            t1 = time.perf_counter()
+            out = sep.run_inference(song, 44100)  # first call: set-up
+            first = time.perf_counter() - t1
+        finally:
+            demucs_module.lstm = record
+            for h in hooks:
+                h.remove()
+        if not finite or not all(bool(f) for f in finite):
+            fail(f"{label}: the bf16 network gave a value that is not finite")
+        if label in ("VR", "MDX"):
+            check_stems(out, song.shape[1], 480 if label == "VR" else 0, label)
+        else:
+            check_demucs_stems(out, song.shape[1], label, sources=(
+                ["vocals"] if "RoFormer" in label else DEMUCS_SOURCES))
+        l2 = stem_l2(out, f32["out"])
+        windows = [0]
+        hooks = [net.register_forward_pre_hook(
+            lambda m, a: windows.__setitem__(0, windows[0] + a[0].shape[0])) for net in nets]
+        torch.cuda.reset_peak_memory_stats()
+        walls, stages = [], {}
+        for _ in range(3):
+            events = []
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sep.run_inference(song, 44100, events=events)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            stages = stage_ms(events)
+            stages["host and gaps"] = walls[-1] * 1e3 - events[0][1].elapsed_time(events[-1][1])
+        for h in hooks:
+            h.remove()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy, wall, top = busy_share(lambda: sep.run_inference(song, 44100))
+        n_win = windows[0] // 3
+        flop = n_win * f32["flops"]
+        say(f"  {label} bf16 on {SEP_SECONDS:.0f} s: RTF best {SEP_SECONDS / min(walls):.2f}x, "
+            f"median {SEP_SECONDS / float(np.median(walls)):.2f}x (float32 best "
+            f"{f32['rtf']:.2f}x, this run) (walls ms {[round(w * 1e3, 2) for w in walls]}; "
+            f"loaded in {loaded:.1f} s, first call {first * 1e3:.1f}); stages ms (CUDA events, "
+            f"last run): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+            + f"; network {n_win} window forwards, {flop / 1e12:.3f} TFLOP, "
+            f"{flop / stages['network'] / 1e9:.1f} TFLOP/s (float32 {f32['network_ms']:.2f} ms, "
+            f"{flop / f32['network_ms'] / 1e9:.1f} TFLOP/s); peak {peak:.2f} GiB; device busy "
+            + (f"{busy / wall:.1%} ({busy:.2f} of {wall:.2f} ms under the profiler)" if busy > 0
+               else "not measured (the profiler saw no device time)")
+            + "; relative L2 from the float32 stems "
+            + ", ".join(f"{k} {v:.4g}" for k, v in l2.items())
+            + f" (tolerance {SEP_BF16_L2:g}); {card}")
+        if top:
+            say("    top kernels (ms, calls): " + "; ".join(f"{ms:.2f} x{n} {k}" for ms, n, k in top))
+        if not max(l2.values()) <= SEP_BF16_L2:
+            fail(f"{label}: the bf16 stems are {l2} from the float32 stems")
+        # one window in bf16 on the card against the CPU, as phase 12 holds
+        # the bf16 conversion
+        clip = bf16_window(label, sep, song)
+        cpu = load_separator(route_separator(path), path, 10.0, device="cpu",
+                             dtype=torch.bfloat16)
+        got = sep.run_inference(clip, 44100)
+        t1 = time.perf_counter()
+        cpu_l2 = stem_l2(got, cpu.run_inference(clip, 44100))
+        say(f"  {label} bf16 on {clip.shape[1] / 44100:.2f} s, card vs CPU: relative L2 "
+            + ", ".join(f"{k} {v:.4g}" for k, v in cpu_l2.items())
+            + f" (tolerance {SEP_BF16_L2:g}, phase 12's: bf16 roundings flip between the "
+            f"card's sums and the CPU's); CPU {time.perf_counter() - t1:.1f} s")
+        if not max(cpu_l2.values()) <= SEP_BF16_L2:
+            fail(f"{label}: the card's bf16 stems disagree with the CPU's")
+        del sep, nets, cpu
+        torch.cuda.empty_cache()
+
+    if not captured:
+        fail("HDemucs in bf16 ran no BLSTM step")
+    module, x = captured[0]
+    say(f"  HDemucs's first BLSTM ({module.num_layers} layers of {module.hidden_size} a "
+        f"direction, {x.shape[0]} steps x {x.shape[1]} sequences), its recurrence four ways: "
+        + lstm_forms(module, x))
+    del captured
+    launched = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    say(f"  kernel launches in phase 26: {launched}")
+    if any(launched.values()):
+        fail("bf16 separation launched a kernel of the conversion or training path")
+
+
 def keep(path: str, folder: str) -> str:
     """``path`` moved into ``folder`` (out of a phase's temporary directory,
     for a later phase); returns its new path."""
@@ -4435,7 +4659,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi gave nothing"
-    say(f"[1/25] card: {name}, {count} device(s); torch {torch.__version__}, "
+    say(f"[1/26] card: {name}, {count} device(s); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     say(card)
 
@@ -4445,7 +4669,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library()
     info = _cuda.build_info
-    say(f"[2/25] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
+    say(f"[2/26] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
         f"(load {time.perf_counter() - t0:.2f} s)")
     say("ptxas: " + "; ".join(info["ptxas"]))
     say("ptxas C7515 (wgmma serialized): " + (", ".join(info["serialized"]) or "none"))
@@ -4476,7 +4700,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions at the 30 s conversion's shapes
     shapes = path_shapes(vc, clips[30])
-    say(f"[3/25] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
+    say(f"[3/26] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz, {shapes['T50']} HuBERT frames per chunk")
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -4532,7 +4756,7 @@ def main() -> int:
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[4/25] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
+        say(f"[4/26] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
             f"peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x, "
             f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -4556,7 +4780,7 @@ def main() -> int:
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     diff = np.abs(out_gpu.astype(np.int32) - out_cpu.astype(np.int32))
     tol = 4
-    say(f"[5/25] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
+    say(f"[5/26] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
         f"max |diff| {diff.max()} LSB, share above {tol} LSB {np.mean(diff > tol):.4%} "
         f"(tolerance {tol} LSB: the same float32 math summed in another order, "
         f"~1e-5 relative before the int16 scaling); CPU run "
@@ -4585,7 +4809,7 @@ def main() -> int:
     seeded_state(trainer, 0)
     say(f"dataset of {len(CLIP_SECONDS)} clips, {len(batches)} batches, trainer built in "
         f"{time.perf_counter() - t0:.1f} s")
-    say(f"[6/25] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
+    say(f"[6/26] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
         f"segment {cfg.train.segment_size} samples, WN over {np.shape(batches[0]['spec'])[1]} "
         f"frames")
     gen = torch.Generator().manual_seed(2)
@@ -4615,7 +4839,7 @@ def main() -> int:
     lap("phase 6 and the dataset")
 
     # 7. the training path
-    run32 = run_training(trainer, batches, card, "7/25")
+    run32 = run_training(trainer, batches, card, "7/26")
     trained, rate32 = run32["launches"], run32["rate"]
     launches = {"fused_resblock_group": launches["resblock"],
                 "banded_rel_attention": launches["attention"],
@@ -4686,20 +4910,29 @@ def main() -> int:
     lap("phase 21")
 
     # 22. separation: the VR and MDX-Net routes through load_separator and the CLI
+    # (each route's float32 stems, FLOPs, times and file kept for phase 26)
+    sep32 = {}
     with tempfile.TemporaryDirectory(prefix="rvc_sep_") as work:
-        run_separation(work, card)
-        node_files.update(vr=keep(os.path.join(work, "HP2-4BAND-3090_4band_v2.pth"), kept),
-                          song=keep(os.path.join(work, "song.wav"), kept))
+        sep32.update(run_separation(work, card))
+        for route in sep32.values():
+            route["path"] = keep(route["path"], kept)
+        node_files.update(vr=sep32["VR"]["path"], song=keep(os.path.join(work, "song.wav"), kept))
     lap("phase 22")
 
     # 23. separation with Demucs: HTDemucs, HDemucs, Conv-TasNet and a bag
     with tempfile.TemporaryDirectory(prefix="rvc_demucs_") as work:
-        run_demucs(work, card)
+        demucs32 = run_demucs(work, card)
+        for route in demucs32.values():
+            route["path"] = keep(route["path"], kept)
+    sep32.update(demucs32)
     lap("phase 23")
 
     # 24. BS-RoFormer and Mel-Band RoFormer, the Karafan recipe, pitch_shift
     with tempfile.TemporaryDirectory(prefix="rvc_roformer_") as work:
-        run_roformer(work, card)
+        roformer32 = run_roformer(work, card)
+        for route in roformer32.values():
+            route["path"] = keep(route["path"], kept)
+    sep32.update(roformer32)
     lap("phase 24")
 
     # 25. the node graph: separate, convert, mix, preview; dataset, train, index, convert
@@ -4711,6 +4944,11 @@ def main() -> int:
                        ("wn_bwd", "fused_wn_backward")):
         checks[key]["launches_nodes"] = node_launches[kname]
     lap("phase 25")
+
+    # 26. separation in bf16 on every route, against phases 22-24's float32 stems
+    run_separation_bf16(sep32, card)
+    del sep32
+    lap("phase 26")
 
     kernels = []
     meta = {

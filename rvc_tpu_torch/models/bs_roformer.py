@@ -24,6 +24,18 @@ for a 30 s song's time axis would be 8.9 GB. ``RMSNorm`` is lucidrains'
 ``x / max(|x|, 1e-12) * sqrt(dim) * gamma`` in float32, not
 ``F.rms_norm``.
 
+In a compute dtype below float32 (``layers.set_dtype_``; the separator's
+``dtype``) the features are cast to it, each RMSNorm computes in float32
+and casts its output, every Linear rounds its product, GELU, tanh and the
+sigmoids round each op, and the masks multiply the spectrogram in float32,
+as the JAX modules' ``dtype`` does. The rotary tables are float32, so the
+rotated q and k come out in float32 there, and JAX's attention takes its
+scores and softmax in float32 (rvc_tpu/models/bs_roformer.py:136-141). The
+port calls SDPA on those float32 q, k and v taken up to float32, on either
+device, and rounds its output: the float32 route of the float32 model,
+which never holds the (tokens x tokens) matrix. JAX rounds the
+probabilities to bf16 before p v; the port keeps them in float32 there.
+
 ``BSRoformerSeparator`` runs the UVR-style chunked inference: 8 s windows
 at half overlap, ``max_batch`` windows a network call, each window's
 output weighted by sqrt(hann) + 1e-4 and the overlap-add divided by the
@@ -43,7 +55,7 @@ from torch import nn
 from ..device import mark, resolve_device, set_float32_math
 from ..ops.mel import _on_device
 from ..ops.stft import istft, stft
-from .layers import load_numpy_state_dict
+from .layers import GELU, GLU, Linear, load_numpy_state_dict, set_dtype_, sigmoid
 
 # the 62-band layout every public BS-RoFormer checkpoint uses (1025 bins)
 DEFAULT_FREQS_PER_BANDS: tuple[int, ...] = (
@@ -112,7 +124,9 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch
 
 class RMSNorm(nn.Module):
     """lucidrains' RMSNorm: x * rsqrt(max(sum x^2, 1e-24)) * sqrt(dim) * gamma,
-    in float32."""
+    in float32, the output in the compute dtype."""
+
+    dtype = torch.float32  # the compute dtype (layers.set_dtype_)
 
     def __init__(self, dim: int):
         super().__init__()
@@ -122,7 +136,7 @@ class RMSNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         inv = torch.rsqrt(torch.clamp((x * x).sum(-1, keepdim=True), min=1e-24))
-        return x * inv * self.scale * self.gamma
+        return (x * inv * self.scale * self.gamma).to(self.dtype)
 
 
 class Attention(nn.Module):
@@ -131,18 +145,19 @@ class Attention(nn.Module):
         self.heads, self.dim_head = heads, dim_head
         inner = heads * dim_head
         self.norm = RMSNorm(dim)
-        self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
-        self.to_gates = nn.Linear(dim, heads)
-        self.to_out = nn.Sequential(nn.Linear(inner, dim, bias=False))
+        self.to_qkv = Linear(dim, inner * 3, bias=False)
+        self.to_gates = Linear(dim, heads)
+        self.to_out = nn.Sequential(Linear(inner, dim, bias=False))
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
         h, dh = self.heads, self.dim_head
         x = self.norm(x)
         B, N, _ = x.shape
         q, k, v = self.to_qkv(x).view(B, N, 3, h, dh).permute(2, 0, 3, 1, 4)
-        q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
-        o = F.scaled_dot_product_attention(q, k, v)  # scale 1 / sqrt(dh)
-        o = o * torch.sigmoid(self.to_gates(x)).transpose(1, 2)[..., None]
+        q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)  # float32
+        # scale 1 / sqrt(dh); the scores, softmax and p v in float32
+        o = F.scaled_dot_product_attention(q, k, v.float()).to(v.dtype)
+        o = o * sigmoid(self.to_gates(x)).transpose(1, 2)[..., None]
         return self.to_out(o.transpose(1, 2).reshape(B, N, h * dh))
 
 
@@ -153,8 +168,8 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, mult: int):
         super().__init__()
         inner = int(dim * mult)
-        self.net = nn.Sequential(RMSNorm(dim), nn.Linear(dim, inner), nn.GELU(),
-                                 nn.Dropout(0.0), nn.Linear(inner, dim))
+        self.net = nn.Sequential(RMSNorm(dim), Linear(dim, inner), GELU(),
+                                 nn.Dropout(0.0), Linear(inner, dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net(x)
@@ -186,7 +201,7 @@ class BandSplit(nn.Module):
         super().__init__()
         self.dims_in = tuple(dims_in)
         self.to_features = nn.ModuleList(
-            [nn.Sequential(RMSNorm(d), nn.Linear(d, dim)) for d in self.dims_in])
+            [nn.Sequential(RMSNorm(d), Linear(d, dim)) for d in self.dims_in])
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         bands = feats.split(self.dims_in, dim=-1)
@@ -205,10 +220,10 @@ class MaskEstimator(nn.Module):
             dims = (dim,) + (hidden,) * (depth - 1) + (din * 2,)
             mlp = []
             for j, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
-                mlp.append(nn.Linear(a, b))
+                mlp.append(Linear(a, b))
                 if j < len(dims) - 2:
                     mlp.append(nn.Tanh())
-            self.to_freqs.append(nn.Sequential(nn.Sequential(*mlp), nn.GLU(dim=-1)))
+            self.to_freqs.append(nn.Sequential(nn.Sequential(*mlp), GLU(dim=-1)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.cat([mlp(x[:, :, i]) for i, mlp in enumerate(self.to_freqs)], dim=-1)
@@ -224,7 +239,10 @@ def complex_multiply(mask: torch.Tensor, spec_ri: torch.Tensor) -> torch.Tensor:
 
 class BSRoformer(nn.Module):
     """(B, T, F S, 2) spectrogram (real, imag; the frequency axis ordered
-    (bin, channel)) -> (num_stems, B, T, F S, 2) masked spectrograms."""
+    (bin, channel)) -> (num_stems, B, T, F S, 2) masked spectrograms,
+    float32."""
+
+    dtype = torch.float32  # the compute dtype (layers.set_dtype_)
 
     def __init__(self, cfg: BSRoformerConfig | None = None):
         super().__init__()
@@ -251,7 +269,7 @@ class BSRoformer(nn.Module):
     def forward(self, spec_ri: torch.Tensor) -> torch.Tensor:
         c = self.cfg
         B, T, FS, _ = spec_ri.shape
-        x = self.band_split(self.features(spec_ri).float())
+        x = self.band_split(self.features(spec_ri).to(self.dtype))
         nb, D = x.shape[2], c.dim
         tcos, tsin = _on_device(rotary_tables, x.device, T, c.dim_head, c.rotary_theta)
         fcos, fsin = _on_device(rotary_tables, x.device, nb, c.dim_head, c.rotary_theta)
@@ -290,17 +308,20 @@ class BSRoformerSeparator:
     call). ``state_dict``: {lucidrains name: array}
     (``compat.torch_import.load_bs_roformer``). Stems: ``vocals`` for one,
     else the first ``num_stems`` of drums, bass, other, vocals (JAX's
-    labels: a 2-stem model gives drums and bass)."""
+    labels: a 2-stem model gives drums and bass). ``dtype``: the network's
+    compute dtype (float32 or bfloat16; the STFT, iSTFT and overlap-add stay
+    float32)."""
 
     model_cls = BSRoformer
     config_cls = BSRoformerConfig
 
     def __init__(self, state_dict: dict, cfg=None, segment_seconds: float = 8.0,
-                 overlap: float = 0.5, max_batch: int = 16, device=None):
+                 overlap: float = 0.5, max_batch: int = 16, device=None,
+                 dtype: torch.dtype = torch.float32):
         self.device = resolve_device(device)
         set_float32_math()
         self.cfg = cfg or type(self).config_cls()
-        self.model = type(self).model_cls(self.cfg)
+        self.model = set_dtype_(type(self).model_cls(self.cfg), dtype)
         load_numpy_state_dict(self.model, state_dict)
         self.model.to(self.device).eval()
         hop = self.cfg.hop_length

@@ -20,6 +20,12 @@ layout with its state_dict names:
     draws, and the results averaged. The JAX package runs all chunks in one
     batch; each chunk is its own sample (every norm is per sample), so the
     groups give the same stems.
+
+In a compute dtype below float32 (``layers.set_dtype_``) the convs and the
+merge round their products, GELU and GLU round each op, the LSTM steps
+through ``layers.lstm`` as JAX's scan does (rvc_tpu/models/demucs.py:29-73),
+and the v2 net's 2x downsampling and the stems are float32, as JAX's
+``resample_poly`` and the normalization's float32 statistics leave them.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ from torch import nn
 
 from ..device import mark
 from ..ops.resample import resample_poly
-from .layers import Conv1d, ConvTranspose1d, Linear
+from .layers import GELU, GLU, Conv1d, ConvTranspose1d, Linear, lstm
 
 CHUNKS_PER_CALL = 8  # chunks a model call (a 5-minute song is 47 chunks of 7.8 s)
 
@@ -62,7 +68,10 @@ class BLSTM(nn.Module):
             n_frames = math.ceil(T / stride)
             xp = F.pad(x, (0, (n_frames - 1) * stride + width - T))
             x = xp.unfold(2, width, stride).permute(0, 2, 1, 3).reshape(-1, C, width)
-        out = self.linear(self.lstm(x.permute(2, 0, 1))[0]).permute(1, 2, 0)
+        dt = getattr(self, "dtype", torch.float32)
+        x = x.permute(2, 0, 1)
+        out = self.lstm(x)[0] if dt == torch.float32 else lstm(self.lstm, x, dt)
+        out = self.linear(out).permute(1, 2, 0)
         if framed:
             frames = out.reshape(B, n_frames, C, width)
             limit = stride // 2
@@ -93,8 +102,8 @@ class Demucs(nn.Module):
         widths = []
         for _ in range(depth):
             self.encoder.append(nn.Sequential(
-                Conv1d(cin, ch, kernel_size, stride=stride), nn.GELU(),
-                Conv1d(ch, 2 * ch, 1), nn.GLU(1)))
+                Conv1d(cin, ch, kernel_size, stride=stride), GELU(),
+                Conv1d(ch, 2 * ch, 1), GLU(1)))
             widths.append(ch)
             cin, ch = ch, int(ch * growth)
         self.lstm = BLSTM(cin, lstm_layers) if lstm_layers else None
@@ -103,9 +112,9 @@ class Demucs(nn.Module):
             last = i == depth - 1
             cout = len(self.sources) * audio_channels if last else int(ch / growth)
             self.decoder.append(nn.Sequential(
-                Conv1d(ch, 2 * ch, context, padding=(context - 1) // 2), nn.GLU(1),
+                Conv1d(ch, 2 * ch, context, padding=(context - 1) // 2), GLU(1),
                 ConvTranspose1d(ch, cout, kernel_size, stride=stride),
-                *([] if last else [nn.GELU()])))
+                *([] if last else [GELU()])))
             ch = cout
 
     def valid_length(self, length: int) -> int:
@@ -136,7 +145,7 @@ class Demucs(nn.Module):
         for dec in self.decoder:
             x = dec(x + skips.pop()[..., : x.shape[-1]])
         if self.resample:
-            x = resample_poly(x, 1, 2)
+            x = resample_poly(x.float(), 1, 2)
         out = x[..., :T].reshape(B, len(self.sources), self.audio_channels, -1)
         if self.normalize:
             out = out * std[:, None] + mean[:, None]

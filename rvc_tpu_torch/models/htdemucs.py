@@ -28,6 +28,16 @@ MultiWrap frequency splitting and any positional embedding but ``sin``
 ``forward(mix, events=None)`` takes (B, audio_channels, T) and returns
 (B, n_sources, audio_channels, T); ``events`` gets the CUDA stage marks
 "stft", "network" and "istft" (``device.mark``).
+
+In a compute dtype below float32 (``layers.set_dtype_``) both branches
+compute in it as the JAX modules' ``dtype`` does: products rounded and
+biases added in the dtype, GroupNorm and LayerNorm statistics in float32,
+GELU, GLU, the sigmoids and softmaxes each op rounded, scalars rounded to
+the dtype, the positional embeddings cast to it, the BLSTM through
+``layers.lstm``. The spectrogram, its normalization, the masks (up to
+float32 where the network's output meets the float32 statistics), the
+Wiener EM and the iSTFT stay in float32 (rvc_tpu/models/htdemucs.py:
+726-730, 807-814).
 """
 from __future__ import annotations
 
@@ -44,8 +54,9 @@ from ..device import mark
 from ..ops.stft import istft, reflect_pad, stft
 from ..ops.wiener import wiener
 from .demucs import BLSTM
-from .layers import Conv1d, Conv2d, ConvTranspose1d, ConvTranspose2d, Embedding, Linear, \
-    TorchLayerNorm
+from .layers import (GELU, GLU, Conv1d, Conv2d, ConvTranspose1d, ConvTranspose2d, Embedding,
+                     GroupNorm, Linear, TorchLayerNorm, glu, rounded, sigmoid, softmax)
+from .layers import gelu as _gelu  # the transformer layers' ``gelu`` is a flag
 
 
 def reflect_pad_1d(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
@@ -63,7 +74,7 @@ def reflect_pad_1d(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
 
 
 def _norm(groups: int, channels: int, on: bool) -> nn.Module:
-    return nn.GroupNorm(groups, channels) if on else nn.Identity()
+    return GroupNorm(groups, channels) if on else nn.Identity()
 
 
 # ---------------------------------------------------------------------------
@@ -80,7 +91,8 @@ class LayerScale(nn.Module):
         self.scale = nn.Parameter(torch.full((channels,), float(init)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * (self.scale if self.channel_last else self.scale[:, None])
+        scale = self.scale.to(x.dtype)
+        return x * (scale if self.channel_last else scale[:, None])
 
 
 class LocalState(nn.Module):
@@ -102,16 +114,17 @@ class LocalState(nn.Module):
         H = self.heads
         q = self.query(x).view(B, H, -1, T)
         k = self.key(x).view(B, H, -1, T)
-        dots = torch.einsum("bhct,bhcs->bhts", k, q) / math.sqrt(k.shape[2])
+        dt = q.dtype
+        dots = torch.einsum("bhct,bhcs->bhts", k, q) / rounded(math.sqrt(k.shape[2]), dt)
         if self.ndecay:
-            decays = torch.arange(1, self.ndecay + 1, device=x.device, dtype=x.dtype)
-            dq = torch.sigmoid(self.query_decay(x).view(B, H, -1, T)) / 2
-            idx = torch.arange(T, device=x.device, dtype=x.dtype)
+            decays = torch.arange(1, self.ndecay + 1, device=x.device, dtype=dt)
+            dq = sigmoid(self.query_decay(x).view(B, H, -1, T)) / 2
+            idx = torch.arange(T, device=x.device, dtype=dt)
             delta = (idx[:, None] - idx[None, :]).abs()
-            kernel = -decays[:, None, None] * delta[None] / math.sqrt(self.ndecay)
+            kernel = -decays[:, None, None] * delta[None] / rounded(math.sqrt(self.ndecay), dt)
             dots = dots + torch.einsum("fts,bhfs->bhts", kernel, dq)
         dots = dots.masked_fill(torch.eye(T, device=x.device, dtype=torch.bool), -100.0)
-        w = torch.softmax(dots, dim=2)
+        w = softmax(dots, dim=2)
         content = self.content(x).view(B, H, -1, T)
         out = torch.einsum("bhts,bhct->bhcs", w, content).reshape(B, C, T)
         return x + self.proj(out)
@@ -134,13 +147,13 @@ class DConv(nn.Module):
             dilation = 2 ** d if dilate else 1
             mods = [Conv1d(channels, hidden, kernel, dilation=dilation,
                            padding=dilation * (kernel // 2)),
-                    _norm(1, hidden, norm), nn.GELU() if gelu else nn.ReLU()]
+                    _norm(1, hidden, norm), GELU() if gelu else nn.ReLU()]
             if lstm:
                 mods.append(BLSTM(hidden, layers=2, max_steps=200, skip=True))
             if attn:
                 mods.append(LocalState(hidden, heads=heads, ndecay=ndecay))
             mods += [Conv1d(hidden, 2 * channels, 1), _norm(1, 2 * channels, norm),
-                     nn.GLU(1), LayerScale(channels, init)]
+                     GLU(1), LayerScale(channels, init)]
             self.layers.append(nn.Sequential(*mods))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -199,12 +212,12 @@ class HEncLayer(nn.Module):
             return y
         if inject is not None:
             y = y + (inject[:, :, None] if y.dim() == 4 and inject.dim() == 3 else inject)
-        y = F.gelu(self.norm1(y))
+        y = _gelu(self.norm1(y))
         if self.dconv is not None:
             y = _dconv_over_freq(self.dconv, y) if self.freq else self.dconv(y)
         if self.rewrite is None:
             return y
-        return F.glu(self.norm2(self.rewrite(y)), dim=1)
+        return glu(self.norm2(self.rewrite(y)), dim=1)
 
 
 class HDecLayer(nn.Module):
@@ -248,7 +261,7 @@ class HDecLayer(nn.Module):
             y = x
         else:
             x = x + skip
-            y = x if self.rewrite is None else F.glu(self.norm1(self.rewrite(x)), dim=1)
+            y = x if self.rewrite is None else glu(self.norm1(self.rewrite(x)), dim=1)
             if self.dconv is not None:
                 y = _dconv_over_freq(self.dconv, y) if self.freq else self.dconv(y)
         z = self.norm2(self.conv_tr(y))
@@ -258,7 +271,7 @@ class HDecLayer(nn.Module):
         else:
             z = z[..., self.pad: self.pad + length]
         if not self.last:
-            z = F.gelu(z)
+            z = _gelu(z)
         return z, y
 
 
@@ -271,7 +284,8 @@ class ScaledEmbedding(nn.Module):
         self.embedding = Embedding(num_embeddings, dim)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embedding(ids) * self.scale
+        emb = self.embedding(ids)
+        return emb * rounded(self.scale, emb.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -324,10 +338,16 @@ class MultiheadAttention(nn.Module):
         bq, bk, bv = self.in_proj_bias.chunk(3)
         B, Tq, _ = q.shape
         Tk = k.shape[1]
-        qh = F.linear(q, wq, bq).view(B, Tq, H, dh).transpose(1, 2) / math.sqrt(dh)
-        kh = F.linear(k, wk, bk).view(B, Tk, H, dh).transpose(1, 2)
-        vh = F.linear(v, wv, bv).view(B, Tk, H, dh).transpose(1, 2)
-        attn = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)), dim=-1)
+        dt = getattr(self, "dtype", torch.float32)
+        if dt == torch.float32:
+            proj = F.linear
+        else:  # the product rounded, then the bias added in the dtype
+            def proj(x, w, b):
+                return F.linear(x.to(dt), w.to(dt)) + b.to(dt)
+        qh = proj(q, wq, bq).view(B, Tq, H, dh).transpose(1, 2) / rounded(math.sqrt(dh), dt)
+        kh = proj(k, wk, bk).view(B, Tk, H, dh).transpose(1, 2)
+        vh = proj(v, wv, bv).view(B, Tk, H, dh).transpose(1, 2)
+        attn = softmax(torch.matmul(qh, kh.transpose(-1, -2)), dim=-1)
         out = torch.matmul(attn, vh).transpose(1, 2).reshape(B, Tq, C)
         return self.out_proj(out)
 
@@ -337,12 +357,12 @@ class _TransformerBase(nn.Module):
                  layer_scale: bool, init_values: float, gelu: bool, n_norms: int):
         super().__init__()
         self.norm_first = norm_first
-        self.act = F.gelu if gelu else F.relu
+        self.act = _gelu if gelu else F.relu
         self.linear1 = Linear(dim, hidden)
         self.linear2 = Linear(hidden, dim)
         for i in range(1, n_norms + 1):
             setattr(self, f"norm{i}", TorchLayerNorm(dim))
-        self.norm_out = nn.GroupNorm(1, dim) if norm_first and norm_out else None
+        self.norm_out = GroupNorm(1, dim) if norm_first and norm_out else None
         self.gamma_1 = LayerScale(dim, init_values, True) if layer_scale else nn.Identity()
         self.gamma_2 = LayerScale(dim, init_values, True) if layer_scale else nn.Identity()
 
@@ -427,12 +447,15 @@ class CrossTransformerEncoder(nn.Module):
     def forward(self, x: torch.Tensor, xt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         B, C, Fr, T1 = x.shape
         pos2d = _sin_embedding_2d_np(C, Fr, T1, self.max_period)  # (F, T1, C)
-        pos2d = torch.as_tensor(pos2d.transpose(1, 0, 2).reshape(T1 * Fr, C), device=x.device)
+        pos2d = torch.as_tensor(pos2d.transpose(1, 0, 2).reshape(T1 * Fr, C), device=x.device,
+                                dtype=x.dtype)
         x = x.permute(0, 3, 2, 1).reshape(B, T1 * Fr, C)  # time-major tokens
-        x = self.norm_in(x) + self.weight_pos_embed * pos2d
+        x = self.norm_in(x) + rounded(self.weight_pos_embed, pos2d.dtype) * pos2d
         T2 = xt.shape[-1]
-        pos1d = torch.as_tensor(_sin_embedding_np(T2, C, self.max_period), device=xt.device)
-        xt = self.norm_in_t(xt.transpose(1, 2)) + self.weight_pos_embed * pos1d
+        pos1d = torch.as_tensor(_sin_embedding_np(T2, C, self.max_period), device=xt.device,
+                                dtype=xt.dtype)
+        xt = (self.norm_in_t(xt.transpose(1, 2))
+              + rounded(self.weight_pos_embed, pos1d.dtype) * pos1d)
         for idx, (layer, layer_t) in enumerate(zip(self.layers, self.layers_t)):
             if idx % 2 == self.classic_parity:
                 x, xt = layer(x), layer_t(xt)
@@ -626,7 +649,8 @@ class _HybridBase(nn.Module):
             x = enc(x, inject)
             if idx == 0 and self.freq_emb is not None:
                 frs = torch.arange(x.shape[-2], device=x.device)
-                x = x + self.freq_emb_scale * self.freq_emb(frs).t()[None, :, :, None]
+                emb = self.freq_emb(frs).t()[None, :, :, None]
+                x = x + rounded(self.freq_emb_scale, emb.dtype) * emb
             saved.append(x)
 
         if transformer is None:

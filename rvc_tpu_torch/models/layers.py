@@ -22,6 +22,8 @@ every layer runs exactly as before.
 """
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -58,6 +60,122 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     if not low_precision(x.dtype):
         return F.gelu(x)
     return 0.5 * x * torch.erfc(-x * rounded(0.5 ** 0.5, x.dtype))
+
+
+def glu(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The first half of ``x`` along ``dim`` times the sigmoid of the second;
+    below float32 through ``sigmoid``, each op rounded, as JAX writes it."""
+    if not low_precision(x.dtype):
+        return F.glu(x, dim)
+    a, b = x.chunk(2, dim)
+    return a * sigmoid(b)
+
+
+def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.softmax``; in a dtype below float32 as ``jax.nn.softmax``
+    computes there: exp(x - max) rounded, its sum taken in float32 and
+    rounded, the quotient rounded."""
+    if not low_precision(x.dtype):
+        return torch.softmax(x, dim)
+    e = torch.exp(x - x.amax(dim, keepdim=True))
+    return e / e.sum(dim, keepdim=True, dtype=torch.float32).to(x.dtype)
+
+
+class GELU(nn.GELU):
+    """``nn.GELU`` (exact) through ``gelu``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return gelu(x)
+
+
+class GLU(nn.GLU):
+    """``nn.GLU`` through ``glu``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return glu(x, self.dim)
+
+
+class LeakyReLU(nn.LeakyReLU):
+    """``nn.LeakyReLU`` with its slope rounded to the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return leaky_relu(x, self.negative_slope)
+
+
+class PReLU(nn.PReLU):
+    """``nn.PReLU``; below float32 max(x, 0) + w min(x, 0) with the weight
+    cast to the input's dtype, each op rounded (the JAX package's
+    ``_prelu``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not low_precision(x.dtype):
+            return super().forward(x)
+        return x.clamp(min=0) + self.weight.to(x.dtype) * x.clamp(max=0)
+
+
+# lstm's CUDA graphs: per module, (graph, input, output) by input shape
+_LSTM_GRAPHS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def lstm(module: nn.LSTM, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``lstm_steps``. On the card, without autograd, the steps of a call
+    are captured once per input shape as one CUDA graph, which each call of
+    that shape replays: the same kernels on the same operands, without a
+    launch from the host for each op of each step."""
+    if not x.is_cuda or torch.is_grad_enabled():
+        return lstm_steps(module, x, dtype)
+    graphs = _LSTM_GRAPHS.setdefault(module, {})
+    key = (tuple(x.shape), x.dtype, dtype, module.weight_ih_l0.data_ptr())
+    if key not in graphs:
+        static_x = x.clone()
+        side, main = torch.cuda.Stream(x.device), torch.cuda.current_stream(x.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):  # a warm-up call before the capture
+            lstm_steps(module, static_x, dtype)
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static_y = lstm_steps(module, static_x, dtype)
+        graphs[key] = (graph, static_x, static_y)
+    graph, static_x, static_y = graphs[key]
+    static_x.copy_(x)
+    graph.replay()
+    return static_y.clone()
+
+
+def lstm_steps(module: nn.LSTM, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A bidirectional ``nn.LSTM`` over x (T, B, I) -> (T, B, 2 H) in
+    ``dtype``, step by step as the JAX package's scan computes it
+    (rvc_tpu/models/demucs.py:29-73): weights and biases cast to ``dtype``,
+    the input's gate products rounded and their bias added, at each step
+    the input's gates + the product h W_hh (rounded) + the bias, the gates
+    through ``sigmoid`` and tanh, c and h carried in ``dtype`` from zeros.
+    Both directions go through each step together (one batched product):
+    the same roundings as two scans."""
+    T, B, _ = x.shape
+    H = module.hidden_size
+    h = x.to(dtype)
+    for layer in range(module.num_layers):
+        p = [{name: getattr(module, f"{name}_l{layer}{sfx}").to(dtype)
+              for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")}
+             for sfx in ("", "_reverse")]
+        xg = torch.stack([F.linear(h, d["weight_ih"]) + d["bias_ih"] for d in p])  # (2, T, B, 4H)
+        xg[1] = xg[1].flip(0)
+        w_hh = torch.stack([d["weight_hh"].t() for d in p])  # (2, H, 4H)
+        b_hh = torch.stack([d["bias_hh"] for d in p])[:, None]  # (2, 1, 4H)
+        hs = x.new_zeros((2, B, H), dtype=dtype)
+        cs = torch.zeros_like(hs)
+        ys = []
+        for t in range(T):
+            g = xg[:, t] + torch.bmm(hs, w_hh) + b_hh
+            s = sigmoid(g)
+            i, f, o = s[..., :H], s[..., H: 2 * H], s[..., 3 * H:]
+            cs = f * cs + i * torch.tanh(g[..., 2 * H: 3 * H])
+            hs = o * torch.tanh(cs)
+            ys.append(hs)
+        y = torch.stack(ys, dim=1)  # (2, T, B, H)
+        h = torch.cat([y[0], y[1].flip(0)], dim=-1)
+    return h
 
 
 def set_dtype_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -140,10 +258,14 @@ class Conv1d(_WeightNorm, nn.Conv1d):
             return self._conv_forward(x, self.folded_weight(), self.bias)
         dt = self.dtype
         x, w = x.to(dt), self.folded_weight().to(dt)
-        if self.groups > 1:
+        if self.groups > 1 or x.device.type == "cpu":
             # the same sums over bf16 operands, taken in float32: ATen's CPU
             # bf16 grouped conv gives wrong sums at HuBERT's positional
-            # conv (k 128, 16 groups; off by the output's own size)
+            # conv (k 128, 16 groups; off by the output's own size), and
+            # its CPU bf16 conv1d at scattered shapes with k >= 4, HTDemucs's
+            # 8 channels at k 8, stride 4 among them
+            # (scripts/probe_torch_cpu_bf16_conv.py; conv2d and
+            # conv_transpose2d showed no such fault there)
             return self._affine(self._conv_forward(x.float(), w.float(), None).to(dt))
         return self._affine(self._conv_forward(x, w, None))
 
@@ -249,14 +371,26 @@ class Embedding(_Cast, nn.Embedding):
         return super().forward(ids).to(self.dtype)
 
 
-class TorchLayerNorm(_Cast, nn.LayerNorm):
-    """``nn.LayerNorm`` over the last axis (HuBERT's; names weight/bias),
-    statistics in float32, output in the compute dtype."""
+class _Float32Stats(_Cast):
+    """Mixin of the norms: below float32 the statistics are taken in float32
+    and the output is cast to the compute dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.dtype == torch.float32:
             return super().forward(x)
         return super().forward(x.float()).to(self.dtype)
+
+
+class TorchLayerNorm(_Float32Stats, nn.LayerNorm):
+    """``nn.LayerNorm`` over the last axis (HuBERT's; names weight/bias)."""
+
+
+class GroupNorm(_Float32Stats, nn.GroupNorm):
+    """``nn.GroupNorm`` (rvc_tpu/models/layers.py ``GroupNorm``)."""
+
+
+class InstanceNorm2d(_Float32Stats, nn.InstanceNorm2d):
+    """``nn.InstanceNorm2d`` (rvc_tpu/models/mdx_net.py ``InstanceNorm2d``)."""
 
 
 def live_weight_norm_(module: nn.Module) -> nn.Module:

@@ -11,7 +11,11 @@ mixer is UVR's "mixer mode" linear. The JAX package keeps activations
 ``Linear`` along frequency, applies to the last axis, and the conv kernels
 (O, I, kT, kF) are the JAX package's and the ``.onnx`` file's as they are.
 Module names follow the JAX package's paths with ``_N`` read as ``.N``
-(``compat.weights.convtdf_state_dict``).
+(``compat.weights.convtdf_state_dict``). In a compute dtype below float32
+(``layers.set_dtype_``) the nets compute in it, the norms' statistics in
+float32, as the JAX modules' ``dtype``; ``unpack`` takes the spectrogram
+up to float32 first (the JAX package's iSTFT would run in the input's
+dtype: ROADMAP §3).
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.stft import istft, stft
-from .layers import BatchNorm, Conv2d, ConvTranspose2d, Linear
+from .layers import GELU, BatchNorm, Conv2d, ConvTranspose2d, GroupNorm, InstanceNorm2d, Linear
 
 
 class MDXSpectrogram:
@@ -48,9 +52,9 @@ class MDXSpectrogram:
         return spec[..., : self.dim_f]
 
     def unpack(self, spec: torch.Tensor) -> torch.Tensor:
-        """(B, 4, dim_t, dim_f) -> (B, 2, chunk_size)."""
+        """(B, 4, dim_t, dim_f) -> (B, 2, chunk_size), in float32."""
         B, _, T, _ = spec.shape
-        spec = F.pad(spec, (0, self.n_bins - spec.shape[-1]))
+        spec = F.pad(spec.float(), (0, self.n_bins - spec.shape[-1]))
         real = spec[:, 0::2].reshape(-1, T, self.n_bins)
         imag = spec[:, 1::2].reshape(-1, T, self.n_bins)
         return istft(real, imag, self.n_fft, self.hop, center=True).reshape(B, 2, -1)
@@ -62,15 +66,15 @@ def make_norm(norm_type: str, channels: int) -> nn.Module:
     if norm_type == "BatchNorm":
         return BatchNorm(channels)
     if norm_type == "InstanceNorm":
-        return nn.InstanceNorm2d(channels, affine=True)
+        return InstanceNorm2d(channels, affine=True)
     if norm_type.startswith("GroupNorm"):
-        return nn.GroupNorm(int(norm_type.replace("GroupNorm", "")), channels)
+        return GroupNorm(int(norm_type.replace("GroupNorm", "")), channels)
     return nn.Identity()
 
 
 def make_act(act_type: str) -> nn.Module:
     if act_type == "gelu":
-        return nn.GELU()
+        return GELU()
     if act_type == "relu":
         return nn.ReLU()
     if act_type.startswith("elu"):

@@ -8,7 +8,8 @@ ends: the bands are the supports of a Slaney mel filterbank's triangles,
 so they overlap; a band's features are gathered by ``freq_indices``
 (flat indices into the (bin, channel) axis), and the per-band masks are
 added back onto the bins they came from (``index_add_``) and divided by
-each bin's band count. The body is ``BSRoformer``'s.
+each bin's band count, in float32 (rvc_tpu/models/mel_roformer.py:160-170).
+The body is ``BSRoformer``'s.
 
 In the filterbank layouts ``mel_band_indices`` gives, a bin lies in at
 most two bands, so its summed mask is 0 + a + b in either order: the
@@ -105,7 +106,7 @@ class MelBandRoformer(BSRoformer):
     def masks(self, x: torch.Tensor, n_freq: int) -> torch.Tensor:
         """Each band's mask entries added onto their bins, divided by the
         bin's band count (at least 1)."""
-        entries = super().masks(x, len(self.index))  # (S, B, T, K, 2)
+        entries = super().masks(x, len(self.index)).float()  # (S, B, T, K, 2)
         summed = entries.new_zeros(*entries.shape[:3], n_freq, 2)
         summed.index_add_(3, self.index, entries)
         counts = F.pad(self.counts, (0, n_freq - len(self.counts)), value=1.0)

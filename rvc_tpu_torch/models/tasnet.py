@@ -10,12 +10,19 @@ R x X temporal blocks, mask 1x1], ``decoder.basis_signals`` (a linear to
 A temporal block is 1x1 conv, PReLU, norm, depthwise conv of P taps at
 dilation 2^x, PReLU, norm, 1x1 conv, with the block's input added.
 
-The depthwise conv runs as one grouped ``conv1d`` (``depthwise_conv1d``,
+In float32 the depthwise conv runs as one grouped ``conv1d`` (``depthwise_conv1d``,
 cuDNN on the card). The JAX package writes it as P shifted multiply-adds
 (``depthwise``, the same sums in tap order); at the full model's shape,
 (5, 512, 35279) over dilations 1-512, cuDNN's grouped conv took 8.63 ms a
 repeat of 10 blocks against the shifted form's 20.22 (chip_smoke phase 23
 on an NVIDIA H100 80GB HBM3 at 700 W), so chip_smoke times both.
+
+In a compute dtype below float32 (``layers.set_dtype_``) the convs and
+linears round their products, the norms take their statistics in float32
+(rvc_tpu/models/tasnet.py:38-58), PReLU and a softmax mask round each op as
+JAX's do, the depthwise conv is JAX's shifted multiply-adds with each
+product and sum rounded (``DepthwiseConv1d``), and the stems come out in
+float32 (:164).
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import mark
-from .layers import Conv1d, Linear
+from .layers import Conv1d, Linear, PReLU, low_precision, softmax
 
 EPS = 1e-8
 
@@ -45,10 +52,20 @@ def depthwise(y: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
 
 def depthwise_conv1d(y: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
     """The same function as one grouped ``conv1d`` (cuDNN on the card), the
-    temporal blocks' form."""
+    temporal blocks' form in float32."""
     P = w.shape[-1]
     return F.conv1d(y, w, padding=(P - 1) * dilation // 2, dilation=dilation,
                     groups=y.shape[1])
+
+
+class DepthwiseConv1d(Conv1d):
+    """The temporal blocks' depthwise conv: ``depthwise_conv1d`` in float32,
+    ``depthwise`` below it (the JAX package's form and roundings)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not low_precision(self.dtype):
+            return super().forward(x)
+        return depthwise(x.to(self.dtype), self.weight.to(self.dtype), self.dilation[0])
 
 
 class ChannelNorm(nn.Module):
@@ -63,9 +80,10 @@ class ChannelNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(1, channels, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt, x = x.dtype, x.float()
         mean = x.mean(dim=self.dims, keepdim=True)
         var = (x - mean).square().mean(dim=self.dims, keepdim=True)
-        return self.gamma * ((x - mean) * torch.rsqrt(var + EPS)) + self.beta
+        return (self.gamma * ((x - mean) * torch.rsqrt(var + EPS)) + self.beta).to(dt)
 
 
 def _norm(kind: str, channels: int) -> nn.Module:
@@ -79,9 +97,10 @@ def _norm(kind: str, channels: int) -> nn.Module:
 class _DepthwiseSeparable(nn.Module):
     def __init__(self, hidden: int, bottleneck: int, kernel: int, dilation: int, norm: str):
         super().__init__()
-        depthwise_conv = Conv1d(hidden, hidden, kernel, padding=(kernel - 1) * dilation // 2,
-                                dilation=dilation, groups=hidden, bias=False)
-        self.net = nn.Sequential(depthwise_conv, nn.PReLU(),
+        depthwise_conv = DepthwiseConv1d(hidden, hidden, kernel,
+                                         padding=(kernel - 1) * dilation // 2,
+                                         dilation=dilation, groups=hidden, bias=False)
+        self.net = nn.Sequential(depthwise_conv, PReLU(),
                                  _norm(norm, hidden), Conv1d(hidden, bottleneck, 1, bias=False))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -91,7 +110,7 @@ class _DepthwiseSeparable(nn.Module):
 class TemporalBlock(nn.Module):
     def __init__(self, bottleneck: int, hidden: int, kernel: int, dilation: int, norm: str):
         super().__init__()
-        self.net = nn.Sequential(Conv1d(bottleneck, hidden, 1, bias=False), nn.PReLU(),
+        self.net = nn.Sequential(Conv1d(bottleneck, hidden, 1, bias=False), PReLU(),
                                  _norm(norm, hidden),
                                  _DepthwiseSeparable(hidden, bottleneck, kernel, dilation, norm))
 
@@ -147,7 +166,7 @@ class ConvTasNet(nn.Module):
         w = self.encoder(mix)  # (B, N, K)
         K = w.shape[-1]
         score = self.separator.network(w).view(Bt, C, N, K)
-        mask = torch.softmax(score, dim=1) if self.mask_nonlinear == "softmax" else F.relu(score)
+        mask = softmax(score, dim=1) if self.mask_nonlinear == "softmax" else F.relu(score)
         src = (w[:, None] * mask).transpose(2, 3)  # (B, C, K, N)
         frames = self.decoder.basis_signals(src).view(Bt, C, K, ac, L).permute(0, 1, 3, 2, 4)
         out = F.pad(frames[..., :step], (0, 0, 0, 1)) + F.pad(frames[..., step:], (0, 0, 1, 0))
@@ -155,4 +174,4 @@ class ConvTasNet(nn.Module):
         if out.shape[-1] < T:
             out = F.pad(out, (0, T - out.shape[-1]))
         mark(events, "network")
-        return out
+        return out.float()

@@ -12,6 +12,15 @@ parameter has the reference's state_dict name, so a UVR5 ``.pth`` loads as
 it is (``compat.torch_import.load_vr_pth``). Dropout and the training-only
 auxiliary outputs are left out. Convolutions and the LSTM are PyTorch's
 (cuDNN on the card): the JAX package runs them outside any Pallas kernel.
+
+In a compute dtype below float32 (``layers.set_dtype_``) every conv rounds
+its product, the leaky slope and the upsampling's weights are rounded, the
+2x upsampling is JAX's two 1-D passes (time, then bins) with each op
+rounded, as the JAX modules compute; the aggressiveness
+exponent is taken in float32, as the JAX separator's float32 ``value``
+promotes it (rvc_tpu/pipelines/separate.py:58-62). The "new" cascade
+(``CascadedNet``), which no separator builds, has no bf16 form: its LSTM
+stays ``nn.LSTM``, as JAX's bf16 form of it cannot trace.
 """
 from __future__ import annotations
 
@@ -20,11 +29,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.bands import crop_center
-from .layers import BatchNorm, Conv2d, Linear
+from .layers import BatchNorm, Conv2d, LeakyReLU, Linear, low_precision, sigmoid
 
 
 def _activ(name: str) -> nn.Module:
-    return nn.ReLU() if name == "relu" else nn.LeakyReLU(0.01)
+    return nn.ReLU() if name == "relu" else LeakyReLU(0.01)
 
 
 class Conv2DBNActiv(nn.Module):
@@ -69,11 +78,35 @@ class Encoder(nn.Module):
         return self.conv2(skip), skip
 
 
+def _interp_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Linear 2x interpolation along ``dim`` with align_corners=True, as the
+    JAX package writes it (``_interp_axis_align``): float32 positions, the
+    weights cast to x's dtype, x_lo (1 - w) + x_hi w."""
+    n = x.shape[dim]
+    if n == 1:
+        return x.repeat_interleave(2, dim)
+    pos = torch.arange(2 * n, device=x.device, dtype=torch.float32) * ((n - 1) / (2 * n - 1))
+    lo = pos.floor()
+    w = (pos - lo).to(x.dtype).view((-1,) + (1,) * (x.dim() - 1 - dim))
+    lo = lo.long()
+    hi = (lo + 1).clamp(max=n - 1)
+    return x.index_select(dim, lo) * (1 - w) + x.index_select(dim, hi) * w
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """2x bilinear upsampling of (B, C, F, T), align_corners=True; below
+    float32 along the frames, then the bins, as the JAX package's
+    ``_bilinear_2x`` on its (B, T, F, C)."""
+    if not low_precision(x.dtype):
+        return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True)
+    return _interp_axis(_interp_axis(x, 3), 2)
+
+
 def _upsample_cat(x: torch.Tensor, skip: torch.Tensor | None) -> torch.Tensor:
     """2x bilinear upsampling (align_corners=True), then the skip cropped to
     x's frames (centred) and both cut to the fewer bins (an odd bin count
     halves down), concatenated on the channels."""
-    x = F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True)
+    x = upsample2x(x)
     if skip is None:
         return x
     skip = crop_center(skip, x.shape[3])
@@ -172,9 +205,10 @@ class CascadedASPPNet(nn.Module):
         aux2 = self.stg2_full_band_net(self.stg2_bridge(h))
         h = torch.cat([x, aux1, aux2], dim=1)
         h = self.stg3_full_band_net(self.stg3_bridge(h))
-        mask = _replicate_bins(torch.sigmoid(self.out(h)), self.output_bin)
+        mask = _replicate_bins(sigmoid(self.out(h)), self.output_bin)
         if aggressiveness is not None:
             sb, v = aggressiveness["split_bin"], aggressiveness["value"]
+            mask = mask.float()
             mask = torch.cat([torch.pow(mask[:, :, :sb], 1 + v / 3),
                               torch.pow(mask[:, :, sb:], 1 + v)], dim=2)
         return mask
@@ -315,4 +349,4 @@ class CascadedNet(nn.Module):
         h2 = self.stg2_high_band_net(torch.cat([h1_in, h1], dim=1))
         aux2 = torch.cat([l2, h2], dim=2)
         f3 = self.stg3_full_band_net(torch.cat([x, aux1, aux2], dim=1))
-        return _replicate_bins(torch.sigmoid(self.out(f3)), self.output_bin)
+        return _replicate_bins(sigmoid(self.out(f3)), self.output_bin)

@@ -28,7 +28,11 @@ Counterpart of ``rvc_tpu/pipelines/separate.py`` (the reference's
     and ``models/mel_roformer.py``.
 
 Every separator runs on the card unless ``device="cpu"`` is asked for, and
-raises without a card (``device.resolve_device``). ``run_inference(audio,
+raises without a card (``device.resolve_device``). ``dtype`` (float32 by
+default, or bfloat16) is its network's compute dtype, as the JAX
+separators' ``dtype``: the parameters stay float32 and are cast at use
+(``models.layers.set_dtype_``); the STFTs, the masks' products with the
+spectrogram, the iSTFTs, the overlap-adds and int16 stay float32. ``run_inference(audio,
 sr, events=)`` appends (stage, CUDA event) pairs to ``events`` when given:
 "start", then "analysis", "network" and "synthesis" as each stage's work
 is queued (the MDX stages once per group of windows; Demucs's stages are
@@ -53,7 +57,7 @@ from ..io.audio import remix_audio
 from ..models.bs_roformer import BSRoformerSeparator
 from ..models.demucs import apply_model
 from ..models.htdemucs import HDemucs, HTDemucs
-from ..models.layers import load_numpy_state_dict
+from ..models.layers import load_numpy_state_dict, set_dtype_
 from ..models.mdx_net import ConvTDFNetTrim, MDXSpectrogram
 from ..models.mel_roformer import MelRoformerSeparator
 from ..models.tasnet import ConvTasNet
@@ -83,15 +87,18 @@ class VRSeparator:
     """CascadedASPPNet inference over the multi-band composite spectrogram.
     ``state_dict``: {reference name: array} (``compat.torch_import.
     load_vr_pth``); ``model_params``: the band layout (``ops.bands.
-    ModelParameters``, 2-band ``DEFAULT_PARAM`` if None)."""
+    ModelParameters``, 2-band ``DEFAULT_PARAM`` if None). In bfloat16 the
+    mask comes out of the network in float32 (the aggressiveness exponent
+    is taken there, as JAX's float32 ``value`` promotes it)."""
 
     def __init__(self, state_dict: dict, model_params: B.ModelParameters | None = None,
                  agg: float = 10.0, window_size: int = 512, tta: bool = False,
-                 high_end_process: str = "mirroring", device=None):
+                 high_end_process: str = "mirroring", device=None,
+                 dtype: torch.dtype = torch.float32):
         self.device = resolve_device(device)
         set_float32_math()
         self.mp = model_params or B.ModelParameters()
-        self.model = CascadedASPPNet(self.mp.param["bins"] * 2)
+        self.model = set_dtype_(CascadedASPPNet(self.mp.param["bins"] * 2), dtype)
         load_numpy_state_dict(self.model, state_dict)
         self.model.to(self.device).eval()
         self.offset = self.model.offset
@@ -208,16 +215,18 @@ def stereo_int16(stems: torch.Tensor) -> np.ndarray:
 class MDXSeparator:
     """Conv-TDF demixer with chunk/margin segments (reference MDXModel).
     ``weights``: the path of a UVR MDX ``.onnx`` file, or {name: array} for
-    ``net`` (a ``ConvTDFNetTrim``, the UVR MDX-Net Inst layout if None)."""
+    ``net`` (a ``ConvTDFNetTrim``, the UVR MDX-Net Inst layout if None). In
+    bfloat16 the network's output goes up to float32 before the iSTFT."""
 
     def __init__(self, weights, dim_f: int = 3072, dim_t: int = 256, n_fft: int = 6144,
                  hop: int = 1024, stem_name: str = "Vocals", compensation: float = 1.0,
                  margin: int = 44100, chunks: int = 15, denoise: bool = False,
-                 net: ConvTDFNetTrim | None = None, device=None):
+                 net: ConvTDFNetTrim | None = None, device=None,
+                 dtype: torch.dtype = torch.float32):
         self.device = resolve_device(device)
         set_float32_math()
         self.spec = MDXSpectrogram(dim_f, 2 ** dim_t if dim_t < 32 else dim_t, n_fft, hop)
-        self.net = net or ConvTDFNetTrim(dim_f=dim_f)
+        self.net = set_dtype_(net or ConvTDFNetTrim(dim_f=dim_f), dtype)
         if isinstance(weights, str):
             weights = convtdf_state_from_onnx(weights, self.net)
         load_numpy_state_dict(self.net, weights)
@@ -308,10 +317,11 @@ class DemucsSeparator:
         a row of per-source weights a model, ``segment``) beside the members'
         ``<signature>*.th``; the stems are the weighted per-source average.
     Every stem of the model is returned as stereo int16, and with a
-    ``vocals`` source ``instrumentals`` = mix - vocals."""
+    ``vocals`` source ``instrumentals`` = mix - vocals. ``dtype``: every
+    model's compute dtype; the stems come out of each in float32."""
 
     def __init__(self, model_path: str, segment: float | None = None, overlap: float = 0.25,
-                 shifts: int = 1, device=None):
+                 shifts: int = 1, device=None, dtype: torch.dtype = torch.float32):
         self.device = resolve_device(device)
         set_float32_math()
         self.overlap, self.shifts = overlap, shifts
@@ -336,7 +346,7 @@ class DemucsSeparator:
                 if not found:
                     raise FileNotFoundError(f"bag member {sig}*.th in {folder}")
                 self.sub.append(DemucsSeparator(found[0], bag.get("segment", segment),
-                                                overlap, shifts, self.device))
+                                                overlap, shifts, self.device, dtype))
             sources = self.sub[0].sources
             self.samplerate = self.sub[0].samplerate
             self.segment_samples = self.sub[0].segment_samples
@@ -350,7 +360,7 @@ class DemucsSeparator:
             seg = segment if segment is not None else meta.get("segment", 10.0)
             self.segment_samples = int(float(seg) * self.samplerate)
         if self.model is not None:
-            load_numpy_state_dict(self.model, state)
+            load_numpy_state_dict(set_dtype_(self.model, dtype), state)
             self.model.to(self.device).eval()
         self.sources = list(sources)
 
@@ -414,7 +424,8 @@ def route_separator(model_path: str) -> str:
     return "vr"
 
 
-def load_separator(kind: str, model_path: str, agg: float = 10.0, device=None):
+def load_separator(kind: str, model_path: str, agg: float = 10.0, device=None,
+                   dtype: torch.dtype = torch.float32):
     """A separator of ``kind`` (``route_separator``) from ``model_path``:
     ``vr`` and ``vr_new`` read a UVR5 ``.pth`` into the 4-band
     ``CascadedASPPNet`` (``ModelParameters(preset="4band_v2")``, ``agg``),
@@ -422,17 +433,24 @@ def load_separator(kind: str, model_path: str, agg: float = 10.0, device=None):
     ``demucs`` a ``.th`` or a bag ``.yaml`` into a ``DemucsSeparator``,
     ``bs_roformer`` and ``mel_roformer`` a UVR/MSST ``.ckpt`` into a
     ``BSRoformerSeparator`` or ``MelRoformerSeparator`` (the architecture
-    read from the tensors' shapes)."""
+    read from the tensors' shapes); its network computes in ``dtype``.
+
+    bf16 is not faster for every route: the Demucs BLSTMs step JAX's
+    roundings one recurrence at a time (``layers.lstm``; replayed as a CUDA
+    graph on the card), and HDemucs in bf16 separated 30 s at 237x real
+    time against 257x in float32 (chip_smoke phase 26, NVIDIA H100 80GB
+    HBM3 at 700 W); the v2 Demucs, whose BLSTM steps alike, was not
+    measured."""
     device = resolve_device(device)
     if kind in ("vr", "vr_new"):
         return VRSeparator(load_vr_pth(model_path), B.ModelParameters(preset="4band_v2"),
-                           agg=agg, device=device)
+                           agg=agg, device=device, dtype=dtype)
     if kind == "mdx":
-        return MDXSeparator(model_path, device=device)
+        return MDXSeparator(model_path, device=device, dtype=dtype)
     if kind == "demucs":
-        return DemucsSeparator(model_path, device=device)
+        return DemucsSeparator(model_path, device=device, dtype=dtype)
     if kind == "bs_roformer":
-        return BSRoformerSeparator(*load_bs_roformer(model_path), device=device)
+        return BSRoformerSeparator(*load_bs_roformer(model_path), device=device, dtype=dtype)
     if kind == "mel_roformer":
-        return MelRoformerSeparator(*load_mel_roformer(model_path), device=device)
+        return MelRoformerSeparator(*load_mel_roformer(model_path), device=device, dtype=dtype)
     raise ValueError(f"unknown separator kind {kind!r}")
