@@ -1,5 +1,6 @@
 """Smoke run of rvc_tpu_torch on one NVIDIA card: build, check, convert, train,
-separate (VR, MDX-Net, Demucs, BS-RoFormer, Mel-Band RoFormer, Karafan).
+separate (VR, MDX-Net, Demucs, BS-RoFormer, Mel-Band RoFormer, Karafan),
+train and convert over several devices, transcribe (Whisper).
 
     python3 chip_smoke.py
 
@@ -221,7 +222,8 @@ Phases, each announced on its own line:
      TrainModel (40k_v2, 1 epoch) -> TrainIndex -> Convert with the exported
      .pth and its index. Convert must launch kernels 1-3 (float32 bank:
      nearest_rows) as many times as the model's structure asks and equal
-     VoiceConverter.convert on the same arrays bit for bit; TrainModel must
+     VoiceConverter.convert on the same arrays within the direct call's own
+     spread over six calls (cuDNN's engines may sum with atomics); TrainModel must
      launch kernels 4-7 as phase 7 counts them; a repeated Convert and UVR5
      must hit the node cache (no counted launch, no kernel the profiler
      sees); every cached model must sit on the card. Prints each node's
@@ -239,6 +241,26 @@ Phases, each announced on its own line:
      graph, equal bit for bit to its steps launched one by one) against
      cuDNN's float32 and bf16 LSTMs (times and distances); kernels 1-8
      launched no time.
+ 27. several cards on the one card (run_several_cards; parallel/mesh.py):
+     Trainer(preset("48k_v2"), world=) on phase 7's batch of 4, (a) in a
+     world of 1 over NCCL equal to the plain step bit for bit, (b) over two
+     ranks spawned on cuda:0 over gloo (2 rows each, 4 steps): the first
+     step against one process's at batch 4 on the same draws within phase
+     8's bars, the ranks' parameters equal, kernels 4-7 launched on each
+     rank as phase 7 counts a step, each rank's median step ms and its
+     gradient all-reduces' ms; (c) convert_batch of 8 songs of 10 s with
+     devices=[cuda:0, cuda:0] int16-equal to devices=None, kernels 1-3
+     launched once a replica, each call's RTF and peak memory;
+ 28. speech to text (run_whisper): Whisper medium (24 + 24 layers at width
+     1024, the multilingual vocabulary) with random weights drawn on the
+     card, written as an OpenAI-format .pt and loaded by load_whisper and
+     RVC_TPU_LoadWhisper; the encoder on 30 s of speech card vs CPU within
+     1e-4 relative L2; greedy, beam (5) and timestamp decoding of 48 tokens
+     and the fallback ladder at (0, 0.2) on the card, the greedy tokens
+     teacher-forced through the CPU decoder (argmax equal wherever the top
+     two logits differ by more than 1e-4); RVC_TPU_Transcribe end to end on
+     the 30 s clip, then RVC_TPU_TranscriptionEncoder; encoder ms, tokens/s,
+     the node's wall, peak memory; kernels 1-8 launched no time.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that.
 A kernel's time beside its yardsticks (previous_ms, mma_sync_ms) is
@@ -1520,7 +1542,7 @@ def small_batch(batch: dict, frames: int = 48, hop: int = 480) -> dict:
     return small
 
 
-def check_train_vs_cpu(cfg, batch: dict, label: str = "[8/26]",
+def check_train_vs_cpu(cfg, batch: dict, label: str = "[8/28]",
                        multiscale: bool = False) -> tuple:
     """One training step on the card and on the CPU (plain versions) from the
     same weights, batch and draws, at batch 1 and 48 frames. Returns the
@@ -2015,7 +2037,7 @@ def run_train_bf16(cfg, batches: list, small: dict, cpu32, card: str, checks: di
     trainer = Trainer(cfg, dtype=bf16, device="cuda")
     seeded_state(trainer, 0)
     gen = torch.Generator().manual_seed(19)
-    say(f"[19/26] training in bf16: kernels 4-7 in their bf16 form at phase 7's shapes "
+    say(f"[19/28] training in bf16: kernels 4-7 in their bf16 form at phase 7's shapes "
         f"(trainer built in {time.perf_counter() - t0:.1f} s)")
     checks["chain_bf16"], checks["chain_bwd_bf16"] = check_chain_train_bf16(trainer, gen)
     checks["wn_bf16"], checks["wn_bwd_bf16"] = check_wn_train_bf16(
@@ -2023,7 +2045,7 @@ def run_train_bf16(cfg, batches: list, small: dict, cpu32, card: str, checks: di
     checks["wn_stack_bf16"] = check_wn_stack_bf16(
         trainer, batches[0]["spec_lengths"], np.shape(batches[0]["spec"])[1], gen)
     torch.cuda.empty_cache()
-    run = run_training(trainer, batches, card, "19/26")
+    run = run_training(trainer, batches, card, "19/28")
     say(f"  bf16 {run['rate']:.3f} steps/s against float32 {rate32:.3f} (phase 7, this run); "
         f"{card}")
     del trainer
@@ -2160,13 +2182,13 @@ def run_every_loss(cfg, batches: list, card: str, base: dict, checks: dict) -> N
     from rvc_tpu_torch.train.step import Trainer
 
     cfg = all_losses(cfg)
-    say(f"[20/26] every loss: 48k_v2 with c_gp = c_hd = c_tsi = c_tefs = 1 and the multi-scale "
+    say(f"[20/28] every loss: 48k_v2 with c_gp = c_hd = c_tsi = c_tefs = 1 and the multi-scale "
         f"mel loss, on phase 7's batches")
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         trainer = Trainer(cfg, dtype=dtype, device="cuda")
         trainer.use_multiscale()
-        run = run_training(trainer, batches[:1 + PHASE20_STEPS], card, "20/26",
+        run = run_training(trainer, batches[:1 + PHASE20_STEPS], card, "20/28",
                            "48k_v2 with every loss")
         penalty = float(run["state"].balancer_d.hist_losses[1])
         zero = [k for vals in run["losses"] for k in ("harmonic_loss", "tsi_loss", "tefs_loss")
@@ -2184,7 +2206,7 @@ def run_every_loss(cfg, batches: list, card: str, base: dict, checks: dict) -> N
         del trainer, run
         torch.cuda.empty_cache()
     checks["loss_costs"] = loss_costs(cfg, batches[0], card)
-    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/26] every loss:", True)
+    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/28] every loss:", True)
     # the aux and multi-scale losses are taken on the bf16 generated slice:
     # the CPU bf16 tests' factor 2 (check_train_bf16_vs_cpu)
     check_train_bf16_vs_cpu(cfg, small, cpu32, True, factor=2.0)
@@ -2216,7 +2238,7 @@ def run_nof0(tmp: str, card: str, checks: dict) -> None:
                             seed=1234)
     batches = [b for e in range(1 + PHASE20_STEPS) for b in batcher.epoch(e)][
         :1 + PHASE20_STEPS]
-    say(f"[20/26] no f0: 40k v1 with use_f0 = False on {len(CLIP_SECONDS)} clips at "
+    say(f"[20/28] no f0: 40k v1 with use_f0 = False on {len(CLIP_SECONDS)} clips at "
         f"{cfg.data.sampling_rate} Hz, batches of {np.shape(batches[0]['spec'])[:2]} frames, "
         f"keys {sorted(batches[0])}")
     if "pitch" in batches[0] or "pitchf" in batches[0]:
@@ -2225,14 +2247,14 @@ def run_nof0(tmp: str, card: str, checks: dict) -> None:
         trainer = Trainer(cfg, dtype=dtype, device="cuda")
         if type(trainer.synth.dec).__name__ != "Generator":
             fail(f"the no-f0 decoder is {type(trainer.synth.dec).__name__}")
-        run = run_training(trainer, batches, card, "20/26", "40k no-f0")
+        run = run_training(trainer, batches, card, "20/28", "40k no-f0")
         checks[f"nof0_{str(dtype).split('.')[-1]}"] = dict(rate=run["rate"],
                                                            launches=run["launches"])
         if dtype == torch.float32:
             check_export(cfg, trainer, tmp, filelist)
         del trainer, run
         torch.cuda.empty_cache()
-    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/26] no f0:")
+    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/28] no f0:")
     check_train_bf16_vs_cpu(cfg, small, cpu32)
 
 
@@ -2354,7 +2376,7 @@ def run_unchecked_presets(settings, card: str) -> dict:
         vc = make_random_converter(name, seed=seed, chunking=CHUNKING, index_rows=BANK_ROWS,
                                    device="cuda")
         dec = vc.synth.dec
-        say(f"[21/26] {name} at full width (converter built in {time.perf_counter() - t0:.1f} "
+        say(f"[21/28] {name} at full width (converter built in {time.perf_counter() - t0:.1f} "
             f"s): upsampling {list(dec.upsample_rates)}, decoder stages of "
             f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
             f"channels, segment {preset(name).train.segment_size} samples")
@@ -2369,7 +2391,7 @@ def run_unchecked_presets(settings, card: str) -> dict:
                     settings)
         del vc, dec
         torch.cuda.empty_cache()
-        check_train_vs_cpu(preset(name), synthetic_batch(preset(name)), f"  [21/26] {name}:")
+        check_train_vs_cpu(preset(name), synthetic_batch(preset(name)), f"  [21/28] {name}:")
     return launched
 
 
@@ -2387,7 +2409,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     vc = main_converter("cuda", bf16)
     say(f"bf16 converter built in {time.perf_counter() - t0:.1f} s")
     shapes = path_shapes(vc, clips[30])
-    say(f"[9/26] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
+    say(f"[9/28] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz")
     gen = torch.Generator().manual_seed(3)
     with torch.no_grad():
@@ -2426,7 +2448,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[10/26] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
+        say(f"[10/28] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
             f"{sr} Hz, peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x (float32 "
             f"in this run {rtf32[sec]:.2f}x), max_memory_allocated "
@@ -2451,7 +2473,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out, sr, launched, wall = counted_convert(vc, audio, settings, counters)
     vc.synth.dec.fuse_group = True
     same = bool(np.array_equal(out, outs[30]))
-    say(f"[11/26] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
+    say(f"[11/28] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
         f"(RTF {30 / wall:.2f}x), launches { {k: v for k, v in launched.items() if v} }, "
         f"bit-identical to the default route: {same} (the default route against itself: "
         f"{bool(np.array_equal(again, outs[30]))})")
@@ -2486,7 +2508,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     a, b = out_gpu.astype(np.float64), out_cpu.astype(np.float64)
     l2 = float(np.linalg.norm(a - b) / np.linalg.norm(b)) if a.shape == b.shape else math.inf
-    say(f"[12/26] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
+    say(f"[12/28] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
         f"differs on {differ:.2%} of frames between them): {len(out_gpu)} vs {len(out_cpu)} "
         f"samples, relative L2 {l2:.4g} (tolerance {BF16_CPU_L2}: bf16 roundings flip "
         f"between the card's sums and the CPU's and the flips travel through the decoder; "
@@ -2586,7 +2608,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
                                          * 32000).astype(np.int16))
     sizes = {k: round(os.path.getsize(p) / 2**20, 1) for k, p in path.items()
              if os.path.exists(p)}
-    say(f"[13/26] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
+    say(f"[13/28] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
 
     # 13. the command line, in process, every count set to 0 just before
     counters = {**launch_counters(), "nearest_rows": (retrieval.nearest_rows, "launches")}
@@ -2651,7 +2673,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
         dec = vc.synth.dec
         label = f"{key} {version}" + ("" if f0 else " no-f0")
         phase = 14 if f0 else 15
-        say(f"[{phase}/26] {label} from files: decoder stages of "
+        say(f"[{phase}/28] {label} from files: decoder stages of "
             f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
             f"channels, HuBERT features D = {vc.hubert.cfg.classifier_proj_size}, "
             f"{type(dec).__name__}")
@@ -2714,7 +2736,7 @@ def run_batch(settings, card: str) -> dict:
                 "nearest_rows_q": 1}
     best, med = 80.0 / min(walls), 80.0 / float(np.median(walls))
     dev_s, down_s, disp_s = shares[int(np.argmin(walls))]
-    say(f"[16/26] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
+    say(f"[16/28] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
         f"{stats['chunk_samples']} samples, wall ms {[round(w * 1e3, 2) for w in walls]}, "
         f"aggregate RTF best {best:.2f}x, median {med:.2f}x; stats of the best: device_s "
         f"{dev_s:.4f} ({dev_s / min(walls):.1%} of the wall), download_s {down_s:.4f} "
@@ -2881,7 +2903,7 @@ def run_train_from_dataset(tmp: str, settings, card: str, checks: dict) -> dict:
     hub_state = write_hubert_safetensors(path["hubert"], HubertConfig(), seed=21)
     rmvpe_state = write_rmvpe_pt(path["rmvpe"], seed=22)
     odd_g, odd_d = write_pretrained(path["G"], path["D"], cfg, seed=23)
-    say(f"[17/26] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
+    say(f"[17/28] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
         f"pretrained G and D ({odd_g} and {odd_d} of another shape) written in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -3158,7 +3180,7 @@ def check_host_library() -> dict:
     nrms = slicer.frame_rms_numpy(x, sl.win_size, sl.hop_size)
     rms_err = float(np.max(np.abs(rms - nrms) / np.maximum(nrms, 1e-9)))
     tags, ntags = sl._silence_tags(rms), sl._silence_tags_numpy(rms)
-    say(f"[18/26] host library {os.path.relpath(lib._name, REPO)} built and loaded in "
+    say(f"[18/28] host library {os.path.relpath(lib._name, REPO)} built and loaded in "
         f"{build_s:.2f} s: peak_quantize_i16 on 30 s equal to numpy's {np.array_equal(q, nq)} "
         f"(peak {peak} / {npeak}); frame_rms of {len(rms)} frames within {rms_err:.3g} "
         f"relative of numpy's float32 sums (tolerance {RMS_REL}); the slicer's {len(tags)} "
@@ -3584,7 +3606,7 @@ def run_separation(tmp: str, card: str) -> dict:
     song = song_stereo(SEP_SECONDS)
     flops = {"VR": network_flops(lambda: CascadedASPPNet(n_fft_vr), (1, 2, 673, 512)),
              "MDX": network_flops(ConvTDFNetTrim, (1, 4, 256, 3072))}
-    say(f"[22/26] separation at full width: VR CascadedASPPNet({n_fft_vr}) from a .pth "
+    say(f"[22/28] separation at full width: VR CascadedASPPNet({n_fft_vr}) from a .pth "
         f"(4band_v2, {FOURBAND_V2_PARAM['bins'] + 1} bins, window 512, offset 128, agg 10, mirroring), "
         f"{flops['VR'] / 1e9:.1f} GFLOP a window; MDX ConvTDFNetTrim(11 blocks, l 3, g 32, "
         f"bn 8, dim_f 3072, GroupNorm2) from an anonymous .onnx (dim_t 256, n_fft 6144, hop "
@@ -3824,7 +3846,7 @@ def run_demucs(tmp: str, card: str) -> dict:
     t1 = time.perf_counter()
     seps = {label: load_separator(route_separator(path), path)  # the card
             for label, path in paths.items()}
-    say(f"[23/26] Demucs at full width: HTDemucs (channels 48, depth 4, nfft 4096, 5 "
+    say(f"[23/28] Demucs at full width: HTDemucs (channels 48, depth 4, nfft 4096, 5 "
         f"transformer layers of 384 x 8 heads, segment {float(HTDEMUCS_KW['segment'])} s with "
         f"use_train_segment), HDemucs (depth 6, BLSTM and LocalState from layer 4, 10 s "
         f"segments), Conv-TasNet (N 256, L 20, B 256, H 512, P 3, X 10, R 4, gLN, 8 s), a bag of "
@@ -4061,7 +4083,7 @@ def run_roformer(tmp: str, card: str) -> dict:
     written = time.perf_counter() - t0
     t1 = time.perf_counter()
     seps = {label: load_separator(route_separator(path), path) for label, path in paths.items()}
-    say(f"[24/26] RoFormers at full width: a BS-RoFormer as a Lightning .ckpt and a Mel-Band "
+    say(f"[24/28] RoFormers at full width: a BS-RoFormer as a Lightning .ckpt and a Mel-Band "
         f"RoFormer as a bare state dict without freq_indices, seeded weights at the JAX "
         f"initializer's scale (uniform +-1/sqrt(fan_in), gamma 1); written in {written:.1f} s, "
         f"loaded in {time.perf_counter() - t1:.1f} s; {SEP_SECONDS:.0f} s of stereo 44.1 kHz "
@@ -4231,7 +4253,8 @@ def run_nodes(files: dict, work: str, card: str) -> dict:
     """Phase 25: the port's ComfyUI nodes chained as a user's graph on the
     card (``nodes.DEVICE`` None), on ``files`` the earlier phases wrote;
     outputs under ``work``. Fails unless Convert launches kernels 1-3 and
-    equals the direct converter bit for bit, TrainModel launches kernels
+    equals the direct converter within the direct call's own spread over
+    six calls, TrainModel launches kernels
     4-7, repeated Convert and UVR5 calls hit the cache, and every model the
     nodes cached sits on the card. Returns the launches of the first
     Convert and of TrainModel."""
@@ -4275,7 +4298,7 @@ def run_nodes(files: dict, work: str, card: str) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
-    say(f"[25/26] the node graph on the card: phase 22's VR .pth and {SEP_SECONDS:.0f} s song, "
+    say(f"[25/28] the node graph on the card: phase 22's VR .pth and {SEP_SECONDS:.0f} s song, "
         f"phase 13's 48k_v2 .pth, HuBERT, rmvpe.pt and {BANK_ROWS}-row float32 bank, phase 17's "
         f"{TRAIN_SOURCE_SECONDS:g} s source clip")
 
@@ -4331,26 +4354,37 @@ def run_nodes(files: dict, work: str, card: str) -> dict:
     s = ConvertSettings(**settings)
     (want, want_sr), _, _ = counted(lambda: direct.convert(wav, 44100, s))  # set-up
     walls = {"node": [], "direct": []}
+    repeats = [want]
     for key in (1, 2, 3):  # in turns; each node call a new key: it converts, built already
         (again, _), t_direct, _ = counted(lambda: direct.convert(wav, 44100, s))
+        repeats.append(again)
         (shifted,), t_node, moved = counted(
             lambda: nodes.RVCNode().convert(vocals, model, hubert, key, pp))
         walls["direct"].append(t_direct)
         walls["node"].append(t_node)
         if moved != expected or not np.isfinite(shifted["waveform"]).all():
             fail(f"Convert with f0_up_key {key} failed its checks: launches {moved}")
+    repeats += [direct.convert(wav, 44100, s)[0] for _ in range(2)]
     got = converted["waveform"][0, 0]
-    exact = (converted["sample_rate"] == want_sr and got.shape == want.shape
-             and np.array_equal(got, want.astype(np.float32) / 32768.0)
-             and np.array_equal(want, again))
+    # cuDNN may pick engines that sum with atomics (conversions leave it free;
+    # scripts/bench_torch_cudnn_pin.py times the deterministic engines), so the
+    # bar is the direct call's own run-to-run spread over its six calls
+    spread = max(int(np.abs(a.astype(np.int32) - b).max())
+                 for i, a in enumerate(repeats) for b in repeats[i + 1:])
+    same = converted["sample_rate"] == want_sr and got.shape == want.shape
+    node_lsb = (min(int(np.abs(np.rint(got * 32768.0).astype(np.int32) - r).max())
+                    for r in repeats) if same else None)
     rtf = {k: song_s / float(np.median(v)) for k, v in walls.items()}
     say(f"  Convert against VoiceConverter.convert on the same arrays: {len(want)} samples at "
-        f"{want_sr} Hz, bit-equal {exact}; RTF node {rtf['node']:.2f}x (f0_up_key 1-3, the "
-        f"converter cached; walls ms {[round(w * 1e3, 2) for w in walls['node']]}) against the "
-        f"direct call {rtf['direct']:.2f}x ({[round(w * 1e3, 2) for w in walls['direct']]}), "
-        f"medians of 3 in turns; {card}")
-    if not exact:
-        fail("the Convert node differs from VoiceConverter.convert")
+        f"{want_sr} Hz, the node's first call {node_lsb} LSB from the nearest of the direct "
+        f"call's {len(repeats)} (tolerance: their own spread, {spread} LSB); RTF node "
+        f"{rtf['node']:.2f}x (f0_up_key 1-3, the converter cached; walls ms "
+        f"{[round(w * 1e3, 2) for w in walls['node']]}) against the direct call "
+        f"{rtf['direct']:.2f}x ({[round(w * 1e3, 2) for w in walls['direct']]}), medians of 3 "
+        f"in turns; {card}")
+    if not same or node_lsb > spread:
+        fail(f"the Convert node differs from VoiceConverter.convert: {node_lsb} LSB from the "
+             f"direct call, whose own calls are {spread} LSB apart")
     del direct
     torch.cuda.empty_cache()
 
@@ -4503,7 +4537,7 @@ def run_separation_bf16(routes: dict, card: str) -> None:
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     song = song_stereo(SEP_SECONDS)
-    say(f"[26/26] separation in bf16 at full width through load_separator(..., "
+    say(f"[26/28] separation in bf16 at full width through load_separator(..., "
         f"dtype=torch.bfloat16): {', '.join(routes)} on phases 22-24's files and "
         f"{SEP_SECONDS:.0f} s song; each stem against the same call's float32 stems (phases "
         f"22-24) within {SEP_BF16_L2:g} relative L2")
@@ -4610,6 +4644,314 @@ def run_separation_bf16(routes: dict, card: str) -> None:
         fail("bf16 separation launched a kernel of the conversion or training path")
 
 
+# ---- phase 27: several cards (torch.distributed in place of the dp mesh) ----
+DP_STEPS = 4  # a rank's steps in phase 27(b): the first checked, the rest timed
+
+
+def dp_rank(world, cfg, batches: list, draws: list, keep: int) -> dict:
+    """A rank of phase 27(b): ``parallel.dryrun.dp_steps`` from seed 0's
+    weights with kernels 4-7 counted over its steps."""
+    skip_default_init()
+    from rvc_tpu_torch.ops import _cuda
+    from rvc_tpu_torch.parallel.dryrun import dp_steps
+
+    _cuda.library()
+    return dp_steps(world, cfg, batches, draws, keep_params=keep, counters=training_counters(),
+                    events=True, device=world.device)
+
+
+def dp_world_of_one(world, cfg, batches: list, draws: list) -> dict:
+    """Phase 27(a) in a world of 1 (NCCL): the plain step and the dp step on
+    the same batch and draws, with cuDNN's and PyTorch's deterministic
+    algorithms (by default the step is not reproducible on the card: cuDNN's
+    weight gradients sum with atomics, so two plain steps differ in the last
+    bits), kernels 4-7 counted in each."""
+    import torch
+
+    skip_default_init()
+    from rvc_tpu_torch.ops import _cuda
+    from rvc_tpu_torch.parallel.dryrun import dp_steps
+
+    _cuda.library()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    kw = dict(keep_params=1, counters=training_counters(), device=world.device)
+    dp_steps(None, cfg, batches, draws, **kw)  # set-up: the first step's cuDNN plans
+    plain = dp_steps(None, cfg, batches, draws, **kw)
+    return {"plain": plain, "dp": dp_steps(world, cfg, batches, draws, events=True, **kw)}
+
+
+def params_distance(a: dict, b: dict, lr: float) -> tuple[float, float]:
+    """(the largest difference of two runs' parameters, the share of
+    elements more than 0.01 lr apart)."""
+    import torch
+
+    delta = torch.cat([(a[k] - b[k]).abs().flatten() for k in b])
+    return delta.max().item(), (delta > 0.01 * lr).float().mean().item()
+
+
+def run_several_cards(cfg, batches: list, card: str, tmp: str) -> dict:
+    """Phase 27: the dp step and the chunk batch over several devices, on
+    the one card. (a) a world of 1 over NCCL: Trainer(world=) on phase 7's
+    batch equal to the plain step bit for bit (dp_world_of_one); (b) two ranks sharing cuda:0
+    over gloo (NCCL refuses two ranks on one device), 2 rows each, DP_STEPS
+    steps: the first against the one-process step at batch 4 on the same
+    draws at phase 8's bars, the ranks' parameters equal, kernels 4-7
+    counted on each rank; (c) convert_batch of 8 songs of 10 s with
+    devices=[cuda:0, cuda:0] against devices=None, int16 equal. Returns the
+    launches."""
+    import torch
+
+    from rvc_tpu_torch.parallel import mesh
+    from rvc_tpu_torch.pipelines.convert import ConvertSettings
+    from rvc_tpu_torch.train.step import Trainer
+
+    lr = cfg.train.learning_rate
+    steps = batches[1:1 + DP_STEPS]
+    host = Trainer(cfg, device="cpu")  # the global draws, and the model's structure
+    draws = [host.draws(b, 3 + i) for i, b in enumerate(steps)]
+    expected = expected_training_launches(host, 1)
+
+    # (a) a world of 1 over NCCL (a spawned rank, deterministic algorithms:
+    # cuBLAS reads its workspace setting when the process starts it)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    try:
+        (r,) = mesh.spawn(dp_world_of_one, 1, "cuda:0", args=(cfg, steps[:1], draws[:1]),
+                          rendezvous_dir=tmp)
+    finally:
+        del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+    plain, one = r["plain"], r["dp"]
+    same = (one["metrics"] == plain["metrics"] and one["digest"] == plain["digest"]
+            and all(torch.equal(one["params"][0][k], plain["params"][0][k])
+                    for k in plain["params"][0]))
+    ar = sum(v for k, v in one["stages"][0].items() if k.endswith("all-reduce"))
+    say(f"[27/28] several cards, 48k_v2 at batch {TRAIN_BATCH} on phase 7's batch: (a) a world "
+        f"of 1 over NCCL, cuDNN's and PyTorch's deterministic algorithms on: the dp step bit for "
+        f"bit the plain step: {same} (metrics, every parameter, digest); step ms "
+        f"{one['wall_ms'][0]:.2f} against {plain['wall_ms'][0]:.2f}, the two gradient "
+        f"all-reduces {ar:.3f} ms (CUDA events); launches "
+        f"{ {k: v for k, v in one['launches'].items() if v} }; {card}")
+    if not same:
+        fail("the dp step at world size 1 differs from the plain step")
+    if one["launches"] != expected or plain["launches"] != expected:
+        fail(f"kernel launches {one['launches']} / {plain['launches']}, expected {expected}")
+
+    # (b) two ranks on cuda:0 over gloo, against one process at batch 4
+    t0 = time.perf_counter()
+    ranks = mesh.spawn(dp_rank, 2, "cuda:0", args=(cfg, steps, draws, 1), backend="gloo",
+                       rendezvous_dir=tmp)
+    spawn_s = time.perf_counter() - t0
+    ma, mb = ranks[0]["metrics"][0], plain["metrics"][0]
+    loss_err = max(abs(ma[k] - mb[k]) / max(1.0, abs(mb[k])) for k in mb
+                   if not k.startswith("grad_norm"))
+    norm_err = max(abs(ma[k] - mb[k]) / abs(mb[k]) for k in ("grad_norm_g", "grad_norm_d"))
+    worst, share = params_distance(ranks[0]["params"][0], plain["params"][0], lr)
+    equal = ranks[0]["digest"] == ranks[1]["digest"] and \
+        ranks[0]["metrics"] == ranks[1]["metrics"]
+    per_rank = [float(np.median(r["wall_ms"][1:])) for r in ranks]
+    ar_ms = [float(np.median([sum(v for k, v in st.items() if k.endswith("all-reduce"))
+                              for st in r["stages"][1:]])) for r in ranks]
+    expected_b = expected_training_launches(host, DP_STEPS)
+    del host
+    say(f"  (b) two ranks on cuda:0 over gloo, {TRAIN_BATCH // 2} rows each, {DP_STEPS} steps "
+        f"(spawned and run in {spawn_s:.1f} s): the first step against one process's at batch "
+        f"{TRAIN_BATCH} on the same draws: losses within {loss_err:.3g} (relative, of max(1, "
+        f"|loss|); tolerance 1e-3), gradient norms within {norm_err:.3g} (tolerance 1e-2), "
+        f"parameters max |diff| {worst:.3g} (tolerance 2.01 lr = {2.01 * lr:.3g}), share above "
+        f"0.01 lr {share:.4%} (tolerance 1%); the ranks' metrics and parameters equal: {equal}; "
+        f"median step ms per rank over steps 2-{DP_STEPS} {[round(x, 2) for x in per_rank]} "
+        f"(host clock, synchronized; one process at batch {TRAIN_BATCH}: "
+        f"{plain['wall_ms'][0]:.2f} ms, its first step), of which the gradient all-reduces "
+        f"{[round(x, 2) for x in ar_ms]} ms (CUDA events; gloo copies each model's flat "
+        f"gradients to the host and back); launches per rank "
+        f"{[{k: v for k, v in r['launches'].items() if v} for r in ranks]}; {card}")
+    if not (loss_err <= 1e-3 and norm_err <= 1e-2 and worst <= 2.01 * lr and share <= 0.01):
+        fail("the two-rank dp step disagrees with one process's step")
+    if not equal:
+        fail("the two ranks' parameters differ")
+    if any(r["launches"] != expected_b for r in ranks):
+        fail(f"a rank's kernel launches differ from {expected_b}")
+
+    # (c) convert_batch over [cuda:0, cuda:0] against one device
+    vc = main_converter("cuda")
+    settings = ConvertSettings(**SETTINGS)
+    songs = [speech(10.0, 3.0 * i) for i in range(8)]
+    conv_counters = {k: launch_counters()[k] for k in
+                     ("fused_resblock_group", "banded_rel_attention", "nearest_rows_q")}
+    outs, walls, launched = {}, {}, {}
+    for label, devices in (("one", None), ("split", ["cuda:0", "cuda:0"])):
+        vc.devices = devices
+        vc.convert_batch(songs, settings=settings)  # set-up (the replicas are copied here)
+        for fn, attr in conv_counters.values():
+            setattr(fn, attr, 0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs[label] = vc.convert_batch(songs, settings=settings)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        launched[label] = {k: getattr(fn, attr) for k, (fn, attr) in conv_counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        say(f"  (c) convert_batch of 8 songs of 10 s, devices={devices}: wall "
+            f"{walls[label] * 1e3:.2f} ms, aggregate RTF {80.0 / walls[label]:.2f}x, launches "
+            f"{launched[label]}, max_memory_allocated {peak:.2f} GiB")
+    equal = all(np.array_equal(a, b) and sa == sb for (a, sa), (b, sb)
+                in zip(outs["one"], outs["split"]))
+    lsb = max(int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+              for (a, _), (b, _) in zip(outs["one"], outs["split"]))
+    say(f"  the split chunk batch's int16 output equal to one device's: {equal} (max |diff| "
+        f"{lsb} LSB; RMVPE once over the undivided batch, HuBERT, kernels 1-3 and the rest of "
+        f"the synthesizer on each replica's rows); {card}")
+    if not equal:
+        fail("convert_batch over two devices differs from one device's")
+    if launched["split"] != {k: 2 * v for k, v in launched["one"].items()}:
+        fail(f"the replicas launched {launched['split']}, not twice {launched['one']}")
+    vc.devices = None
+    del vc
+    torch.cuda.empty_cache()
+    return {"dp_rank": ranks[0]["launches"], "replicas": launched["split"]}
+
+
+# ---- phase 28: speech to text (Whisper medium and the STT nodes) ----
+WHISPER_LEN = 48  # tokens a decode: random weights never emit EOT
+
+
+def whisper_pt(path: str, dims, seed: int) -> None:
+    """An OpenAI-format ``.pt`` (``dims``, ``model_state_dict``) of random
+    weights drawn on the card from ``seed``: N(0, 0.02) matrices and
+    embeddings, zero biases, unit norm gains, the encoder's sinusoids."""
+    import dataclasses
+
+    import torch
+
+    from rvc_tpu_torch.models.whisper import Whisper
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sd = {}
+    for k, v in Whisper(dims).state_dict().items():
+        leaf = k.split(".")
+        if k == "encoder.positional_embedding":
+            sd[k] = v
+        elif leaf[-2].endswith("ln") or leaf[-2] == "ln_post":
+            sd[k] = torch.ones_like(v) if leaf[-1] == "weight" else torch.zeros_like(v)
+        elif leaf[-1] == "bias":
+            sd[k] = torch.zeros_like(v)
+        else:
+            sd[k] = (0.02 * torch.randn(v.shape, generator=gen, device="cuda")).cpu()
+    torch.save({"dims": dataclasses.asdict(dims), "model_state_dict": sd}, path)
+
+
+def run_whisper(tmp: str, card: str) -> None:
+    """Phase 28: Whisper medium (24 + 24 layers at width 1024, the
+    multilingual vocabulary) from an OpenAI-format .pt of random weights,
+    loaded by load_whisper and by RVC_TPU_LoadWhisper: the encoder on 30 s
+    of speech card vs CPU within 1e-4 relative L2; greedy, beam (5) and
+    timestamp decoding on the card, the greedy tokens teacher-forced
+    through the CPU decoder (argmax equal wherever the top two differ by
+    more than 1e-4); the fallback ladder at (0, 0.2); RVC_TPU_Transcribe
+    end to end on the 30 s clip; no kernel of the repository launched."""
+    import torch
+
+    from rvc_tpu_torch.graph import NODE_CLASS_MAPPINGS, nodes
+    from rvc_tpu_torch.models import whisper as W
+    from rvc_tpu_torch.ops import retrieval
+
+    dims = W.WHISPER_SIZES["medium"]
+    path = os.path.join(tmp, "medium.pt")
+    t0 = time.perf_counter()
+    whisper_pt(path, dims, seed=11)
+    write_s = time.perf_counter() - t0
+    counters = {**training_counters(), "nearest_rows": (retrieval.nearest_rows, "launches")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, got_dims = W.load_whisper(path)
+    load_s = time.perf_counter() - t0
+    if got_dims != dims or next(model.parameters()).device.type != "cuda":
+        fail(f"load_whisper gave {got_dims} on {next(model.parameters()).device}")
+    n_params = sum(p.numel() for p in model.parameters())
+    audio = speech(30.0, 20.0)
+    mel = W.log_mel_spectrogram(torch.from_numpy(audio).cuda()[None])
+    with torch.no_grad():
+        enc_ms = timed(lambda: model.embed_audio(mel), reps=3, warmup=1)
+        enc = model.embed_audio(mel).cpu()
+    cpu_model, _ = W.load_whisper(path, device="cpu")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        enc_cpu = cpu_model.embed_audio(mel.cpu())
+    cpu_s = time.perf_counter() - t0
+    rel = float(torch.linalg.vector_norm(enc - enc_cpu) / torch.linalg.vector_norm(enc_cpu))
+    enc_params = sum(p.numel() for p in model.encoder.parameters())
+    flops = 2 * enc_params * 1500 + 4 * dims.n_audio_layer * 1500 ** 2 * dims.n_audio_state
+    say(f"[28/28] Whisper medium ({n_params / 1e6:.1f} M parameters; .pt written in "
+        f"{write_s:.1f} s, loaded in {load_s:.1f} s): the encoder on 30 s {enc_ms:.2f} ms "
+        f"({flops / enc_ms / 1e9:.1f} TFLOP/s in float32, TF32 off), card vs CPU relative L2 "
+        f"{rel:.3g} (tolerance 1e-4; CPU {cpu_s:.1f} s); {card}")
+    if not (rel <= 1e-4 and torch.isfinite(enc).all()):
+        fail("Whisper's encoder on the card disagrees with the CPU's")
+
+    sot = (50258, 50259, 50359, 50363)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = W.greedy_decode(model, mel, max_len=WHISPER_LEN)
+    greedy_s = time.perf_counter() - t0
+    seq = torch.tensor([list(sot) + toks[0].tolist()])
+    with torch.no_grad():
+        logits = cpu_model.logits(seq, enc_cpu)[0, len(sot) - 1:len(sot) - 1 + toks.shape[1]]
+    top2 = torch.topk(logits, 2).values
+    close = (top2[:, 0] - top2[:, 1] <= 1e-4).numpy()
+    agree = (torch.argmax(logits, -1).numpy() == toks[0]) | close
+    t0 = time.perf_counter()
+    beam, beam_lp = W.beam_decode(model, mel, beam_size=5, max_len=WHISPER_LEN)
+    beam_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    segs = W.decode_with_timestamps(model, mel, max_len=WHISPER_LEN)
+    ts_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fb, info = W.decode_with_fallback(model, mel, temperatures=(0.0, 0.2), max_len=WHISPER_LEN)
+    fb_s = time.perf_counter() - t0
+    say(f"  decoding {WHISPER_LEN} tokens on the card: greedy {greedy_s:.2f} s "
+        f"({WHISPER_LEN / greedy_s:.1f} tokens/s, one row), beam of 5 {beam_s:.2f} s "
+        f"({len(beam) / beam_s:.1f} tokens/s; avg log p {beam_lp:.3f}), timestamps {ts_s:.2f} s "
+        f"({len(segs[0])} segments), the fallback at (0, 0.2) {fb_s:.2f} s (ended at T "
+        f"{info['temperature']}, compression {info['compression_ratio']:.2f}); the greedy "
+        f"tokens teacher-forced through the CPU decoder: argmax equal at "
+        f"{int(agree.sum())}/{len(agree)} steps ({int(close.sum())} within 1e-4 of a tie)")
+    if not agree.all() or toks.shape != (1, WHISPER_LEN) or len(beam) != WHISPER_LEN:
+        fail("Whisper's decoding on the card disagrees with the CPU's")
+    del cpu_model
+
+    nodes.DEVICE = None
+    t0 = time.perf_counter()
+    (loader,) = NODE_CLASS_MAPPINGS["RVC_TPU_LoadWhisper"]().load(path)
+    entry = loader()
+    node_load_s = time.perf_counter() - t0
+    wav = nodes.to_audio_dict(audio, 16000)
+    node = NODE_CLASS_MAPPINGS["RVC_TPU_Transcribe"]()
+    node.transcribe(wav, loader)  # set-up
+    t0 = time.perf_counter()
+    transcription, frames = node.transcribe(wav, loader)
+    torch.cuda.synchronize()
+    node_s = time.perf_counter() - t0
+    prompts = NODE_CLASS_MAPPINGS["RVC_TPU_TranscriptionEncoder"]().get_prompt(
+        transcription, use_tags=True)
+    launched = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    say(f"  RVC_TPU_LoadWhisper {node_load_s:.1f} s (on {next(entry['model'].parameters()).device}"
+        f", kept in the node cache); RVC_TPU_Transcribe on 30 s: {node_s:.2f} s "
+        f"({len(transcription['chunks'])} chunk, {len(transcription['text'])} characters of "
+        f"random tokens, {frames} s), the encoder node's {prompts[3]} prompt(s); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel "
+        f"launches in phase 28: {launched}; {card}")
+    if next(entry["model"].parameters()).device.type != "cuda" or frames != 30:
+        fail("the STT nodes did not run on the card")
+    if any(launched.values()):
+        fail("speech to text launched a kernel of the conversion or training path")
+    nodes._CACHE.clear()
+    del model, entry, loader
+    torch.cuda.empty_cache()
+
+
 def keep(path: str, folder: str) -> str:
     """``path`` moved into ``folder`` (out of a phase's temporary directory,
     for a later phase); returns its new path."""
@@ -4659,7 +5001,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi gave nothing"
-    say(f"[1/26] card: {name}, {count} device(s); torch {torch.__version__}, "
+    say(f"[1/28] card: {name}, {count} device(s); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     say(card)
 
@@ -4669,7 +5011,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library()
     info = _cuda.build_info
-    say(f"[2/26] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
+    say(f"[2/28] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
         f"(load {time.perf_counter() - t0:.2f} s)")
     say("ptxas: " + "; ".join(info["ptxas"]))
     say("ptxas C7515 (wgmma serialized): " + (", ".join(info["serialized"]) or "none"))
@@ -4700,7 +5042,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions at the 30 s conversion's shapes
     shapes = path_shapes(vc, clips[30])
-    say(f"[3/26] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
+    say(f"[3/28] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz, {shapes['T50']} HuBERT frames per chunk")
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -4756,7 +5098,7 @@ def main() -> int:
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[4/26] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
+        say(f"[4/28] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
             f"peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x, "
             f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -4780,7 +5122,7 @@ def main() -> int:
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     diff = np.abs(out_gpu.astype(np.int32) - out_cpu.astype(np.int32))
     tol = 4
-    say(f"[5/26] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
+    say(f"[5/28] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
         f"max |diff| {diff.max()} LSB, share above {tol} LSB {np.mean(diff > tol):.4%} "
         f"(tolerance {tol} LSB: the same float32 math summed in another order, "
         f"~1e-5 relative before the int16 scaling); CPU run "
@@ -4809,7 +5151,7 @@ def main() -> int:
     seeded_state(trainer, 0)
     say(f"dataset of {len(CLIP_SECONDS)} clips, {len(batches)} batches, trainer built in "
         f"{time.perf_counter() - t0:.1f} s")
-    say(f"[6/26] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
+    say(f"[6/28] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
         f"segment {cfg.train.segment_size} samples, WN over {np.shape(batches[0]['spec'])[1]} "
         f"frames")
     gen = torch.Generator().manual_seed(2)
@@ -4839,7 +5181,7 @@ def main() -> int:
     lap("phase 6 and the dataset")
 
     # 7. the training path
-    run32 = run_training(trainer, batches, card, "7/26")
+    run32 = run_training(trainer, batches, card, "7/28")
     trained, rate32 = run32["launches"], run32["rate"]
     launches = {"fused_resblock_group": launches["resblock"],
                 "banded_rel_attention": launches["attention"],
@@ -4950,6 +5292,23 @@ def main() -> int:
     del sep32
     lap("phase 26")
 
+    # 27. several cards: the dp step (NCCL at world size 1, two gloo ranks on cuda:0)
+    # and convert_batch's chunk batch over two devices
+    with tempfile.TemporaryDirectory(prefix="rvc_dp_") as work:
+        dp = run_several_cards(cfg, batches, card, work)
+    for key, kname in (("chain", "fused_resblock1"), ("chain_bwd", "fused_resblock1_backward"),
+                       ("wn", "fused_wn"), ("wn_bwd", "fused_wn_backward")):
+        checks[key]["launches_dp_rank"] = dp["dp_rank"][kname]
+    for key, kname in (("resblock", "fused_resblock_group"), ("attention", "banded_rel_attention"),
+                       ("nearest", "nearest_rows_q")):
+        checks[key]["launches_replicas"] = dp["replicas"][kname]
+    lap("phase 27")
+
+    # 28. speech to text: Whisper medium, its decoders and the STT nodes
+    with tempfile.TemporaryDirectory(prefix="rvc_stt_") as work:
+        run_whisper(work, card)
+    lap("phase 28")
+
     kernels = []
     meta = {
         "resblock": ("fused_resblock_group", "rvc_tpu_torch/csrc/resblock_group.cu",
@@ -4993,7 +5352,9 @@ def main() -> int:
                                              "previous_ms_10s", "32k_v1", "d256",
                                              "cli_float32_bank", "launches_40k_v2",
                                              "launches_40k_nof0", "launches_32k_v2",
-                                             "launches_48k", "launches_nodes", "whole_stack",
+                                             "launches_48k", "launches_nodes",
+                                             "launches_dp_rank", "launches_replicas",
+                                             "whole_stack",
                                              "recompute_launches") if k in c}})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -9,11 +9,12 @@ the RVC synthesizer, HuBERT/ContentVec (HF ``HubertModel`` names),
 RMVPE (``E2E`` names), CREPE (torchcrepe's names), the UVR5 VR nets (the
 reference's names, each conv kernel's spatial axes swapped back), the
 MDX-Net Conv-TDF nets, the Demucs family (HDemucs, HTDemucs, Demucs v2
-and Conv-TasNet, the reference's names and shapes) and the two RoFormers
-(lucidrains' names). For inference a ``weight_g``/``weight_v`` pair
-becomes one ``weight``; for training (``fold=False``) the pair is kept under
-the names of the reference's ``G_*.pth`` / ``D_*.pth`` checkpoints, which
-the port's layers take after ``models.layers.live_weight_norm_``.
+and Conv-TasNet, the reference's names and shapes), the two RoFormers
+(lucidrains' names) and Whisper (OpenAI's names). For inference a
+``weight_g``/``weight_v`` pair becomes one ``weight``; for training
+(``fold=False``) the pair is kept under the names of the reference's
+``G_*.pth`` / ``D_*.pth`` checkpoints, which the port's layers take after
+``models.layers.live_weight_norm_``.
 """
 from __future__ import annotations
 
@@ -255,4 +256,15 @@ def roformer_state_dict(params: Mapping) -> dict[str, np.ndarray]:
     ``to_out.0``), names without digits (``final_norm``, ``to_qkv``) kept;
     every weight keeps its torch layout."""
     return {_dotted(path): np.ascontiguousarray(arr, np.float32)
+            for path, arr in flatten_tree(params.get("params", params)).items()}
+
+
+def whisper_state_dict(params: Mapping) -> dict[str, np.ndarray]:
+    """A JAX ``Whisper`` tree -> OpenAI's names (``blocks_0`` ->
+    ``blocks.0``, ``mlp_0`` -> ``mlp.0``, ``token_embedding_weight`` ->
+    ``token_embedding.weight``), every weight in its torch layout. The
+    encoder's sinusoidal positions, a buffer of OpenAI's that JAX computes,
+    are not in the tree."""
+    return {_dotted(path).replace("token_embedding_weight", "token_embedding.weight"):
+            np.ascontiguousarray(arr, np.float32)
             for path, arr in flatten_tree(params.get("params", params)).items()}

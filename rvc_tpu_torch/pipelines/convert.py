@@ -13,11 +13,24 @@ the same order:
           concat, int16 peak normalization
 
 Chunk spans, bucketing and pad trim equal the JAX package's. The JAX
-package's TPU-only tricks (int16 bit-pair upload, s2d packing, dp mesh)
-are left out; outputs are kept. Input at another rate than 16 kHz is
-resampled on the host (``io.audio.remix_audio``); ``resample_sr``
-resamples the int16 result on the device (``ops.resample``). ``convert_batch``
-converts many songs in one chunk batch. A no-f0 model runs without the
+package's TPU-only tricks (int16 bit-pair upload, s2d packing) are left
+out; outputs are kept. ``devices`` is the counterpart of JAX's dp ``mesh``
+(rvc_tpu/pipelines/convert.py:87-170): the chunk batch is split in order
+over the listed devices, each holding one replica of HuBERT, the
+synthesizer and the bank, in one process (inference has no gradient to
+reduce); each part takes its rows of the undivided batch's f0 and draws,
+and the outputs are gathered on the first device and finished as on one
+device, so the output is the single-device output, bit for bit (JAX's
+per-shard chunk-grid output is an artefact of its sharding and is not
+copied). The pitch model runs once, over the undivided batch on the
+converter's device: on the card its cuDNN convolutions and cuBLAS products
+pick their algorithms by the batch's size, so a chunk's f0 came out 6e-5
+Hz apart at 4 chunks against 8 (1 LSB in the int16 output); HuBERT, the
+retrieval and the synthesizer gave the same bits at either size.
+Input at another rate than 16 kHz is resampled on the host
+(``io.audio.remix_audio``); ``resample_sr`` resamples the int16 result on
+the device (``ops.resample``). ``convert_batch`` converts many songs in
+one chunk batch. A no-f0 model runs without the
 pitch model and the protect blend.
 
 f0: one method (``pitch.extractor.METHODS``) runs per chunk, the chunk
@@ -39,6 +52,7 @@ synthesizer's output goes to float32 before the RMS mix
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from dataclasses import dataclass
@@ -50,7 +64,7 @@ import torch
 from ..config import RVCConfig, preset as get_preset
 from ..device import resolve_device, set_float32_math
 from ..io.audio import MAX_INT16, remix_audio
-from ..models.hubert import HubertConfig, HubertEncoder
+from ..models.hubert import HubertConfig, HubertEncoder, conv_output_lengths
 from ..models.layers import init_random_, load_numpy_state_dict, set_dtype_
 from ..models.rmvpe import RMVPE
 from ..models.synthesizer import Synthesizer
@@ -116,13 +130,15 @@ class VoiceConverter:
     def __init__(self, synth: Synthesizer, synth_kwargs: dict, hubert: HubertEncoder,
                  pitch: PitchExtractor | None = None, index_bank: np.ndarray | None = None,
                  config: RVCConfig | None = None, index_int8: bool = False,
-                 device=None, seed: int = 0, dtype: torch.dtype = torch.float32):
+                 device=None, seed: int = 0, dtype: torch.dtype = torch.float32,
+                 devices: Sequence | None = None):
         """``synth``, ``hubert`` and ``pitch`` hold loaded weights; they are
         moved to ``device`` (default: the card), and ``synth`` and ``hubert``
         compute in ``dtype``. ``index_bank`` (N, D) is the retrieval bank,
         stored int8 with per-row scales when ``index_int8``. ``seed`` seeds
         the synthesizer's random draws. A no-f0 model (``synth_kwargs
-        ["use_f0"]`` false) needs no pitch model."""
+        ["use_f0"]`` false) needs no pitch model. ``devices`` (a list, or
+        None for ``device`` alone) splits each chunk batch over devices."""
         self.device = resolve_device(device)
         set_float32_math()
         self.config = config or RVCConfig()
@@ -150,6 +166,39 @@ class VoiceConverter:
         self.t_query = SR * c.x_query
         self.t_center = SR * c.x_center
         self.t_max = SR * c.x_max
+        self.devices = devices
+
+    @property
+    def devices(self) -> list | None:
+        return self._devices
+
+    @devices.setter
+    def devices(self, devices) -> None:
+        """A new list drops the replicas built for the old one (as JAX's
+        ``mesh`` setter drops its jitted cores)."""
+        self._devices = None if devices is None else [resolve_device(d) for d in devices]
+        self._replicas: list = []
+
+    def replicas(self) -> list:
+        """One (device, synth, hubert, bank) a device: the converter's own
+        models alone without ``devices``; with them, a copy on each listed
+        device (the converter's own models on a first device that is its
+        own), made on first use. The pitch model is not copied: f0 is taken
+        on ``device`` over the whole chunk batch."""
+        if not self._devices:
+            return [(self.device, self.synth, self.hubert, self.index_bank)]
+        if not self._replicas:
+            for dev in self._devices:
+                if not self._replicas and dev == self.device:
+                    self._replicas.append((dev, self.synth, self.hubert, self.index_bank))
+                    continue
+                bank = self.index_bank
+                if bank is not None:
+                    bank = (tuple(b.to(dev, copy=True) for b in bank) if isinstance(bank, tuple)
+                            else bank.to(dev, copy=True))
+                self._replicas.append((dev, copy.deepcopy(self.synth).to(dev),
+                                       copy.deepcopy(self.hubert).to(dev), bank))
+        return self._replicas
 
     @classmethod
     def from_state_dicts(cls, synth_state: dict, synth_kwargs: dict, hubert_state: dict,
@@ -218,7 +267,7 @@ class VoiceConverter:
             f0 = None
             if self.use_f0 and not isinstance(s.f0_method, str):
                 f0 = self._hybrid_f0(wave_dev, starts, L, s)
-            o = self._grid(self._slices(wave_dev, starts, L), lengths, s, draws, f0)
+            o = self._split_grid(self._slices(wave_dev, starts, L), lengths, s, draws, f0)
             # pad trim + concat, then int16 peak normalization
             ratio = self.tgt_sr // 100
             p_lens = np.minimum(lengths // WINDOW, o.shape[1] // ratio)
@@ -335,7 +384,7 @@ class VoiceConverter:
 
         @torch.no_grad()
         def dispatch() -> torch.Tensor:
-            o = self._grid(self._slices(wave_dev, starts, L), lengths, s, draws)
+            o = self._split_grid(self._slices(wave_dev, starts, L), lengths, s, draws)
             ratio = self.tgt_sr // 100
             t = torch.arange(o.shape[1], device=o.device)[None, :]
             hi = torch.as_tensor((lengths // WINDOW) * ratio - self.t_pad_tgt, device=o.device)
@@ -377,30 +426,60 @@ class VoiceConverter:
             results.append(self._resampled(torch.from_numpy(np.concatenate(pieces)), s))
         return results
 
+    def _split_grid(self, chunks: torch.Tensor, lengths: np.ndarray, s: ConvertSettings,
+                    draws, f0: torch.Tensor | None = None) -> torch.Tensor:
+        """``_grid`` on each replica's rows of the chunk batch (contiguous
+        parts of ceil(N / replicas) rows), gathered on the first. The f0 and
+        the draws are taken once for the whole batch and split the same
+        way."""
+        N, L = chunks.shape
+        if self.use_f0 and f0 is None:
+            f0 = self._chunk_f0(chunks, s)
+        draws = draws or self.draws(N, self._frames(L))
+        reps = self.replicas()
+        per = -(-N // len(reps))
+        parts = []
+        for i, rep in enumerate(reps[:-(-N // per)]):
+            rows, dev = slice(i * per, (i + 1) * per), rep[0]
+            parts.append(self._grid(chunks[rows].to(dev), lengths[rows], s,
+                                    {k: v[rows].to(dev) for k, v in draws.items()},
+                                    None if f0 is None else f0[rows].to(dev), rep))
+        return parts[0] if len(parts) == 1 else torch.cat([o.to(reps[0][0]) for o in parts])
+
+    def _frames(self, L: int) -> int:
+        """The synthesizer's frames for chunks of ``L`` samples: HuBERT's
+        frames at 100 Hz, and with f0 no more than its ``L // 160``."""
+        t100 = 2 * int(conv_output_lengths(self.hubert.cfg, torch.tensor(L)))
+        return min(L // WINDOW, t100) if self.use_f0 else t100
+
+    def _chunk_f0(self, chunks: torch.Tensor, s: ConvertSettings) -> torch.Tensor:
+        """f0 per chunk (the chunk batch is the f0 batch), autotuned where
+        asked and shifted: (N, L // 160)."""
+        f0 = self.pitch.method_fn(s.f0_method, s.f0_min, s.f0_max, s.filter_radius,
+                                  s.crepe_hop_length)(chunks)[:, :chunks.shape[1] // WINDOW]
+        if s.f0_autotune:
+            f0 = autotune(f0)
+        return shift_semitones(f0, np.float32(s.f0_up_key))
+
     def _grid(self, chunks: torch.Tensor, lengths: np.ndarray, s: ConvertSettings,
-              draws, f0: torch.Tensor | None = None) -> torch.Tensor:
-        """The device core: the chunk batch (N, L) -> the synthesizer's
-        float32 output (N, T_out) after the per-chunk RMS mix. ``f0`` (N, L //
-        160), shifted, replaces the per-chunk f0 (the hybrid merge's)."""
-        dev = self.device
+              draws: dict, f0: torch.Tensor | None, replica: tuple) -> torch.Tensor:
+        """The device core on one replica (``replicas``): the chunk batch (N,
+        L) on its device, with its f0 (N, L // 160, shifted; None without
+        f0) and its rows of the draws -> the synthesizer's float32 output (N,
+        T_out) after the per-chunk RMS mix."""
+        dev, synth, hubert, bank = replica
         N, L = chunks.shape
         F = L // WINDOW
         lengths_t = torch.as_tensor(lengths, device=dev)
-        if self.use_f0 and f0 is None:  # f0 per chunk (the chunk batch is the f0 batch)
-            f0 = self.pitch.method_fn(s.f0_method, s.f0_min, s.f0_max, s.filter_radius,
-                                      s.crepe_hop_length)(chunks)[:, :F]
-            if s.f0_autotune:
-                f0 = autotune(f0)
-            f0 = shift_semitones(f0, np.float32(s.f0_up_key))
         if self.use_f0:
             pitch = coarse_f0(f0, s.f0_min, s.f0_max)
-        feats = self.hubert.extract_features(chunks, lengths_t)
+        feats = hubert.extract_features(chunks, lengths_t)
         feats0 = feats
-        if self.index_bank is not None and s.index_rate > 0:
-            if isinstance(self.index_bank, tuple):
-                feats = blend_into_q(feats, *self.index_bank, s.index_rate)
+        if bank is not None and s.index_rate > 0:
+            if isinstance(bank, tuple):
+                feats = blend_into_q(feats, *bank, s.index_rate)
             else:
-                feats = blend_into(feats, self.index_bank, s.index_rate)
+                feats = blend_into(feats, bank, s.index_rate)
         # 50 Hz -> 100 Hz
         feats = torch.repeat_interleave(feats, 2, dim=1)
         T100 = feats.shape[1]
@@ -411,12 +490,11 @@ class VoiceConverter:
             feats0 = torch.repeat_interleave(feats0, 2, dim=1)[:, :Tp]
             pitchff = torch.where(f0[:, :Tp] > 0, 1.0, s.protect)[..., None]
             feats = feats * pitchff + feats0 * (1.0 - pitchff)
-        draws = draws or self.draws(N, Tp)
         sid = torch.full((N,), s.sid, device=dev, dtype=torch.int64)
         if self.use_f0:
-            o, _, _ = self.synth.infer(feats, p_len, pitch[:, :Tp], f0[:, :Tp], sid, **draws)
+            o, _, _ = synth.infer(feats, p_len, pitch[:, :Tp], f0[:, :Tp], sid, **draws)
         else:
-            o, _, _ = self.synth.infer(feats, p_len, None, None, sid, **draws)
+            o, _, _ = synth.infer(feats, p_len, None, None, sid, **draws)
         o = o[:, 0].float()
         if s.rms_mix_rate < 1:
             o = change_rms(chunks, SR, o, self.tgt_sr, s.rms_mix_rate)

@@ -12,8 +12,17 @@ fp16 ``.pth`` in the reference's inference format.
 
 Each step's random draws come from ``Trainer.draws(batch, global_step)``,
 so a run resumed from a checkpoint draws what an uninterrupted one would.
-The JAX package's device mesh is one device here: ``n_devices`` may be None
-or 1.
+
+Several devices (rvc_tpu/pipelines/train.py:85-87): the run takes
+``n_devices`` ranks, or every card when it is None (1 on the CPU), then the
+gcd with the batch size (``parallel.mesh.make_mesh``; more ranks than cards
+raises). At more than one rank it spawns a process a rank (rank r on
+``cuda:r`` over NCCL, or CPU ranks over gloo with ``device="cpu"``),
+joined through a rendezvous file in the run's directory. Every rank reads
+the same batches, restores the same checkpoint (so a run saved at one
+world size resumes at another) and steps on its rows of each batch
+(``Trainer(world=)``); the evaluation loss is the global mean. Rank 0 alone
+writes TensorBoard, the checkpoints, ``losses.json`` and the exports.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..config import RVCConfig
+from ..parallel.mesh import make_mesh, replicate, spawn
 from ..train.checkpoints import (latest_checkpoint, restore_train_state, save_train_state,
                                  warm_start_)
 from ..train.data import BucketBatcher, RVCDataset
@@ -79,11 +89,19 @@ def _log(writer, trainer: Trainer, run: TrainRunConfig, metrics: dict, step: int
 
 
 def train_model(config: RVCConfig, run: TrainRunConfig) -> str:
-    """Runs the training loop; returns the exported ``.pth`` path."""
-    if run.n_devices not in (None, 1):
-        raise NotImplementedError("training on several cards (DDP) is not ported yet")
+    """Runs the training loop, on ``make_mesh``'s number of ranks; returns
+    the exported ``.pth`` path."""
+    n = make_mesh(run.n_devices, config.train.batch_size, run.device)
     os.makedirs(run.model_dir, exist_ok=True)
-    writer = _writer(run.model_dir)
+    if n == 1:
+        return _train(None, config, run)
+    return spawn(_train, n, run.device, args=(config, run), rendezvous_dir=run.model_dir)[0]
+
+
+def _train(world, config: RVCConfig, run: TrainRunConfig) -> str:
+    """The loop on one process (``world`` None) or on a rank."""
+    lead = world is None or world.rank == 0  # the rank that writes
+    writer = _writer(run.model_dir) if lead else None
 
     train_list: str | list[str] = run.filelist
     eval_batcher = None
@@ -102,7 +120,8 @@ def train_model(config: RVCConfig, run: TrainRunConfig) -> str:
     batcher = BucketBatcher(dataset, config.train.batch_size, seed=config.train.seed)
     steps_per_epoch = max(1, sum(len(v) // config.train.batch_size
                                  for v in batcher.buckets.values()))
-    trainer = Trainer(config, balancer_active=run.balancer_active, device=run.device)
+    trainer = Trainer(config, balancer_active=run.balancer_active, device=run.device,
+                      world=world)
     if run.use_multiscale:
         trainer.use_multiscale()
     state = trainer.init_state(seed=config.train.seed, steps_per_epoch=steps_per_epoch)
@@ -113,12 +132,15 @@ def train_model(config: RVCConfig, run: TrainRunConfig) -> str:
     if ckpt is not None:
         state = restore_train_state(ckpt, trainer, state)
         start_epoch = state.step // steps_per_epoch
-        print(f"resumed {ckpt} at epoch {start_epoch}")
+        if lead:
+            print(f"resumed {ckpt} at epoch {start_epoch}")
     else:
         if run.pretrained_g:
             warm_start_(trainer.synth, run.pretrained_g)
         if run.pretrained_d:
             warm_start_(trainer.disc, run.pretrained_d)
+    if world is not None:
+        replicate(world, (trainer.synth, trainer.disc), state)
 
     best = {"loss": float("inf"), "epoch": -1}
     losses_path = os.path.join(run.model_dir, "losses.json")
@@ -145,8 +167,9 @@ def train_model(config: RVCConfig, run: TrainRunConfig) -> str:
                 mean_mel = float(np.mean(ev_losses))  # best-model tracking on held-out data
                 if writer:
                     writer.add_scalar("eval/loss_mel", mean_mel, global_step)
+        if not lead:
+            continue
         print(f"epoch {epoch}: {time.time() - t0:.1f}s, mel={mean_mel:.3f}")
-
         if (epoch + 1) % run.save_every_epoch == 0 or epoch + 1 == run.total_epochs:
             save_train_state(run.model_dir, trainer, state, global_step)
         if mean_mel < best["loss"]:
@@ -157,6 +180,8 @@ def train_model(config: RVCConfig, run: TrainRunConfig) -> str:
 
     if writer:
         writer.close()
+    if not lead:
+        return os.path.join(run.model_dir, f"{run.export_name}.pth")
     return _export(config, trainer, run, suffix="")
 
 

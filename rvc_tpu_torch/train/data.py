@@ -107,7 +107,11 @@ class RVCDataset:
             spec = np.load(spec_path)
         else:
             spec = spectrogram_np(audio, d.filter_length, d.hop_length, d.win_length)
-            np.save(spec_path, spec)
+            # written whole, then renamed: the ranks of a data-parallel run
+            # read the same files while one of them may be writing
+            tmp = f"{spec_path}.{os.getpid()}.npy"
+            np.save(tmp, spec)
+            os.replace(tmp, spec_path)
         phone = np.repeat(np.load(s.feat_path), 2, axis=0).astype(np.float32)
         n = min(phone.shape[0], MAX_FRAMES)
         phone = phone[:n]

@@ -49,13 +49,17 @@ def generator_loss(disc_gen):
     return loss, per_disc
 
 
-def kl_loss(z_p, logs_q, m_p, logs_p, z_mask) -> torch.Tensor:
+def kl_loss(z_p, logs_q, m_p, logs_p, z_mask, world=None) -> torch.Tensor:
     """VITS prior KL; tensors (B, C, T), mask (B, 1, T). The numerator sums
-    over channels, the denominator counts each valid frame once."""
+    over channels, the denominator counts each valid frame once; with a
+    ``world`` (``parallel.mesh.World``) both are summed over the ranks."""
     z_p, logs_q, m_p, logs_p = (t.float() for t in (z_p, logs_q, m_p, logs_p))
     m = z_mask.float()
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * ((z_p - m_p) ** 2) * torch.exp(-2.0 * logs_p)
+    if world is not None:
+        num, den = world.sum(torch.stack([torch.sum(kl * m), torch.sum(m)]))
+        return num / den
     return torch.sum(kl * m) / torch.sum(m)
 
 
@@ -100,13 +104,17 @@ class MultiScaleMelLoss:
 # ---- the aux losses: TEFS, TSI, harmonic ----
 
 
-def _minmax_scale(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """One min and one max over the whole tensor (the batch included)."""
+def _minmax_scale(x: torch.Tensor, eps: float = 1e-8, world=None) -> torch.Tensor:
+    """One min and one max over the whole tensor (the batch included; with a
+    ``world``, every rank's rows)."""
+    if world is not None:
+        lo, hi = world.extrema(x)
+        return (x - lo) / (hi - lo + eps)
     lo = torch.amin(x)
     return (x - lo) / (torch.amax(x) - lo + eps)
 
 
-def compute_tefs(audio: torch.Tensor, eps: float = 1e-8):
+def compute_tefs(audio: torch.Tensor, eps: float = 1e-8, world=None):
     """(B, T) -> the Hilbert envelope min-max scaled, and the cosine of the
     instantaneous phase's steps (rvc_tpu/train/losses.py:128)."""
     x = audio.float()
@@ -119,7 +127,7 @@ def compute_tefs(audio: torch.Tensor, eps: float = 1e-8):
     else:
         h[1:(n + 1) // 2] = 2
     analytic = torch.fft.ifft(torch.fft.fft(x, dim=-1) * h, dim=-1)
-    env = _minmax_scale(torch.abs(analytic), eps)
+    env = _minmax_scale(torch.abs(analytic), eps, world)
     phase = torch.cos(torch.diff(torch.angle(analytic), dim=-1))
     return torch.nan_to_num(env, nan=eps), torch.nan_to_num(phase, nan=eps)
 
@@ -186,13 +194,14 @@ def hpss(spec: torch.Tensor, kernel_size: int = 31, power: float = 2.0, eps: flo
     return spec * mask_h, spec * mask_p
 
 
-def compute_harmonics(mag: torch.Tensor, kernel_sizes=(3, 7, 13, 19, 29), eps: float = 1e-8):
+def compute_harmonics(mag: torch.Tensor, kernel_sizes=(3, 7, 13, 19, 29), eps: float = 1e-8,
+                      world=None):
     """HPSS at each kernel size, concatenated on the last axis and min-max
     scaled; ``eps`` is the scaling's (``hpss`` keeps its own)."""
     spec = torch.abs(mag.float())
     hs, ps = zip(*(hpss(spec, k) for k in kernel_sizes))
-    harmonic = _minmax_scale(torch.cat(hs, dim=-1), eps)
-    percussive = _minmax_scale(torch.cat(ps, dim=-1), eps)
+    harmonic = _minmax_scale(torch.cat(hs, dim=-1), eps, world)
+    percussive = _minmax_scale(torch.cat(ps, dim=-1), eps, world)
     return torch.nan_to_num(harmonic, nan=eps), torch.nan_to_num(percussive, nan=eps)
 
 
@@ -200,9 +209,11 @@ def combined_aux_loss(original_audio: torch.Tensor, generated_audio: torch.Tenso
                       c_tefs: float = 1.0, c_hd: float = 1.0, c_tsi: float = 1.0,
                       n_mels: int = 128, sample_rate: int = 40000, n_fft: int = 1024,
                       hop_length: int = 320, win_length: int = 1024, fmin: float = 0.0,
-                      fmax: float | None = None, eps: float = 1e-8):
+                      fmax: float | None = None, eps: float = 1e-8, world=None):
     """(harmonic, tefs, tsi) losses of (B, T) waveforms; a loss whose weight
-    is 0 is not computed and is 0 (rvc_tpu/train/losses.py:229)."""
+    is 0 is not computed and is 0 (rvc_tpu/train/losses.py:229). With a
+    ``world`` the min-max scalings span every rank's rows, and each loss is
+    this rank's mean (``World.mean`` of them is the global loss)."""
     zero = generated_audio.new_zeros((), dtype=torch.float32)
     harmonic_loss = tefs_loss = tsi_loss = zero
     if c_hd + c_tsi > 0:
@@ -210,14 +221,14 @@ def combined_aux_loss(original_audio: torch.Tensor, generated_audio: torch.Tenso
                                             win_length, fmin, fmax)
                             for w in (original_audio, generated_audio))
     if c_hd > 0:
-        oh, op = compute_harmonics(org_mag, eps=eps)
-        gh, gp = compute_harmonics(gen_mag, eps=eps)
+        oh, op = compute_harmonics(org_mag, eps=eps, world=world)
+        gh, gp = compute_harmonics(gen_mag, eps=eps, world=world)
         harmonic_loss = torch.mean(torch.abs(gh - oh)) + torch.mean(torch.abs(gp - op))
     if c_tsi > 0:
         tsi_loss = (compute_tsi_loss(org_mag, gen_mag, -1, eps)
                     + compute_tsi_loss(org_mag, gen_mag, -2, eps))
     if c_tefs > 0:
-        ge, gph = compute_tefs(generated_audio, eps)
-        oe, oph = compute_tefs(original_audio, eps)
+        ge, gph = compute_tefs(generated_audio, eps, world)
+        oe, oph = compute_tefs(original_audio, eps, world)
         tefs_loss = torch.mean(torch.abs(ge - oe)) + torch.mean(torch.abs(gph - oph))
     return harmonic_loss, tefs_loss, tsi_loss

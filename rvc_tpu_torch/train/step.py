@@ -47,6 +47,19 @@ state stay float32. float32 math runs with TF32 off. ``Trainer.eval_loss``
 is the JAX ``Trainer.eval_fn``: the generator forward without gradients and
 the sliced mel L1. The JAX package's FlatAdamW and its TPU-layout split of
 the small tensors (``GroupedAdamW``'s ``small_threshold``) are not ported.
+
+``Trainer(world=)`` is the JAX step under its ``('dp',)`` mesh
+(rvc_tpu/pipelines/train.py:85-158): every rank calls ``step`` with the
+same *global* batch and draws (``draws`` draws on the global shape) and
+computes on its own rows (``parallel.mesh.shard_batch``). Each loss is the
+global batch's, made from the ranks' partial results: ``World.mean`` of
+the batch means, the KL's masked sum and mask sum reduced apart, the aux
+losses' min-max scaling over every rank's rows (``World.extrema``); so the
+balancer sees what JAX's sees. The penalty's input gradient is that of the
+global mean (the local loss over W). The parameter gradients are summed
+over the ranks (``World.sum_grads``, one flat buffer a model) before the
+norm and the update, so every rank's parameters stay equal. The metrics
+are the global values; ``viz`` is rank 0's first sample, the batch's first.
 """
 from __future__ import annotations
 
@@ -63,6 +76,7 @@ from ..models.layers import (init_random_, live_weight_norm_, load_numpy_state_d
 from ..models.synthesizer import Synthesizer
 from ..models.wavenet import WN
 from ..ops.mel import mel_spectrogram, spec_to_mel
+from ..parallel.mesh import shard_batch
 from . import balancer as bal
 from . import losses as L
 
@@ -167,10 +181,13 @@ class Trainer:
     over them."""
 
     def __init__(self, config: RVCConfig, dtype: torch.dtype = torch.float32,
-                 balancer_active: bool = True, device=None):
+                 balancer_active: bool = True, device=None, world=None):
+        """``world`` (``parallel.mesh.World``): this rank's share of a
+        data-parallel step, computed on ``world.device``."""
         from ..pipelines.convert import synth_kwargs_from_config
 
-        self.device = resolve_device(device)
+        self.world = world
+        self.device = world.device if world is not None else resolve_device(device)
         set_float32_math()
         t = config.train
         self.config = config
@@ -268,11 +285,24 @@ class Trainer:
         """Held-out evaluation (the JAX ``Trainer.eval_fn``): the generator's
         training forward without gradients, then the mel L1 on its slice.
         ``draws`` as ``step`` takes them (seeded with 0 when absent)."""
-        b = self._tensors(batch)
         if draws is None:
             draws = self.draws(batch, 0)
+        batch, draws = self._local(batch, draws)
+        b = self._tensors(batch)
         y_hat, ids_slice, *_ = self._forward(b, draws)
-        return L.mel_l1(*self._mels(b, y_hat, ids_slice))
+        return self._global(L.mel_l1(*self._mels(b, y_hat, ids_slice)))
+
+    def _local(self, batch: dict, draws: dict) -> tuple[dict, dict]:
+        """This rank's rows of a global batch and its draws (all of them
+        without a world)."""
+        if self.world is None:
+            return batch, draws
+        rows = self.world.rows(len(batch["spec"]))
+        return shard_batch(batch, self.world), {k: v[rows] for k, v in draws.items()}
+
+    def _global(self, x: torch.Tensor) -> torch.Tensor:
+        """A batch mean (or a stack of them) over the global batch."""
+        return x if self.world is None else self.world.mean(x)
 
     def step(self, state: TrainState, batch: dict, draws: dict | None = None,
              keep_grads: bool = False, events: list | None = None):
@@ -288,9 +318,10 @@ class Trainer:
         the start, each later one the end of the stage it names."""
         cfg, d = self.config, self.config.data
         t = cfg.train
-        b = self._tensors(batch)
         if draws is None:
             draws = self.draws(batch, state.step)
+        batch, draws = self._local(batch, draws)
+        b = self._tensors(batch)
         _mark(events, "start")
         y_hat, ids_slice, x_mask, z_mask, (z, z_p, m_p, logs_p, m_q, logs_q) = self._forward(
             b, draws)
@@ -312,16 +343,22 @@ class Trainer:
             alpha = draws["alpha"]
             interp = (alpha * wave_seg + (1.0 - alpha) * fake).requires_grad_()
             loss_interp, _ = L.discriminator_loss(*self.disc(wave_seg, interp)[:2])
+            if self.world is not None:  # the input gradient of the global batch mean
+                loss_interp = loss_interp / self.world.size
             (grad_x,) = torch.autograd.grad(loss_interp, interp, create_graph=True)
             gnorm = torch.sqrt(torch.sum(grad_x.reshape(grad_x.shape[0], -1) ** 2, -1) + 1e-12)
             gp = torch.mean((gnorm - 1.0) ** 2) * t.c_gp
         else:
             gp = torch.zeros_like(loss_disc)
-        loss_d_all, new_bd, _ = bal.balance(
-            state.balancer_d, torch.stack([loss_disc, gp]), self.d_initial,
-            active=self.balancer_active)
+        d_losses = self._global(torch.stack([loss_disc, gp]))
+        loss_disc = d_losses[0]
+        loss_d_all, new_bd, _ = bal.balance(state.balancer_d, d_losses, self.d_initial,
+                                            active=self.balancer_active)
         d_grads = _grads(loss_d_all, d_params)
         _mark(events, "discriminator forward and backward")
+        if self.world is not None:
+            d_grads = self.world.sum_grads(d_grads)
+            _mark(events, "discriminator all-reduce")
         grad_norm_d = state.opt_d.step(d_grads)
         _mark(events, "discriminator update")
 
@@ -331,14 +368,16 @@ class Trainer:
             loss_mel = L.mel_l1(y_mel, y_hat_mel)
         else:
             loss_mel = self.msml(y_hat[:, 0].float(), wave_seg[:, 0].float())
-        loss_kl = L.kl_loss(z_p, logs_q, m_p, logs_p, z_mask)
+        loss_kl = L.kl_loss(z_p, logs_q, m_p, logs_p, z_mask, world=self.world)
         loss_fm = L.feature_loss(fmap_r, fmap_g)
         loss_gen, _ = L.generator_loss(y_d_g)
         harmonic, tefs, tsi = L.combined_aux_loss(
             wave_seg[:, 0].float(), y_hat[:, 0].float(), c_tefs=t.c_tefs, c_hd=t.c_hd,
             c_tsi=t.c_tsi, n_mels=d.n_mel_channels, sample_rate=d.sampling_rate,
             n_fft=d.filter_length, hop_length=d.hop_length, win_length=d.win_length,
-            fmin=d.mel_fmin, fmax=d.mel_fmax, eps=t.eps)
+            fmin=d.mel_fmin, fmax=d.mel_fmax, eps=t.eps, world=self.world)
+        means = self._global(torch.stack([loss_gen, loss_fm, loss_mel, harmonic, tsi, tefs]))
+        loss_gen, loss_fm, loss_mel, harmonic, tsi, tefs = means.unbind()
         loss_g_all, new_bg, _ = bal.balance(
             state.balancer_g,
             torch.stack([loss_gen, loss_fm, loss_mel, loss_kl, harmonic, tsi, tefs]),
@@ -346,6 +385,9 @@ class Trainer:
         _mark(events, "generator losses")
         g_grads = _grads(loss_g_all, state.opt_g.params)
         _mark(events, "generator backward")
+        if self.world is not None:
+            g_grads = self.world.sum_grads(g_grads)
+            _mark(events, "generator all-reduce")
         grad_norm_g = state.opt_g.step(g_grads)
         _mark(events, "generator update")
 

@@ -46,8 +46,7 @@ from test_torch_train_pipeline import tiny_config
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 
-NOT_PORTED = {"RVC_TPU_LoadWhisper", "RVC_TPU_Transcribe", "RVC_TPU_TranscriptionEncoder",
-              "RVC_TPU_MuseAudioFeatures", "RVC_TPU_MuseImageFeatures", "RVC_TPU_MuseTalk"}
+NOT_PORTED = {"RVC_TPU_MuseAudioFeatures", "RVC_TPU_MuseImageFeatures", "RVC_TPU_MuseTalk"}
 CONTRACT = ("RETURN_TYPES", "RETURN_NAMES", "FUNCTION", "CATEGORY", "OUTPUT_NODE",
             "INPUT_IS_LIST", "OUTPUT_IS_LIST")
 LSB = 2  # int16 outputs against JAX's: the conversion's CPU bar
