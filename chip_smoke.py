@@ -1,6 +1,7 @@
 """Smoke run of rvc_tpu_torch on one NVIDIA card: build, check, convert, train,
 separate (VR, MDX-Net, Demucs, BS-RoFormer, Mel-Band RoFormer, Karafan),
-train and convert over several devices, transcribe (Whisper).
+train and convert over several devices, transcribe (Whisper), lip-sync
+(MuseTalk).
 
     python3 chip_smoke.py
 
@@ -204,7 +205,8 @@ Phases, each announced on its own line:
      rest), TFLOP/s, peak memory, busy share; the stems' response to a
      perturbation of 1e-7 of the spectrogram on a window of the song
      (reported); card vs CPU on one 8 s window within phase 5's 4 LSB
-     (every layer; a seeded -60 dB floor under the song, whose empty bands
+     (the first ROFORMER_CPU_DEPTH layers of each model, for the CPU's
+     time; a seeded -60 dB floor under the song, whose empty bands
      otherwise carry the STFT's rounding); the CLI's separate on both
      files; the Karafan recipe on 10 s at speed_preset("Fast") with the Mel
      model for vocals (cut_off 16000: both SRS passes) and phase 22's MDX
@@ -237,7 +239,8 @@ Phases, each announced on its own line:
      float32 stems (phases 22-24); RTF (best and median of 3 after a set-up
      call) beside float32's, stages, TFLOP/s, peak memory, busy share; one
      window a route in bf16 card vs CPU within 5e-2 relative L2 (phase
-     12's bar); the HDemucs BLSTM's recurrence through layers.lstm (a CUDA
+     12's bar; the RoFormers' first ROFORMER_CPU_DEPTH layers, as phase
+     24's); the HDemucs BLSTM's recurrence through layers.lstm (a CUDA
      graph, equal bit for bit to its steps launched one by one) against
      cuDNN's float32 and bf16 LSTMs (times and distances); kernels 1-8
      launched no time.
@@ -249,8 +252,9 @@ Phases, each announced on its own line:
      8's bars, the ranks' parameters equal, kernels 4-7 launched on each
      rank as phase 7 counts a step, each rank's median step ms and its
      gradient all-reduces' ms; (c) convert_batch of 8 songs of 10 s with
-     devices=[cuda:0, cuda:0] int16-equal to devices=None, kernels 1-3
-     launched once a replica, each call's RTF and peak memory;
+     devices=[cuda:0, cuda:0] int16-equal to devices=None (both on cuDNN's
+     deterministic engines), kernels 1-3 launched once a replica, each
+     call's RTF and peak memory;
  28. speech to text (run_whisper): Whisper medium (24 + 24 layers at width
      1024, the multilingual vocabulary) with random weights drawn on the
      card, written as an OpenAI-format .pt and loaded by load_whisper and
@@ -260,7 +264,21 @@ Phases, each announced on its own line:
      teacher-forced through the CPU decoder (argmax equal wherever the top
      two logits differ by more than 1e-4); RVC_TPU_Transcribe end to end on
      the 30 s clip, then RVC_TPU_TranscriptionEncoder; encoder ms, tokens/s,
-     the node's wall, peak memory; kernels 1-8 launched no time.
+     the node's wall, peak memory; kernels 1-8 launched no time;
+ 29. lip sync (run_musetalk): checkpoints of seeded weights at full width
+     (the SD VAE at sd-vae-ft-mse widths with the older attention names,
+     the MuseTalk UNet in float16, S3FD, BiSeNet with its training heads,
+     FAN with 4 modules, Whisper tiny); 50 synthetic 512x512 frames and 2 s
+     of speech through RVC_TPU_MuseImageFeatures (S3FD),
+     RVC_TPU_MuseAudioFeatures and RVC_TPU_MuseTalk (BiSeNet, batch 8): 50
+     frames of the input's shape, finite, in [0, 1]; frames/s;
+     MuseTalkPipeline.process with S3FD, FAN and BiSeNet by stage (pasted
+     on the drawn face's box: S3FD's seeded boxes sit on its anchors);
+     get_landmarks; the VAE's and the UNet's ms and TFLOP/s at batch 8
+     (FLOPs counted on the meta device); peak memory; each network card vs
+     CPU on 2 frames within 1e-4 relative L2, BiSeNet's classes and FAN's
+     landmarks equal on 99.9%, the pasted frames within 2 LSB; kernels 1-8
+     launched no time.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that.
 A kernel's time beside its yardsticks (previous_ms, mma_sync_ms) is
@@ -270,6 +288,7 @@ Without a CUDA card it exits 1 and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -1542,7 +1561,7 @@ def small_batch(batch: dict, frames: int = 48, hop: int = 480) -> dict:
     return small
 
 
-def check_train_vs_cpu(cfg, batch: dict, label: str = "[8/28]",
+def check_train_vs_cpu(cfg, batch: dict, label: str = "[8/29]",
                        multiscale: bool = False) -> tuple:
     """One training step on the card and on the CPU (plain versions) from the
     same weights, batch and draws, at batch 1 and 48 frames. Returns the
@@ -2037,7 +2056,7 @@ def run_train_bf16(cfg, batches: list, small: dict, cpu32, card: str, checks: di
     trainer = Trainer(cfg, dtype=bf16, device="cuda")
     seeded_state(trainer, 0)
     gen = torch.Generator().manual_seed(19)
-    say(f"[19/28] training in bf16: kernels 4-7 in their bf16 form at phase 7's shapes "
+    say(f"[19/29] training in bf16: kernels 4-7 in their bf16 form at phase 7's shapes "
         f"(trainer built in {time.perf_counter() - t0:.1f} s)")
     checks["chain_bf16"], checks["chain_bwd_bf16"] = check_chain_train_bf16(trainer, gen)
     checks["wn_bf16"], checks["wn_bwd_bf16"] = check_wn_train_bf16(
@@ -2045,7 +2064,7 @@ def run_train_bf16(cfg, batches: list, small: dict, cpu32, card: str, checks: di
     checks["wn_stack_bf16"] = check_wn_stack_bf16(
         trainer, batches[0]["spec_lengths"], np.shape(batches[0]["spec"])[1], gen)
     torch.cuda.empty_cache()
-    run = run_training(trainer, batches, card, "19/28")
+    run = run_training(trainer, batches, card, "19/29")
     say(f"  bf16 {run['rate']:.3f} steps/s against float32 {rate32:.3f} (phase 7, this run); "
         f"{card}")
     del trainer
@@ -2182,13 +2201,13 @@ def run_every_loss(cfg, batches: list, card: str, base: dict, checks: dict) -> N
     from rvc_tpu_torch.train.step import Trainer
 
     cfg = all_losses(cfg)
-    say(f"[20/28] every loss: 48k_v2 with c_gp = c_hd = c_tsi = c_tefs = 1 and the multi-scale "
+    say(f"[20/29] every loss: 48k_v2 with c_gp = c_hd = c_tsi = c_tefs = 1 and the multi-scale "
         f"mel loss, on phase 7's batches")
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         trainer = Trainer(cfg, dtype=dtype, device="cuda")
         trainer.use_multiscale()
-        run = run_training(trainer, batches[:1 + PHASE20_STEPS], card, "20/28",
+        run = run_training(trainer, batches[:1 + PHASE20_STEPS], card, "20/29",
                            "48k_v2 with every loss")
         penalty = float(run["state"].balancer_d.hist_losses[1])
         zero = [k for vals in run["losses"] for k in ("harmonic_loss", "tsi_loss", "tefs_loss")
@@ -2206,7 +2225,7 @@ def run_every_loss(cfg, batches: list, card: str, base: dict, checks: dict) -> N
         del trainer, run
         torch.cuda.empty_cache()
     checks["loss_costs"] = loss_costs(cfg, batches[0], card)
-    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/28] every loss:", True)
+    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/29] every loss:", True)
     # the aux and multi-scale losses are taken on the bf16 generated slice:
     # the CPU bf16 tests' factor 2 (check_train_bf16_vs_cpu)
     check_train_bf16_vs_cpu(cfg, small, cpu32, True, factor=2.0)
@@ -2238,7 +2257,7 @@ def run_nof0(tmp: str, card: str, checks: dict) -> None:
                             seed=1234)
     batches = [b for e in range(1 + PHASE20_STEPS) for b in batcher.epoch(e)][
         :1 + PHASE20_STEPS]
-    say(f"[20/28] no f0: 40k v1 with use_f0 = False on {len(CLIP_SECONDS)} clips at "
+    say(f"[20/29] no f0: 40k v1 with use_f0 = False on {len(CLIP_SECONDS)} clips at "
         f"{cfg.data.sampling_rate} Hz, batches of {np.shape(batches[0]['spec'])[:2]} frames, "
         f"keys {sorted(batches[0])}")
     if "pitch" in batches[0] or "pitchf" in batches[0]:
@@ -2247,14 +2266,14 @@ def run_nof0(tmp: str, card: str, checks: dict) -> None:
         trainer = Trainer(cfg, dtype=dtype, device="cuda")
         if type(trainer.synth.dec).__name__ != "Generator":
             fail(f"the no-f0 decoder is {type(trainer.synth.dec).__name__}")
-        run = run_training(trainer, batches, card, "20/28", "40k no-f0")
+        run = run_training(trainer, batches, card, "20/29", "40k no-f0")
         checks[f"nof0_{str(dtype).split('.')[-1]}"] = dict(rate=run["rate"],
                                                            launches=run["launches"])
         if dtype == torch.float32:
             check_export(cfg, trainer, tmp, filelist)
         del trainer, run
         torch.cuda.empty_cache()
-    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/28] no f0:")
+    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/29] no f0:")
     check_train_bf16_vs_cpu(cfg, small, cpu32)
 
 
@@ -2376,7 +2395,7 @@ def run_unchecked_presets(settings, card: str) -> dict:
         vc = make_random_converter(name, seed=seed, chunking=CHUNKING, index_rows=BANK_ROWS,
                                    device="cuda")
         dec = vc.synth.dec
-        say(f"[21/28] {name} at full width (converter built in {time.perf_counter() - t0:.1f} "
+        say(f"[21/29] {name} at full width (converter built in {time.perf_counter() - t0:.1f} "
             f"s): upsampling {list(dec.upsample_rates)}, decoder stages of "
             f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
             f"channels, segment {preset(name).train.segment_size} samples")
@@ -2391,7 +2410,7 @@ def run_unchecked_presets(settings, card: str) -> dict:
                     settings)
         del vc, dec
         torch.cuda.empty_cache()
-        check_train_vs_cpu(preset(name), synthetic_batch(preset(name)), f"  [21/28] {name}:")
+        check_train_vs_cpu(preset(name), synthetic_batch(preset(name)), f"  [21/29] {name}:")
     return launched
 
 
@@ -2409,7 +2428,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     vc = main_converter("cuda", bf16)
     say(f"bf16 converter built in {time.perf_counter() - t0:.1f} s")
     shapes = path_shapes(vc, clips[30])
-    say(f"[9/28] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
+    say(f"[9/29] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz")
     gen = torch.Generator().manual_seed(3)
     with torch.no_grad():
@@ -2448,7 +2467,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[10/28] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
+        say(f"[10/29] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
             f"{sr} Hz, peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x (float32 "
             f"in this run {rtf32[sec]:.2f}x), max_memory_allocated "
@@ -2473,7 +2492,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out, sr, launched, wall = counted_convert(vc, audio, settings, counters)
     vc.synth.dec.fuse_group = True
     same = bool(np.array_equal(out, outs[30]))
-    say(f"[11/28] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
+    say(f"[11/29] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
         f"(RTF {30 / wall:.2f}x), launches { {k: v for k, v in launched.items() if v} }, "
         f"bit-identical to the default route: {same} (the default route against itself: "
         f"{bool(np.array_equal(again, outs[30]))})")
@@ -2508,7 +2527,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     a, b = out_gpu.astype(np.float64), out_cpu.astype(np.float64)
     l2 = float(np.linalg.norm(a - b) / np.linalg.norm(b)) if a.shape == b.shape else math.inf
-    say(f"[12/28] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
+    say(f"[12/29] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
         f"differs on {differ:.2%} of frames between them): {len(out_gpu)} vs {len(out_cpu)} "
         f"samples, relative L2 {l2:.4g} (tolerance {BF16_CPU_L2}: bf16 roundings flip "
         f"between the card's sums and the CPU's and the flips travel through the decoder; "
@@ -2608,7 +2627,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
                                          * 32000).astype(np.int16))
     sizes = {k: round(os.path.getsize(p) / 2**20, 1) for k, p in path.items()
              if os.path.exists(p)}
-    say(f"[13/28] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
+    say(f"[13/29] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
 
     # 13. the command line, in process, every count set to 0 just before
     counters = {**launch_counters(), "nearest_rows": (retrieval.nearest_rows, "launches")}
@@ -2673,7 +2692,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
         dec = vc.synth.dec
         label = f"{key} {version}" + ("" if f0 else " no-f0")
         phase = 14 if f0 else 15
-        say(f"[{phase}/28] {label} from files: decoder stages of "
+        say(f"[{phase}/29] {label} from files: decoder stages of "
             f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
             f"channels, HuBERT features D = {vc.hubert.cfg.classifier_proj_size}, "
             f"{type(dec).__name__}")
@@ -2736,7 +2755,7 @@ def run_batch(settings, card: str) -> dict:
                 "nearest_rows_q": 1}
     best, med = 80.0 / min(walls), 80.0 / float(np.median(walls))
     dev_s, down_s, disp_s = shares[int(np.argmin(walls))]
-    say(f"[16/28] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
+    say(f"[16/29] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
         f"{stats['chunk_samples']} samples, wall ms {[round(w * 1e3, 2) for w in walls]}, "
         f"aggregate RTF best {best:.2f}x, median {med:.2f}x; stats of the best: device_s "
         f"{dev_s:.4f} ({dev_s / min(walls):.1%} of the wall), download_s {down_s:.4f} "
@@ -2903,7 +2922,7 @@ def run_train_from_dataset(tmp: str, settings, card: str, checks: dict) -> dict:
     hub_state = write_hubert_safetensors(path["hubert"], HubertConfig(), seed=21)
     rmvpe_state = write_rmvpe_pt(path["rmvpe"], seed=22)
     odd_g, odd_d = write_pretrained(path["G"], path["D"], cfg, seed=23)
-    say(f"[17/28] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
+    say(f"[17/29] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
         f"pretrained G and D ({odd_g} and {odd_d} of another shape) written in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -3180,7 +3199,7 @@ def check_host_library() -> dict:
     nrms = slicer.frame_rms_numpy(x, sl.win_size, sl.hop_size)
     rms_err = float(np.max(np.abs(rms - nrms) / np.maximum(nrms, 1e-9)))
     tags, ntags = sl._silence_tags(rms), sl._silence_tags_numpy(rms)
-    say(f"[18/28] host library {os.path.relpath(lib._name, REPO)} built and loaded in "
+    say(f"[18/29] host library {os.path.relpath(lib._name, REPO)} built and loaded in "
         f"{build_s:.2f} s: peak_quantize_i16 on 30 s equal to numpy's {np.array_equal(q, nq)} "
         f"(peak {peak} / {npeak}); frame_rms of {len(rms)} frames within {rms_err:.3g} "
         f"relative of numpy's float32 sums (tolerance {RMS_REL}); the slicer's {len(tags)} "
@@ -3402,10 +3421,11 @@ def write_mdx_onnx(path: str, net, seed: int) -> dict:
 
 def network_flops(make_net, shape, device: str = "meta") -> float:
     """Multiply-adds x 2 of one forward of the net ``make_net()`` returns,
-    on an input of ``shape``, counted from the shapes each conv, transposed
-    conv, linear, LSTM and attention (``models.htdemucs``'s
-    ``MultiheadAttention`` and ``LocalState`` products, the RoFormers'
-    ``Attention``) sees, by forward hooks. On the meta device no arithmetic runs; ``device`` "cuda" runs
+    on an input of ``shape`` (or inputs of a list of shapes), counted from
+    the shapes each conv, transposed conv, linear, LSTM and attention
+    (``models.htdemucs``'s ``MultiheadAttention`` and ``LocalState``
+    products, the RoFormers' ``Attention``, MuseTalk's VAE and UNet
+    attention) sees, by forward hooks. On the meta device no arithmetic runs; ``device`` "cuda" runs
     one forward of the net, which may be one that exists already (meta
     unrolls an LSTM step by step on the host)."""
     import torch
@@ -3413,6 +3433,8 @@ def network_flops(make_net, shape, device: str = "meta") -> float:
 
     from rvc_tpu_torch.models.bs_roformer import Attention as RoformerAttention
     from rvc_tpu_torch.models.htdemucs import LocalState, MultiheadAttention
+    from rvc_tpu_torch.models.musetalk.unet import CrossAttention
+    from rvc_tpu_torch.models.musetalk.vae import AttentionBlock
 
     total = [0.0]
 
@@ -3438,15 +3460,22 @@ def network_flops(make_net, shape, device: str = "meta") -> float:
         elif isinstance(m, RoformerAttention):  # q k^T and p v a head (projections: Linear)
             B, N, _ = x.shape
             total[0] += 4.0 * B * m.heads * N * N * m.dim_head
+        elif isinstance(m, AttentionBlock):  # q k^T and p v over the H W positions
+            B, C, H, W = x.shape
+            total[0] += 4.0 * B * (H * W) ** 2 * C
+        elif isinstance(m, CrossAttention):  # q k^T and p v over the heads (projections: Linear)
+            B, T, _ = x.shape
+            total[0] += 4.0 * B * T * (inp[1] if len(inp) > 1 else x).shape[1] * m.to_q.out_features
 
     kinds = (nn.modules.conv._ConvNd, nn.Linear, nn.LSTM, MultiheadAttention, LocalState,
-             RoformerAttention)
+             RoformerAttention, AttentionBlock, CrossAttention)
+    shapes = shape if isinstance(shape[0], (tuple, list)) else [shape]
     with torch.device(device):
         net = make_net()
         handles = [m.register_forward_hook(hook) for m in net.modules() if isinstance(m, kinds)]
         try:
             with torch.no_grad():
-                net(torch.empty(shape))
+                net(*[torch.empty(s) for s in shapes])
         finally:
             for h in handles:
                 h.remove()
@@ -3606,7 +3635,7 @@ def run_separation(tmp: str, card: str) -> dict:
     song = song_stereo(SEP_SECONDS)
     flops = {"VR": network_flops(lambda: CascadedASPPNet(n_fft_vr), (1, 2, 673, 512)),
              "MDX": network_flops(ConvTDFNetTrim, (1, 4, 256, 3072))}
-    say(f"[22/28] separation at full width: VR CascadedASPPNet({n_fft_vr}) from a .pth "
+    say(f"[22/29] separation at full width: VR CascadedASPPNet({n_fft_vr}) from a .pth "
         f"(4band_v2, {FOURBAND_V2_PARAM['bins'] + 1} bins, window 512, offset 128, agg 10, mirroring), "
         f"{flops['VR'] / 1e9:.1f} GFLOP a window; MDX ConvTDFNetTrim(11 blocks, l 3, g 32, "
         f"bn 8, dim_f 3072, GroupNorm2) from an anonymous .onnx (dim_t 256, n_fft 6144, hop "
@@ -3846,7 +3875,7 @@ def run_demucs(tmp: str, card: str) -> dict:
     t1 = time.perf_counter()
     seps = {label: load_separator(route_separator(path), path)  # the card
             for label, path in paths.items()}
-    say(f"[23/28] Demucs at full width: HTDemucs (channels 48, depth 4, nfft 4096, 5 "
+    say(f"[23/29] Demucs at full width: HTDemucs (channels 48, depth 4, nfft 4096, 5 "
         f"transformer layers of 384 x 8 heads, segment {float(HTDEMUCS_KW['segment'])} s with "
         f"use_train_segment), HDemucs (depth 6, BLSTM and LocalState from layer 4, 10 s "
         f"segments), Conv-TasNet (N 256, L 20, B 256, H 512, P 3, X 10, R 4, gLN, 8 s), a bag of "
@@ -4006,6 +4035,8 @@ def write_roformer_ckpt(path: str, state: dict, cfg, lightning: bool,
 
 
 ROFORMER_FLOOR_DB = -60.0  # a seeded noise floor under the card-vs-CPU window
+ROFORMER_CPU_DEPTH = 2  # layers of the card-vs-CPU windows (phases 24 and 26): the CPU's
+# time grows with the depth, and the first layers meet every kind of module
 KARAFAN_SECONDS = 10.0
 STRETCH_TOL = 2e-3  # relative L2, card vs CPU: the CPU tests' bar against JAX
 # (a seeded floor under the card-vs-CPU window and pitch_shift's song; see run_roformer)
@@ -4083,7 +4114,7 @@ def run_roformer(tmp: str, card: str) -> dict:
     written = time.perf_counter() - t0
     t1 = time.perf_counter()
     seps = {label: load_separator(route_separator(path), path) for label, path in paths.items()}
-    say(f"[24/28] RoFormers at full width: a BS-RoFormer as a Lightning .ckpt and a Mel-Band "
+    say(f"[24/29] RoFormers at full width: a BS-RoFormer as a Lightning .ckpt and a Mel-Band "
         f"RoFormer as a bare state dict without freq_indices, seeded weights at the JAX "
         f"initializer's scale (uniform +-1/sqrt(fan_in), gamma 1); written in {written:.1f} s, "
         f"loaded in {time.perf_counter() - t1:.1f} s; {SEP_SECONDS:.0f} s of stereo 44.1 kHz "
@@ -4152,17 +4183,21 @@ def run_roformer(tmp: str, card: str) -> dict:
             f"{rounding_response(sep, window)} LSB by a perturbation of 1e-7 of the "
             f"spectrogram's largest value (the STFT's rounding), on the card")
     for label, sep in seps.items():
-        cpu_sep = type(sep)(states[label], sep.cfg, device="cpu")
-        got = sep.run_inference(clip, 44100)
+        cut = dataclasses.replace(sep.cfg, depth=ROFORMER_CPU_DEPTH)
+        state = {k: v for k, v in states[label].items()
+                 if not (k.startswith("layers.") and int(k.split(".")[1]) >= cut.depth)}
+        card_sep = type(sep)(state, cut)
+        cpu_sep = type(sep)(state, cut, device="cpu")
+        got = card_sep.run_inference(clip, 44100)
         t1 = time.perf_counter()
         ref = cpu_sep.run_inference(clip, 44100)
         lsb = stem_lsb(got, ref)
         say(f"  {label} on one {clip.shape[1] / 44100:.0f} s window with the floor, card vs CPU "
-            f"(all {sep.cfg.depth} layers): max |diff| {lsb} LSB (tolerance {SEP_TOL}); CPU "
-            f"{time.perf_counter() - t1:.1f} s")
+            f"(the first {cut.depth} of its {sep.cfg.depth} layers): max |diff| {lsb} LSB "
+            f"(tolerance {SEP_TOL}); CPU {time.perf_counter() - t1:.1f} s")
         if max(lsb.values()) > SEP_TOL:
             fail(f"{label}: the card's stems disagree with the CPU's")
-        del cpu_sep
+        del card_sep, cpu_sep
 
     # the command line on the song's file: its downmix doubled to stereo
     wav = os.path.join(tmp, "song.wav")
@@ -4298,7 +4333,7 @@ def run_nodes(files: dict, work: str, card: str) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
-    say(f"[25/28] the node graph on the card: phase 22's VR .pth and {SEP_SECONDS:.0f} s song, "
+    say(f"[25/29] the node graph on the card: phase 22's VR .pth and {SEP_SECONDS:.0f} s song, "
         f"phase 13's 48k_v2 .pth, HuBERT, rmvpe.pt and {BANK_ROWS}-row float32 bank, phase 17's "
         f"{TRAIN_SOURCE_SECONDS:g} s source clip")
 
@@ -4537,7 +4572,7 @@ def run_separation_bf16(routes: dict, card: str) -> None:
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     song = song_stereo(SEP_SECONDS)
-    say(f"[26/28] separation in bf16 at full width through load_separator(..., "
+    say(f"[26/29] separation in bf16 at full width through load_separator(..., "
         f"dtype=torch.bfloat16): {', '.join(routes)} on phases 22-24's files and "
         f"{SEP_SECONDS:.0f} s song; each stem against the same call's float32 stems (phases "
         f"22-24) within {SEP_BF16_L2:g} relative L2")
@@ -4619,10 +4654,15 @@ def run_separation_bf16(routes: dict, card: str) -> None:
         clip = bf16_window(label, sep, song)
         cpu = load_separator(route_separator(path), path, 10.0, device="cpu",
                              dtype=torch.bfloat16)
+        depth = ""
+        if "RoFormer" in label:  # the first layers only, as phase 24's window
+            depth = f" (the first {ROFORMER_CPU_DEPTH} of its {len(sep.model.layers)} layers)"
+            for s_ in (sep, cpu):
+                s_.model.layers = s_.model.layers[:ROFORMER_CPU_DEPTH]
         got = sep.run_inference(clip, 44100)
         t1 = time.perf_counter()
         cpu_l2 = stem_l2(got, cpu.run_inference(clip, 44100))
-        say(f"  {label} bf16 on {clip.shape[1] / 44100:.2f} s, card vs CPU: relative L2 "
+        say(f"  {label} bf16 on {clip.shape[1] / 44100:.2f} s{depth}, card vs CPU: relative L2 "
             + ", ".join(f"{k} {v:.4g}" for k, v in cpu_l2.items())
             + f" (tolerance {SEP_BF16_L2:g}, phase 12's: bf16 roundings flip between the "
             f"card's sums and the CPU's); CPU {time.perf_counter() - t1:.1f} s")
@@ -4699,8 +4739,8 @@ def run_several_cards(cfg, batches: list, card: str, tmp: str) -> dict:
     steps: the first against the one-process step at batch 4 on the same
     draws at phase 8's bars, the ranks' parameters equal, kernels 4-7
     counted on each rank; (c) convert_batch of 8 songs of 10 s with
-    devices=[cuda:0, cuda:0] against devices=None, int16 equal. Returns the
-    launches."""
+    devices=[cuda:0, cuda:0] against devices=None, int16 equal on cuDNN's
+    deterministic engines. Returns the launches."""
     import torch
 
     from rvc_tpu_torch.parallel import mesh
@@ -4726,7 +4766,7 @@ def run_several_cards(cfg, batches: list, card: str, tmp: str) -> dict:
             and all(torch.equal(one["params"][0][k], plain["params"][0][k])
                     for k in plain["params"][0]))
     ar = sum(v for k, v in one["stages"][0].items() if k.endswith("all-reduce"))
-    say(f"[27/28] several cards, 48k_v2 at batch {TRAIN_BATCH} on phase 7's batch: (a) a world "
+    say(f"[27/29] several cards, 48k_v2 at batch {TRAIN_BATCH} on phase 7's batch: (a) a world "
         f"of 1 over NCCL, cuDNN's and PyTorch's deterministic algorithms on: the dp step bit for "
         f"bit the plain step: {same} (metrics, every parameter, digest); step ms "
         f"{one['wall_ms'][0]:.2f} against {plain['wall_ms'][0]:.2f}, the two gradient "
@@ -4795,13 +4835,25 @@ def run_several_cards(cfg, batches: list, card: str, tmp: str) -> dict:
         say(f"  (c) convert_batch of 8 songs of 10 s, devices={devices}: wall "
             f"{walls[label] * 1e3:.2f} ms, aggregate RTF {80.0 / walls[label]:.2f}x, launches "
             f"{launched[label]}, max_memory_allocated {peak:.2f} GiB")
+    # the outputs compared come from calls on cuDNN's deterministic engines:
+    # its free engines sum with atomics, and a float32 convert_batch is then
+    # 1 LSB from itself run to run (ROADMAP §3; the timed calls above stay free)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, devices in (("one", None), ("split", ["cuda:0", "cuda:0"])):
+            vc.devices = devices
+            outs[label] = vc.convert_batch(songs, settings=settings)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     equal = all(np.array_equal(a, b) and sa == sb for (a, sa), (b, sb)
                 in zip(outs["one"], outs["split"]))
     lsb = max(int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
               for (a, _), (b, _) in zip(outs["one"], outs["split"]))
-    say(f"  the split chunk batch's int16 output equal to one device's: {equal} (max |diff| "
-        f"{lsb} LSB; RMVPE once over the undivided batch, HuBERT, kernels 1-3 and the rest of "
-        f"the synthesizer on each replica's rows); {card}")
+    say(f"  the split chunk batch's int16 output equal to one device's, both on cuDNN's "
+        f"deterministic engines: {equal} (max |diff| {lsb} LSB; RMVPE once over the undivided "
+        f"batch, HuBERT, kernels 1-3 and the rest of the synthesizer on each replica's rows); "
+        f"{card}")
     if not equal:
         fail("convert_batch over two devices differs from one device's")
     if launched["split"] != {k: 2 * v for k, v in launched["one"].items()}:
@@ -4884,7 +4936,7 @@ def run_whisper(tmp: str, card: str) -> None:
     rel = float(torch.linalg.vector_norm(enc - enc_cpu) / torch.linalg.vector_norm(enc_cpu))
     enc_params = sum(p.numel() for p in model.encoder.parameters())
     flops = 2 * enc_params * 1500 + 4 * dims.n_audio_layer * 1500 ** 2 * dims.n_audio_state
-    say(f"[28/28] Whisper medium ({n_params / 1e6:.1f} M parameters; .pt written in "
+    say(f"[28/29] Whisper medium ({n_params / 1e6:.1f} M parameters; .pt written in "
         f"{write_s:.1f} s, loaded in {load_s:.1f} s): the encoder on 30 s {enc_ms:.2f} ms "
         f"({flops / enc_ms / 1e9:.1f} TFLOP/s in float32, TF32 off), card vs CPU relative L2 "
         f"{rel:.3g} (tolerance 1e-4; CPU {cpu_s:.1f} s); {card}")
@@ -4952,6 +5004,352 @@ def run_whisper(tmp: str, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- phase 29: lip sync (MuseTalk: the VAE, the UNet, S3FD, BiSeNet, FAN) ----
+MUSE_FRAMES = 50     # 2 s of video at 25 fps
+MUSE_SIDE = 512      # frame side
+MUSE_TOL = 1e-4      # relative L2 of a network's output, card vs CPU: float32 summed in
+# another order (the CPU tests hold the port to JAX within 1e-5)
+MUSE_LSB = 2         # pasted uint8 frames, card vs CPU: the CPU tests' bar against JAX
+MUSE_AGREE = 0.999   # share of BiSeNet's classes and FAN's landmarks equal card vs CPU
+
+
+def musetalk_state(module, seed: int, device: str = "cuda") -> dict:
+    """Seeded weights of a MuseTalk network, drawn on ``device`` in
+    state_dict order: N(0, 2 / fan_in) for a weight of two or more axes,
+    norm gains 1 + N(0, 0.1²), biases N(0, 0.05²), BatchNorm means
+    N(0, 0.1²) and variances 1 + U(0, 0.2), S3FD's L2Norm scales as built
+    (10, 8, 5). Activations keep their scale through every depth, so the
+    class maps and landmarks are not ties."""
+    import torch
+
+    from rvc_tpu_torch.models.musetalk.face import L2Norm
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    scales = {f"{name}.weight" for name, m in module.named_modules() if isinstance(m, L2Norm)}
+    out = {}
+    for k, t in module.state_dict().items():
+        leaf, shape = k.rsplit(".", 1)[-1], tuple(t.shape)
+        randn = torch.randn(shape, generator=gen, device=device)
+        if k in scales:
+            v = t.to(device).clone()
+        elif leaf == "running_var":
+            v = 1 + 0.2 * torch.rand(shape, generator=gen, device=device)
+        elif leaf == "running_mean":
+            v = 0.1 * randn
+        elif len(shape) >= 2:
+            v = randn * math.sqrt(2.0 / math.prod(shape[1:]))
+        elif leaf == "bias":
+            v = 0.05 * randn
+        else:
+            v = 1 + 0.1 * randn
+        out[k] = v
+    return out
+
+
+def write_musetalk_files(folder: str, seed: int, device: str = "cuda", vae_cfg=None,
+                         unet_cfg=None, fan_modules: int = 4) -> dict:
+    """Checkpoints of seeded weights as the releases ship them, in ``folder``:
+    the VAE (diffusers names, the mid block's attention under the older
+    names ``query``/``key``/``value``/``proj_attn``), the UNet (float16),
+    S3FD, BiSeNet (with its training heads ``conv_out16``/``conv_out32``
+    and ``num_batches_tracked``) and FAN. S3FD's box regressions are drawn
+    at 1e-4 of the rest (the input's pixels are of order 100), and the three
+    coarsest scales' class heads too, their face logit lowered by 10 (no
+    candidate there passes the 0.05 threshold): seeded weights put
+    the best candidate anywhere, a box far from its anchor can miss the
+    frame, and so can those scales' anchors: fc6 (padding 3 and no
+    dilation, as face-alignment's S3FD and the JAX package build it) makes
+    their maps 4 wider than the frame's share. Returns {kind: path}."""
+    import torch
+
+    from rvc_tpu_torch.models.musetalk import face, unet, vae
+
+    made = {"vae": vae.AutoencoderKL(vae_cfg or vae.VAEConfig()),
+            "unet": unet.UNet2DCondition(unet_cfg or unet.UNetConfig()),
+            "s3fd": face.S3FD(), "bisenet": face.BiSeNet(), "fan": face.FAN(fan_modules)}
+    paths = {}
+    for i, (kind, module) in enumerate(made.items()):
+        sd = {k: v.cpu() for k, v in musetalk_state(module, seed + i, device).items()}
+        if kind == "vae":
+            old = {".to_q.": ".query.", ".to_k.": ".key.", ".to_v.": ".value.",
+                   ".to_out.0.": ".proj_attn."}
+            for k in [k for k in sd if ".attentions." in k]:
+                new = k
+                for a, b in old.items():
+                    new = new.replace(a, b)
+                sd[new] = sd.pop(k)
+        elif kind == "unet":
+            sd = {k: v.half() for k, v in sd.items()}
+        elif kind == "s3fd":  # each candidate near its anchor, so that every box meets the frame
+            sd = {k: v * 1e-4 if "_mbox_loc." in k else v for k, v in sd.items()}
+            for head in ("fc7", "conv6_2", "conv7_2"):
+                sd[f"{head}_mbox_conf.weight"] *= 1e-4
+                sd[f"{head}_mbox_conf.bias"][1] -= 10.0
+        elif kind == "bisenet":
+            aux = face.BiSeNetOutput(128, 64, 19)
+            for head in ("conv_out16", "conv_out32"):
+                sd.update({f"{head}.{k}": v.cpu() for k, v in
+                           musetalk_state(aux, seed + 10, device).items()})
+            for k in [k for k in sd if k.endswith("running_mean")]:
+                sd[k.replace("running_mean", "num_batches_tracked")] = torch.tensor(100)
+        name = {"vae": "diffusion_pytorch_model.bin", "unet": "pytorch_model.bin",
+                "s3fd": "s3fd.pth", "bisenet": "79999_iter.pth", "fan": "2DFAN4.pth"}[kind]
+        paths[kind] = os.path.join(folder, name)
+        torch.save(sd, paths[kind])
+    return paths
+
+
+MUSE_FACE = (0.2, 0.27)  # the drawn face's half width and half height, in frame sides
+
+
+def muse_face_centre(i: int) -> tuple[float, float]:
+    """The drawn face's centre in frame ``i``, in frame sides."""
+    return 0.5 + 0.02 * np.sin(i / 7), 0.48 + 0.01 * np.cos(i / 5)
+
+
+def muse_face_box(i: int, side: int) -> tuple[int, int, int, int]:
+    """The box (x1, y1, x2, y2) of the face drawn in frame ``i``."""
+    (cx, cy), (ax, ay) = muse_face_centre(i), MUSE_FACE
+    return (int((cx - ax) * side), int((cy - ay) * side), int(np.ceil((cx + ax) * side)),
+            int(np.ceil((cy + ay) * side)))
+
+
+def muse_frames(n: int, side: int, seed: int) -> np.ndarray:
+    """(n, side, side, 3) uint8 RGB: a lit gradient background, a skin-toned
+    face that drifts a few pixels, eyes, and a mouth that opens and closes
+    at about 4 Hz, under seeded noise of +-6."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:side, 0:side].astype(np.float32) / side
+    out = np.empty((n, side, side, 3), np.uint8)
+    for i in range(n):
+        img = np.stack([60 + 80 * xx, 90 + 60 * yy, 140 - 50 * xx], -1)
+        cx, cy = muse_face_centre(i)
+        face_ = ((xx - cx) / MUSE_FACE[0]) ** 2 + ((yy - cy) / MUSE_FACE[1]) ** 2 < 1
+        img[face_] = (205, 160, 130)
+        for ex in (cx - 0.08, cx + 0.08):
+            img[((xx - ex) / 0.03) ** 2 + ((yy - cy + 0.07) / 0.015) ** 2 < 1] = (40, 30, 30)
+        open_ = 0.01 + 0.03 * abs(np.sin(i * np.pi * 4 / 25))
+        img[((xx - cx) / 0.07) ** 2 + ((yy - cy - 0.13) / open_) ** 2 < 1] = (120, 40, 50)
+        img += rng.uniform(-6, 6, img.shape)
+        out[i] = np.clip(img, 0, 255).astype(np.uint8)
+    return out
+
+
+def rel_l2(a, b) -> float:
+    import torch
+
+    a, b = (torch.as_tensor(np.asarray(x.detach().cpu() if hasattr(x, "detach") else x),
+                            dtype=torch.float64) for x in (a, b))
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def run_musetalk(tmp: str, card: str) -> None:
+    """Phase 29: lip sync at full width on the card, from checkpoint files of
+    seeded weights (the VAE at sd-vae-ft-mse widths, the UNet at
+    UNetConfig(), S3FD, BiSeNet with 19 classes, FAN with 4 modules, Whisper
+    tiny through RVC_TPU_LoadWhisper): MUSE_FRAMES synthetic frames and 2 s
+    of speech through RVC_TPU_MuseImageFeatures (S3FD), ..._MuseAudioFeatures
+    and ..._MuseTalk (the parser, batch 8); MuseTalkPipeline.process with
+    S3FD, FAN and the parser for its stages, at the drawn face's size;
+    get_landmarks. Each network card vs CPU on 2 frames within MUSE_TOL,
+    BiSeNet's classes and FAN's landmarks equal on MUSE_AGREE of them, the
+    pasted frames within MUSE_LSB; no kernel of the repository launched."""
+    import torch
+
+    from rvc_tpu_torch.graph import NODE_CLASS_MAPPINGS, musetalk_nodes, nodes
+    from rvc_tpu_torch.models import whisper as W
+    from rvc_tpu_torch.models.musetalk import face, unet, vae
+    from rvc_tpu_torch.ops import retrieval
+    from rvc_tpu_torch.ops.image import resize
+    from rvc_tpu_torch.pipelines import musetalk as P
+
+    device = "cuda"
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    paths = write_musetalk_files(tmp, seed=29)
+    paths["whisper"] = os.path.join(tmp, "tiny.pt")
+    whisper_pt(paths["whisper"], W.WHISPER_SIZES["tiny"], seed=30)
+    write_s = time.perf_counter() - t0
+    sizes = {k: os.path.getsize(p) / 2**20 for k, p in paths.items()}
+    counters = {**training_counters(), "nearest_rows": (retrieval.nearest_rows, "launches")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+
+    frames = muse_frames(MUSE_FRAMES, MUSE_SIDE, seed=29)
+    audio = speech(MUSE_FRAMES / 25.0, 12.0)
+    images = frames.astype(np.float32) / 255.0
+    (whisper,) = NODE_CLASS_MAPPINGS["RVC_TPU_LoadWhisper"]().load(paths["whisper"])
+    wav = nodes.to_audio_dict(audio, 16000)
+    t0 = time.perf_counter()
+    coords, _ = NODE_CLASS_MAPPINGS["RVC_TPU_MuseImageFeatures"]().process(
+        images, face_model_path=paths["s3fd"], use_cache=False)
+    feats, n_feat = NODE_CLASS_MAPPINGS["RVC_TPU_MuseAudioFeatures"]().extract(wav, whisper)
+    (out,) = NODE_CLASS_MAPPINGS["RVC_TPU_MuseTalk"]().process(
+        images, wav, whisper, paths["vae"], paths["unet"],
+        parsing_model_path=paths["bisenet"], coords=coords, batch_size=8)
+    torch.cuda.synchronize()
+    node_s = time.perf_counter() - t0  # the first call: the loads and cuDNN's plans too
+    say(f"[29/29] lip sync at full width: checkpoints written in {write_s:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} MiB" for k, v in sizes.items()) + f"); {MUSE_FRAMES} frames "
+        f"{MUSE_SIDE}x{MUSE_SIDE} and {len(audio) / 16000:.1f} s of speech through "
+        f"RVC_TPU_MuseImageFeatures (S3FD), RVC_TPU_MuseAudioFeatures ({n_feat} frames of "
+        f"{feats.shape[1]} x {feats.shape[2]}) and RVC_TPU_MuseTalk (BiSeNet, batch 8): "
+        f"{node_s:.1f} s with the loads; {card}")
+    if out.shape != images.shape or not np.isfinite(out).all() or out.min() < 0 or out.max() > 1:
+        fail(f"RVC_TPU_MuseTalk gave {out.shape}, range [{out.min()}, {out.max()}]")
+    if n_feat != MUSE_FRAMES or len(coords) != MUSE_FRAMES:
+        fail(f"{n_feat} feature windows and {len(coords)} boxes for {MUSE_FRAMES} frames")
+
+    # the pipeline with detection, landmarks and the parser, by stage, on the
+    # networks the nodes keep (and FAN), warm. S3FD runs on every frame and
+    # its time counts, but its seeded boxes sit on its anchors (the box heads
+    # are quiet), far smaller than the drawn face; the stages after it take
+    # the drawn face's box, so that the crops, the blur and the paste run at
+    # a face's size
+    m = whisper()
+    a2f = P.Audio2Feature(m["model"], m["dims"], device=device)
+    nets = {k: musetalk_nodes._model(kind, paths[kind]) for k, kind in
+            (("vae", "vae"), ("unet", "unet"), ("face", "s3fd"), ("parse", "bisenet"))}
+    nets["fan"] = face.load_fan(paths["fan"], device=device)
+    pipe = P.MuseTalkPipeline(nets["vae"], nets["unet"], a2f, face=nets["face"],
+                              parse=nets["parse"], fan=nets["fan"], device=device)
+    lms, found = [], []
+    landmarks, detect = pipe.get_landmarks, pipe.detect_faces
+    pipe.get_landmarks = lambda *a, **k: lms.extend(landmarks(*a, **k)) or lms
+    faces = [muse_face_box(i, MUSE_SIDE) for i in range(MUSE_FRAMES)]
+    pipe.detect_faces = lambda fr: found.extend(detect(fr)) or faces[:len(fr)]
+    stages: dict = {}
+    t0 = time.perf_counter()
+    got = pipe.process(list(frames), audio, stages=stages)
+    wall = time.perf_counter() - t0
+    del pipe.get_landmarks, pipe.detect_faces
+    refined = [P.refine_box_with_landmarks(b, p_) for b, p_ in zip(faces, lms)]
+
+    def sides(bs):
+        return "x".join(f"{np.median([b[k + 2] - b[k] for b in bs]):.0f}" for k in (0, 1))
+
+    say(f"  MuseTalkPipeline.process with S3FD, FAN (get_landmarks: {len(lms)} x "
+        f"{lms[0].shape}) and BiSeNet: {wall:.2f} s = {len(got) / wall:.2f} frames/s end to end; "
+        f"median box w x h px: S3FD's {sides(found)} (not used), the drawn face's "
+        f"{sides(faces)}, after FAN {sides(refined)}; stages ms (the card synchronized at each "
+        f"end): " + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in stages.items()))
+    if len(got) != MUSE_FRAMES or any(f.shape != frames[0].shape for f in got):
+        fail("MuseTalkPipeline.process gave frames of another count or shape")
+    if len(lms) != MUSE_FRAMES or not all(np.isfinite(p_).all() for p_ in lms):
+        fail("get_landmarks gave no finite 68 points a frame")
+
+    # the networks alone, batch 8, and their FLOPs counted on the meta device
+    B = 8
+    x8 = torch.randn(B, 3, 256, 256, device=device)
+    lat8 = torch.randn(B, 8, 32, 32, device=device)
+    ctx8 = torch.randn(B, 10, 384, device=device)
+    z8 = torch.randn(B, 4, 32, 32, device=device)
+    t8 = torch.zeros(B, device=device)
+    with torch.no_grad():
+        enc_ms = timed(lambda: nets["vae"].encode(x8), reps=3, warmup=1)
+        dec_ms = timed(lambda: nets["vae"].decode(z8), reps=3, warmup=1)
+        unet_ms = timed(lambda: nets["unet"](lat8, t8, ctx8), reps=3, warmup=1)
+    enc_f = network_flops(lambda: vae.Encoder(vae.VAEConfig()), (B, 3, 256, 256))
+    dec_f = network_flops(lambda: vae.Decoder(vae.VAEConfig()), (B, 4, 32, 32))
+    unet_f = network_flops(lambda: unet.UNet2DCondition(unet.UNetConfig()),
+                           [(B, 8, 32, 32), (B,), (B, 10, 384)])
+    n_unet = sum(p.numel() for p in nets["unet"].parameters())
+    n_vae = sum(p.numel() for p in nets["vae"].parameters())
+    say(f"  batch {B}, CUDA events (3 after a warm-up), float32 with TF32 off: VAE encode "
+        f"{enc_ms:.2f} ms ({enc_f / 1e12:.3f} TFLOP, {enc_f / enc_ms / 1e9:.1f} TFLOP/s), VAE "
+        f"decode {dec_ms:.2f} ms ({dec_f / 1e12:.3f} TFLOP, {dec_f / dec_ms / 1e9:.1f} TFLOP/s), "
+        f"UNet {unet_ms:.2f} ms ({unet_f / 1e12:.3f} TFLOP, {unet_f / unet_ms / 1e9:.1f} "
+        f"TFLOP/s); UNet {n_unet / 1e6:.1f} M parameters, VAE {n_vae / 1e6:.1f} M; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # card against CPU: each network on 2 frames with the same weights
+    t0 = time.perf_counter()
+    cpu = {"vae": vae.AutoencoderKL(nets["vae"].cfg), "unet": unet.UNet2DCondition(nets["unet"].cfg),
+           "face": face.S3FD(), "parse": face.BiSeNet(), "fan": face.FAN(nets["fan"].num_modules)}
+    for k, net in cpu.items():
+        net.load_state_dict(nets[k].state_dict())
+        net.eval()
+    two = list(frames[:2])
+    S = MUSE_SIDE  # the second box leaves the frame
+    given = [(S * 30 // 100, S * 27 // 100, S * 72 // 100, S * 78 // 100),
+             (S * 58 // 100, S * 49 // 100, S * 105 // 100, S * 104 // 100)]
+    crops = [f[y1:y2, x1:x2] for f, (x1, y1, x2, y2) in zip(two, given)]
+    cpu_pipe = P.MuseTalkPipeline(cpu["vae"], cpu["unet"], P.Audio2Feature(
+        W.load_whisper(paths["whisper"], device="cpu")[0], device="cpu"),
+        parse=cpu["parse"], device="cpu")
+    card_pipe = P.MuseTalkPipeline(nets["vae"], nets["unet"], a2f, parse=nets["parse"],
+                                   device=device)
+    # the VAE's encode and decode and the UNet on both devices through the
+    # pipelines (the same crops; each device's own latents downstream), the
+    # VAE's outputs kept on the way
+    seen, hooks = {}, []
+
+    def unet_out(key):
+        def hook(module, args, out):
+            seen[key] = out
+        return hook
+
+    for side, p_ in (("card", card_pipe), ("cpu", cpu_pipe)):
+        for name in ("encode", "decode"):
+            def kept(z, fn=getattr(p_.vae, name), key=(side, name)):
+                seen[key] = fn(z)
+                return seen[key]
+            setattr(p_.vae, name, kept)
+        hooks.append(p_.unet.register_forward_hook(unet_out((side, "UNet"))))
+    short = audio[: int(0.2 * 16000)]  # 10 rows at 50 Hz: 5 frames of features
+    try:
+        pasted = [p_.process(two, short, boxes=given) for p_ in (card_pipe, cpu_pipe)]
+    finally:
+        for p_, hook in zip((card_pipe, cpu_pipe), hooks):
+            del p_.vae.encode, p_.vae.decode
+            hook.remove()
+    lsb = max(int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+              for a, b in zip(*pasted))
+    dists = {"VAE encode": rel_l2(seen["card", "encode"], seen["cpu", "encode"]),
+             "UNet": rel_l2(seen["card", "UNet"], seen["cpu", "UNet"]),
+             "VAE decode": rel_l2(seen["card", "decode"], seen["cpu", "decode"])}
+    pin = np.stack([(resize(im, (512, 512)).astype(np.float32) / 255.0 - P.FaceParser._MEAN)
+                    / P.FaceParser._STD for im in two]).transpose(0, 3, 1, 2)
+    fan_in = np.stack([resize(c, (256, 256)).astype(np.float32) / 255.0
+                       for c in crops]).transpose(0, 3, 1, 2)
+
+    def both(name, fn):
+        with torch.no_grad():
+            a = fn(nets, device)
+            b = fn(cpu, "cpu")
+        if isinstance(a, list):
+            dists[name] = max(rel_l2(u, v) for u, v in zip(a, b))
+        else:
+            dists[name] = rel_l2(a, b)
+        return a, b
+
+    s3fd_in = pipe._s3fd_input(two).cpu()
+    both("S3FD (12 maps)", lambda n, d: n["face"](s3fd_in.to(d)))
+    logits, logits_cpu = both("BiSeNet", lambda n, d: n["parse"](torch.from_numpy(pin).to(d)))
+    heat, heat_cpu = both("FAN", lambda n, d: n["fan"](torch.from_numpy(fan_in).to(d)))
+    cls_eq = float((logits.argmax(1).cpu() == logits_cpu.argmax(1)).float().mean())
+    lm_eq = float((face.heatmaps_to_landmarks(heat).cpu()
+                   == face.heatmaps_to_landmarks(heat_cpu)).all(-1).float().mean())
+    say("  card vs CPU on 2 frames at full width, relative L2: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in dists.items())
+        + f" (tolerance {MUSE_TOL:g}); BiSeNet's classes equal at {cls_eq:.4%} of pixels, FAN's "
+        f"landmarks at {lm_eq:.4%} of points (bar {MUSE_AGREE:.1%}); the pasted frames (boxes "
+        f"given, the parser) within {lsb} LSB (tolerance {MUSE_LSB}); CPU part "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (max(dists.values()) <= MUSE_TOL and cls_eq >= MUSE_AGREE and lm_eq >= MUSE_AGREE
+            and lsb <= MUSE_LSB):
+        fail("lip sync on the card disagrees with the CPU")
+    launched = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    say(f"  kernel launches in phase 29: {launched}; phase 29 {time.perf_counter() - t_phase:.1f} "
+        f"s, max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+    if any(launched.values()):
+        fail("lip sync launched a kernel of the conversion or training path")
+    nodes._CACHE.clear()
+    del nets, cpu, pipe, card_pipe, cpu_pipe, a2f, m, whisper
+    torch.cuda.empty_cache()
+
+
 def keep(path: str, folder: str) -> str:
     """``path`` moved into ``folder`` (out of a phase's temporary directory,
     for a later phase); returns its new path."""
@@ -5001,7 +5399,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi gave nothing"
-    say(f"[1/28] card: {name}, {count} device(s); torch {torch.__version__}, "
+    say(f"[1/29] card: {name}, {count} device(s); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     say(card)
 
@@ -5011,7 +5409,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library()
     info = _cuda.build_info
-    say(f"[2/28] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
+    say(f"[2/29] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
         f"(load {time.perf_counter() - t0:.2f} s)")
     say("ptxas: " + "; ".join(info["ptxas"]))
     say("ptxas C7515 (wgmma serialized): " + (", ".join(info["serialized"]) or "none"))
@@ -5042,7 +5440,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions at the 30 s conversion's shapes
     shapes = path_shapes(vc, clips[30])
-    say(f"[3/28] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
+    say(f"[3/29] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz, {shapes['T50']} HuBERT frames per chunk")
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -5098,7 +5496,7 @@ def main() -> int:
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[4/28] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
+        say(f"[4/29] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
             f"peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x, "
             f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -5122,7 +5520,7 @@ def main() -> int:
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     diff = np.abs(out_gpu.astype(np.int32) - out_cpu.astype(np.int32))
     tol = 4
-    say(f"[5/28] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
+    say(f"[5/29] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
         f"max |diff| {diff.max()} LSB, share above {tol} LSB {np.mean(diff > tol):.4%} "
         f"(tolerance {tol} LSB: the same float32 math summed in another order, "
         f"~1e-5 relative before the int16 scaling); CPU run "
@@ -5151,7 +5549,7 @@ def main() -> int:
     seeded_state(trainer, 0)
     say(f"dataset of {len(CLIP_SECONDS)} clips, {len(batches)} batches, trainer built in "
         f"{time.perf_counter() - t0:.1f} s")
-    say(f"[6/28] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
+    say(f"[6/29] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
         f"segment {cfg.train.segment_size} samples, WN over {np.shape(batches[0]['spec'])[1]} "
         f"frames")
     gen = torch.Generator().manual_seed(2)
@@ -5181,7 +5579,7 @@ def main() -> int:
     lap("phase 6 and the dataset")
 
     # 7. the training path
-    run32 = run_training(trainer, batches, card, "7/28")
+    run32 = run_training(trainer, batches, card, "7/29")
     trained, rate32 = run32["launches"], run32["rate"]
     launches = {"fused_resblock_group": launches["resblock"],
                 "banded_rel_attention": launches["attention"],
@@ -5308,6 +5706,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="rvc_stt_") as work:
         run_whisper(work, card)
     lap("phase 28")
+
+    # 29. lip sync: the VAE, the UNet, S3FD, BiSeNet and FAN through the MuseTalk nodes
+    with tempfile.TemporaryDirectory(prefix="rvc_muse_") as work:
+        run_musetalk(work, card)
+    lap("phase 29")
 
     kernels = []
     meta = {

@@ -10,7 +10,9 @@ RMVPE (``E2E`` names), CREPE (torchcrepe's names), the UVR5 VR nets (the
 reference's names, each conv kernel's spatial axes swapped back), the
 MDX-Net Conv-TDF nets, the Demucs family (HDemucs, HTDemucs, Demucs v2
 and Conv-TasNet, the reference's names and shapes), the two RoFormers
-(lucidrains' names) and Whisper (OpenAI's names). For inference a
+(lucidrains' names), Whisper (OpenAI's names) and MuseTalk's networks
+(diffusers' VAE and UNet names, face-alignment's S3FD and FAN names,
+face-parsing's BiSeNet names). For inference a
 ``weight_g``/``weight_v`` pair becomes one ``weight``; for training
 (``fold=False``) the pair is kept under the names of the reference's
 ``G_*.pth`` / ``D_*.pth`` checkpoints, which the port's layers take after
@@ -268,3 +270,51 @@ def whisper_state_dict(params: Mapping) -> dict[str, np.ndarray]:
     return {_dotted(path).replace("token_embedding_weight", "token_embedding.weight"):
             np.ascontiguousarray(arr, np.float32)
             for path, arr in flatten_tree(params.get("params", params)).items()}
+
+
+_DIFFUSERS_KEYS = [
+    (r"time_embedding_linear_(\d)", r"time_embedding.linear_\1"),
+    (r"(down_blocks|up_blocks)_(\d+)_", r"\1.\2."),
+    (r"mid_block_", r"mid_block."),
+    (r"(resnets|attentions)_(\d+)", r"\1.\2"),
+    (r"(down|up)samplers_0_conv", r"\1samplers.0.conv"),
+    (r"transformer_blocks_0", r"transformer_blocks.0"),
+    (r"ff_net_0_proj", r"ff.net.0.proj"),
+    (r"ff_net_2", r"ff.net.2"),
+    (r"to_out_0", r"to_out.0"),
+]
+
+
+def vae_state_dict(params: Mapping) -> dict[str, np.ndarray]:
+    """A JAX ``AutoencoderKL`` tree -> diffusers' names
+    (``encoder/down_blocks_0_resnets_1`` -> ``encoder.down_blocks.0.resnets.1``)."""
+    return _state_dict(params, _regex_rename(_DIFFUSERS_KEYS), fold=False)
+
+
+def unet_state_dict(params: Mapping) -> dict[str, np.ndarray]:
+    """A JAX ``UNet2DCondition`` tree -> diffusers' names
+    (``time_embedding.linear_1``, ``...transformer_blocks.0.ff.net.0.proj``)."""
+    return _state_dict(params, _regex_rename(_DIFFUSERS_KEYS), fold=False)
+
+
+def s3fd_state_dict(params: Mapping) -> dict[str, np.ndarray]:
+    """A JAX ``S3FD`` tree -> face-alignment's names (the same paths, dotted)."""
+    return _state_dict(params, ".".join, fold=False)
+
+
+def bisenet_state_dict(params: Mapping) -> dict[str, np.ndarray]:
+    """A JAX ``BiSeNet`` tree -> face-parsing's names (``cp_resnet`` ->
+    ``cp.resnet``, ``layer1_0`` -> ``layer1.0``, ``downsample_1`` ->
+    ``downsample.1``)."""
+    return _state_dict(params, _regex_rename([
+        (r"^cp_(resnet|conv_avg|arm16|arm32|conv_head16|conv_head32)\.", r"cp.\1."),
+        (r"layer(\d)_(\d)\.", r"layer\1.\2."),
+        (r"\.downsample_(\d)\.", r".downsample.\1."),
+    ]), fold=False)
+
+
+def fan_state_dict(params: Mapping) -> dict[str, np.ndarray]:
+    """A JAX ``FAN`` tree -> face-alignment's names (the hourglass blocks
+    keep their ``b1_4`` names; ``downsample_2`` -> ``downsample.2``)."""
+    return _state_dict(params, _regex_rename([(r"\.downsample_(\d)\.", r".downsample.\1.")]),
+                       fold=False)

@@ -1311,3 +1311,59 @@ def test_pitch_shift_on_the_card_matches_the_cpu(rng, cuda, n_steps):
     got = pitch_shift(y.to(cuda), 44100, n_steps).cpu()
     assert got.shape == ref.shape == y.shape
     assert float((got - ref).norm() / ref.norm()) <= 2e-3
+
+
+@pytest.mark.gpu
+def test_musetalk_networks_on_the_card_match_the_cpu(rng, cuda):
+    """The MuseTalk networks at tiny widths (S3FD, BiSeNet, FAN at full width
+    on small inputs) on the card within 1e-4 relative L2 of the CPU on the
+    same seeded weights, the class map and landmarks equal on 99.9%."""
+    from rvc_tpu_torch.models.musetalk import face, unet, vae
+
+    def rel(a, b):
+        return float((a.cpu().double() - b.double()).norm() / b.double().norm())
+
+    image = torch.from_numpy(rng.uniform(-1, 1, (2, 3, 64, 64)).astype(np.float32))
+    cases = [
+        (vae.AutoencoderKL(vae.VAEConfig(block_out_channels=(32, 64), norm_num_groups=8)),
+         lambda m, d: m(image.to(d))),
+        (unet.UNet2DCondition(unet.UNetConfig(
+            block_out_channels=(32, 64), norm_num_groups=8, attention_head_dim=2,
+            down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+            up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"))),
+         lambda m, d: m(torch.ones(2, 8, 16, 16, device=d), torch.zeros(2, device=d),
+                        torch.full((2, 10, 384), 0.3, device=d))),
+        (face.S3FD(), lambda m, d: torch.cat([o.flatten() for o in m(
+            torch.full((1, 3, 128, 128), 40.0, device=d))])),
+        (face.BiSeNet(), lambda m, d: m(torch.linspace(-2, 2, 2 * 3 * 64 * 64, device=d)
+                                        .reshape(2, 3, 64, 64))),
+        (face.FAN(1), lambda m, d: m(torch.linspace(0, 1, 2 * 3 * 64 * 64, device=d)
+                                     .reshape(2, 3, 64, 64))),
+    ]
+    for i, (model, run) in enumerate(cases):
+        model.load_state_dict(_chip_smoke().musetalk_state(model, 50 + i, "cpu"))
+        model.eval()
+        with torch.no_grad():
+            ref = run(model, "cpu")
+            got = run(model.to(cuda), cuda)
+        assert rel(got, ref) <= 1e-4, type(model).__name__
+        if isinstance(model, face.BiSeNet):
+            assert float((got.argmax(1).cpu() == ref.argmax(1)).float().mean()) >= 0.999
+        if isinstance(model, face.FAN):
+            same = (face.heatmaps_to_landmarks(got).cpu() == face.heatmaps_to_landmarks(ref))
+            assert float(same.all(-1).float().mean()) >= 0.999
+
+
+@pytest.mark.gpu
+def test_image_ops_on_the_card_match_the_cpu(rng, cuda):
+    """ops/image.py's integer paths give the CPU's bytes on the card."""
+    from rvc_tpu_torch.ops import image
+
+    img = torch.from_numpy(rng.integers(0, 256, (301, 257, 3)).astype(np.uint8))
+    for interp in (image.INTER_NEAREST, image.INTER_LINEAR, image.INTER_LANCZOS4):
+        ref = image.resize(img, (256, 256), interp)
+        got = image.resize(img.to(cuda), (256, 256), interp)
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), ref)
+    mask = (img[..., 0] > 128).to(torch.uint8) * 255
+    assert torch.equal(image.gaussian_blur(mask.to(cuda), (31, 31)).cpu(),
+                       image.gaussian_blur(mask, (31, 31)))

@@ -46,7 +46,7 @@ from test_torch_train_pipeline import tiny_config
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 
-NOT_PORTED = {"RVC_TPU_MuseAudioFeatures", "RVC_TPU_MuseImageFeatures", "RVC_TPU_MuseTalk"}
+NOT_PORTED: set = set()  # every node of the JAX package is ported
 CONTRACT = ("RETURN_TYPES", "RETURN_NAMES", "FUNCTION", "CATEGORY", "OUTPUT_NODE",
             "INPUT_IS_LIST", "OUTPUT_IS_LIST")
 LSB = 2  # int16 outputs against JAX's: the conversion's CPU bar

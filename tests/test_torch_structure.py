@@ -1,5 +1,6 @@
-"""Structure of the PyTorch port: it never imports JAX or the JAX package,
-its entry points default to the card and raise without one, its kernel
+"""Structure of the PyTorch port: it never imports JAX, the JAX package or
+OpenCV (the card's machine has none), its entry points default to the card
+and raise without one, its kernel
 wrappers count only real launches, and chip_smoke.py refuses to run (and
 prints no result) without a card or without the rest of the repository."""
 import ast
@@ -16,7 +17,7 @@ import torch
 from rvc_tpu_torch.ops import attention, resblock, retrieval, wavenet
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "rvc_tpu")
+FORBIDDEN = ("jax", "flax", "rvc_tpu", "cv2")
 
 
 def _imported(path: Path) -> set[str]:
@@ -63,8 +64,11 @@ def test_import_leaves_jax_unloaded():
             "rvc_tpu_torch.retrieval.index, rvc_tpu_torch.compat.optimizer_import, "
             "rvc_tpu_torch.compat.torch_export, rvc_tpu_torch.compat.process_ckpt, "
             "rvc_tpu_torch.cli.main, rvc_tpu_torch.pitch.world, rvc_tpu_torch.models.crepe, "
-            "rvc_tpu_torch.native, rvc_tpu_torch.pipelines.separate, chip_smoke; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'rvc_tpu')]; "
+            "rvc_tpu_torch.native, rvc_tpu_torch.pipelines.separate, chip_smoke, "
+            "rvc_tpu_torch.pipelines.musetalk, rvc_tpu_torch.graph.musetalk_nodes, "
+            "rvc_tpu_torch.ops.image, rvc_tpu_torch.ops.monotonic_align, rvc_tpu_torch.models.flows; "
+            "bad = [m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'flax', 'rvc_tpu', 'cv2')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
@@ -130,6 +134,29 @@ def test_separation_defaults_to_the_card(tmp_path):
     wavfile.write(wav, 44100, np.zeros(4410, np.int16))
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["separate", str(wav), str(tmp_path / "out"), "--model", str(tmp_path / "m.pth")])
+
+
+def test_musetalk_entry_points_default_to_the_card(tmp_path):
+    """MuseTalkPipeline, Audio2Feature, FaceParser and the five loaders take
+    the card unless the CPU is asked for, and raise without one (the
+    loaders before they read the file)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from rvc_tpu_torch.models.musetalk import face, unet, vae
+    from rvc_tpu_torch.models.whisper import Whisper, WhisperDims
+    from rvc_tpu_torch.pipelines.musetalk import Audio2Feature, FaceParser, MuseTalkPipeline
+
+    missing = str(tmp_path / "absent.bin")
+    tiny = Whisper(WhisperDims(n_audio_state=64, n_audio_head=2, n_audio_layer=1,
+                               n_text_state=64, n_text_head=2, n_text_layer=1, n_vocab=16))
+    for make in (lambda: MuseTalkPipeline(None, None, None), lambda: Audio2Feature(tiny),
+                 lambda: FaceParser(face.BiSeNet()), lambda: vae.load_vae(missing),
+                 lambda: unet.load_unet(missing), lambda: face.load_s3fd(missing),
+                 lambda: face.load_bisenet(missing), lambda: face.load_fan(missing)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert MuseTalkPipeline(None, None, None, device="cpu").device.type == "cpu"
+    assert Audio2Feature(tiny, device="cpu").device.type == "cpu"
 
 
 def test_wrappers_count_only_kernel_launches(rng):
