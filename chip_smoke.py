@@ -1,7 +1,7 @@
 """Smoke run of rvc_tpu_torch on one NVIDIA card: build, check, convert, train,
 separate (VR, MDX-Net, Demucs, BS-RoFormer, Mel-Band RoFormer, Karafan),
 train and convert over several devices, transcribe (Whisper), lip-sync
-(MuseTalk).
+(MuseTalk), export the synthesizer, train over a (dp, tp) mesh.
 
     python3 chip_smoke.py
 
@@ -279,6 +279,21 @@ Phases, each announced on its own line:
      CPU on 2 frames within 1e-4 relative L2, BiSeNet's classes and FAN's
      landmarks equal on 99.9%, the pasted frames within 2 LSB; kernels 1-8
      launched no time.
+ 30. export (run_export): main_converter's 48k_v2 synthesizer through
+     compat.export at max_frames 2048, infer in float32 and bf16 and
+     infer_mix in float32: the rvc ops in the graph, the blob loaded back
+     and run with a seeded card generator against eager on the same inputs
+     (float32 within 1e-5 of the largest, bf16 within eager's own spread,
+     on cuDNN's deterministic engines), kernels 1 and 2 launched as often
+     as eager, the packing cache hit, export, save and load seconds, blob
+     MB, both calls' ms;
+ 31. dp x tp (run_dp_tp): Trainer(preset("48k_v2"), mesh=) over a 2 x 2
+     (dp, tp) mesh of four gloo ranks on cuda:0, batch 4, 2 steps on phase
+     27's batches and draws: the first step against phase 27(a)'s
+     one-process step at phase 8's bars, the ranks' parameters equal, the
+     local parameters the tp_param_spec slices, kernels 4-7 launched on
+     each rank as one process's steps, step ms, tp gather and norm ms, peak
+     memory per rank.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that.
 A kernel's time beside its yardsticks (previous_ms, mma_sync_ms) is
@@ -1186,13 +1201,14 @@ def check_resblock_train(trainer, gen) -> tuple[dict, dict]:
     nk = dec.num_kernels
     B, T = TRAIN_BATCH, trainer.seg_frames
     tot = {key: dict(ms=0.0, plain_ms=0.0, flops=0.0, bytes=0.0, err=0.0, bound_ms=0.0,
-                     bound_f32_ms=0.0, previous_ms=0.0, pack_ms=0.0, mma_sync_ms=0.0)
+                     bound_f32_ms=0.0, previous_ms=0.0, pack_ms=0.0, mma_sync_ms=0.0,
+                     direct_ms=0.0, device_ms=0.0)
            for key in ("fwd", "bwd")}
     kinks = dict(near_zero=0, explained=0, worst=0.0)
     for i, rate in enumerate(dec.upsample_rates):
         T *= rate
-        stage = {key: dict(ms=0.0, previous_ms=0.0, mma_sync_ms=0.0, pack_ms=0.0)
-                 for key in ("fwd", "bwd")}
+        stage = {key: dict(ms=0.0, previous_ms=0.0, mma_sync_ms=0.0, pack_ms=0.0,
+                           direct_ms=0.0, device_ms=0.0) for key in ("fwd", "bwd")}
         for blk in dec.resblocks[i * nk:(i + 1) * nk]:
             with torch.no_grad():
                 convs = [(w.detach().clone(), b.detach().clone(), k, d)
@@ -1234,8 +1250,15 @@ def check_resblock_train(trainer, gen) -> tuple[dict, dict]:
             run4 = lambda: rb.fused_resblock1(x, convs)  # noqa: E731
             run_prev4 = lambda: previous_chain(x, simt_w)  # noqa: E731
             run_mma4 = lambda: mma_sync_chain(x, convs)  # noqa: E731
+            # the wrapper (through rvc::resblock1) beside the direct launch
+            # it reaches, in turns, and the wrapper's device time alone: the
+            # gap between the first two is the custom op's host time where
+            # the host paces the calls
+            run4d = lambda: rb._resblock1_forward(x, convs)[0]  # noqa: E731
             prev4, mma4 = timed(run_prev4, reps=5), timed(run_mma4, reps=5)
-            ms4 = min(timed(run4, reps=5), timed(run4, reps=5))
+            ms4, direct4 = timed(run4, reps=5), timed(run4d, reps=5)
+            ms4, direct4 = min(ms4, timed(run4, reps=5)), min(direct4, timed(run4d, reps=5))
+            device4 = timed(run4, reps=5, device_only=True)
             mma4, prev4 = min(mma4, timed(run_mma4, reps=5)), min(prev4, timed(run_prev4, reps=5))
             # the packing of the chain's weights: once a training step
             pack4 = timed(lambda: rb.pack_chain_weights([w for w, _, _, _ in convs]), reps=5)
@@ -1250,7 +1273,8 @@ def check_resblock_train(trainer, gen) -> tuple[dict, dict]:
             prev5 = min(prev5, timed(run_prev, reps=5))
             pack5 = timed(lambda: rb.pack_backward_weights(convs), reps=5)
             for key, vals in (("fwd", dict(ms=ms4, previous_ms=prev4, mma_sync_ms=mma4,
-                                           pack_ms=pack4)),
+                                           pack_ms=pack4, direct_ms=direct4,
+                                           device_ms=device4)),
                               ("bwd", dict(ms=ms5, previous_ms=prev5, pack_ms=pack5))):
                 for name, val in vals.items():
                     stage[key][name] += val
@@ -1270,7 +1294,8 @@ def check_resblock_train(trainer, gen) -> tuple[dict, dict]:
                 t["bytes"] += nbytes
                 t["bound_ms"] += bound_tc(flops, nbytes)[0]
                 t["bound_f32_ms"] += bound(flops, nbytes)[0]
-            say(f"  chain x ({B}, {T}, {C}), k {k}: kernel 4 ms {ms4:.3f} (previous_ms "
+            say(f"  chain x ({B}, {T}, {C}), k {k}: kernel 4 ms {ms4:.3f} (direct launch "
+                f"{direct4:.3f}, device alone {device4:.3f}; previous_ms "
                 f"{prev4:.3f}, mma_sync_ms {mma4:.3f}, packing {pack4:.3f}, plain {plain4:.3f}, "
                 f"err {err:.3g}), kernel 5 ms {ms5:.3f} (previous_ms {prev5:.3f}, packing "
                 f"{pack5:.3f}, plain {plain5:.3f}; pre-activations "
@@ -1280,7 +1305,8 @@ def check_resblock_train(trainer, gen) -> tuple[dict, dict]:
                 f"(float32 {bound(*cost['fwd'])[0]:.3f} / {bound(*cost['bwd'])[0]:.3f})")
         f4, b5 = stage["fwd"], stage["bwd"]
         n_ch = len(dec.resblocks[i * nk:(i + 1) * nk])
-        say(f"  kernel 4, stage {i + 1} ({n_ch} chains): kernel_ms {f4['ms']:.3f}, previous_ms "
+        say(f"  kernel 4, stage {i + 1} ({n_ch} chains): kernel_ms {f4['ms']:.3f} (direct "
+            f"launch {f4['direct_ms']:.3f}, device alone {f4['device_ms']:.3f}), previous_ms "
             f"{f4['previous_ms']:.3f}, mma_sync_ms {f4['mma_sync_ms']:.3f} (kernel below both: "
             f"{f4['ms'] < min(f4['previous_ms'], f4['mma_sync_ms'])}), pack_ms "
             f"{f4['pack_ms']:.3f}")
@@ -1296,12 +1322,14 @@ def check_resblock_train(trainer, gen) -> tuple[dict, dict]:
 
 def _train_results(tot) -> tuple[dict, dict]:
     """The forward's and the backward's entries of the kernels line, with
-    previous_ms (the SIMT yardstick), pack_ms and, where timed, mma_sync_ms."""
+    previous_ms (the SIMT yardstick), pack_ms and, where timed, mma_sync_ms,
+    direct_ms (the launch without the custom op) and device_ms (the device's
+    work alone)."""
     return tuple(dict(max_abs_err=t["err"], ms=t["ms"], plain_ms=t["plain_ms"],
                       bound_ms=t["bound_ms"], bound_by=bound_tc(t["flops"], t["bytes"])[1],
                       bound_f32_ms=t["bound_f32_ms"], library_ms=None,
-                      **{k: t[k] for k in ("previous_ms", "mma_sync_ms", "pack_ms")
-                         if t.get(k)})
+                      **{k: t[k] for k in ("previous_ms", "mma_sync_ms", "pack_ms",
+                                           "direct_ms", "device_ms") if t.get(k)})
                  for t in tot.values())
 
 
@@ -1561,7 +1589,7 @@ def small_batch(batch: dict, frames: int = 48, hop: int = 480) -> dict:
     return small
 
 
-def check_train_vs_cpu(cfg, batch: dict, label: str = "[8/29]",
+def check_train_vs_cpu(cfg, batch: dict, label: str = "[8/31]",
                        multiscale: bool = False) -> tuple:
     """One training step on the card and on the CPU (plain versions) from the
     same weights, batch and draws, at batch 1 and 48 frames. Returns the
@@ -2056,7 +2084,7 @@ def run_train_bf16(cfg, batches: list, small: dict, cpu32, card: str, checks: di
     trainer = Trainer(cfg, dtype=bf16, device="cuda")
     seeded_state(trainer, 0)
     gen = torch.Generator().manual_seed(19)
-    say(f"[19/29] training in bf16: kernels 4-7 in their bf16 form at phase 7's shapes "
+    say(f"[19/31] training in bf16: kernels 4-7 in their bf16 form at phase 7's shapes "
         f"(trainer built in {time.perf_counter() - t0:.1f} s)")
     checks["chain_bf16"], checks["chain_bwd_bf16"] = check_chain_train_bf16(trainer, gen)
     checks["wn_bf16"], checks["wn_bwd_bf16"] = check_wn_train_bf16(
@@ -2064,7 +2092,7 @@ def run_train_bf16(cfg, batches: list, small: dict, cpu32, card: str, checks: di
     checks["wn_stack_bf16"] = check_wn_stack_bf16(
         trainer, batches[0]["spec_lengths"], np.shape(batches[0]["spec"])[1], gen)
     torch.cuda.empty_cache()
-    run = run_training(trainer, batches, card, "19/29")
+    run = run_training(trainer, batches, card, "19/31")
     say(f"  bf16 {run['rate']:.3f} steps/s against float32 {rate32:.3f} (phase 7, this run); "
         f"{card}")
     del trainer
@@ -2201,13 +2229,13 @@ def run_every_loss(cfg, batches: list, card: str, base: dict, checks: dict) -> N
     from rvc_tpu_torch.train.step import Trainer
 
     cfg = all_losses(cfg)
-    say(f"[20/29] every loss: 48k_v2 with c_gp = c_hd = c_tsi = c_tefs = 1 and the multi-scale "
+    say(f"[20/31] every loss: 48k_v2 with c_gp = c_hd = c_tsi = c_tefs = 1 and the multi-scale "
         f"mel loss, on phase 7's batches")
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         trainer = Trainer(cfg, dtype=dtype, device="cuda")
         trainer.use_multiscale()
-        run = run_training(trainer, batches[:1 + PHASE20_STEPS], card, "20/29",
+        run = run_training(trainer, batches[:1 + PHASE20_STEPS], card, "20/31",
                            "48k_v2 with every loss")
         penalty = float(run["state"].balancer_d.hist_losses[1])
         zero = [k for vals in run["losses"] for k in ("harmonic_loss", "tsi_loss", "tefs_loss")
@@ -2225,7 +2253,7 @@ def run_every_loss(cfg, batches: list, card: str, base: dict, checks: dict) -> N
         del trainer, run
         torch.cuda.empty_cache()
     checks["loss_costs"] = loss_costs(cfg, batches[0], card)
-    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/29] every loss:", True)
+    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/31] every loss:", True)
     # the aux and multi-scale losses are taken on the bf16 generated slice:
     # the CPU bf16 tests' factor 2 (check_train_bf16_vs_cpu)
     check_train_bf16_vs_cpu(cfg, small, cpu32, True, factor=2.0)
@@ -2257,7 +2285,7 @@ def run_nof0(tmp: str, card: str, checks: dict) -> None:
                             seed=1234)
     batches = [b for e in range(1 + PHASE20_STEPS) for b in batcher.epoch(e)][
         :1 + PHASE20_STEPS]
-    say(f"[20/29] no f0: 40k v1 with use_f0 = False on {len(CLIP_SECONDS)} clips at "
+    say(f"[20/31] no f0: 40k v1 with use_f0 = False on {len(CLIP_SECONDS)} clips at "
         f"{cfg.data.sampling_rate} Hz, batches of {np.shape(batches[0]['spec'])[:2]} frames, "
         f"keys {sorted(batches[0])}")
     if "pitch" in batches[0] or "pitchf" in batches[0]:
@@ -2266,14 +2294,14 @@ def run_nof0(tmp: str, card: str, checks: dict) -> None:
         trainer = Trainer(cfg, dtype=dtype, device="cuda")
         if type(trainer.synth.dec).__name__ != "Generator":
             fail(f"the no-f0 decoder is {type(trainer.synth.dec).__name__}")
-        run = run_training(trainer, batches, card, "20/29", "40k no-f0")
+        run = run_training(trainer, batches, card, "20/31", "40k no-f0")
         checks[f"nof0_{str(dtype).split('.')[-1]}"] = dict(rate=run["rate"],
                                                            launches=run["launches"])
         if dtype == torch.float32:
             check_export(cfg, trainer, tmp, filelist)
         del trainer, run
         torch.cuda.empty_cache()
-    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/29] no f0:")
+    small, cpu32 = check_train_vs_cpu(cfg, batches[0], "  [20/31] no f0:")
     check_train_bf16_vs_cpu(cfg, small, cpu32)
 
 
@@ -2395,7 +2423,7 @@ def run_unchecked_presets(settings, card: str) -> dict:
         vc = make_random_converter(name, seed=seed, chunking=CHUNKING, index_rows=BANK_ROWS,
                                    device="cuda")
         dec = vc.synth.dec
-        say(f"[21/29] {name} at full width (converter built in {time.perf_counter() - t0:.1f} "
+        say(f"[21/31] {name} at full width (converter built in {time.perf_counter() - t0:.1f} "
             f"s): upsampling {list(dec.upsample_rates)}, decoder stages of "
             f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
             f"channels, segment {preset(name).train.segment_size} samples")
@@ -2410,7 +2438,7 @@ def run_unchecked_presets(settings, card: str) -> dict:
                     settings)
         del vc, dec
         torch.cuda.empty_cache()
-        check_train_vs_cpu(preset(name), synthetic_batch(preset(name)), f"  [21/29] {name}:")
+        check_train_vs_cpu(preset(name), synthetic_batch(preset(name)), f"  [21/31] {name}:")
     return launched
 
 
@@ -2428,7 +2456,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     vc = main_converter("cuda", bf16)
     say(f"bf16 converter built in {time.perf_counter() - t0:.1f} s")
     shapes = path_shapes(vc, clips[30])
-    say(f"[9/29] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
+    say(f"[9/31] bf16 kernels at the 30 s bf16 conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz")
     gen = torch.Generator().manual_seed(3)
     with torch.no_grad():
@@ -2467,7 +2495,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[10/29] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
+        say(f"[10/31] convert {sec} s in bf16: {len(spans)} chunks, {len(out)} samples at "
             f"{sr} Hz, peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x (float32 "
             f"in this run {rtf32[sec]:.2f}x), max_memory_allocated "
@@ -2492,7 +2520,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out, sr, launched, wall = counted_convert(vc, audio, settings, counters)
     vc.synth.dec.fuse_group = True
     same = bool(np.array_equal(out, outs[30]))
-    say(f"[11/29] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
+    say(f"[11/31] convert 30 s in bf16 with fuse_group=False: wall ms {wall * 1e3:.2f} "
         f"(RTF {30 / wall:.2f}x), launches { {k: v for k, v in launched.items() if v} }, "
         f"bit-identical to the default route: {same} (the default route against itself: "
         f"{bool(np.array_equal(again, outs[30]))})")
@@ -2527,7 +2555,7 @@ def run_bf16(clips: dict, settings, card: str, rtf32: dict, checks: dict) -> dic
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     a, b = out_gpu.astype(np.float64), out_cpu.astype(np.float64)
     l2 = float(np.linalg.norm(a - b) / np.linalg.norm(b)) if a.shape == b.shape else math.inf
-    say(f"[12/29] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
+    say(f"[12/31] 3 s in bf16 on the card vs the CPU, on the card's f0 (RMVPE's own bf16 f0 "
         f"differs on {differ:.2%} of frames between them): {len(out_gpu)} vs {len(out_cpu)} "
         f"samples, relative L2 {l2:.4g} (tolerance {BF16_CPU_L2}: bf16 roundings flip "
         f"between the card's sums and the CPU's and the flips travel through the decoder; "
@@ -2627,7 +2655,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
                                          * 32000).astype(np.int16))
     sizes = {k: round(os.path.getsize(p) / 2**20, 1) for k, p in path.items()
              if os.path.exists(p)}
-    say(f"[13/29] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
+    say(f"[13/31] model files written in {time.perf_counter() - t0:.1f} s (MiB: {sizes})")
 
     # 13. the command line, in process, every count set to 0 just before
     counters = {**launch_counters(), "nearest_rows": (retrieval.nearest_rows, "launches")}
@@ -2692,7 +2720,7 @@ def run_files(tmp: str, settings, card: str, checks: dict) -> dict:
         dec = vc.synth.dec
         label = f"{key} {version}" + ("" if f0 else " no-f0")
         phase = 14 if f0 else 15
-        say(f"[{phase}/29] {label} from files: decoder stages of "
+        say(f"[{phase}/31] {label} from files: decoder stages of "
             f"{[rb.convs1[0].weight.shape[0] for rb in dec.resblocks[::dec.num_kernels]]} "
             f"channels, HuBERT features D = {vc.hubert.cfg.classifier_proj_size}, "
             f"{type(dec).__name__}")
@@ -2755,7 +2783,7 @@ def run_batch(settings, card: str) -> dict:
                 "nearest_rows_q": 1}
     best, med = 80.0 / min(walls), 80.0 / float(np.median(walls))
     dev_s, down_s, disp_s = shares[int(np.argmin(walls))]
-    say(f"[16/29] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
+    say(f"[16/31] convert_batch of 8 songs of 10 s in bf16: {stats['n_chunks']} chunks of "
         f"{stats['chunk_samples']} samples, wall ms {[round(w * 1e3, 2) for w in walls]}, "
         f"aggregate RTF best {best:.2f}x, median {med:.2f}x; stats of the best: device_s "
         f"{dev_s:.4f} ({dev_s / min(walls):.1%} of the wall), download_s {down_s:.4f} "
@@ -2922,7 +2950,7 @@ def run_train_from_dataset(tmp: str, settings, card: str, checks: dict) -> dict:
     hub_state = write_hubert_safetensors(path["hubert"], HubertConfig(), seed=21)
     rmvpe_state = write_rmvpe_pt(path["rmvpe"], seed=22)
     odd_g, odd_d = write_pretrained(path["G"], path["D"], cfg, seed=23)
-    say(f"[17/29] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
+    say(f"[17/31] train {TRAIN_PRESET} from a dataset through the CLI: HuBERT, RMVPE and a "
         f"pretrained G and D ({odd_g} and {odd_d} of another shape) written in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -3199,7 +3227,7 @@ def check_host_library() -> dict:
     nrms = slicer.frame_rms_numpy(x, sl.win_size, sl.hop_size)
     rms_err = float(np.max(np.abs(rms - nrms) / np.maximum(nrms, 1e-9)))
     tags, ntags = sl._silence_tags(rms), sl._silence_tags_numpy(rms)
-    say(f"[18/29] host library {os.path.relpath(lib._name, REPO)} built and loaded in "
+    say(f"[18/31] host library {os.path.relpath(lib._name, REPO)} built and loaded in "
         f"{build_s:.2f} s: peak_quantize_i16 on 30 s equal to numpy's {np.array_equal(q, nq)} "
         f"(peak {peak} / {npeak}); frame_rms of {len(rms)} frames within {rms_err:.3g} "
         f"relative of numpy's float32 sums (tolerance {RMS_REL}); the slicer's {len(tags)} "
@@ -3635,7 +3663,7 @@ def run_separation(tmp: str, card: str) -> dict:
     song = song_stereo(SEP_SECONDS)
     flops = {"VR": network_flops(lambda: CascadedASPPNet(n_fft_vr), (1, 2, 673, 512)),
              "MDX": network_flops(ConvTDFNetTrim, (1, 4, 256, 3072))}
-    say(f"[22/29] separation at full width: VR CascadedASPPNet({n_fft_vr}) from a .pth "
+    say(f"[22/31] separation at full width: VR CascadedASPPNet({n_fft_vr}) from a .pth "
         f"(4band_v2, {FOURBAND_V2_PARAM['bins'] + 1} bins, window 512, offset 128, agg 10, mirroring), "
         f"{flops['VR'] / 1e9:.1f} GFLOP a window; MDX ConvTDFNetTrim(11 blocks, l 3, g 32, "
         f"bn 8, dim_f 3072, GroupNorm2) from an anonymous .onnx (dim_t 256, n_fft 6144, hop "
@@ -3875,7 +3903,7 @@ def run_demucs(tmp: str, card: str) -> dict:
     t1 = time.perf_counter()
     seps = {label: load_separator(route_separator(path), path)  # the card
             for label, path in paths.items()}
-    say(f"[23/29] Demucs at full width: HTDemucs (channels 48, depth 4, nfft 4096, 5 "
+    say(f"[23/31] Demucs at full width: HTDemucs (channels 48, depth 4, nfft 4096, 5 "
         f"transformer layers of 384 x 8 heads, segment {float(HTDEMUCS_KW['segment'])} s with "
         f"use_train_segment), HDemucs (depth 6, BLSTM and LocalState from layer 4, 10 s "
         f"segments), Conv-TasNet (N 256, L 20, B 256, H 512, P 3, X 10, R 4, gLN, 8 s), a bag of "
@@ -4114,7 +4142,7 @@ def run_roformer(tmp: str, card: str) -> dict:
     written = time.perf_counter() - t0
     t1 = time.perf_counter()
     seps = {label: load_separator(route_separator(path), path) for label, path in paths.items()}
-    say(f"[24/29] RoFormers at full width: a BS-RoFormer as a Lightning .ckpt and a Mel-Band "
+    say(f"[24/31] RoFormers at full width: a BS-RoFormer as a Lightning .ckpt and a Mel-Band "
         f"RoFormer as a bare state dict without freq_indices, seeded weights at the JAX "
         f"initializer's scale (uniform +-1/sqrt(fan_in), gamma 1); written in {written:.1f} s, "
         f"loaded in {time.perf_counter() - t1:.1f} s; {SEP_SECONDS:.0f} s of stereo 44.1 kHz "
@@ -4333,7 +4361,7 @@ def run_nodes(files: dict, work: str, card: str) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
-    say(f"[25/29] the node graph on the card: phase 22's VR .pth and {SEP_SECONDS:.0f} s song, "
+    say(f"[25/31] the node graph on the card: phase 22's VR .pth and {SEP_SECONDS:.0f} s song, "
         f"phase 13's 48k_v2 .pth, HuBERT, rmvpe.pt and {BANK_ROWS}-row float32 bank, phase 17's "
         f"{TRAIN_SOURCE_SECONDS:g} s source clip")
 
@@ -4572,7 +4600,7 @@ def run_separation_bf16(routes: dict, card: str) -> None:
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     song = song_stereo(SEP_SECONDS)
-    say(f"[26/29] separation in bf16 at full width through load_separator(..., "
+    say(f"[26/31] separation in bf16 at full width through load_separator(..., "
         f"dtype=torch.bfloat16): {', '.join(routes)} on phases 22-24's files and "
         f"{SEP_SECONDS:.0f} s song; each stem against the same call's float32 stems (phases "
         f"22-24) within {SEP_BF16_L2:g} relative L2")
@@ -4766,7 +4794,7 @@ def run_several_cards(cfg, batches: list, card: str, tmp: str) -> dict:
             and all(torch.equal(one["params"][0][k], plain["params"][0][k])
                     for k in plain["params"][0]))
     ar = sum(v for k, v in one["stages"][0].items() if k.endswith("all-reduce"))
-    say(f"[27/29] several cards, 48k_v2 at batch {TRAIN_BATCH} on phase 7's batch: (a) a world "
+    say(f"[27/31] several cards, 48k_v2 at batch {TRAIN_BATCH} on phase 7's batch: (a) a world "
         f"of 1 over NCCL, cuDNN's and PyTorch's deterministic algorithms on: the dp step bit for "
         f"bit the plain step: {same} (metrics, every parameter, digest); step ms "
         f"{one['wall_ms'][0]:.2f} against {plain['wall_ms'][0]:.2f}, the two gradient "
@@ -4861,7 +4889,8 @@ def run_several_cards(cfg, batches: list, card: str, tmp: str) -> dict:
     vc.devices = None
     del vc
     torch.cuda.empty_cache()
-    return {"dp_rank": ranks[0]["launches"], "replicas": launched["split"]}
+    return {"dp_rank": ranks[0]["launches"], "replicas": launched["split"], "plain": plain,
+            "steps": steps, "draws": draws}
 
 
 # ---- phase 28: speech to text (Whisper medium and the STT nodes) ----
@@ -4936,7 +4965,7 @@ def run_whisper(tmp: str, card: str) -> None:
     rel = float(torch.linalg.vector_norm(enc - enc_cpu) / torch.linalg.vector_norm(enc_cpu))
     enc_params = sum(p.numel() for p in model.encoder.parameters())
     flops = 2 * enc_params * 1500 + 4 * dims.n_audio_layer * 1500 ** 2 * dims.n_audio_state
-    say(f"[28/29] Whisper medium ({n_params / 1e6:.1f} M parameters; .pt written in "
+    say(f"[28/31] Whisper medium ({n_params / 1e6:.1f} M parameters; .pt written in "
         f"{write_s:.1f} s, loaded in {load_s:.1f} s): the encoder on 30 s {enc_ms:.2f} ms "
         f"({flops / enc_ms / 1e9:.1f} TFLOP/s in float32, TF32 off), card vs CPU relative L2 "
         f"{rel:.3g} (tolerance 1e-4; CPU {cpu_s:.1f} s); {card}")
@@ -5190,7 +5219,7 @@ def run_musetalk(tmp: str, card: str) -> None:
         parsing_model_path=paths["bisenet"], coords=coords, batch_size=8)
     torch.cuda.synchronize()
     node_s = time.perf_counter() - t0  # the first call: the loads and cuDNN's plans too
-    say(f"[29/29] lip sync at full width: checkpoints written in {write_s:.1f} s ("
+    say(f"[29/31] lip sync at full width: checkpoints written in {write_s:.1f} s ("
         + ", ".join(f"{k} {v:.1f} MiB" for k, v in sizes.items()) + f"); {MUSE_FRAMES} frames "
         f"{MUSE_SIDE}x{MUSE_SIDE} and {len(audio) / 16000:.1f} s of speech through "
         f"RVC_TPU_MuseImageFeatures (S3FD), RVC_TPU_MuseAudioFeatures ({n_feat} frames of "
@@ -5350,6 +5379,204 @@ def run_musetalk(tmp: str, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- phase 30: Synthesizer.infer / infer_mix exported through the rvc ops ----
+EXPORT_FRAMES = 2048  # rvc_tpu/compat/export.py's max_frames
+EXPORT_ROUNDS = 4  # rounds of 5 timed calls of each form (eager, exported), in turns
+
+
+def run_export(card: str) -> dict:
+    """Phase 30: main_converter's 48k_v2 synthesizer exported with
+    compat.export at max_frames 2048: infer in float32 and in bf16, and
+    infer_mix in float32. Each blob loaded back and run with a seeded card
+    generator against the eager call on the same inputs and seed: the rvc
+    ops in the graph (a resblock_group per decoder stage, an attention per
+    encoder layer), kernel 1's unit and kernel 2 launched as often as
+    eager (counted over one call each), the output within 1e-5 of eager's
+    largest magnitude in float32 and within the eager call's own
+    run-to-run spread on free engines in bf16, compared on cuDNN's
+    deterministic engines (phase 27(c)); the packing cache hit on the
+    second exported call; the export, save and load seconds, the blob's MB,
+    both calls' ms (in turns) and their device time under the profiler.
+    Returns each case's launches."""
+    import copy
+
+    import torch
+
+    from rvc_tpu_torch.compat.export import (export_program, load_exported, program_bytes,
+                                              rvc_ops)
+    from rvc_tpu_torch.models.layers import set_dtype_
+    from rvc_tpu_torch.ops import resblock
+
+    rng = np.random.default_rng(30)
+    T = EXPORT_FRAMES
+    dev = "cuda"
+    phone = torch.from_numpy(rng.standard_normal((1, T, 768)).astype(np.float32)).to(dev)
+    lengths = torch.tensor([T - 37], device=dev)
+    pitch = torch.from_numpy(rng.integers(1, 255, (1, T))).to(dev)
+    nsff0 = torch.from_numpy((rng.uniform(100, 300, (1, T)) * (rng.uniform(size=(1, T)) > 0.2)
+                              ).astype(np.float32)).to(dev)
+    counters = launch_counters()
+    main_converter("cpu")  # the host's converter, whose weights are drawn once
+    out = {}
+    synth = None
+    for label, dtype, mix in (("infer", torch.float32, False),
+                              ("infer_mix", torch.float32, True),
+                              ("infer", torch.bfloat16, False)):
+        if synth is None or synth.dtype != dtype:  # main_converter's synthesizer, as it sets it
+            synth = set_dtype_(copy.deepcopy(MAIN_CONVERTER["host"].synth).to(dev).eval(), dtype)
+        n_spk = synth.emb_g.num_embeddings
+        who = (torch.from_numpy(rng.uniform(0.1, 1.0, (1, n_spk)).astype(np.float32)).to(dev)
+               if mix else torch.tensor([0], device=dev))
+        args = (phone, lengths, pitch, nsff0, who)
+        run = synth.infer_mix if mix else synth.infer
+        t0 = time.perf_counter()
+        program = export_program(synth, 768, max_frames=T, mix=mix)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        blob = program_bytes(program)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fn = load_exported(blob)
+        load_s = time.perf_counter() - t0
+        ops = rvc_ops(fn.program)
+
+        def eager():
+            with torch.no_grad():
+                return run(*args, generator=torch.Generator(dev).manual_seed(7))[0][:, 0]
+
+        def exported():
+            return fn(*args, generator=torch.Generator(dev).manual_seed(7))
+
+        counts = {}
+        for name, call in (("eager", eager), ("exported", exported)):
+            for c, attr in counters.values():
+                setattr(c, attr, 0)
+            call()
+            torch.cuda.synchronize()
+            counts[name] = {k: getattr(c, attr) for k, (c, attr) in counters.items()
+                            if getattr(c, attr)}
+        packs = {k: id(v[2]) for k, v in resblock._pack_cache.items()}
+        exported()
+        hit = bool(packs) and packs == {k: id(v[2]) for k, v in resblock._pack_cache.items()}
+        free = [eager() for _ in range(3 if dtype == torch.bfloat16 else 0)]
+        spread = max([(a - free[0]).abs().max().item() for a in free[1:]], default=0.0)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            ref, got = eager(), exported()
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        err, scale = scaled(got.float(), ref.float())
+        bar = 1e-5 * scale if dtype == torch.float32 else spread
+        # the two forms in turns, EXPORT_ROUNDS rounds of 5 calls each, then
+        # each one's device time under the profiler beside its wall time
+        rounds = [(timed(eager, reps=5, warmup=1), timed(exported, reps=5, warmup=1))
+                  for _ in range(EXPORT_ROUNDS)]
+        eager_ms, exported_ms = (float(np.median(r)) for r in zip(*rounds))
+        spans = {form: (min(r), max(r)) for form, r in zip(("eager", "exported"), zip(*rounds))}
+        busy = {form: busy_share(call)[:2] for form, call in (("eager", eager),
+                                                               ("exported", exported))}
+        name = f"{label} [{'bf16' if dtype == torch.bfloat16 else 'float32'}]"
+        say(f"[30/31] export {name} of 48k_v2 at max_frames {T}: export {export_s:.2f} s, "
+            f"save {save_s:.2f} s, load {load_s:.2f} s, blob "
+            f"{len(blob) / 1e6:.1f} MB; rvc ops in the graph {ops}; launches eager "
+            f"{counts['eager']} exported {counts['exported']}; exported against eager on "
+            f"cuDNN's deterministic engines max |diff| {err:.3g} of max |eager| {scale:.3g} (bar "
+            f"{bar:.3g}: " + ("1e-5 of the largest" if dtype == torch.float32 else
+                              "the eager bf16 call's own spread over 3 calls on free engines")
+            + f"); the packing cache hit on the second exported call: {hit}; ms eager "
+            f"{eager_ms:.2f} ({spans['eager'][0]:.2f}-{spans['eager'][1]:.2f}), exported "
+            f"{exported_ms:.2f} ({spans['exported'][0]:.2f}-{spans['exported'][1]:.2f}) (CUDA "
+            f"events, free engines, the median and range of {EXPORT_ROUNDS} rounds of 5 calls "
+            f"in turns); device busy under the profiler: eager {busy['eager'][0]:.2f} of "
+            f"{busy['eager'][1]:.2f} ms, exported {busy['exported'][0]:.2f} of "
+            f"{busy['exported'][1]:.2f} ms; {card}")
+        n_stages, n_layers = len(synth.dec.ups), len(synth.enc_p.encoder.attn_layers)
+        if ops != {"rvc::resblock_group": n_stages, "rvc::banded_rel_attention": n_layers}:
+            fail(f"the exported graph holds {ops}")
+        if not counts["eager"] or counts["exported"] != counts["eager"]:
+            fail(f"the exported call launched {counts['exported']}, eager {counts['eager']}")
+        if got.shape != (1, T * synth.dec.upp) or not torch.isfinite(got).all() or err > bar:
+            fail(f"the exported {name} disagrees with eager")
+        out[name] = counts["exported"]
+        del program, fn, blob, free, ref, got
+    del synth
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---- phase 31: the 2-D (dp, tp) mesh (Trainer(mesh=)) ----
+TP_STEPS = 2  # a rank's steps in phase 31: the first checked, the second timed
+
+
+def dp_tp_rank(world, cfg, batches: list, draws: list) -> dict:
+    """A rank of phase 31: ``parallel.dryrun.dp_steps`` on a 2 x 2 (dp, tp)
+    mesh from seed 0's weights, kernels 4-7 counted, with its peak memory."""
+    import torch
+
+    skip_default_init()
+    from rvc_tpu_torch.ops import _cuda
+    from rvc_tpu_torch.parallel.dryrun import dp_steps
+
+    _cuda.library()
+    torch.cuda.reset_peak_memory_stats(world.device)
+    out = dp_steps(world, cfg, batches, draws, keep_params=1, counters=training_counters(),
+                   events=True, device=world.device, n_tp=2)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(world.device) / 2**30
+    if world.rank:  # every rank gathers them (a collective); rank 0's are compared
+        out["params"] = []
+    return out
+
+
+def run_dp_tp(cfg, dp: dict, card: str, tmp: str) -> dict:
+    """Phase 31: Trainer(preset("48k_v2"), mesh=) over a 2 x 2 world of four
+    gloo ranks on cuda:0 (one card, the cut: NCCL refuses two ranks on one
+    device), batch 4 (2 rows a dp rank), TP_STEPS steps on phase 27's
+    batches and draws: the first step against phase 27(a)'s one-process
+    step at phase 8's bars, the four ranks' metrics and gathered parameters
+    equal, each rank's local parameters the tp_param_spec slices, kernels
+    4-7 launched on each rank as one process's steps; the step ms, the ms
+    in the tp gathers and the norms' tp reductions, and each rank's peak
+    memory. Returns rank 0's launches."""
+    from rvc_tpu_torch.parallel import mesh
+    from rvc_tpu_torch.parallel.dryrun import tp_distances
+    from rvc_tpu_torch.train.step import Trainer
+
+    lr = cfg.train.learning_rate
+    steps, draws, plain = dp["steps"][:TP_STEPS], dp["draws"][:TP_STEPS], dp["plain"]
+    expected = expected_training_launches(Trainer(cfg, device="cpu"), TP_STEPS)
+    t0 = time.perf_counter()
+    ranks = mesh.spawn(dp_tp_rank, 4, "cuda:0", args=(cfg, steps, draws), backend="gloo",
+                       rendezvous_dir=tmp)
+    spawn_s = time.perf_counter() - t0
+    d = tp_distances(ranks, plain, 2)
+    worst, share = params_distance(ranks[0]["params"][0], plain["params"][0], lr)
+    step_ms = [r["wall_ms"][-1] for r in ranks]
+    tp_ms = [sum(v for k, v in r["stages"][-1].items() if " tp " in k) for r in ranks]
+    say(f"[31/31] dp x tp, 48k_v2 at batch {TRAIN_BATCH} over a 2 x 2 mesh of four gloo ranks on "
+        f"cuda:0 ({TRAIN_BATCH // 2} rows a dp rank, {TP_STEPS} steps, spawned and run in "
+        f"{spawn_s:.1f} s): {d['tp_sharded_g']} generator parameters tp-sharded; the first step "
+        f"against one process's at batch {TRAIN_BATCH} (phase 27(a)) on the same draws: losses "
+        f"within {d['loss']:.3g} (tolerance 1e-3), gradient norms within {d['norm']:.3g} "
+        f"(tolerance 1e-2), parameters max |diff| {worst:.3g} (tolerance 2.01 lr = "
+        f"{2.01 * lr:.3g}), share above 0.01 lr {share:.4%} (tolerance 1%); the ranks' gathered "
+        f"parameters equal: {d['equal']}; every local parameter its tp slice "
+        f"after the update: {d['sliced']}; step {TP_STEPS} ms per rank "
+        f"{[round(x, 2) for x in step_ms]} (host clock, synchronized; one process: "
+        f"{plain['wall_ms'][0]:.2f} ms), of which the tp gathers and norms "
+        f"{[round(x, 2) for x in tp_ms]} ms (CUDA events; gloo copies through the host); peak "
+        f"memory per rank {[round(r['peak_gib'], 2) for r in ranks]} GiB; launches per rank "
+        f"{[{k: v for k, v in r['launches'].items() if v} for r in ranks]}; {card}")
+    if not (d["loss"] <= 1e-3 and d["norm"] <= 1e-2 and worst <= 2.01 * lr and share <= 0.01):
+        fail("the dp x tp step disagrees with one process's step")
+    if not (d["equal"] and d["sliced"]):
+        fail("the dp x tp ranks' parameters differ or lost their tp slices")
+    if any(r["launches"] != expected for r in ranks):
+        fail(f"a dp x tp rank's kernel launches differ from {expected}")
+    return ranks[0]["launches"]
+
+
 def keep(path: str, folder: str) -> str:
     """``path`` moved into ``folder`` (out of a phase's temporary directory,
     for a later phase); returns its new path."""
@@ -5399,7 +5626,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi gave nothing"
-    say(f"[1/29] card: {name}, {count} device(s); torch {torch.__version__}, "
+    say(f"[1/31] card: {name}, {count} device(s); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     say(card)
 
@@ -5409,7 +5636,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library()
     info = _cuda.build_info
-    say(f"[2/29] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
+    say(f"[2/31] build: {'cached' if info['cached'] else 'nvcc'} {info['seconds']:.2f} s "
         f"(load {time.perf_counter() - t0:.2f} s)")
     say("ptxas: " + "; ".join(info["ptxas"]))
     say("ptxas C7515 (wgmma serialized): " + (", ".join(info["serialized"]) or "none"))
@@ -5440,7 +5667,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions at the 30 s conversion's shapes
     shapes = path_shapes(vc, clips[30])
-    say(f"[3/29] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
+    say(f"[3/31] kernels at the 30 s conversion's shapes: {shapes['N']} chunks, "
         f"{shapes['Tp']} frames at 100 Hz, {shapes['T50']} HuBERT frames per chunk")
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -5496,7 +5723,7 @@ def main() -> int:
         expect = sum(min((e - b) // WINDOW, Tp) * (sr // 100) - 2 * vc.t_pad_tgt
                      for b, e in spans)
         peak = int(np.abs(out.astype(np.int32)).max())
-        say(f"[4/29] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
+        say(f"[4/31] convert {sec} s: {len(spans)} chunks, {len(out)} samples at {sr} Hz, "
             f"peak {peak}, wall ms {[round(w * 1e3, 2) for w in walls]} (median "
             f"{wall * 1e3:.2f}; first call {first * 1e3:.1f}), RTF {sec / wall:.2f}x, "
             f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -5520,7 +5747,7 @@ def main() -> int:
     out_cpu, _ = cpu.convert(ref_clip, settings=settings)
     diff = np.abs(out_gpu.astype(np.int32) - out_cpu.astype(np.int32))
     tol = 4
-    say(f"[5/29] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
+    say(f"[5/31] 3 s on the card vs the CPU: {len(out_gpu)} vs {len(out_cpu)} samples, "
         f"max |diff| {diff.max()} LSB, share above {tol} LSB {np.mean(diff > tol):.4%} "
         f"(tolerance {tol} LSB: the same float32 math summed in another order, "
         f"~1e-5 relative before the int16 scaling); CPU run "
@@ -5549,7 +5776,7 @@ def main() -> int:
     seeded_state(trainer, 0)
     say(f"dataset of {len(CLIP_SECONDS)} clips, {len(batches)} batches, trainer built in "
         f"{time.perf_counter() - t0:.1f} s")
-    say(f"[6/29] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
+    say(f"[6/31] training kernels at the training run's shapes: batch {TRAIN_BATCH}, "
         f"segment {cfg.train.segment_size} samples, WN over {np.shape(batches[0]['spec'])[1]} "
         f"frames")
     gen = torch.Generator().manual_seed(2)
@@ -5579,7 +5806,7 @@ def main() -> int:
     lap("phase 6 and the dataset")
 
     # 7. the training path
-    run32 = run_training(trainer, batches, card, "7/29")
+    run32 = run_training(trainer, batches, card, "7/31")
     trained, rate32 = run32["launches"], run32["rate"]
     launches = {"fused_resblock_group": launches["resblock"],
                 "banded_rel_attention": launches["attention"],
@@ -5712,6 +5939,24 @@ def main() -> int:
         run_musetalk(work, card)
     lap("phase 29")
 
+    # 30. Synthesizer.infer / infer_mix exported through the rvc ops, loaded and run
+    exported = run_export(card)
+    for key, case, kname in (("resblock", "infer [float32]", "fused_resblock_group"),
+                             ("attention", "infer [float32]", "banded_rel_attention"),
+                             ("resblock_bf16", "infer [bf16]", "fused_resblock_group[bf16]"),
+                             ("attention_bf16", "infer [bf16]", "banded_rel_attention[bf16]")):
+        checks[key]["launches_exported"] = exported[case][kname]
+    lap("phase 30")
+
+    # 31. the dp x tp step: four gloo ranks on cuda:0 over a 2 x 2 mesh
+    with tempfile.TemporaryDirectory(prefix="rvc_tp_") as work:
+        tp_rank = run_dp_tp(cfg, dp, card, work)
+    for key, kname in (("chain", "fused_resblock1"), ("chain_bwd", "fused_resblock1_backward"),
+                       ("wn", "fused_wn"), ("wn_bwd", "fused_wn_backward")):
+        checks[key]["launches_tp_rank"] = tp_rank[kname]
+    del dp
+    lap("phase 31")
+
     kernels = []
     meta = {
         "resblock": ("fused_resblock_group", "rvc_tpu_torch/csrc/resblock_group.cu",
@@ -5751,12 +5996,14 @@ def main() -> int:
                         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                         "bound_by": c["bound_by"], "library_ms": c.get("library_ms"),
                         **{k: c[k] for k in ("bound_f32_ms", "previous_ms", "mma_sync_ms",
-                                             "pack_ms", "float32_ms", "ms_10s",
+                                             "pack_ms", "direct_ms", "device_ms",
+                                             "float32_ms", "ms_10s",
                                              "previous_ms_10s", "32k_v1", "d256",
                                              "cli_float32_bank", "launches_40k_v2",
                                              "launches_40k_nof0", "launches_32k_v2",
                                              "launches_48k", "launches_nodes",
                                              "launches_dp_rank", "launches_replicas",
+                                             "launches_exported", "launches_tp_rank",
                                              "whole_stack",
                                              "recompute_launches") if k in c}})
     say(json.dumps({"kernels": kernels}))

@@ -22,6 +22,11 @@ launch takes each split's max and sum, a second combines them in split
 order and adds the split's P.V in float32 from the rounded p, and a third
 adds the splits' sums in order and the band's value term. Q.K^T runs in
 both of the first two, on ``mma.sync`` with K and V tiles copied one ahead.
+
+``banded_rel_attention`` reaches the kernel through the custom op
+``rvc::banded_rel_attention`` (torch.library): the plain version on the
+CPU, the launch on the card, a fake implementation for tracing
+(``compat/export.py``).
 """
 from __future__ import annotations
 
@@ -90,23 +95,16 @@ def _check(q, k, v, emb_rel_k, emb_rel_v, lengths, window: int) -> None:
         raise ValueError("lengths must be (B,), and every input on q's device")
 
 
-def banded_rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         emb_rel_k: torch.Tensor, emb_rel_v: torch.Tensor,
-                         lengths: torch.Tensor, *, window: int,
-                         scale: float) -> torch.Tensor:
-    """q, k, v: (B, H, T, D) float32 or bfloat16 self-attention; emb_rel_*:
-    (2w+1, D) tables shared by the heads, in q's dtype; lengths: (B,) valid
-    frames. -> (B, H, T, D). Raises when gradients are wanted (see the
-    module's docstring)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, emb_rel_k,
-                                                                  emb_rel_v)):
-        raise RuntimeError("banded_rel_attention has no backward: a launch would cut "
-                           "the gradient. Train through banded_rel_attention_plain")
-    if q.device.type == "cpu":
-        return banded_rel_attention_plain(q, k, v, emb_rel_k, emb_rel_v, lengths,
-                                          window=window, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+@torch.library.custom_op("rvc::banded_rel_attention", mutates_args=(), device_types="cpu")
+def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, emb_rel_k: torch.Tensor,
+                  emb_rel_v: torch.Tensor, lengths: torch.Tensor, window: int,
+                  scale: float) -> torch.Tensor:
+    return banded_rel_attention_plain(q, k, v, emb_rel_k, emb_rel_v, lengths, window=window,
+                                      scale=scale).contiguous()
+
+
+@_attention_op.register_kernel("cuda")
+def _attention_cuda(q, k, v, emb_rel_k, emb_rel_v, lengths, window, scale):
     _check(q, k, v, emb_rel_k, emb_rel_v, lengths, window)
     B, H, T, D = q.shape
     lens = lengths.to(torch.int32).contiguous()
@@ -126,6 +124,27 @@ def banded_rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _cuda.check(err, "banded_attention launch")
     banded_rel_attention.launches += 1
     return out
+
+
+@_attention_op.register_fake
+def _attention_fake(q, k, v, emb_rel_k, emb_rel_v, lengths, window, scale):
+    return q.new_empty(q.shape)
+
+
+def banded_rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         emb_rel_k: torch.Tensor, emb_rel_v: torch.Tensor,
+                         lengths: torch.Tensor, *, window: int,
+                         scale: float) -> torch.Tensor:
+    """q, k, v: (B, H, T, D) float32 or bfloat16 self-attention; emb_rel_*:
+    (2w+1, D) tables shared by the heads, in q's dtype; lengths: (B,) valid
+    frames. -> (B, H, T, D), through ``rvc::banded_rel_attention``. Raises
+    when gradients are wanted (see the module's docstring)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, emb_rel_k,
+                                                                  emb_rel_v)):
+        raise RuntimeError("banded_rel_attention has no backward: a launch would cut "
+                           "the gradient. Train through banded_rel_attention_plain")
+    return torch.ops.rvc.banded_rel_attention.default(q, k, v, emb_rel_k, emb_rel_v, lengths,
+                                                      int(window), float(scale))
 
 
 banded_rel_attention.launches = 0

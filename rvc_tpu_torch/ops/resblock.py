@@ -55,6 +55,16 @@ version convolves bf16-valued operands in float32 and rounds where the
 kernel rounds. A wrapper called on a CUDA tensor launches its kernel or
 raises. The forward-only wrappers raise when gradients are wanted: their
 launches have no autograd node.
+
+The forward-only wrappers (``fused_resblock_group``, ``fused_resblock1``,
+``fused_resblock1_v2``) call custom ops of the ``rvc`` namespace
+(``rvc::resblock_group``, ``rvc::resblock1``, ``rvc::resblock1_v2``), their
+chains flattened to tensor and int lists (``_flat``): the CPU
+implementation is the plain version, the CUDA implementation the launch
+(checks, packing, launch counts), the fake implementation the output's
+shape, so that ``torch.export`` keeps them in a traced graph
+(``compat/export.py``). Training's ``fused_resblock1_train`` stays a
+``torch.autograd.Function`` over kernels 4 and 5.
 """
 from __future__ import annotations
 
@@ -337,15 +347,42 @@ def _check_tc(x: torch.Tensor, chains) -> None:
                          f"rows, got C={x.shape[2]}")
 
 
-def fused_resblock_group(x: torch.Tensor, chains: Sequence[Sequence[Conv]]) -> torch.Tensor:
-    """x (B, T, C) float32 or bfloat16; chains: per ResBlock1, its convs in
-    order as (weight (O, I, k), bias, k, dilation), float32. Returns
-    (Σ_c chain_c(x)) / n in x's dtype. Raises when gradients are wanted."""
-    _refuse_grad(x, chains, "fused_resblock_group")
-    if x.device.type == "cpu":
-        return resblock_group_plain(x, chains)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+def _flat(chains) -> tuple:
+    """A list of chains as the ops' flat arguments: (weights, biases, ks,
+    dilations, chain_sizes)."""
+    convs = [c for chain in chains for c in chain]
+    if any(b is None for _, b, _, _ in convs):
+        raise ValueError("conv weights must be float32 (C, C, k), odd k, with a (C,) bias, "
+                         "on the input's device")
+    return ([w for w, _, _, _ in convs], [b for _, b, _, _ in convs],
+            [int(k) for _, _, k, _ in convs], [int(d) for _, _, _, d in convs],
+            [len(chain) for chain in chains])
+
+
+def _chains(weights, biases, ks, dilations, chain_sizes) -> list:
+    """Inverse of ``_flat``."""
+    convs = list(zip(weights, biases, ks, dilations))
+    starts = [sum(chain_sizes[:i]) for i in range(len(chain_sizes))]
+    return [convs[s:s + n] for s, n in zip(starts, chain_sizes)]
+
+
+# The forward-only wrappers reach their kernels through custom ops of the
+# namespace "rvc" (torch.library): the CPU implementation is the plain
+# version, the CUDA implementation the launch (checks, packing, workspace
+# and launch counts run there, on real tensors), and the fake implementation
+# gives the output's shape, so that torch.export traces a graph that holds
+# the op and launches the kernel when the exported program runs.
+@torch.library.custom_op("rvc::resblock_group", mutates_args=(), device_types="cpu")
+def _resblock_group_op(x: torch.Tensor, weights: list[torch.Tensor],
+                       biases: list[torch.Tensor], ks: list[int], dilations: list[int],
+                       chain_sizes: list[int]) -> torch.Tensor:
+    return resblock_group_plain(x, _chains(weights, biases, ks, dilations,
+                                           chain_sizes)).contiguous()
+
+
+@_resblock_group_op.register_kernel("cuda")
+def _resblock_group_cuda(x, weights, biases, ks, dilations, chain_sizes):
+    chains = _chains(weights, biases, ks, dilations, chain_sizes)
     _check_tc(x, chains)
     if x.dtype == torch.bfloat16:
         return _run_units(x, chains, "rvc_resblock_unit_bf16", pack_bf16_weights,
@@ -353,25 +390,55 @@ def fused_resblock_group(x: torch.Tensor, chains: Sequence[Sequence[Conv]]) -> t
     return _run_units(x, chains, "rvc_resblock_unit", pack_tf32_weights, fused_resblock_group)
 
 
+@_resblock_group_op.register_fake
+def _resblock_group_fake(x, weights, biases, ks, dilations, chain_sizes):
+    return x.new_empty(x.shape)
+
+
+def fused_resblock_group(x: torch.Tensor, chains: Sequence[Sequence[Conv]]) -> torch.Tensor:
+    """x (B, T, C) float32 or bfloat16; chains: per ResBlock1, its convs in
+    order as (weight (O, I, k), bias, k, dilation), float32. Returns
+    (Σ_c chain_c(x)) / n in x's dtype, through ``rvc::resblock_group``.
+    Raises when gradients are wanted."""
+    _refuse_grad(x, chains, "fused_resblock_group")
+    return torch.ops.rvc.resblock_group.default(x, *_flat(chains))
+
+
 fused_resblock_group.launches = 0
 fused_resblock_group.launches_bf16 = 0
 
 
-def fused_resblock1_v2(x: torch.Tensor, convs: Sequence[Conv]) -> torch.Tensor:
-    """Kernel 8: one ResBlock1 chain over x (B, T, C) bfloat16 with the bf16
-    carry (the bf16 unit kernel, a launch per unit); convs as in
-    ``fused_resblock_group``. Its plain version is ``fused_resblock1_plain``.
-    Forward only: raises when gradients are wanted."""
-    _refuse_grad(x, [convs], "fused_resblock1_v2")
-    if x.dtype != torch.bfloat16:
-        raise ValueError("fused_resblock1_v2 takes bfloat16 activations")
-    if x.device.type == "cpu":
-        return fused_resblock1_plain(x, convs)
-    _device_only(x)
+@torch.library.custom_op("rvc::resblock1_v2", mutates_args=(), device_types="cpu")
+def _resblock1_v2_op(x: torch.Tensor, weights: list[torch.Tensor], biases: list[torch.Tensor],
+                     ks: list[int], dilations: list[int]) -> torch.Tensor:
+    return fused_resblock1_plain(x, _chains(weights, biases, ks, dilations,
+                                            [len(weights)])[0]).contiguous()
+
+
+@_resblock1_v2_op.register_kernel("cuda")
+def _resblock1_v2_cuda(x, weights, biases, ks, dilations):
+    convs = _chains(weights, biases, ks, dilations, [len(weights)])[0]
     _check_chain(x, convs, torch.bfloat16)
     _check_tc(x, [convs])
     return _run_units(x, [convs], "rvc_resblock_unit_bf16", pack_bf16_weights,
                       fused_resblock1_v2)
+
+
+@_resblock1_v2_op.register_fake
+def _resblock1_v2_fake(x, weights, biases, ks, dilations):
+    return x.new_empty(x.shape)
+
+
+def fused_resblock1_v2(x: torch.Tensor, convs: Sequence[Conv]) -> torch.Tensor:
+    """Kernel 8: one ResBlock1 chain over x (B, T, C) bfloat16 with the bf16
+    carry (the bf16 unit kernel, a launch per unit), through
+    ``rvc::resblock1_v2``; convs as in ``fused_resblock_group``. Its plain
+    version is ``fused_resblock1_plain``. Forward only: raises when
+    gradients are wanted."""
+    _refuse_grad(x, [convs], "fused_resblock1_v2")
+    if x.dtype != torch.bfloat16:
+        raise ValueError("fused_resblock1_v2 takes bfloat16 activations")
+    return torch.ops.rvc.resblock1_v2.default(x, *_flat([convs])[:4])
 
 
 fused_resblock1_v2.launches = 0
@@ -420,14 +487,29 @@ def _resblock1_forward(x: torch.Tensor, convs: Sequence[Conv], slope: float = 0.
     return out, hs
 
 
+@torch.library.custom_op("rvc::resblock1", mutates_args=(), device_types="cpu")
+def _resblock1_op(x: torch.Tensor, weights: list[torch.Tensor], biases: list[torch.Tensor],
+                  ks: list[int], dilations: list[int]) -> torch.Tensor:
+    return fused_resblock1_plain(x, _chains(weights, biases, ks, dilations,
+                                            [len(weights)])[0]).contiguous()
+
+
+@_resblock1_op.register_kernel("cuda")
+def _resblock1_cuda(x, weights, biases, ks, dilations):
+    return _resblock1_forward(x, _chains(weights, biases, ks, dilations, [len(weights)])[0])[0]
+
+
+@_resblock1_op.register_fake
+def _resblock1_fake(x, weights, biases, ks, dilations):
+    return x.new_empty(x.shape)
+
+
 def fused_resblock1(x: torch.Tensor, convs: Sequence[Conv]) -> torch.Tensor:
-    """Kernel 4: one ResBlock1 chain over x (B, T, C) float32; convs as in
-    ``fused_resblock_group``. Forward only: raises when gradients are wanted."""
+    """Kernel 4: one ResBlock1 chain over x (B, T, C) float32, through
+    ``rvc::resblock1``; convs as in ``fused_resblock_group``. Forward only:
+    raises when gradients are wanted."""
     _refuse_grad(x, [convs], "fused_resblock1")
-    if x.device.type == "cpu":
-        return fused_resblock1_plain(x, convs)
-    _device_only(x)
-    return _resblock1_forward(x, convs)[0]
+    return torch.ops.rvc.resblock1.default(x, *_flat([convs])[:4])
 
 
 fused_resblock1.launches = 0

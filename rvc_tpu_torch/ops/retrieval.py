@@ -12,7 +12,11 @@ sums are ``mma.sync``'s, which truncates as it accumulates (``mma.cuh``);
 the rows it picks are held to the plain version's. Features in bfloat16
 go up to float32 exactly before the search, and the blend is cast back to
 bf16 (rvc_tpu/ops/pallas_retrieval.py:125-130, :227-234): the float32
-kernel serves both dtypes unchanged.
+kernel serves both dtypes unchanged. Both searches are the custom op
+``rvc::nearest_rows`` (torch.library; ``scales`` None for the float32
+bank): the plain version on the CPU, the launch on the card, a fake
+implementation for tracing; its launches count in ``nearest_rows_q`` or
+``nearest_rows`` by the bank's type.
 """
 from __future__ import annotations
 
@@ -62,13 +66,15 @@ def _check(feats: torch.Tensor, bank: torch.Tensor, scales: torch.Tensor | None)
                          f"aligned rows, got D={D}")
 
 
-def _nearest(feats: torch.Tensor, bank: torch.Tensor, scales: torch.Tensor | None
-             ) -> torch.Tensor:
-    if feats.device.type == "cpu":
-        bank_f = bank.float() * scales if scales is not None else bank.float()
-        return topk_blend(feats.float(), bank_f, 1)
-    if feats.device.type != "cuda":
-        raise ValueError(f"unsupported device {feats.device}")
+@torch.library.custom_op("rvc::nearest_rows", mutates_args=(), device_types="cpu")
+def _nearest_op(feats: torch.Tensor, bank: torch.Tensor,
+                scales: torch.Tensor | None) -> torch.Tensor:
+    bank_f = bank.float() * scales if scales is not None else bank.float()
+    return topk_blend(feats.float(), bank_f, 1)
+
+
+@_nearest_op.register_kernel("cuda")
+def _nearest_cuda(feats, bank, scales):
     _check(feats, bank, scales)
     NQ, D = feats.shape
     N = bank.shape[0]
@@ -87,25 +93,27 @@ def _nearest(feats: torch.Tensor, bank: torch.Tensor, scales: torch.Tensor | Non
         scales.data_ptr() if int8 else None, bsq.data_ptr(), keys.data_ptr(),
         out.data_ptr(), NQ, N, D, n_split, _cuda.stream_ptr(feats))
     _cuda.check(err, "nearest_rows launch")
+    counted = nearest_rows_q if int8 else nearest_rows
+    counted.launches += 1
     return out
+
+
+@_nearest_op.register_fake
+def _nearest_fake(feats, bank, scales):
+    return feats.new_empty(feats.shape, dtype=torch.float32)
 
 
 def nearest_rows_q(feats: torch.Tensor, bank_q: torch.Tensor, scales: torch.Tensor
                    ) -> torch.Tensor:
     """feats (T, D) float32, bank_q (N, D) int8, scales (N, 1) float32 ->
-    the dequantized nearest rows (T, D)."""
-    out = _nearest(feats, bank_q, scales)
-    if feats.device.type == "cuda":
-        nearest_rows_q.launches += 1
-    return out
+    the dequantized nearest rows (T, D), through ``rvc::nearest_rows``."""
+    return torch.ops.rvc.nearest_rows.default(feats, bank_q, scales)
 
 
 def nearest_rows(feats: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
-    """feats (T, D), bank (N, D) float32 -> the nearest rows (T, D)."""
-    out = _nearest(feats, bank, None)
-    if feats.device.type == "cuda":
-        nearest_rows.launches += 1
-    return out
+    """feats (T, D), bank (N, D) float32 -> the nearest rows (T, D), through
+    ``rvc::nearest_rows``."""
+    return torch.ops.rvc.nearest_rows.default(feats, bank, None)
 
 
 nearest_rows_q.launches = 0

@@ -19,7 +19,16 @@ between cards and gloo between CPU processes. The names stay JAX's:
 - ``shard_batch``: rank r's rows ``[r B / W, (r + 1) B / W)`` of every array;
 - ``replicate``: rank 0's modules and training state broadcast to all;
 - ``spawn``: one process a rank, each joined through a rendezvous file
-  (never a fixed port), returning every rank's result.
+  (never a fixed port), returning every rank's result;
+- the 2-D ``(dp, tp)`` mesh (rvc_tpu/parallel/mesh.py:53-82):
+  ``make_mesh_2d`` (a ``DeviceMesh`` named ``("dp", "tp")`` over the
+  world's ranks), ``tp_param_spec`` (JAX's rule: a parameter's dim 0, its
+  output channels, sharded over ``tp`` when it divides evenly and gives
+  each rank at least two; replicated over ``dp``) and ``shard_params_tp``
+  (each parameter of the modules a ``torch.distributed.tensor.DTensor``
+  so placed); ``gather_tp`` gives parameters' whole values, gathered over
+  tp; ``mesh_world`` is the ``World`` of a rank's ``dp`` group, over which
+  ``Trainer(mesh=)`` reduces its losses and gradients.
 
 Why the sums pass cotangents through unchanged: every rank computes the
 losses from the same all-reduced values, so each rank's backward already
@@ -184,6 +193,129 @@ def replicate(world: World, modules=(), state=None) -> None:
         dist.broadcast(counts, 0, group=world.group)
         if counts.tolist() != [state.opt_g.count, state.opt_d.count, state.step]:
             raise RuntimeError("the ranks resumed from different steps")
+
+
+def make_mesh_2d(n_dp: int, n_tp: int, device=None):
+    """A ``DeviceMesh`` named ``("dp", "tp")`` over the ``n_dp * n_tp`` ranks
+    of the process group (``init_world``'s, NCCL or gloo as it was joined):
+    rank r at dp r // n_tp and tp r % n_tp, on the cards unless ``device``
+    is "cpu" (without a card the default raises)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    if dist.get_world_size() != n_dp * n_tp:
+        raise ValueError(f"a {n_dp} x {n_tp} mesh needs {n_dp * n_tp} ranks, the world has "
+                         f"{dist.get_world_size()}")
+    return init_device_mesh(dev.type, (n_dp, n_tp), mesh_dim_names=("dp", "tp"))
+
+
+def tp_param_spec(shape, n_tp: int) -> tuple:
+    """The placements over ``("dp", "tp")`` of a parameter of ``shape`` in
+    torch's layout (rvc_tpu/parallel/mesh.py:61-72): dim 0 (a conv's or a
+    linear layer's output channels, a weight-norm gain's rows) sharded over
+    tp when it divides by ``n_tp`` and is at least ``2 n_tp``, the tensor
+    replicated otherwise; always replicated over dp."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    shape = tuple(shape)
+    if shape and shape[0] % n_tp == 0 and shape[0] >= 2 * n_tp:
+        return (Replicate(), Shard(0))
+    return (Replicate(), Replicate())
+
+
+def tp_sharded(p) -> bool:
+    """Whether a parameter is a ``DTensor`` sharded over tp."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(p, DTensor) and p.placements[-1].is_shard()
+
+
+@torch.no_grad()
+def shard_params_tp(mesh, modules) -> None:
+    """Every parameter of ``modules`` becomes a ``DTensor`` on ``mesh``,
+    placed by ``tp_param_spec``, in place (the parameter order kept). Every
+    rank holds the same weights (drawn from one seed, or loaded), so each
+    keeps its own slice, with no communication."""
+    from torch import nn
+    from torch.distributed.tensor import distribute_tensor
+
+    n_tp = mesh["tp"].size()
+    for module in modules:
+        for m in module.modules():
+            for name, p in list(m._parameters.items()):
+                if p is not None:
+                    m._parameters[name] = nn.Parameter(
+                        distribute_tensor(p.detach(), mesh, tp_param_spec(p.shape, n_tp),
+                                          src_data_rank=None),
+                        requires_grad=p.requires_grad)
+
+
+class _GatherTp(torch.autograd.Function):
+    """The whole values of tp-sharded tensors from this rank's slices: one
+    ``all_gather_into_tensor`` over the tp group of the slices packed flat,
+    each tensor's rank chunks stacked along dim 0. The backward keeps this
+    rank's slice of each gradient, with no sum over tp: every tp rank of a
+    dp group computes the same rows, so each already holds the whole
+    gradient (a sum would make it ``n_tp`` times too large)."""
+
+    @staticmethod
+    def forward(ctx, group, index: int, n: int, *slices):
+        flat = torch.cat([t.reshape(-1) for t in slices])
+        gathered = flat.new_empty(n * flat.numel())
+        dist.all_gather_into_tensor(gathered, flat, group=group)
+        chunks = gathered.view(n, -1)
+        wholes, offset = [], 0
+        for t in slices:
+            k = t.numel()
+            wholes.append(chunks[:, offset:offset + k].reshape((n * t.shape[0],)
+                                                               + tuple(t.shape[1:])))
+            offset += k
+        ctx.rows = [(index * t.shape[0], t.shape[0]) for t in slices]
+        return tuple(wholes)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None, *[g[s:s + k] for g, (s, k) in zip(grads, ctx.rows)])
+
+
+def gather_tp(params: list) -> list:
+    """The whole values of ``shard_params_tp`` parameters (of one dtype, on
+    one mesh), differentiable: each gradient comes back to its DTensor as
+    this rank's slice (a replicated one's whole). ``DTensor.full_tensor()``
+    computes the same a tensor at a time, but its functional all-gather
+    crashes (SIGSEGV) on gloo with CUDA tensors (torch 2.11 on the card),
+    where ``all_gather_into_tensor`` works; so the gather is that
+    collective, once for all the sharded tensors, in an autograd function."""
+    from torch.distributed.tensor import DTensor
+
+    out = [p.to_local() if isinstance(p, DTensor) else p for p in params]
+    sharded = [i for i, p in enumerate(params) if tp_sharded(p)]
+    if sharded:
+        m = params[sharded[0]].device_mesh
+        wholes = _GatherTp.apply(m.get_group("tp"), m.get_local_rank("tp"), m["tp"].size(),
+                                 *[out[i] for i in sharded])
+        for i, w in zip(sharded, wholes):
+            out[i] = w
+    return out
+
+
+@torch.no_grad()
+def tp_mean(mesh, tensors: list) -> list:
+    """The mean over this rank's tp group of each tensor, through one flat
+    all-reduce a dtype."""
+    n = mesh["tp"].size()
+    summed = _flat_collective(tensors, lambda f: dist.all_reduce(f, group=mesh.get_group("tp")))
+    return [t / n for t in summed]
+
+
+def mesh_world(mesh, device) -> World:
+    """The ``World`` of this rank's ``dp`` group on a ``make_mesh_2d`` mesh:
+    the ranks that hold the other rows of the batch and the same slices of
+    the weights."""
+    return World(mesh.get_local_rank("dp"), mesh["dp"].size(), torch.device(device),
+                 mesh.get_group("dp"))
 
 
 def _entry(rank: int, fn, world_size: int, device, rendezvous: str, backend, threads: int,

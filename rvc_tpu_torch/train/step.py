@@ -60,6 +60,23 @@ global mean (the local loss over W). The parameter gradients are summed
 over the ranks (``World.sum_grads``, one flat buffer a model) before the
 norm and the update, so every rank's parameters stay equal. The metrics
 are the global values; ``viz`` is rank 0's first sample, the batch's first.
+
+``Trainer(mesh=)`` is the JAX step under its 2-D ``('dp', 'tp')`` mesh
+(rvc_tpu/parallel/dryrun.py:204-237; ``parallel.mesh.make_mesh_2d``): the
+batch's rows split over ``dp`` as above, within this rank's ``dp`` group
+(``parallel.mesh.mesh_world``), and every parameter a ``DTensor`` placed by
+``parallel.mesh.tp_param_spec`` (``init_state`` shards them). Each module
+runs on its weights whole, gathered over ``tp`` (``parallel.mesh.gather_tp``,
+what ``full_tensor()`` computes) and swapped in for the call
+(``torch.func.functional_call``): the generator's once a step, the
+discriminator's before its update and again after it; so weight norm folds
+the whole ``(O, I, k)`` weight. The ``tp`` ranks of a ``dp`` group compute
+the same rows and the same whole gradients, and the gather's backward keeps
+this rank's slice of them (no sum over ``tp``, which would make it ``n_tp``
+times too large), and a replicated parameter's gradient is averaged over
+``tp``; then they are summed over ``dp``. The global gradient norm adds the
+squares of the sharded slices over ``tp`` and counts each replicated
+parameter once. AdamW updates the local slices, which stay sharded.
 """
 from __future__ import annotations
 
@@ -76,7 +93,8 @@ from ..models.layers import (init_random_, live_weight_norm_, load_numpy_state_d
 from ..models.synthesizer import Synthesizer
 from ..models.wavenet import WN
 from ..ops.mel import mel_spectrogram, spec_to_mel
-from ..parallel.mesh import shard_batch
+from ..parallel.mesh import (gather_tp, mesh_world, shard_batch, shard_params_tp, tp_mean,
+                             tp_sharded)
 from . import balancer as bal
 from . import losses as L
 
@@ -137,9 +155,13 @@ class MultiTensorAdamW(AdamW):
     touches (rvc_tpu/train/step.py:117-236)."""
 
     @torch.no_grad()
-    def step(self, grads) -> torch.Tensor:
+    def step(self, grads, norm: torch.Tensor | None = None) -> torch.Tensor:
+        """One update; returns the global norm of ``grads``, or ``norm`` when
+        the caller gives it (a tp-sharded model's, which its local slices
+        alone do not give)."""
         grads = list(grads)
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if norm is None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         lr, bc1, bc2 = self._advance()
         torch._foreach_mul_(self.m, self.b1)
         torch._foreach_add_(self.m, grads, alpha=1.0 - self.b1)
@@ -181,11 +203,16 @@ class Trainer:
     over them."""
 
     def __init__(self, config: RVCConfig, dtype: torch.dtype = torch.float32,
-                 balancer_active: bool = True, device=None, world=None):
+                 balancer_active: bool = True, device=None, world=None, mesh=None):
         """``world`` (``parallel.mesh.World``): this rank's share of a
-        data-parallel step, computed on ``world.device``."""
+        data-parallel step, computed on ``world.device``. ``mesh`` (a
+        ``parallel.mesh.make_mesh_2d`` mesh): this rank's share of the dp x
+        tp step (module docstring), computed on ``device``."""
         from ..pipelines.convert import synth_kwargs_from_config
 
+        if mesh is not None:
+            world = mesh_world(mesh, resolve_device(device))
+        self.mesh = mesh
         self.world = world
         self.device = world.device if world is not None else resolve_device(device)
         set_float32_math()
@@ -226,11 +253,13 @@ class Trainer:
                 init_random_(module, s)
             else:
                 load_numpy_state_dict(module, state)
+        if self.mesh is not None:
+            shard_params_tp(self.mesh, (self.synth, self.disc))
         t = self.config.train
         sched = self.schedule = lr_schedule(t.learning_rate, t.lr_decay, steps_per_epoch)
         return TrainState(
-            opt_g=MultiTensorAdamW(self.synth.parameters(), sched, tuple(t.betas), t.eps),
-            opt_d=MultiTensorAdamW(self.disc.parameters(), sched, tuple(t.betas), t.eps),
+            opt_g=MultiTensorAdamW(self._shards(self.synth), sched, tuple(t.betas), t.eps),
+            opt_d=MultiTensorAdamW(self._shards(self.disc), sched, tuple(t.betas), t.eps),
             step=0,
             balancer_g=bal.init_state(len(G_LOSS_KEYS), self.device),
             balancer_d=bal.init_state(len(D_LOSS_KEYS), self.device))
@@ -254,12 +283,71 @@ class Trainer:
             out["alpha"] = torch.rand(B, 1, 1, generator=gen)
         return {k: v.to(self.device) for k, v in out.items()}
 
-    def _forward(self, b: dict, draws: dict):
+    def _forward(self, b: dict, draws: dict, full: dict | None = None):
         """The generator's training forward on a batch of tensors, without
-        or with pitch, the draws other than ``alpha``."""
-        return self.synth(b["phone"], b["phone_lengths"], b.get("pitch"), b.get("pitchf"),
-                          b["spec"], b["spec_lengths"], b["sid"],
+        or with pitch, the draws other than ``alpha``; on the weights
+        ``full`` under a mesh (``_gathered``)."""
+        return self._call(self.synth, full, b["phone"], b["phone_lengths"], b.get("pitch"),
+                          b.get("pitchf"), b["spec"], b["spec_lengths"], b["sid"],
                           **{k: v for k, v in draws.items() if k != "alpha"})
+
+    @staticmethod
+    def _call(module, full: dict | None, *args, **kwargs):
+        """``module(*args, **kwargs)``, on the weights ``full`` when given."""
+        if full is None:
+            return module(*args, **kwargs)
+        return torch.func.functional_call(module, full, args, kwargs)
+
+    def _gathered(self, module) -> dict | None:
+        """Under a mesh, the module's weights whole by name (each parameter
+        through ``parallel.mesh.gather_tp``: an all-gather over tp of a
+        sharded one, differentiable); None without one."""
+        if self.mesh is None:
+            return None
+        names, params = zip(*module.named_parameters())
+        return dict(zip(names, gather_tp(list(params))))
+
+    def _shards(self, module) -> list:
+        """The tensors AdamW updates: the module's parameters, or under a mesh
+        their local slices (views of the DTensors' local tensors)."""
+        if self.mesh is None:
+            return list(module.parameters())
+        with torch.no_grad():
+            return [p.to_local() for p in module.parameters()]
+
+    def _param_grads(self, total: torch.Tensor, module, opt) -> list:
+        """d total / d the module's parameters, in the order of
+        ``opt.params``: under a mesh this rank's slices (see the module
+        docstring), each replicated parameter's gradient the mean of the tp
+        ranks' (the same value up to rounding: on the card cuDNN's free
+        engines give each process its own bits, and the replicated
+        parameters must stay equal on every rank)."""
+        if self.mesh is None:
+            return _grads(total, opt.params)
+        params = list(module.parameters())
+        grads = [g.to_local() for g in _grads(total, params)]
+        rep = [i for i, p in enumerate(params) if not tp_sharded(p)]
+        for i, g in zip(rep, tp_mean(self.mesh, [grads[i] for i in rep])):
+            grads[i] = g
+        return grads
+
+    @torch.no_grad()
+    def _tp_norm(self, grads: list, module) -> torch.Tensor | None:
+        """Under a mesh, the global norm of the module's gradients from this
+        rank's slices (summed over dp already): the squares of the sharded
+        slices summed over tp, each replicated parameter's counted once.
+        None without a mesh."""
+        if self.mesh is None:
+            return None
+        sq = torch.stack(torch._foreach_norm(grads)) ** 2
+        sharded = torch.tensor([tp_sharded(p) for p in module.parameters()], device=sq.device)
+        part = sq[sharded].sum()
+        torch.distributed.all_reduce(part, group=self.mesh.get_group("tp"))
+        return torch.sqrt(part + sq[~sharded].sum())
+
+    def _tp_mark(self, events: list | None, name: str) -> None:
+        if self.mesh is not None:
+            _mark(events, name)
 
     def _tensors(self, batch: dict) -> dict:
         out = {}
@@ -289,7 +377,7 @@ class Trainer:
             draws = self.draws(batch, 0)
         batch, draws = self._local(batch, draws)
         b = self._tensors(batch)
-        y_hat, ids_slice, *_ = self._forward(b, draws)
+        y_hat, ids_slice, *_ = self._forward(b, draws, self._gathered(self.synth))
         return self._global(L.mel_l1(*self._mels(b, y_hat, ids_slice)))
 
     def _local(self, batch: dict, draws: dict) -> tuple[dict, dict]:
@@ -323,8 +411,10 @@ class Trainer:
         batch, draws = self._local(batch, draws)
         b = self._tensors(batch)
         _mark(events, "start")
+        full_g = self._gathered(self.synth)
+        self._tp_mark(events, "generator tp gather")
         y_hat, ids_slice, x_mask, z_mask, (z, z_p, m_p, logs_p, m_q, logs_q) = self._forward(
-            b, draws)
+            b, draws, full_g)
         wave_seg = slice_segments(b["wave"][:, None], ids_slice * d.hop_length, t.segment_size)
         # with the multi-scale loss the sliced mel L1 is not a loss: its
         # generated mel is only logged
@@ -333,16 +423,18 @@ class Trainer:
         _mark(events, "generator forward")
 
         # the discriminator's update, the generated slice detached
-        d_params = state.opt_d.params
         fake = y_hat.detach()
-        y_d_r, y_d_g, _, _ = self.disc(wave_seg, fake)
+        full_d = self._gathered(self.disc)
+        self._tp_mark(events, "discriminator tp gather")
+        y_d_r, y_d_g, _, _ = self._call(self.disc, full_d, wave_seg, fake)
         loss_disc, _ = L.discriminator_loss(y_d_r, y_d_g)
         if t.c_gp > 0:
             # the penalty on a random real/generated interpolation, in
             # float32 as JAX's type promotion gives it
             alpha = draws["alpha"]
             interp = (alpha * wave_seg + (1.0 - alpha) * fake).requires_grad_()
-            loss_interp, _ = L.discriminator_loss(*self.disc(wave_seg, interp)[:2])
+            loss_interp, _ = L.discriminator_loss(*self._call(self.disc, full_d, wave_seg,
+                                                              interp)[:2])
             if self.world is not None:  # the input gradient of the global batch mean
                 loss_interp = loss_interp / self.world.size
             (grad_x,) = torch.autograd.grad(loss_interp, interp, create_graph=True)
@@ -354,16 +446,20 @@ class Trainer:
         loss_disc = d_losses[0]
         loss_d_all, new_bd, _ = bal.balance(state.balancer_d, d_losses, self.d_initial,
                                             active=self.balancer_active)
-        d_grads = _grads(loss_d_all, d_params)
+        d_grads = self._param_grads(loss_d_all, self.disc, state.opt_d)
         _mark(events, "discriminator forward and backward")
         if self.world is not None:
             d_grads = self.world.sum_grads(d_grads)
             _mark(events, "discriminator all-reduce")
-        grad_norm_d = state.opt_d.step(d_grads)
+        norm_d = self._tp_norm(d_grads, self.disc)
+        self._tp_mark(events, "discriminator tp norm")
+        grad_norm_d = state.opt_d.step(d_grads, norm_d)
         _mark(events, "discriminator update")
 
         # the generator's losses through the updated discriminator
-        y_d_r, y_d_g, fmap_r, fmap_g = self.disc(wave_seg, y_hat)
+        full_d = self._gathered(self.disc)
+        self._tp_mark(events, "updated discriminator tp gather")
+        y_d_r, y_d_g, fmap_r, fmap_g = self._call(self.disc, full_d, wave_seg, y_hat)
         if self.msml is None:
             loss_mel = L.mel_l1(y_mel, y_hat_mel)
         else:
@@ -383,12 +479,14 @@ class Trainer:
             torch.stack([loss_gen, loss_fm, loss_mel, loss_kl, harmonic, tsi, tefs]),
             self.g_initial, active=self.balancer_active)
         _mark(events, "generator losses")
-        g_grads = _grads(loss_g_all, state.opt_g.params)
+        g_grads = self._param_grads(loss_g_all, self.synth, state.opt_g)
         _mark(events, "generator backward")
         if self.world is not None:
             g_grads = self.world.sum_grads(g_grads)
             _mark(events, "generator all-reduce")
-        grad_norm_g = state.opt_g.step(g_grads)
+        norm_g = self._tp_norm(g_grads, self.synth)
+        self._tp_mark(events, "generator tp norm")
+        grad_norm_g = state.opt_g.step(g_grads, norm_g)
         _mark(events, "generator update")
 
         if keep_grads:
